@@ -1,0 +1,111 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` alone (no PyTorch
+headers, so a build takes seconds) into a shared library with a plain C
+interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -shared -Xcompiler -fPIC -o lib<name>.so csrc/<name>.cu
+
+No ``--use_fast_math`` and no ``-ftz``: the kernels need IEEE division
+and keep subnormals (see the note at the top of each source).
+
+Libraries go to ``build/repro_torch/`` at the root of the checkout,
+named by a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or
+a failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise BuildError("nvcc not found (looked on PATH and in "
+                     f"{home}/bin); the CUDA kernels cannot be built")
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Build every source that is not built yet, one nvcc per source, all
+    started together, and wait for all of them; returns name -> library
+    path.  Raises BuildError if any build failed."""
+    names = list(sources() if names is None else names)
+    outs = {n: _target(n) for n in names}
+    todo = [n for n in names if not outs[n].exists()]
+    if not todo:
+        return outs
+    exe = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = outs[n].with_suffix(f".{os.getpid()}.tmp")
+        procs[n] = (tmp, subprocess.Popen(
+            [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, outs[n])
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on csrc/{n}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+    if failed:
+        raise BuildError("\n".join(failed))
+    return outs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its return value
+    is ``cudaGetLastError()`` right after the launch)."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
