@@ -6,11 +6,12 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain torch version on the card, drives the port's main
-path (``ops.* -> registry.dispatch -> traced costs -> customized tier ->
-CUDA kernel``) on the Figure-2 workloads of the paper, and times every
+each of the ten against its plain torch version on the card, drives the
+port's main path (``ops.* -> registry.dispatch -> traced costs ->
+customized tier -> CUDA kernel``) on the ten Figure-2 workloads of the
+paper, checks the paper's Figure-2 selection properties, and times every
 kernel beside its plain version, one PyTorch library call and the card's
-memory-bound floor.  Each phase prints one JSON line; the last line is
+bound.  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
 exits non-zero without that line.  Without CUDA, or without the repo's
 ``src/`` beside it, it exits non-zero at once.
@@ -28,17 +29,44 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
-OPS = ("vrelu", "vsqrt", "vtanh", "vsigmoid")
+EW_OPS = ("vrelu", "vsqrt", "vtanh", "vsigmoid")
+NEW_OPS = ("gemm", "conv_hwc", "dwconv", "maxpool", "argmaxpool",
+           "ibilinear")
+# The paper's Figure 2 in its plot order: BENCH_xnnpack.json row -> op
+FIG2 = (("gemm", "gemm"), ("convhwc", "conv_hwc"), ("dwconv", "dwconv"),
+        ("maxpool", "maxpool"), ("argmaxpool", "argmaxpool"),
+        ("vrelu", "vrelu"), ("vsqrt", "vsqrt"), ("vtanh", "vtanh"),
+        ("vsigmoid", "vsigmoid"), ("ibilinear", "ibilinear"))
+ALL_OPS = tuple(op for _, op in FIG2)
 # The Pallas kernel each CUDA kernel replaces (file:line of its entry point)
 REPLACES = {"vtanh": "src/repro/kernels/elementwise.py:156",
             "vsigmoid": "src/repro/kernels/elementwise.py:161",
             "vsqrt": "src/repro/kernels/elementwise.py:166",
-            "vrelu": "src/repro/kernels/elementwise.py:171"}
-SOURCE = "src/repro_torch/kernels/csrc/elementwise.cu"
-# Tolerances of the kernel against its plain version: fp32 within a few
-# ulps (the rsqrt seed is approximate on the card), bf16 one ulp at 1,
-# vrelu bitwise.
+            "vrelu": "src/repro/kernels/elementwise.py:171",
+            "gemm": "src/repro/kernels/gemm.py:53",
+            "conv_hwc": "src/repro/kernels/conv.py:57",
+            "dwconv": "src/repro/kernels/conv.py:99",
+            "maxpool": "src/repro/kernels/pooling.py:84",
+            "argmaxpool": "src/repro/kernels/pooling.py:91",
+            "ibilinear": "src/repro/kernels/ibilinear.py:42"}
+CSRC = "src/repro_torch/kernels/csrc/"
+SOURCE = {op: CSRC + f for op, f in (
+    ("vtanh", "elementwise.cu"), ("vsigmoid", "elementwise.cu"),
+    ("vsqrt", "elementwise.cu"), ("vrelu", "elementwise.cu"),
+    ("gemm", "gemm.cu"), ("conv_hwc", "conv.cu"), ("dwconv", "conv.cu"),
+    ("maxpool", "pooling.cu"), ("argmaxpool", "pooling.cu"),
+    ("ibilinear", "ibilinear.cu"))}
+# Tolerances of a kernel against its plain version.  Elementwise: fp32
+# within a few ulps (the rsqrt seed is approximate on the card), bf16 one
+# ulp at 1.  gemm and conv_hwc sum in another order than their plain
+# versions: the reference's kernel TOL (tests/test_kernels.py), fp32
+# 2e-4, bf16 3e-2.  EXACT ops round where their plain versions round and
+# must agree bitwise.
 TOL = {"float32": (1e-5, 2e-6), "bfloat16": (8e-3, 8e-3)}
+MM_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}
+EXACT = ("vrelu", "dwconv", "maxpool", "argmaxpool", "ibilinear")
+# the main path's outputs against the torch oracles: the reference's TOL
+ORACLE_TOL = 2e-4
 # The Figure-2 clamp bounds of vrelu (benchmarks/xnnpack_suite.py)
 RELU_BOUNDS = (0.0, 6.0)
 EDGE = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40,
@@ -54,8 +82,8 @@ def extra_args(op):
 
 
 def workload(op, base):
-    """The Figure-2 input of ``op`` made from standard normals ``base``
-    (benchmarks/xnnpack_suite.py: workloads())."""
+    """The Figure-2 input of an elementwise ``op`` made from standard
+    normals ``base`` (benchmarks/xnnpack_suite.py: workloads())."""
     if op == "vsqrt":
         return base.abs() + 0.01
     if op in ("vtanh", "vsigmoid"):
@@ -63,14 +91,198 @@ def workload(op, base):
     return base
 
 
-def compare(op, got, want):
-    """Max abs error over finite entries; raises unless NaN and inf
-    positions agree and the rest is within the stated tolerance."""
+def _normal(rng, shape, scale=1.0):
+    import numpy as np
     import torch
-    g, w = got.float(), want.float()
-    if g.shape != w.shape or got.dtype != want.dtype:
+    return torch.from_numpy((scale * rng.standard_normal(shape))
+                            .astype(np.float32))
+
+
+def ibilinear_args(rng, h, w, c, p):
+    """img, top-left corners in [0, H-2] x [0, W-2], weights in [0, 1)."""
+    import numpy as np
+    import torch
+    return (_normal(rng, (h, w, c)),
+            torch.from_numpy(rng.integers(0, h - 2, p).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, w - 2, p).astype(np.int32)),
+            torch.from_numpy(rng.random(p).astype(np.float32)),
+            torch.from_numpy(rng.random(p).astype(np.float32)))
+
+
+def figure2_args(op, rng):
+    """The Figure-2 workload of ``op`` (benchmarks/xnnpack_suite.py:
+    workloads()), made with numpy from ``rng``."""
+    if op in EW_OPS:
+        return (workload(op, _normal(rng, (1024, 1024))),) + extra_args(op)
+    if op == "gemm":
+        return (_normal(rng, (256, 512)), _normal(rng, (512, 256)),
+                _normal(rng, (256,)), -1.0, 1.0)
+    if op == "conv_hwc":
+        return (_normal(rng, (1, 28, 28, 128)),
+                _normal(rng, (3, 3, 128, 128), 0.1), _normal(rng, (128,)))
+    if op == "dwconv":
+        return (_normal(rng, (1, 56, 56, 128)),
+                _normal(rng, (3, 3, 128), 0.3), _normal(rng, (128,)))
+    if op in ("maxpool", "argmaxpool"):
+        return (_normal(rng, (1, 56, 56, 256)), (2, 2))
+    return ibilinear_args(rng, 56, 56, 64, 56 * 56)
+
+
+def awkward_args(op, rng):
+    """Shapes off the kernels' tiles: ragged M/N/K and no bias for gemm,
+    stride 2 and non-square taps for conv, odd extents for the pools, a
+    pixel count off the block size for ibilinear."""
+    n = _normal
+    if op == "gemm":
+        return [(n(rng, (129, 33)), n(rng, (33, 67)), None),
+                (n(rng, (1, 70)), n(rng, (70, 1)), n(rng, (1,)), -0.5, 0.5)]
+    if op == "conv_hwc":
+        return [(n(rng, (2, 17, 19, 24)), n(rng, (3, 2, 24, 40), 0.3),
+                 n(rng, (40,)), (2, 1)),
+                (n(rng, (2, 17, 19, 24)), n(rng, (1, 3, 24, 40), 0.3), None,
+                 (2, 2))]
+    if op == "dwconv":
+        return [(n(rng, (2, 9, 11, 20)), n(rng, (1, 3, 20), 0.3), None),
+                (n(rng, (3, 7, 5, 33)), n(rng, (3, 3, 33), 0.3),
+                 n(rng, (33,)))]
+    if op in ("maxpool", "argmaxpool"):
+        return [(n(rng, (2, 13, 15, 12)), (2, 2)),
+                (n(rng, (2, 13, 15, 12)), (3, 2))]
+    return [ibilinear_args(rng, 20, 24, 8, 1001)]
+
+
+def edge_args(op, rng):
+    """NaN and +-inf through the gemm clamp and the pools (with ties)."""
+    import numpy as np
+    import torch
+    if op == "gemm":
+        a = _normal(rng, (40, 24))
+        a[1, 2], a[3, 0], a[4, 4] = float("nan"), float("inf"), \
+            float("-inf")
+        return [(a, _normal(rng, (24, 9)).abs() + 0.1, _normal(rng, (9,)),
+                 -1.0, 1.0)]
+    if op in ("maxpool", "argmaxpool"):
+        x = np.round(rng.standard_normal((2, 9, 8, 6))).astype(np.float32)
+        x[0, 0, 0, 0], x[0, 2, 3, 1], x[1, 5, 5, 2] = np.nan, np.inf, -np.inf
+        x[1, 6:8, 6:8, 3] = np.nan
+        return [(torch.from_numpy(x), (2, 2))]
+    return []
+
+
+def big_args(op, gen, dev):
+    """One size per new kernel where its bound exceeds ~50 us, made on the
+    card."""
+    import torch
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=dev)
+
+    if op == "gemm":
+        return (r(2048, 2048), r(2048, 2048), r(2048), -1.0, 1.0)
+    if op == "conv_hwc":
+        return (r(8, 56, 56, 128), r(3, 3, 128, 128, scale=0.1), r(128))
+    if op == "dwconv":
+        return (r(16, 112, 112, 128), r(3, 3, 128, scale=0.3), r(128))
+    if op in ("maxpool", "argmaxpool"):
+        return (r(16, 112, 112, 256), (2, 2))
+    h = w = 512
+    p = h * w
+    return (r(h, w, 128),
+            torch.randint(0, h - 1, (p,), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.randint(0, w - 1, (p,), generator=gen, device=dev,
+                          dtype=torch.int32),
+            torch.rand(p, generator=gen, device=dev),
+            torch.rand(p, generator=gen, device=dev))
+
+
+def on(args, dev, dtype=None, keep=()):
+    """``args`` with every tensor moved to ``dev``, and floating tensors
+    cast to ``dtype`` when given, except at the positions in ``keep``."""
+    import torch
+    out = []
+    for i, a in enumerate(args):
+        if isinstance(a, torch.Tensor):
+            a = a.to(dev)
+            if dtype is not None and a.is_floating_point() and i not in keep:
+                a = a.to(dtype)
+        out.append(a)
+    return tuple(out)
+
+
+def library_call(op, args):
+    """One PyTorch call computing the same function, used only as a
+    yardstick of time (never by the port); None where there is none.
+    Weights are brought to the layout the library wants beforehand."""
+    import torch
+    import torch.nn.functional as F
+    if op == "gemm":
+        a, b, bias, lo, hi = args
+        return lambda: torch.addmm(bias, a, b).clamp_(lo, hi)
+    if op in ("conv_hwc", "dwconv"):
+        x, w, bias = args[:3]
+        xc = x.permute(0, 3, 1, 2)                 # NHWC = channels last
+        if op == "conv_hwc":
+            wc, groups = w.permute(3, 2, 0, 1), 1
+        else:
+            wc, groups = w.permute(2, 0, 1).unsqueeze(1), w.shape[-1]
+        wc = wc.contiguous(memory_format=torch.channels_last)
+        return lambda: F.conv2d(xc, wc, bias, groups=groups)
+    if op in ("maxpool", "argmaxpool"):
+        xc, window = args[0].permute(0, 3, 1, 2), args[1]
+        return lambda: F.max_pool2d(xc, window,
+                                    return_indices=op == "argmaxpool")
+    return None
+
+
+def work(op, args, out):
+    """(bytes, operations) the function must move and do: each input read
+    once, each output written once; fp32 operations on these inputs."""
+    import torch
+    outs = out if isinstance(out, tuple) else (out,)
+    tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(outs)
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    y = outs[0].numel()
+    if op == "gemm":
+        m, k = args[0].shape
+        # the product, the bias add and the two-sided clamp
+        n_ops = 2 * m * k * args[1].shape[1] + 3 * y
+    elif op == "conv_hwc":
+        kh, kw, ci, _ = args[1].shape
+        n_ops = y * (2 * kh * kw * ci + 1)
+    elif op == "dwconv":
+        kh, kw, _ = args[1].shape
+        n_ops = y * (2 * kh * kw + 1)
+    elif op in ("maxpool", "argmaxpool"):
+        kh, kw = args[1]
+        n_ops = y * (kh * kw - (op == "maxpool"))
+    else:
+        n_ops = 12 * y                   # 3 subs, 6 muls, 3 adds
+    return nbytes, n_ops
+
+
+def bound_ms(nbytes, n_ops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
+def compare(op, got, want):
+    """Max abs error over finite entries; raises unless shapes, dtypes,
+    NaN and inf positions agree and the rest is within the stated
+    tolerance (bitwise for the EXACT ops and for integer outputs)."""
+    import torch
+    if isinstance(got, tuple):
+        return max(compare(op, g, w) for g, w in zip(got, want))
+    if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{op}: {got.shape}/{got.dtype} vs "
                              f"{want.shape}/{want.dtype}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{op}: integer outputs differ")
+        return 0.0
+    g, w = got.float(), want.float()
     if not torch.equal(g.isnan(), w.isnan()):
         raise AssertionError(f"{op}: NaN positions differ")
     if not torch.equal(g.isinf(), w.isinf()) or \
@@ -79,11 +291,12 @@ def compare(op, got, want):
     fin = g.isfinite()
     err = (g[fin] - w[fin]).abs()
     max_err = float(err.max()) if err.numel() else 0.0
-    if op == "vrelu":
+    if op in EXACT:
         if max_err != 0.0:
-            raise AssertionError(f"vrelu: not bitwise, max err {max_err}")
+            raise AssertionError(f"{op}: not bitwise, max err {max_err}")
         return max_err
-    rtol, atol = TOL[str(got.dtype).replace("torch.", "")]
+    table = TOL if op in EW_OPS else MM_TOL
+    rtol, atol = table[str(got.dtype).replace("torch.", "")]
     bad = err > atol + rtol * w[fin].abs()
     if bool(bad.any()):
         raise AssertionError(f"{op}/{got.dtype}: {int(bad.sum())} entries "
@@ -124,11 +337,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core import trace, use_target
-    from repro_torch.core.registry import REGISTRY
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.core.registry import REGISTRY, TIERS
+    from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, \
+        pooling, ref
     from repro_torch.kernels import elementwise as ew
 
     dev = torch.device("cuda")
+    module = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv,
+              "maxpool": pooling, "argmaxpool": pooling,
+              "ibilinear": ibilinear, **{op: ew for op in EW_OPS}}
+    modules = (ew, gemm, conv, pooling, ibilinear)
 
     # 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -144,10 +362,11 @@ def main() -> int:
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    # 2. build ----------------------------------------------------------
+    # 2. build: one nvcc per source, all started together ----------------
     t0 = time.perf_counter()
     libs = _build.build_all()
-    ew._lib()
+    for m in modules:
+        m._lib()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
 
@@ -158,7 +377,7 @@ def main() -> int:
              for dt in (torch.float32, torch.bfloat16)]
     cases.append(((1 << 26,), torch.float32))
     max_err = {}
-    for op in OPS:
+    for op in EW_OPS:
         errs = []
         for shape, dt in cases:
             x = workload(op, torch.randn(shape, generator=gen,
@@ -185,31 +404,51 @@ def main() -> int:
                          "max_abs_err": err})
         torch.cuda.synchronize()
         emit("kernel_vs_plain", op=op, tolerance=TOL, cases=errs)
+    rng = np.random.default_rng(SEED + 1)
+    for op in NEW_OPS:
+        mod, errs = module[op], []
+        labelled = [("figure2", figure2_args(op, rng))] + \
+            [("awkward", a) for a in awkward_args(op, rng)] + \
+            [("edge", a) for a in edge_args(op, rng)]
+        for label, host_args in labelled:
+            for dt in (torch.float32, torch.bfloat16):
+                # ibilinear's weights stay float32; its image takes dt
+                args = on(host_args, dev, dt,
+                          keep=(3, 4) if op == "ibilinear" else ())
+                err = compare(op, mod.KERNELS[op](*args),
+                              mod.PLAIN[op](*args))
+                errs.append({"case": label, "dtype": str(dt)[6:],
+                             "shapes": [list(a.shape) for a in args
+                                        if isinstance(a, torch.Tensor)],
+                             "max_abs_err": err})
+                if label == "figure2" and dt == torch.float32:
+                    max_err[op] = err
+        torch.cuda.synchronize()
+        emit("kernel_vs_plain", op=op,
+             tolerance="bitwise" if op in EXACT else MM_TOL, cases=errs)
 
-    # 4. the main path ----------------------------------------------------
+    # 4. the main path: the ten Figure-2 workloads through ops.* ----------
     committed = json.loads((ROOT / "BENCH_xnnpack.json").read_text())
+    rvv128 = committed["targets"]["rvv-128"]
     rng = np.random.default_rng(SEED)
-    args = {}
-    for op in OPS:
-        base = torch.from_numpy(
-            rng.standard_normal((1024, 1024)).astype(np.float32))
-        args[op] = (workload(op, base).to(dev),) + extra_args(op)
+    args = {op: on(figure2_args(op, rng), dev) for op in ALL_OPS}
     with use_target("rvv-128"):
         chosen = {op: REGISTRY.explain(op, *args[op])["chosen"]
-                  for op in OPS}
-    ew.reset_launches()
+                  for op in ALL_OPS}
+    for m in modules:
+        m.reset_launches()
     outs, first_ms = {}, {}
     with use_target("rvv-128"), trace.count() as counted:
-        for op in OPS:
+        for op in ALL_OPS:
             t0 = time.perf_counter()
             outs[op] = getattr(ops, op)(*args[op])
             torch.cuda.synchronize()
             first_ms[op] = (time.perf_counter() - t0) * 1e3
-    launches = dict(ew.LAUNCHES)
-    per_op = {op: counted["per_op"].get((op, "pallas"), 0) for op in OPS}
-    want_counts = {op: committed["targets"]["rvv-128"][op]
-                   ["customized_instrs"] for op in OPS}
-    for op in OPS:
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    per_op = {op: counted["per_op"].get((op, "pallas"), 0) for op in ALL_OPS}
+    want_counts = {op: rvv128[name]["customized_instrs"]
+                   for name, op in FIG2}
+    for op in ALL_OPS:
         if chosen[op] != "pallas":
             raise AssertionError(f"{op}: rvv-128 chose {chosen[op]}")
         if launches[op] != 1:
@@ -218,33 +457,74 @@ def main() -> int:
         if per_op[op] != want_counts[op]:
             raise AssertionError(f"{op}: counted {per_op[op]}, committed "
                                  f"{want_counts[op]}")
-    # what came out: right shape, finite, and within the reference's
-    # kernel-test tolerance (tests/test_kernels.py TOL fp32 2e-4) of the
-    # plain torch oracle
+    # what came out: finite, of the oracle's shape, and within the
+    # reference's kernel-test tolerance (tests/test_kernels.py TOL fp32
+    # 2e-4) of the plain torch oracle; argmaxpool's indices equal outright
     oracle_err = {}
-    for op in OPS:
-        y = outs[op]
-        want = getattr(ref, op)(*args[op])
-        if y.shape != (1024, 1024) or not bool(y.isfinite().all()):
-            raise AssertionError(f"{op}: bad output {y.shape}")
-        if not torch.allclose(y, want, rtol=2e-4, atol=2e-4):
-            raise AssertionError(f"{op}: disagrees with the torch oracle")
-        oracle_err[op] = float((y - want).abs().max())
+    for op in ALL_OPS:
+        got, want = outs[op], getattr(ref, op)(*args[op])
+        pairs = list(zip(got, want)) if isinstance(got, tuple) \
+            else [(got, want)]
+        errs = []
+        for y, w in pairs:
+            if y.shape != w.shape or y.dtype != w.dtype:
+                raise AssertionError(f"{op}: {y.shape}/{y.dtype} against "
+                                     f"the oracle's {w.shape}/{w.dtype}")
+            if not y.is_floating_point():
+                if not torch.equal(y, w):
+                    raise AssertionError(f"{op}: indices differ from the "
+                                         "oracle's")
+                continue
+            if not bool(y.isfinite().all()):
+                raise AssertionError(f"{op}: non-finite output")
+            if not torch.allclose(y, w, rtol=ORACLE_TOL, atol=ORACLE_TOL):
+                raise AssertionError(f"{op}: disagrees with the torch oracle")
+            errs.append(float((y - w).abs().max()))
+        oracle_err[op] = max(errs)
+    # the Figure-2 rows as benchmarks/xnnpack_suite.py run_target builds
+    # them: the baseline is the ladder's highest valid tier under the
+    # vector cap, the customized column the uncapped choice
+    rows = []
+    with use_target("rvv-128"):
+        for name, op in FIG2:
+            base = REGISTRY.explain(op, *args[op], policy="vector")
+            ladder = max((c for c in base["candidates"]
+                          if c["valid"] and c["cost"] is not None),
+                         key=lambda c: TIERS.index(c["tier"]))
+            cust = REGISTRY.explain(op, *args[op], policy="pallas")
+            rows.append({"name": name, "baseline_tier": ladder["tier"],
+                         "customized_tier": cust["chosen"],
+                         "baseline_instrs": ladder["cost"],
+                         "customized_instrs": cust["chosen_cost"],
+                         "speedup": round(ladder["cost"]
+                                          / max(1, cust["chosen_cost"]), 2)})
+    for r in rows:      # _check_figure2, and the committed column itself
+        if r["customized_tier"] != "pallas" or r["speedup"] <= 1.0:
+            raise AssertionError(f"Figure 2: {r}")
+        want = {k: rvv128[r["name"]][k] for k in r if k != "name"}
+        if {k: r[k] for k in want} != want:
+            raise AssertionError(f"Figure 2: {r} against committed {want}")
+    top2 = {r["name"] for r in sorted(rows, key=lambda r: -r["speedup"])[:2]}
+    if top2 != {"vtanh", "vsigmoid"}:
+        raise AssertionError(f"Figure 2: largest wins are {top2}")
     with use_target("h100"):
-        h100 = {op: REGISTRY.explain(op, *args[op])["chosen"] for op in OPS}
+        h100 = {op: REGISTRY.explain(op, *args[op])["chosen"]
+                for op in ALL_OPS}
     emit("main_path", target="rvv-128", policy=REGISTRY.policy,
          chosen=chosen, launches=launches, counted=per_op,
          committed=want_counts, oracle_max_abs_err=oracle_err,
          h100_chosen=h100)
+    emit("figure2", target="rvv-128", rows=rows,
+         top2=sorted(top2))
 
     # host time per call at the Figure-2 size: the main path's first call
     # (selection-cache miss), then back-to-back calls through the registry
     # and through the bare kernel wrapper, on the host clock
     calls = 200
     ops_ms, wrapper_ms = {}, {}
-    for op in OPS:
+    for op in ALL_OPS:
         for fn, into in ((getattr(ops, op), ops_ms),
-                         (ew.KERNELS[op], wrapper_ms)):
+                         (module[op].KERNELS[op], wrapper_ms)):
             with use_target("rvv-128"):
                 fn(*args[op])
                 torch.cuda.synchronize()
@@ -253,7 +533,7 @@ def main() -> int:
                     fn(*args[op])
                 torch.cuda.synchronize()
             into[op] = (time.perf_counter() - t0) / calls * 1e3
-    emit("host", n=1 << 20, calls=calls, first_call_ms=first_ms,
+    emit("host", calls=calls, first_call_ms=first_ms,
          ops_call_ms=ops_ms, wrapper_call_ms=wrapper_ms,
          registry=REGISTRY.cache_info())
 
@@ -266,7 +546,7 @@ def main() -> int:
                "vsqrt": ew.vsqrt_math, "vtanh": ew.vtanh_math,
                "vsigmoid": ew.vsigmoid_math}
     times = {}
-    for op in OPS:
+    for op in EW_OPS:
         for n in (1 << 20, 1 << 26):
             x = workload(op, torch.randn(n, generator=gen, device=dev))
             ex = extra_args(op)
@@ -277,25 +557,44 @@ def main() -> int:
             with use_target("h100"):
                 vreg = trace.vreg_for(x.dtype)
                 n_ops = trace.fx_vector_instrs(math_fn[op], x) * vreg
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-            row = {"op": op, "n": n, "dtype": "float32",
+            b_ms, b_by = bound_ms(nbytes, n_ops)
+            row = {"op": op, "size": "figure2" if n == 1 << 20 else "large",
+                   "n": n, "dtype": "float32",
                    "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms
-                   else "operations",
+                   "bound_ms": b_ms, "bound_by": b_by,
                    "bytes": nbytes, "ops": n_ops,
                    "kernel_GBps": nbytes / (k_ms * 1e-3) / 1e9,
                    "library_GBps": nbytes / (l_ms * 1e-3) / 1e9}
-            times[(op, n)] = row
+            times[(op, row["size"])] = row
             emit("time", **row)
+    for op in NEW_OPS:
+        mod = module[op]
+        for size, targs in (("figure2", args[op]),
+                            ("large", big_args(op, gen, dev))):
+            out = mod.KERNELS[op](*targs)
+            k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+            p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+            lib = library_call(op, targs)
+            l_ms = None if lib is None else time_ms(lib, flush)
+            nbytes, n_ops = work(op, targs, out)
+            b_ms, b_by = bound_ms(nbytes, n_ops)
+            row = {"op": op, "size": size, "dtype": "float32",
+                   "shapes": [list(a.shape) for a in targs
+                              if isinstance(a, torch.Tensor)],
+                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "ops": n_ops,
+                   "bound_share": b_ms / k_ms}
+            times[(op, size)] = row
+            emit("time", **row)
+            del out, targs
     del flush
 
-    # 6. kernels ----------------------------------------------------------
+    # 6. kernels: at the main path's (Figure-2) shapes ---------------------
     kernels = []
-    for op in OPS:
-        t = times[(op, 1 << 20)]
-        kernels.append({"name": op, "route": "cuda", "source": SOURCE,
+    for op in ALL_OPS:
+        t = times[(op, "figure2")]
+        kernels.append({"name": op, "route": "cuda", "source": SOURCE[op],
                         "replaces": REPLACES[op], "launches": launches[op],
                         "max_abs_err": max_err[op], "ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -23,7 +23,10 @@ The per-node rules are those the JAX reference applies to jaxpr
 equations.  Aten splits some ops differently, so nodes are mapped to the
 reference's primitives first: ``aten.clamp`` with both bounds is two
 ops (max and min), ``aten.sigmoid`` is ``logistic``, and dtype casts,
-views and copies are free.
+views and copies are free.  ``argmax``/``argmin`` count at int32 width,
+as jnp's indices are int32 where aten's are int64, and
+``max_pool2d_with_indices`` moves its values only (``max_pool2d`` drops
+the indices, and the reference's ``reduce_window`` has none).
 """
 from __future__ import annotations
 
@@ -281,10 +284,18 @@ def _tensors(x):
     return []
 
 
+# aten ops whose output is an index tensor (int64 in aten, int32 in jnp)
+_INDEX_OUT = {"argmax", "argmin"}
+
+
 def _out(node) -> Optional[torch.Tensor]:
     v = node.meta.get("val")
     if isinstance(v, (tuple, list)):
         v = v[0] if v else None
+    if isinstance(v, torch.Tensor) and _aten_name(node) in _INDEX_OUT:
+        # the reference's indices are int32 (jnp without x64), aten's
+        # int64: count them at the reference's width
+        v = torch.empty(v.shape, dtype=torch.int32, device="meta")
     return v if isinstance(v, torch.Tensor) else None
 
 
@@ -419,6 +430,12 @@ def _walk_bytes(graph) -> int:
         if name is None or name in _FREE_ATEN:
             continue
         v = node.meta.get("val")
+        if name in _INDEX_OUT or \
+                _ATEN_PRIM.get(name) == "reduce_window":
+            # one output as the reference writes it: int32 indices; a
+            # pooling window's values only (max_pool2d's indices are an
+            # aten artifact that max_pool2d drops)
+            v = _out(node)
         outs = v if isinstance(v, (tuple, list)) else [v]
         moved = sum(_nbytes(o) for o in outs if isinstance(o, torch.Tensor))
         moved += sum(_nbytes(t) for t in _tensors(node.args))

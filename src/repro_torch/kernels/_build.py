@@ -11,9 +11,14 @@ No ``--use_fast_math`` and no ``-ftz``: the kernels need IEEE division
 and keep subnormals (see the note at the top of each source).
 
 Libraries go to ``build/repro_torch/`` at the root of the checkout,
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  A missing ``nvcc`` or
-a failed build raises; nothing falls back.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is.  A missing ``nvcc`` or a failed build raises; nothing falls
+back.
+
+The wrappers call an entry point through :func:`launch`, which passes
+PyTorch's current stream and raises if the launch was refused; they
+pick the kernel or the plain version with :func:`route`.
 """
 from __future__ import annotations
 
@@ -26,10 +31,15 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# The dtypes every kernel takes, and the suffix of their C entry points
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -59,6 +69,8 @@ def sources() -> List[str]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -109,3 +121,29 @@ def check(rc: int, what: str) -> None:
     is ``cudaGetLastError()`` right after the launch)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
+
+
+def route(op: str, *tensors) -> str:
+    """'cuda' launches the kernel, 'cpu' runs the plain version; tensors
+    on any other device, or spread over two devices, are refused."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) == 1:
+        (dev,) = devices
+        if dev.type in ("cuda", "cpu"):
+            return dev.type
+    raise ValueError(f"{op}: kernels take CUDA or CPU tensors, all on one "
+                     f"device, not {sorted(map(str, devices))}")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """Device address for a ctypes pointer argument; None passes NULL."""
+    return None if t is None else t.data_ptr()
+
+
+def launch(fn, device: torch.device, *args, what: str) -> None:
+    """Call a C entry point on ``device`` with PyTorch's current stream as
+    its last argument, and raise if the launch was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    check(rc, what)

@@ -37,42 +37,18 @@
 //     sigmoid, so n >= -58 and the biased exponent stays positive);
 //   * the clamps are comparisons, which let NaN through, as jnp.clip
 //     does; fminf/fmaxf would drop a NaN operand.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
+using repro_cuda::Elem;
+using repro_cuda::clip;
+
 constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 2147483647;  // gridDim.x limit
 
 // Constants are written as doubles and rounded to float, as Python floats
 // are when they meet a float32 tensor.
 __device__ __forceinline__ float c(double v) { return static_cast<float>(v); }
-
-// Element access by raw bits: fp32 as float, bf16 as its 16-bit pattern,
-// converted on load and rounded to nearest even on store.
-template <typename T> struct Elem;
-template <> struct Elem<float> {
-  using Raw = float;
-  static __device__ __forceinline__ float get(Raw r) { return r; }
-  static __device__ __forceinline__ Raw put(float v) { return v; }
-};
-template <> struct Elem<__nv_bfloat16> {
-  using Raw = unsigned short;
-  static __device__ __forceinline__ float get(Raw r) {
-    return __bfloat162float(__ushort_as_bfloat16(r));
-  }
-  static __device__ __forceinline__ Raw put(float v) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  }
-};
-
-// clamp(v, lo, hi) = min(max(v, lo), hi); a NaN fails both tests and stays
-__device__ __forceinline__ float clip(float v, float lo, float hi) {
-  v = v < lo ? lo : v;
-  return v > hi ? hi : v;
-}
 
 // 2^f for f in [-0.5, 0.5]: the degree-5 polynomial of _exp2_poly (:44)
 __device__ __forceinline__ float exp2_poly(float f) {
@@ -182,9 +158,8 @@ int launch(const void* x, void* y, int64_t n, F f, void* stream) {
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) %
        sizeof(uint4)) == 0;
   const int64_t per_thread = aligned ? kVec : 1;
-  const int64_t items = (n + per_thread - 1) / per_thread;
-  const int64_t need = (items + kThreads - 1) / kThreads;
-  const unsigned blocks = static_cast<unsigned>(need < kMaxBlocks ? need : kMaxBlocks);
+  const unsigned blocks =
+      repro_cuda::blocks_for((n + per_thread - 1) / per_thread, kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Raw* xr = static_cast<const Raw*>(x);
   Raw* yr = static_cast<Raw*>(y);

@@ -39,8 +39,6 @@ _LOG2E = 1.4426950408889634
 # counted by the wrapper where it launches and nowhere else.
 LAUNCHES = {"vtanh": 0, "vsigmoid": 0, "vsqrt": 0, "vrelu": 0}
 
-_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
 
 # ---------------------------------------------------------------------------
 # plain tile math (fp32 tensors)
@@ -132,7 +130,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("elementwise")
     p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
     for op in LAUNCHES:
-        for dt in _DTYPES.values():
+        for dt in _build.DTYPES.values():
             fn = getattr(lib, f"repro_{op}_{dt}")
             fn.restype = ctypes.c_int
             fn.argtypes = ([p, p, i64, f32, f32, p] if op == "vrelu"
@@ -141,51 +139,40 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(op: str, x: torch.Tensor, *scalars) -> torch.Tensor:
-    if x.dtype not in _DTYPES:
+    if x.dtype not in _build.DTYPES:
         raise TypeError(f"{op}: kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    fn = getattr(_lib(), f"repro_{op}_{_DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), *scalars, stream)
-    _build.check(rc, f"{op} kernel")
+    fn = getattr(_lib(), f"repro_{op}_{_build.DTYPES[x.dtype]}")
+    _build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+                  *scalars, what=f"{op} kernel")
     LAUNCHES[op] += 1
     return out
 
 
-def _route(x: torch.Tensor) -> str:
-    """'cuda' launches the kernel, 'cpu' runs the plain math; a tensor
-    on any other device is refused."""
-    if x.device.type in ("cuda", "cpu"):
-        return x.device.type
-    raise ValueError(f"elementwise kernels take CUDA or CPU tensors, "
-                     f"not {x.device}")
-
-
 def vtanh(x):
-    if _route(x) == "cpu":
+    if _build.route("vtanh", x) == "cpu":
         return vtanh_plain(x)
     return _launch("vtanh", x)
 
 
 def vsigmoid(x):
-    if _route(x) == "cpu":
+    if _build.route("vsigmoid", x) == "cpu":
         return vsigmoid_plain(x)
     return _launch("vsigmoid", x)
 
 
 def vsqrt(x):
-    if _route(x) == "cpu":
+    if _build.route("vsqrt", x) == "cpu":
         return vsqrt_plain(x)
     return _launch("vsqrt", x)
 
 
 def vrelu(x, clamp_min=0.0, clamp_max=float("inf")):
-    if _route(x) == "cpu":
+    if _build.route("vrelu", x) == "cpu":
         return vrelu_plain(x, clamp_min, clamp_max)
     return _launch("vrelu", x, clamp_min, clamp_max)
 
@@ -237,4 +224,4 @@ CALIBRATION = {
 
 
 def supports(x, *a, **kw) -> bool:
-    return x.dtype in _DTYPES
+    return x.dtype in _build.DTYPES

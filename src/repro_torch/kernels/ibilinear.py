@@ -1,0 +1,118 @@
+"""Customized lowering of XNNPACK ibilinear (bilinear interpolation).
+
+XNNPACK precomputes per-output-pixel top-left corners and fractional
+weights, and the NEON microkernel loads 2x2 corner pairs.  The
+reference's TPU kernel brings the corners in by scalar prefetch and
+slices 2x2xC corners out of a whole image held in VMEM.  The CUDA kernel
+(``csrc/ibilinear.cu``) keeps the image in global memory: one thread per
+output (pixel, channel), neighbouring threads on neighbouring channels,
+corner reads clamped to the image.
+
+Layouts are the reference's: img (H, W, C) float32 or bfloat16, iy/ix
+(P,) int32 top-left corners in [0, H-2] x [0, W-2], wy/wx (P,) float32
+weights; the output is (P, C) of img's dtype.
+
+``ibilinear_plain`` is the kernel's blend in fp32 torch ops, step for
+step; the wrapper launches the kernel for CUDA tensors (counted in
+``LAUNCHES``) and runs the plain version for CPU tensors.  ``supports``
+keeps the reference's rule that the image fit the scratch budget on the
+targets that have one (tpu-*); on a ``cuda``-kind target the kernel
+reads the image from global memory and only its own limits apply.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from ..core import trace
+from ..core.vtypes import vmem_fit
+from . import _build
+
+LAUNCHES = {"ibilinear": 0}
+
+
+def ibilinear_plain(img, iy, ix, wy, wx):
+    """top = c00*(1-wx) + c01*wx, bot = c10*(1-wx) + c11*wx,
+    out = top*(1-wy) + bot*wy in fp32, corners clamped to the image,
+    rounded once to img's dtype."""
+    h, w, _ = img.shape
+    f = img.to(torch.float32)
+    y0, x0 = iy.long(), ix.long()
+    y1, x1 = (y0 + 1).clamp(0, h - 1), (x0 + 1).clamp(0, w - 1)
+    y0, x0 = y0.clamp(0, h - 1), x0.clamp(0, w - 1)
+    fy = wy.to(torch.float32)[:, None]
+    fx = wx.to(torch.float32)[:, None]
+    top = f[y0, x0] * (1 - fx) + f[y0, x1] * fx
+    bot = f[y1, x0] * (1 - fx) + f[y1, x1] * fx
+    return (top * (1 - fy) + bot * fy).to(img.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ibilinear")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    for dt in _build.DTYPES.values():
+        fn = getattr(lib, f"repro_ibilinear_{dt}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * 6 + [i64] * 4 + [p]
+    return lib
+
+
+def _takes(img, iy, ix, wy, wx) -> bool:
+    return img.dtype in _build.DTYPES and \
+        iy.dtype == ix.dtype == torch.int32 and \
+        wy.dtype == wx.dtype == torch.float32
+
+
+def ibilinear(img, iy, ix, wy, wx):
+    """img:(H,W,C) iy,ix:(P,) int32 wy,wx:(P,) float32 -> (P,C)."""
+    if _build.route("ibilinear", img, iy, ix, wy, wx) == "cpu":
+        return ibilinear_plain(img, iy, ix, wy, wx)
+    if not _takes(img, iy, ix, wy, wx):
+        raise TypeError(f"ibilinear: kernel takes a float32 or bfloat16 "
+                        f"image, int32 corners and float32 weights, not "
+                        f"{img.dtype}, {iy.dtype}/{ix.dtype}, "
+                        f"{wy.dtype}/{wx.dtype}")
+    p = iy.shape[0]
+    if img.ndim != 3 or any(t.shape != (p,) for t in (iy, ix, wy, wx)):
+        shapes = [tuple(t.shape) for t in (iy, ix, wy, wx)]
+        raise ValueError(f"ibilinear: img {tuple(img.shape)}, corners and "
+                         f"weights {shapes}")
+    h, w, c = img.shape
+    img, iy, ix, wy, wx = (t.contiguous() for t in (img, iy, ix, wy, wx))
+    out = torch.empty((p, c), dtype=img.dtype, device=img.device)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_lib(), f"repro_ibilinear_{_build.DTYPES[img.dtype]}")
+    _build.launch(fn, img.device, img.data_ptr(), iy.data_ptr(),
+                  ix.data_ptr(), wy.data_ptr(), wx.data_ptr(),
+                  out.data_ptr(), h, w, c, p, what="ibilinear kernel")
+    LAUNCHES["ibilinear"] += 1
+    return out
+
+
+KERNELS = {"ibilinear": ibilinear}
+PLAIN = {"ibilinear": ibilinear_plain}
+
+
+def reset_launches() -> None:
+    LAUNCHES["ibilinear"] = 0
+
+
+def supports(img, iy, ix, wy, wx, **kw) -> bool:
+    if img.ndim != 3 or not _takes(img, iy, ix, wy, wx):
+        return False
+    if trace.current_target().kind == "cuda":   # no image slab to fit
+        return True
+    h, w, c = img.shape
+    return vmem_fit([(h * w * c, img.dtype)])
+
+
+def cost(img, iy, ix, wy, wx, **_) -> int:
+    p = iy.shape[0]
+    c = img.shape[-1]
+    # per pixel: 4 corner vector loads + 6 fma-class ops on C-lane vectors
+    return p * (4 + 6) * math.ceil(c / trace.current_target().lane)

@@ -6,16 +6,19 @@ only PyTorch built for CUDA and the CUDA toolkit::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances as in ``chip_smoke.py``: fp32 rtol 1e-5 / atol 2e-6, bf16 one
-ulp at 1 (8e-3), vrelu bitwise; NaN and inf positions must agree.
-Subnormal inputs are included.
+Tolerances as in ``chip_smoke.py``.  Elementwise: fp32 rtol 1e-5 / atol
+2e-6, bf16 one ulp at 1 (8e-3), vrelu bitwise; NaN and inf positions
+must agree; subnormal inputs are included.  gemm and conv_hwc: fp32
+rtol = atol = 2e-4 (the reference's kernel TOL: the sums run in another
+order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
+indices: bitwise, since they round where their plain versions round.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import trace, use_target
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, pooling
 from repro_torch.kernels import elementwise as ew
 
 pytestmark = pytest.mark.cuda
@@ -72,21 +75,165 @@ def test_kernel_matches_plain_on_card(cuda, op, dtype):
     _check(op, getattr(ew, op)(x, *_extra(op)), ew.PLAIN[op](x, *_extra(op)))
 
 
+def _f(rng, shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _ib(rng, h, w, c, p):
+    return (_f(rng, (h, w, c)), rng.integers(0, h - 1, p).astype(np.int32),
+            rng.integers(0, w - 1, p).astype(np.int32),
+            rng.random(p).astype(np.float32),
+            rng.random(p).astype(np.float32))
+
+
+def _cases(op, rng):
+    """(float arrays, other arrays, extra args) at the Figure-2 shape and
+    at awkward ones: ragged tiles, no bias, stride 2, non-square taps,
+    odd pooled extents, a pixel count off the block size."""
+    if op == "gemm":
+        return [((_f(rng, (256, 512)), _f(rng, (512, 256)), _f(rng, (256,))),
+                 (), (-1.0, 1.0)),
+                ((_f(rng, (129, 33)), _f(rng, (33, 67)), None), (), ()),
+                ((_f(rng, (1, 70)), _f(rng, (70, 1)), _f(rng, (1,))), (),
+                 (-0.5, 0.5))]
+    if op == "conv_hwc":
+        return [((_f(rng, (1, 28, 28, 128)), _f(rng, (3, 3, 128, 128), 0.1),
+                  _f(rng, (128,))), (), ((1, 1),)),
+                ((_f(rng, (2, 17, 19, 24)), _f(rng, (3, 2, 24, 40), 0.3),
+                  _f(rng, (40,))), (), ((2, 1),)),
+                ((_f(rng, (2, 17, 19, 24)), _f(rng, (1, 3, 24, 40), 0.3),
+                  None), (), ((2, 2),))]
+    if op == "dwconv":
+        return [((_f(rng, (1, 56, 56, 128)), _f(rng, (3, 3, 128), 0.3),
+                  _f(rng, (128,))), (), ()),
+                ((_f(rng, (2, 9, 11, 20)), _f(rng, (1, 3, 20), 0.3), None),
+                 (), ())]
+    if op in ("maxpool", "argmaxpool"):
+        return [((_f(rng, (1, 56, 56, 256)),), (), ((2, 2),)),
+                ((_f(rng, (2, 13, 15, 12)),), (), ((2, 2),)),
+                ((_f(rng, (2, 13, 15, 12)),), (), ((3, 2),))]
+    img, iy, ix, wy, wx = _ib(rng, 56, 56, 64, 3136)
+    img2, iy2, ix2, wy2, wx2 = _ib(rng, 20, 24, 8, 1001)
+    return [((img,), (iy, ix, wy, wx), ()),
+            ((img2,), (iy2, ix2, wy2, wx2), ())]
+
+
+NEW = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv, "maxpool": pooling,
+       "argmaxpool": pooling, "ibilinear": ibilinear}
+BITWISE = ("dwconv", "maxpool", "argmaxpool", "ibilinear")
+
+
+def _to(a, dev, dtype):
+    if a is None:
+        return None
+    t = torch.from_numpy(a).to(dev)
+    return t.to(dtype) if t.is_floating_point() else t
+
+
+def _same(op, got, want, dtype):
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        g, w = g.cpu(), w.cpu()
+        if op in BITWISE or not g.is_floating_point():
+            if g.is_floating_point():
+                assert torch.equal(g.isnan(), w.isnan()), op
+                g, w = g[~g.isnan()], w[~w.isnan()]
+            assert torch.equal(g, w), op
+        else:
+            tol = 2e-4 if dtype == torch.float32 else 3e-2
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("op", sorted(NEW))
+def test_new_kernel_matches_plain_on_card(cuda, op, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mod = NEW[op]
+    for floats, others, extra in _cases(op, np.random.default_rng(9)):
+        # ibilinear's weights stay float32; its image takes the dtype
+        args = [_to(a, cuda, dtype) for a in floats] + \
+            [_to(a, cuda, torch.float32) for a in others]
+        before = mod.LAUNCHES[op]
+        got = mod.KERNELS[op](*args, *extra)
+        assert mod.LAUNCHES[op] == before + 1
+        _same(op, got, mod.PLAIN[op](*args, *extra), dtype)
+
+
+def test_new_kernels_nan_and_inf_edges(cuda):
+    """NaN and +-inf through the gemm clamp and the pools, against the
+    plain versions: NaN propagates through the clamp and maxpool and is
+    never taken by argmaxpool."""
+    rng = np.random.default_rng(4)
+    a = _f(rng, (40, 24))
+    a[1, 2], a[3, 0], a[4, 4] = np.nan, np.inf, -np.inf
+    b, bias = np.abs(_f(rng, (24, 9))) + 0.1, _f(rng, (9,))
+    args = [torch.from_numpy(t).to(cuda) for t in (a, b, bias)]
+    got = gemm.gemm(*args, -1.0, 1.0)
+    _same("gemm", got, gemm.gemm_plain(*args, -1.0, 1.0), torch.float32)
+    assert bool(got[1].isnan().all()) and bool((got[3] == 1.0).all())
+    x = np.round(_f(rng, (2, 9, 8, 6)))
+    x[0, 0, 0, 0], x[0, 2, 3, 1], x[1, 5, 5, 2] = np.nan, np.inf, -np.inf
+    x[1, 6:8, 6:8, 3] = np.nan
+    for dtype in DTYPES:
+        tx = torch.from_numpy(x).to(cuda, dtype)
+        for op in ("maxpool", "argmaxpool"):
+            _same(op, pooling.KERNELS[op](tx), pooling.PLAIN[op](tx), dtype)
+
+
 def test_main_path_launches_each_kernel_once(cuda):
+    """The ten Figure-2 ops through ops.* under rvv-128: the kernel tier
+    for each, one launch each, the committed customized counts."""
     x = torch.from_numpy(_input("vsqrt", (1024, 1024), seed=7)).to(cuda)
-    ew.reset_launches()
+    rng = np.random.default_rng(8)
+    new_args = {}
+    for op in NEW:
+        floats, others, extra = _cases(op, rng)[0]
+        new_args[op] = [_to(a, cuda, torch.float32)
+                        for a in floats + others] + list(extra)
+    mods = (ew,) + tuple({id(m): m for m in NEW.values()}.values())
+    for m in mods:
+        m.reset_launches()
     with use_target("rvv-128"), trace.count() as c:
         for op in OPS:
             getattr(ops, op)(x, *_extra(op))
-    assert ew.LAUNCHES == {op: 1 for op in OPS}
+        for op, args in new_args.items():
+            getattr(ops, op)(*args)
+    launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
+    assert launches == {op: 1 for op in OPS + tuple(NEW)}
     assert c["per_op"][("vtanh", "pallas")] == 5767168
+    assert c["per_op"][("gemm", "pallas")] == 8421376
+    assert c["per_op"][("argmaxpool", "pallas")] == 602112
 
 
 def test_kernel_refuses_other_dtypes(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ew.vtanh(torch.zeros(8, dtype=torch.float64, device=cuda))
+    d = dict(dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gemm.gemm(torch.zeros((4, 4), **d), torch.zeros((4, 4), **d))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv.conv_hwc(torch.zeros((1, 4, 4, 2), **d),
+                      torch.zeros((3, 3, 2, 2), **d))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        conv.dwconv(torch.zeros((1, 4, 4, 2), **d),
+                    torch.zeros((3, 3, 2), **d))
+    for op in ("maxpool", "argmaxpool"):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            pooling.KERNELS[op](torch.zeros((1, 4, 4, 2), dtype=torch.int32,
+                                            device=cuda))
+    i = torch.zeros(3, dtype=torch.int32, device=cuda)
+    w = torch.zeros(3, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ibilinear.ibilinear(torch.zeros((4, 4, 2), **d), i, i, w, w)
+    with pytest.raises(TypeError, match="int32 corners"):
+        ibilinear.ibilinear(torch.zeros((4, 4, 2), device=cuda), i.long(),
+                            i.long(), w, w)
 
 
 def test_build_is_reused(cuda):
     first = _build.build_all()
-    assert _build.build_all() == first and first["elementwise"].exists()
+    assert _build.build_all() == first
+    assert all(p.exists() for p in first.values())

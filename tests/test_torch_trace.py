@@ -2,12 +2,12 @@
 
 ``BENCH_xnnpack.json`` holds the reference's deterministic instruction
 counts for the Figure-2 workloads.  The port's ``explain()`` must give
-the same baseline and customized counts, and the same tiers, for the four
-elementwise ops at rvv-128/256/512/1024 and tpu-v5e — 20 rows, read from
-the file.  The port is held to the committed file, not to the live
-reference, whose counts drift under the installed jax (it counts a
-``jit`` equation as a vector op: ``jnp.clip`` costs three, the committed
-file two).
+the same baseline and customized counts, and the same tiers, for the ten
+Figure-2 ops at rvv-128/256/512/1024 and tpu-v5e — 50 rows, read from
+the file — and the same TPU traffic ratios.  The port is held to the
+committed file, not to the live reference, whose counts drift under the
+installed jax (it counts a ``jit`` equation as a vector op: ``jnp.clip``
+costs three, the committed file two).
 """
 import json
 import math
@@ -30,16 +30,40 @@ BENCH = json.loads((Path(__file__).resolve().parents[1]
                     / "BENCH_xnnpack.json").read_text())["targets"]
 RVV = ("rvv-128", "rvv-256", "rvv-512", "rvv-1024")
 EW_OPS = ("vrelu", "vsqrt", "vtanh", "vsigmoid")
+# the Figure-2 rows of BENCH_xnnpack.json, by row name -> registry op
+FIG2 = {"gemm": "gemm", "convhwc": "conv_hwc", "dwconv": "dwconv",
+        "maxpool": "maxpool", "argmaxpool": "argmaxpool", "vrelu": "vrelu",
+        "vsqrt": "vsqrt", "vtanh": "vtanh", "vsigmoid": "vsigmoid",
+        "ibilinear": "ibilinear"}
 
 
 def _workload(op):
     """The Figure-2 inputs (benchmarks/xnnpack_suite.py: workloads()),
     made with numpy; only shapes and dtypes reach the cost models."""
     rng = np.random.default_rng(16)
-    x = torch.from_numpy(rng.standard_normal((1024, 1024))
-                         .astype(np.float32))
-    return {"vrelu": (x, 0.0, 6.0), "vsqrt": (x.abs() + 0.01,),
-            "vtanh": (2.0 * x,), "vsigmoid": (2.0 * x,)}[op]
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+
+    if op in EW_OPS:
+        x = f(1024, 1024)
+        return {"vrelu": (x, 0.0, 6.0), "vsqrt": (x.abs() + 0.01,),
+                "vtanh": (2.0 * x,), "vsigmoid": (2.0 * x,)}[op]
+    if op == "gemm":
+        return (f(256, 512), f(512, 256), f(256), -1.0, 1.0)
+    if op == "conv_hwc":
+        return (f(1, 28, 28, 128), 0.1 * f(3, 3, 128, 128), f(128))
+    if op == "dwconv":
+        return (f(1, 56, 56, 128), 0.3 * f(3, 3, 128), f(128))
+    if op in ("maxpool", "argmaxpool"):
+        return (f(1, 56, 56, 256), (2, 2))
+    p = 56 * 56
+    return (f(56, 56, 64),
+            torch.from_numpy(rng.integers(0, 54, p).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 54, p).astype(np.int32)),
+            torch.from_numpy(rng.random(p).astype(np.float32)),
+            torch.from_numpy(rng.random(p).astype(np.float32)))
 
 
 def _row(op, target):
@@ -66,36 +90,52 @@ def _row(op, target):
 
 
 @pytest.mark.parametrize("target", RVV + ("tpu-v5e",))
-@pytest.mark.parametrize("op", EW_OPS)
-def test_figure2_row_matches_committed(op, target):
-    want = BENCH[target][op]
-    got = _row(op, target)
+@pytest.mark.parametrize("name", sorted(FIG2))
+def test_figure2_row_matches_committed(name, target):
+    want = BENCH[target][name]
+    got = _row(FIG2[name], target)
     assert got == {k: want[k] for k in got}
 
 
-@pytest.mark.parametrize("op", EW_OPS)
-def test_tpu_traffic_ratio_matches_committed(op):
+@pytest.mark.parametrize("name", sorted(FIG2))
+def test_tpu_traffic_ratio_matches_committed(name):
     """The TPU column's fusion win: unfused op-by-op bytes over the
-    kernel's true input+output bytes."""
+    kernel's true input+output bytes (its tensor arguments and results,
+    as the reference's suite counts them)."""
+    op = FIG2[name]
     args = _workload(op)
     low = REGISTRY.select(op, *args, policy="vector", target="tpu-v5e")
     unfused = trace.fx_hbm_bytes(low.fn, *args)
-    fused = trace.io_bytes(args[0], args[0])
-    assert round(unfused / fused, 2) == BENCH["tpu-v5e"][op]["traffic_ratio"]
+    out = low.fn(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    fused = trace.io_bytes(*args, *outs)
+    assert round(unfused / fused, 2) == \
+        BENCH["tpu-v5e"][name]["traffic_ratio"]
 
 
 def test_rvv128_counts_through_dispatch():
-    """Counting the dispatched Figure-2 ops gives the committed baseline
-    (vector cap) and customized (kernel tier) columns."""
+    """Counting the dispatched Figure-2 ops gives the committed customized
+    (kernel tier) column, and under the vector cap the committed baseline
+    column.  The cap dispatches the cheapest capped tier: that is the
+    vector tier for nine ops, but the scalar loop for argmaxpool (2 per
+    input element, 1605632, against the vector tier's 2010512) — the
+    suite's baseline is the ladder's highest valid tier instead."""
     for policy, key in (("vector", "baseline_instrs"),
                         ("pallas", "customized_instrs")):
         with use_target("rvv-128"), trace.count() as c:
-            for op in EW_OPS:
+            for op in FIG2.values():
                 getattr(ops, op)(*_workload(op), policy=policy)
-        tier = "vector" if policy == "vector" else "pallas"
-        for op in EW_OPS:
-            assert c["per_op"][(op, tier)] == BENCH["rvv-128"][op][key]
-        assert c["total"] == sum(BENCH["rvv-128"][op][key] for op in EW_OPS)
+        want = 0
+        for name, op in FIG2.items():
+            if policy == "vector" and op == "argmaxpool":
+                got, n = c["per_op"][(op, "generic")], 2 * 56 * 56 * 256
+            else:
+                got = c["per_op"][(op, "vector" if policy == "vector"
+                                   else "pallas")]
+                n = BENCH["rvv-128"][name][key]
+            assert got == n, name
+            want += n
+        assert c["total"] == want
 
 
 def test_costing_a_huge_input_allocates_nothing():
