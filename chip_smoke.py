@@ -5,13 +5,24 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each of the ten against its plain torch version on the card, drives the
-port's main path (``ops.* -> registry.dispatch -> traced costs ->
-customized tier -> CUDA kernel``) on the ten Figure-2 workloads of the
-paper, checks the paper's Figure-2 selection properties, and times every
-kernel beside its plain version, one PyTorch library call and the card's
-bound.  Each phase prints one JSON line; the last line is
+It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+nvcc per source, all started together) and holds each of the thirteen
+against its plain torch version on the card.  Then it drives the port's
+two main paths:
+
+  * the ten Figure-2 workloads of the paper through ``ops.* ->
+    registry.dispatch -> traced costs -> customized tier -> CUDA kernel``,
+    checking the paper's Figure-2 selection properties;
+  * zamba2-1.2b serving at full width and depth (bf16, seeded random
+    weights): ``Engine.generate`` for 4 requests of 512-token prompts and
+    32 greedy tokens, through gemm, vtanh, flash attention, flash decode
+    and ssd, then a teacher-forced check of its logits against the same
+    model under the vector tier, in bf16 and again with the model in
+    float32.
+
+Each path's kernel launches are counted from 0 and checked.  Finally it
+times every kernel beside its plain version, one PyTorch library call
+and the card's bound.  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
 exits non-zero without that line.  Without CUDA, or without the repo's
 ``src/`` beside it, it exits non-zero at once.
@@ -29,6 +40,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
+BF16_MMA_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 EW_OPS = ("vrelu", "vsqrt", "vtanh", "vsigmoid")
 NEW_OPS = ("gemm", "conv_hwc", "dwconv", "maxpool", "argmaxpool",
            "ibilinear")
@@ -48,14 +60,30 @@ REPLACES = {"vtanh": "src/repro/kernels/elementwise.py:156",
             "dwconv": "src/repro/kernels/conv.py:99",
             "maxpool": "src/repro/kernels/pooling.py:84",
             "argmaxpool": "src/repro/kernels/pooling.py:91",
-            "ibilinear": "src/repro/kernels/ibilinear.py:42"}
+            "ibilinear": "src/repro/kernels/ibilinear.py:42",
+            "flash_attention": "src/repro/kernels/flash_attention.py:96",
+            "decode_attention": "src/repro/kernels/flash_attention.py:196",
+            "ssd": "src/repro/kernels/ssd.py:68"}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {op: CSRC + f for op, f in (
     ("vtanh", "elementwise.cu"), ("vsigmoid", "elementwise.cu"),
     ("vsqrt", "elementwise.cu"), ("vrelu", "elementwise.cu"),
     ("gemm", "gemm.cu"), ("conv_hwc", "conv.cu"), ("dwconv", "conv.cu"),
     ("maxpool", "pooling.cu"), ("argmaxpool", "pooling.cu"),
-    ("ibilinear", "ibilinear.cu"))}
+    ("ibilinear", "ibilinear.cu"),
+    ("flash_attention", "flash_attention.cu"),
+    ("decode_attention", "flash_attention.cu"), ("ssd", "ssd.cu"))}
+LM_OPS = ("flash_attention", "decode_attention", "ssd")
+# The serving path: zamba2-1.2b at full width and depth, bf16
+SERVE = dict(arch="zamba2-1.2b", batch=4, prompt=512, gen=32)
+# LM kernels against their plain versions: the reference's kernel TOL
+# (fp32 2e-4; bf16 3e-2), relative and absolute.  The serving check:
+# logits within 3e-2 of the largest logit of the kernel run.
+LM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+E2E_TOL = 3e-2
+# The same check with the model in float32, where the two runs differ only
+# in the order of their sums: the reference's fp32 kernel TOL
+E2E_F32_TOL = 2e-4
 # Tolerances of a kernel against its plain version.  Elementwise: fp32
 # within a few ulps (the rsqrt seed is approximate on the card), bf16 one
 # ulp at 1.  gemm and conv_hwc sum in another order than their plain
@@ -151,6 +179,19 @@ def awkward_args(op, rng):
     return [ibilinear_args(rng, 20, 24, 8, 1001)]
 
 
+def serve_args(op, rng):
+    """gemm at the serving path's shapes (a decode step's M = 4 and a
+    prefill's M = 2048 rows, K up to 8192), no bias and no clamp, weights
+    scaled by d_in**-0.5 as the model's are."""
+    if op != "gemm":
+        return []
+    inf = float("inf")
+    return [(_normal(rng, (m, k)), _normal(rng, (k, n), k ** -0.5), None,
+             -inf, inf)
+            for m, k, n in ((4, 2048, 8192), (2048, 2048, 8192),
+                            (2048, 8192, 2048))]
+
+
 def edge_args(op, rng):
     """NaN and +-inf through the gemm clamp and the pools (with ties)."""
     import numpy as np
@@ -235,6 +276,146 @@ def library_call(op, args):
     return None
 
 
+def lm_cases(op, rng):
+    """(label, args) of an LM kernel on the host, fp32, made with numpy:
+    zamba2's serving shapes first, then GQA with a window and softcap 50,
+    Sq < Sk with D 16 (attention), ragged lengths with a window (decode),
+    s off the chunk, s < 8 and g < h (ssd)."""
+    import numpy as np
+    import torch
+    n = _normal
+    if op == "flash_attention":
+        def qkv(b, sq, sk, h, hkv, d):
+            return (n(rng, (b, sq, h, d)), n(rng, (b, sk, hkv, d)),
+                    n(rng, (b, sk, hkv, d)))
+        return [("zamba2", qkv(4, 512, 512, 32, 32, 128) + (True, None, None)),
+                ("gqa_window_softcap",
+                 qkv(2, 300, 300, 8, 4, 256) + (True, 64, 50.0)),
+                ("sq_lt_sk_d16", qkv(2, 50, 200, 4, 2, 16) + (True, None, None)),
+                ("noncausal_softcap",
+                 qkv(1, 37, 45, 6, 3, 24) + (False, None, 5.0))]
+    if op == "decode_attention":
+        def dec(b, s, h, hkv, d, lens):
+            return (n(rng, (b, 1, h, d)), n(rng, (b, s, hkv, d)),
+                    n(rng, (b, s, hkv, d)),
+                    torch.tensor(lens, dtype=torch.int32))
+        return [("zamba2", dec(4, 544, 32, 32, 128, (528,) * 4) + (None, None)),
+                ("ragged_window_gqa_softcap",
+                 dec(4, 200, 8, 4, 256, (0, 1, 100, 200)) + (64, 50.0)),
+                ("ragged_d16", dec(3, 70, 4, 2, 16, (5, 69, 70)) + (None, None))]
+
+    def ssd_args(b, s, h, p, g, n_):
+        # slow decays (dt ~ 0.05, |A| ~ 1): the state carries across chunks
+        dt = np.log1p(np.exp(rng.standard_normal((b, s, h)) - 3.0))
+        return (n(rng, (b, s, h, p)), torch.from_numpy(dt.astype(np.float32)),
+                -torch.from_numpy(np.exp(0.5 * rng.standard_normal(h))
+                                  .astype(np.float32)),
+                n(rng, (b, s, g, n_), 0.5), n(rng, (b, s, g, n_), 0.5),
+                torch.ones(h))
+    return [("zamba2", ssd_args(4, 512, 64, 64, 2, 64)),
+            ("off_chunk", ssd_args(2, 300, 8, 16, 2, 32)),
+            ("s_lt_8", ssd_args(2, 5, 4, 16, 4, 16)),
+            ("g_lt_h", ssd_args(1, 130, 6, 32, 1, 8))]
+
+
+def lm_keep(op):
+    """Argument positions an LM kernel takes in float32 whatever the
+    working dtype: ssd's dt, A and D."""
+    return (1, 2, 5) if op == "ssd" else ()
+
+
+def lm_time_args(op, gen, dev):
+    """The serving path's inputs of an LM kernel, bf16, made on the card:
+    prefill attention and ssd at 4 x 512, decode against a 544-slot cache
+    with 528 valid positions (the middle of the 32 decode steps)."""
+    import torch
+    bf = torch.bfloat16
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
+    if op == "flash_attention":
+        return (r(4, 512, 32, 128), r(4, 512, 32, 128), r(4, 512, 32, 128),
+                True, None, None)
+    if op == "decode_attention":
+        return (r(4, 1, 32, 128), r(4, 544, 32, 128), r(4, 544, 32, 128),
+                torch.full((4,), 528, dtype=torch.int32, device=dev),
+                None, None)
+    dt = torch.nn.functional.softplus(
+        torch.randn((4, 512, 64), generator=gen, device=dev) - 1.0)
+    A = -torch.arange(1, 65, dtype=torch.float32, device=dev)
+    return (r(4, 512, 64, 64), dt, A, r(4, 512, 2, 64, scale=0.5),
+            r(4, 512, 2, 64, scale=0.5), None)
+
+
+def lm_library_call(op, args):
+    """scaled_dot_product_attention on the same inputs (heads moved to
+    dim 1 beforehand, as it wants them), a yardstick of time only; none
+    for ssd."""
+    import torch
+    import torch.nn.functional as F
+    if op == "ssd":
+        return None
+    q, k, v = (t.transpose(1, 2).contiguous() for t in args[:3])
+    if op == "flash_attention":
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=args[3])
+    lens = args[3]
+    mask = (torch.arange(k.shape[2], device=k.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def lm_work(op, args, out):
+    """(bytes, matrix operations) the LM function needs on these inputs:
+    each input read once and the output written once (decode: only the
+    valid prefix of the cache); multiply-adds of the visible (query, key)
+    pairs or of the SSD chunk products, two operations each."""
+    import math
+    import torch
+    size = lambda t: t.numel() * t.element_size()       # noqa: E731
+    if op == "flash_attention":
+        q, k, v, causal, window = args[:5]
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        i = torch.arange(sq)[:, None] + (sk - sq)
+        j = torch.arange(sk)[None, :]
+        vis = torch.ones((sq, sk), dtype=torch.bool)
+        if causal:
+            vis &= i >= j
+        if window is not None:
+            vis &= i - j < window
+        pairs = int(vis.sum())
+        return (size(q) + size(k) + size(v) + size(out),
+                4 * b * h * pairs * d)
+    if op == "decode_attention":
+        q, k, v, lens, window = args[:5]
+        b, _, h, d = q.shape
+        hkv = k.shape[2]
+        hi = lens.clamp(0, k.shape[1])
+        lo = (hi - window).clamp(min=0) if window is not None else 0 * hi
+        keys = int((hi - lo).sum())
+        return (size(q) + size(lens) + size(out)
+                + 2 * keys * hkv * d * k.element_size(),
+                4 * h * d * keys)
+    x, B = args[0], args[3]
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    L = min(128, -(-s // 8) * 8)
+    macs = b * h * math.ceil(s / L) * (L * (L + 1) // 2 * (n + p)
+                                       + 2 * L * p * n)
+    return (sum(size(t) for t in args if isinstance(t, torch.Tensor))
+            + size(out), 2 * macs)
+
+
+def mma_bound_ms(nbytes, n_ops):
+    """The larger of the bytes at the HBM rate and the operations at the
+    dense bf16 tensor-core rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / BF16_MMA_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
+        else "operations"
+
+
 def work(op, args, out):
     """(bytes, operations) the function must move and do: each input read
     once, each output written once; fp32 operations on these inputs."""
@@ -295,8 +476,11 @@ def compare(op, got, want):
         if max_err != 0.0:
             raise AssertionError(f"{op}: not bitwise, max err {max_err}")
         return max_err
-    table = TOL if op in EW_OPS else MM_TOL
-    rtol, atol = table[str(got.dtype).replace("torch.", "")]
+    dtype = str(got.dtype).replace("torch.", "")
+    if op in LM_OPS:
+        rtol = atol = LM_TOL[dtype]
+    else:
+        rtol, atol = (TOL if op in EW_OPS else MM_TOL)[dtype]
     bad = err > atol + rtol * w[fin].abs()
     if bool(bad.any()):
         raise AssertionError(f"{op}/{got.dtype}: {int(bad.sum())} entries "
@@ -324,6 +508,226 @@ def time_ms(fn, flush, reps=25):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def profile_steps(run, steps):
+    """Device time by kernel over ``run()`` under torch.profiler, per
+    step: the kernels' names with their ms, the device-busy ms and the
+    host-clock ms of a step (idle share = 1 - busy / wall).  Device times
+    are None where the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if str(ev.device_type).endswith("CUDA") and us > 0:
+            name = ev.key[:80]
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / steps
+    busy = sum(by_kernel.values())
+    return {"wall_ms_per_step": wall_ms,
+            "device_busy_ms_per_step": busy or None,
+            "idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "kernels_ms_per_step": dict(sorted(by_kernel.items(),
+                                               key=lambda kv: -kv[1])[:12])}
+
+
+def serve_zamba2(dev, modules):
+    """Drive zamba2-1.2b serving at full width and depth through the
+    port's Engine, count the kernel launches of that run, time prefill and
+    decode, and hold its logits against the vector tier's (teacher
+    forced), in bf16 and in float32.  Returns the phase's record."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace, use_policy, use_target
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import (Engine, make_prefill_step,
+                                          make_serve_step)
+
+    cfg = get_config(SERVE["arch"])
+    b, plen, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_seq = plen + steps
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(SEED).integers(2, cfg.vocab_size,
+                                                   (b, plen))
+    ops_ = ("gemm", "vtanh", "attention", "decode_attention", "ssd")
+
+    def tiers(counted):
+        return {op: sorted({t for (o, t) in counted["per_op"] if o == op})
+                for op in ops_}
+
+    # what the default target (h100) and policy pick on this path: one
+    # prefill and one decode step
+    with trace.count() as probe:
+        Engine(cfg, params, b, max_seq).generate(prompts, 2)
+    h100 = tiers(probe)
+    # where h100 keeps an LM op on the vector tier, the run is pinned to
+    # the rvv-128 cost model (the Engine's target for attention/ssd, the
+    # ambient target for gemm and vtanh), under which all five pick their
+    # kernels; the cost models themselves are not changed
+    target = "rvv-128" if any(h100[op] != ["pallas"] for op in
+                              ("attention", "decode_attention", "ssd")) \
+        else None
+    scope = (lambda: use_target(target)) if target else contextlib.nullcontext
+
+    # the main path: counts set to 0, one Engine.generate, counts read
+    for m in modules:
+        m.reset_launches()
+    with scope(), trace.count() as counted:
+        eng = Engine(cfg, params, b, max_seq, target=target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = eng.generate(prompts, steps)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    chosen = tiers(counted)
+    want = {"ssd": cfg.n_layers, "flash_attention": cfg.n_layers //
+            cfg.shared_attn_every, "decode_attention": cfg.n_layers //
+            cfg.shared_attn_every * (steps - 1)}
+    for op, n in want.items():
+        if launches[op] != n:
+            raise AssertionError(f"serve: {launches[op]} {op} launches, "
+                                 f"expected {n}")
+    for op in ("gemm", "vtanh"):
+        if launches[op] == 0:
+            raise AssertionError(f"serve: {op} never launched")
+    if tokens.shape != (b, steps) or not ((tokens >= 0) &
+                                          (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"serve: tokens {tokens.shape} out of range")
+
+    # warm: prefill and decode timed apart (selections cached)
+    with scope():
+        eng = Engine(cfg, params, b, max_seq, target=target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest = eng.decode(first, steps - 1)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    warm = np.concatenate([first.cpu().numpy()[:, None], rest], axis=1)
+    if not np.array_equal(warm, tokens):
+        raise AssertionError("serve: a second run gave other tokens")
+    # where a decode step's time goes: two steps under the profiler
+    with scope():
+        eng.lengths = eng.lengths - 2       # rewrite the last two positions
+        again = torch.as_tensor(rest[:, -3], device=dev)
+        decode_profile = profile_steps(lambda: eng.decode(again, 2), 2)
+        prefill_profile = profile_steps(lambda: eng.prefill(prompts), 1)
+    del eng
+
+    # teacher forced: the kernel run's tokens into both runs, logits kept
+    def logits_of(cfg_, params_, policy):
+        with scope(), use_policy(policy):
+            prefill = make_prefill_step(cfg_, target)
+            step = make_serve_step(cfg_, target)
+            cache = M.init_cache(cfg_, b, max_seq, dev)
+            lg, cache = prefill(params_, cache, {
+                "tokens": torch.as_tensor(prompts, device=dev)})
+            out = [lg.float()]
+            lens = torch.full((b,), plen, dtype=torch.int32, device=dev)
+            tok = torch.as_tensor(tokens, device=dev).long()
+            for i in range(steps - 1):
+                lg, cache = step(params_, cache, tok[:, i:i + 1], lens)
+                lens = lens + 1
+                out.append(lg.float())
+        return torch.stack(out)                      # (steps, b, vocab)
+
+    def held(kern, plain, rel_tol, what):
+        """Per-step max |kernel - plain| logit, max |logit|, and the greedy
+        tokens' agreement; raises unless every step is within rel_tol of
+        its max |logit| and the tokens agree wherever the plain run's top-2
+        gap exceeds that."""
+        if not bool(kern.isfinite().all()) or \
+                not bool(plain.isfinite().all()):
+            raise AssertionError(f"serve/{what}: non-finite logits")
+        err = (kern - plain).abs().amax(dim=(1, 2))
+        scale = kern.abs().amax(dim=(1, 2))
+        tol = rel_tol * scale
+        if bool((err > tol).any()):
+            raise AssertionError(f"serve/{what}: logits differ from the "
+                                 f"vector tier's by {err.tolist()} against "
+                                 f"{tol.tolist()}")
+        top2 = plain.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > tol[:, None]
+        agree = kern.argmax(-1) == plain.argmax(-1)
+        if bool((clear & ~agree).any()):
+            raise AssertionError(f"serve/{what}: greedy tokens differ where "
+                                 "the plain run's top-2 gap exceeds the "
+                                 "tolerance")
+        return {"max_logit_err": err.tolist(), "max_abs_logit":
+                scale.tolist(), "max_rel_logit_err": float((err / scale)
+                                                           .max()),
+                "greedy_agree": float(agree.float().mean()),
+                "clear_steps": int(clear.sum())}
+
+    kern, plain = logits_of(cfg, params, "pallas"), \
+        logits_of(cfg, params, "vector")
+    if not torch.equal(kern.argmax(-1).cpu(),
+                       torch.as_tensor(tokens).long().T):
+        raise AssertionError("serve: the teacher-forced kernel run does "
+                             "not reproduce its own greedy tokens")
+    bf16_check = held(kern, plain, E2E_TOL, cfg.dtype)
+    del kern, plain
+
+    # the same model in float32 (weights drawn anew from the seed), the
+    # same prompts and tokens: the kernels against the vector tier with no
+    # bf16 rounding between them; the kernel run's launches are counted
+    # to show that the kernels carried it
+    cfg32 = cfg.replace(dtype="float32")
+    gen.manual_seed(SEED)
+    params32 = M.init(cfg32, gen, dev)
+    for m in modules:
+        m.reset_launches()
+    with trace.count() as counted32:
+        kern = logits_of(cfg32, params32, "pallas")
+    launches32 = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    plain = logits_of(cfg32, params32, "vector")
+    f32_check = {"launches": launches32, "chosen": tiers(counted32),
+                 **held(kern, plain, E2E_F32_TOL, cfg32.dtype)}
+    for op, n in want.items():
+        if launches32[op] != n:
+            raise AssertionError(f"serve/float32: {launches32[op]} {op} "
+                                 f"launches, expected {n}")
+    for op in ("gemm", "vtanh"):
+        if launches32[op] == 0:
+            raise AssertionError(f"serve/float32: {op} never launched")
+    del params32, kern, plain
+    record = {
+        "arch": cfg.name, "params": M.count_params(params),
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": b, "prompt_len": plen, "generated": steps,
+        "h100_chosen": h100, "target": target or "h100", "chosen": chosen,
+        "launches": launches, "init_s": init_s, "generate_s": generate_s,
+        "prefill_ms": prefill_s * 1e3,
+        "decode_ms_per_step": decode_s / (steps - 1) * 1e3,
+        "tokens_per_s": b * steps / (prefill_s + decode_s),
+        **bf16_check, "float32": f32_check,
+        "decode_profile": decode_profile, "prefill_profile": prefill_profile,
+        "first_tokens": tokens[0].tolist(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit("serve", **record)
+    del params
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -339,14 +743,16 @@ def main() -> int:
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
     from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, \
-        pooling, ref
+        pooling, ref, ssd
     from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
     module = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv,
               "maxpool": pooling, "argmaxpool": pooling,
-              "ibilinear": ibilinear, **{op: ew for op in EW_OPS}}
-    modules = (ew, gemm, conv, pooling, ibilinear)
+              "ibilinear": ibilinear, **{op: ew for op in EW_OPS},
+              "flash_attention": fa, "decode_attention": fa, "ssd": ssd}
+    modules = (ew, gemm, conv, pooling, ibilinear, fa, ssd)
 
     # 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -405,11 +811,13 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("kernel_vs_plain", op=op, tolerance=TOL, cases=errs)
     rng = np.random.default_rng(SEED + 1)
+    serve_rng = np.random.default_rng(SEED + 2)
     for op in NEW_OPS:
         mod, errs = module[op], []
         labelled = [("figure2", figure2_args(op, rng))] + \
             [("awkward", a) for a in awkward_args(op, rng)] + \
-            [("edge", a) for a in edge_args(op, rng)]
+            [("edge", a) for a in edge_args(op, rng)] + \
+            [("serve", a) for a in serve_args(op, serve_rng)]
         for label, host_args in labelled:
             for dt in (torch.float32, torch.bfloat16):
                 # ibilinear's weights stay float32; its image takes dt
@@ -426,6 +834,23 @@ def main() -> int:
         torch.cuda.synchronize()
         emit("kernel_vs_plain", op=op,
              tolerance="bitwise" if op in EXACT else MM_TOL, cases=errs)
+    for op in LM_OPS:
+        errs = []
+        for label, host_args in lm_cases(op, rng):
+            for dt in (torch.float32, torch.bfloat16):
+                args = on(host_args, dev, dt, keep=lm_keep(op))
+                got = module[op].KERNELS[op](*args)
+                err = compare(op, got, module[op].PLAIN[op](*args))
+                if not bool(got.isfinite().all()):
+                    raise AssertionError(f"{op}/{label}: non-finite output")
+                errs.append({"case": label, "dtype": str(dt)[6:],
+                             "shapes": [list(a.shape) for a in args
+                                        if isinstance(a, torch.Tensor)],
+                             "max_abs_err": err})
+                if label == "zamba2" and dt == torch.float32:
+                    max_err[op] = err
+        torch.cuda.synchronize()
+        emit("kernel_vs_plain", op=op, tolerance=LM_TOL, cases=errs)
 
     # 4. the main path: the ten Figure-2 workloads through ops.* ----------
     committed = json.loads((ROOT / "BENCH_xnnpack.json").read_text())
@@ -537,7 +962,11 @@ def main() -> int:
          ops_call_ms=ops_ms, wrapper_call_ms=wrapper_ms,
          registry=REGISTRY.cache_info())
 
-    # 5. times ------------------------------------------------------------
+    # 5. the serving path: zamba2-1.2b at full width and depth ------------
+    serve = serve_zamba2(dev, modules)
+    lm_launches = {op: serve["launches"][op] for op in LM_OPS}
+
+    # 6. times ------------------------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB
     library = {"vrelu": lambda x: torch.clamp(x, *RELU_BOUNDS),
                "vsqrt": torch.sqrt, "vtanh": torch.tanh,
@@ -588,14 +1017,33 @@ def main() -> int:
             times[(op, size)] = row
             emit("time", **row)
             del out, targs
+    for op in LM_OPS:
+        mod, targs = module[op], lm_time_args(op, gen, dev)
+        out = mod.KERNELS[op](*targs)
+        k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+        p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+        lib = lm_library_call(op, targs)
+        l_ms = None if lib is None else time_ms(lib, flush)
+        nbytes, n_ops = lm_work(op, targs, out)
+        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
+        row = {"op": op, "size": "serve", "dtype": "bfloat16",
+               "shapes": [list(a.shape) for a in targs
+                          if isinstance(a, torch.Tensor)],
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "ops": n_ops, "bound_share": b_ms / k_ms}
+        times[(op, "serve")] = row
+        emit("time", **row)
+        del out, targs
     del flush
 
-    # 6. kernels: at the main path's (Figure-2) shapes ---------------------
+    # 7. kernels: at their main path's shapes (Figure-2; serving) ---------
     kernels = []
-    for op in ALL_OPS:
-        t = times[(op, "figure2")]
+    for op in ALL_OPS + LM_OPS:
+        t = times[(op, "serve" if op in LM_OPS else "figure2")]
+        n_launch = lm_launches[op] if op in LM_OPS else launches[op]
         kernels.append({"name": op, "route": "cuda", "source": SOURCE[op],
-                        "replaces": REPLACES[op], "launches": launches[op],
+                        "replaces": REPLACES[op], "launches": n_launch,
                         "max_abs_err": max_err[op], "ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

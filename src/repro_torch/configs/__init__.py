@@ -1,0 +1,45 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch``.
+
+The port's model stack has the Mamba2 block kinds (``mamba``,
+``mamba_shared``) and the GQA shared block; an arch whose layers need a
+block kind not ported yet is known by name but refused with the ROADMAP
+item that holds it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from .base import SHAPES, ModelConfig, ShapeConfig
+
+# arch -> config module, for the archs whose block kinds are ported
+_PORTED = {
+    "zamba2-1.2b": "zamba2_1p2b",
+}
+# arch -> what it still needs (ROADMAP A.9, in its order)
+_WAITING = {
+    "mamba2-1.3b": "a copy of its config (its block kinds are ported)",
+    "granite-moe-1b-a400m": "moe.py",
+    "deepseek-v2-lite-16b": "moe.py and MLA",
+    "minicpm3-4b": "MLA",
+    "gemma2-2b": "the attn/local transformer blocks",
+    "gemma3-1b": "the attn/local transformer blocks",
+    "mistral-large-123b": "the attn/local transformer blocks",
+    "whisper-tiny": "the enc/dec blocks",
+    "pixtral-12b": "the vlm patch inputs",
+}
+
+ARCH_NAMES = tuple(_PORTED)
+
+
+def get_config(name: str) -> ModelConfig:
+    if name in _WAITING:
+        raise NotImplementedError(
+            f"arch {name!r} needs {_WAITING[name]}, not ported yet "
+            f"(ROADMAP A.9); ported: {ARCH_NAMES}")
+    if name not in _PORTED:
+        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
+    return importlib.import_module(f".{_PORTED[name]}", __package__).CONFIG
+
+
+__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeConfig",
+           "get_config"]

@@ -9,9 +9,10 @@ preprocessor ladder picks an implementation (DESIGN.md §3).
   policy 'generic'                    — scalar-emulation oracle tier
 
 Each op runs on the device of its input tensor.  ``repro_torch.core.
-use_policy`` overrides per scope.  The ten Figure-2 functions of the
-paper are registered here; the LM ops (attention, decode_attention,
-ssd) arrive with their kernels.
+use_policy`` overrides per scope.  All thirteen functions with a
+customized kernel are registered here: the ten Figure-2 functions of
+the paper and the three LM ops (attention, decode_attention, ssd) that
+the serving path of ``repro_torch.models`` calls.
 """
 from __future__ import annotations
 
@@ -21,10 +22,12 @@ from ..core import registry, trace
 from ..core.registry import dispatch, register
 from . import conv as _conv
 from . import elementwise as _ew
+from . import flash_attention as _fa
 from . import gemm as _gemm
 from . import ibilinear as _ib
 from . import pooling as _pool
 from . import ref
+from . import ssd as _ssd
 
 
 def default_policy() -> str:
@@ -252,6 +255,119 @@ def _ibilinear_pallas(img, iy, ix, wy, wx):
 
 def ibilinear(img, iy, ix, wy, wx, *, policy=None):
     return dispatch("ibilinear", img, iy, ix, wy, wx, policy=policy)
+
+
+# ---------------------------------------------------------------------------
+# attention (model-facing layout (B, S, H, D))
+#
+# ``dispatch`` passes every argument positionally, so the cost and
+# supports functions take them positionally too (the reference's lambdas
+# do not, and its registry never ranks the kernel tier: ROADMAP C.7).
+# The kernel tier's cost is the reference kernel's, on (B, H, S, D) views.
+# ---------------------------------------------------------------------------
+
+def _bhsd(t):
+    return t.transpose(1, 2)
+
+
+def _attn_vector(q, k, v, causal=True, window=None, softcap=None, scale=None):
+    if q.shape[1] * k.shape[1] > 2048 * 2048:
+        return ref.attention_chunked(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    return ref.attention(q, k, v, causal=causal, window=window,
+                         softcap=softcap, scale=scale)
+
+
+register("attention", "vector", cost=trace.traced_cost(_attn_vector),
+         doc="attention; chunked online-softmax beyond 2k seq")(_attn_vector)
+
+
+def _attn_supports(q, k, v, causal=True, window=None, softcap=None,
+                   scale=None):
+    # the fused kernel requires equal q/v head dims (MLA's split dims fall
+    # back to the vector tier — the paper's validity-predicate pattern)
+    return (q.shape[-1] == v.shape[-1] and
+            _fa.supports(_bhsd(q), _bhsd(k), _bhsd(v)))
+
+
+def _attn_cost(q, k, v, causal=True, *_, **__):
+    return _fa.cost(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal)
+
+
+@register("attention", "pallas", supports=_attn_supports, cost=_attn_cost,
+          doc="online-softmax flash attention, register-resident stats")
+def _attn_pallas(q, k, v, causal=True, window=None, softcap=None, scale=None):
+    return _fa.flash_attention(q, k, v, causal, window, softcap, scale)
+
+
+def attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
+              policy=None, target=None):
+    """q:(B,Sq,H,D) k,v:(B,Sk,Hkv,D) -> (B,Sq,H,D).
+
+    ``target`` selects the lowering against an explicit machine model;
+    None uses the ambient thread-scoped target.
+    """
+    return dispatch("attention", q, k, v, causal, window, softcap, scale,
+                    policy=policy, target=target)
+
+
+def _dec_attn_vector(q, k, v, lengths, window=None, softcap=None, scale=None):
+    # q:(B,1,H,D); mask cache positions >= per-row valid length
+    return ref.decode_attention(q, k, v, lengths, window, softcap, scale)
+
+
+register("decode_attention", "vector",
+         cost=trace.traced_cost(_dec_attn_vector))(_dec_attn_vector)
+
+
+def _dec_supports(q, k, v, lengths, *_, **__):
+    return q.shape[1] == 1 and _fa.supports(_bhsd(q), _bhsd(k), _bhsd(v))
+
+
+def _dec_cost(q, k, v, lengths, *_, **__):
+    return _fa.cost(_bhsd(q), _bhsd(k), _bhsd(v), causal=False)
+
+
+@register("decode_attention", "pallas", supports=_dec_supports,
+          cost=_dec_cost,
+          doc="flash-decode, valid length read on the device")
+def _dec_attn_pallas(q, k, v, lengths, window=None, softcap=None, scale=None):
+    return _fa.decode_attention(q, k, v, lengths, window, softcap, scale)
+
+
+def decode_attention(q, k, v, lengths, *, window=None, softcap=None,
+                     scale=None, policy=None, target=None):
+    """q:(B,1,H,D) k,v:(B,S,Hkv,D) lengths:(B,) -> (B,1,H,D)."""
+    return dispatch("decode_attention", q, k, v, lengths, window, softcap,
+                    scale, policy=policy, target=target)
+
+
+# ---------------------------------------------------------------------------
+# ssd (Mamba2)
+# ---------------------------------------------------------------------------
+
+def _ssd_vector(x, dt, A, B, C, D=None, *, chunk=128):
+    if x.shape[1] > 256:
+        return ref.ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+    return ref.ssd(x, dt, A, B, C, D)
+
+
+register("ssd", "vector", cost=trace.traced_cost(_ssd_vector),
+         doc="chunked torch SSD (sequential scan below 256 steps)")(_ssd_vector)
+
+
+@register("ssd", "pallas", cost=_ssd.cost, supports=_ssd.supports,
+          doc="chunked SSD, shared-memory-carried state")
+def _ssd_pallas(x, dt, A, B, C, D=None, *, chunk=128):
+    return _ssd.ssd(x, dt, A, B, C, D, chunk)
+
+
+def ssd(x, dt, A, B, C, D=None, *, chunk=128, policy=None, target=None):
+    """x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n) -> (b,s,h,p).
+
+    As in the reference, ``chunk`` is not passed on: both tiers run at
+    their default of 128 (ROADMAP C.8)."""
+    return dispatch("ssd", x, dt, A, B, C, D, policy=policy, target=target)
 
 
 # default policy: customized kernels where CUDA is present, the vector

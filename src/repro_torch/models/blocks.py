@@ -1,0 +1,123 @@
+"""Layer blocks: one (init, cache_init, apply) triple per layer kind.
+
+Ported kinds: ``mamba`` and ``mamba_shared`` (a Mamba2 layer followed by
+zamba2's shared attention+MLP block).  Blocks are functions of
+(params, x, cache, ctx), where ctx carries the mode, positions, lengths
+and the zamba2 shared-block closure.  Every other kind of the reference
+(attn, local, moe, moe_dense, enc, dec) raises NotImplementedError with
+the ROADMAP item that holds it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from . import attention as A
+from . import layers as L
+from . import ssm as S
+
+# kind -> the ROADMAP A.9 entry that ports it
+_WAITING = {"attn": "the attn/local transformer blocks",
+            "local": "the attn/local transformer blocks",
+            "moe": "moe.py", "moe_dense": "moe.py",
+            "enc": "the enc/dec blocks", "dec": "the enc/dec blocks"}
+
+
+def _not_ported(kind):
+    what = _WAITING.get(kind)
+    if what is None:
+        return ValueError(kind)
+    return NotImplementedError(f"block kind {kind!r} needs {what}, not "
+                               f"ported yet (ROADMAP A.9)")
+
+
+@dataclasses.dataclass
+class Ctx:
+    cfg: Any
+    mode: str                      # train | prefill | decode
+    positions: torch.Tensor        # (B, S)
+    lengths: Optional[torch.Tensor] = None   # (B,) decode valid lengths
+    emb0: Any = None               # zamba2: initial embedding stream
+    shared: Any = None             # zamba2: shared block params
+    target: Any = None             # explicit lowering target; None = ambient
+
+
+# ---------------------------------------------------------------------------
+# mamba (+ shared attention) blocks
+# ---------------------------------------------------------------------------
+
+def _mamba_init(gen, cfg, device):
+    return {"ln": L.norm_init(cfg.d_model, cfg.norm, device),
+            "mamba": S.mamba_init(gen, cfg, device)}
+
+
+def _mamba_apply(params, x, cache, ctx: Ctx):
+    h = L.norm_apply(params["ln"], x, ctx.cfg.norm)
+    h, cache = S.mamba_apply(params["mamba"], h, ctx.cfg, mode=ctx.mode,
+                             cache=cache, target=ctx.target)
+    return x + h, cache
+
+
+def shared_block_init(gen, cfg, device):
+    """zamba2 shared attention+MLP block over concat width 2d."""
+    d2 = 2 * cfg.d_model
+    return {
+        "ln1": L.norm_init(d2, cfg.norm, device),
+        "attn": A.gqa_init(gen, cfg, device, d_in=d2),
+        "ln2": L.norm_init(d2, cfg.norm, device),
+        "mlp": L.mlp_init(gen, cfg, device, d_in=d2, d_ff=cfg.d_ff,
+                          d_out=cfg.d_model),
+    }
+
+
+def _shared_apply(shared, x, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    cat = torch.cat([x, ctx.emb0], dim=-1)
+    h = L.norm_apply(shared["ln1"], cat, cfg.norm)
+    h, cache = A.gqa_apply(shared["attn"], h, cfg, positions=ctx.positions,
+                           mode=ctx.mode, cache=cache, lengths=ctx.lengths,
+                           target=ctx.target)
+    x = x + h
+    m = L.mlp_apply(shared["mlp"],
+                    L.norm_apply(shared["ln2"], cat, cfg.norm), cfg)
+    return x + m, cache
+
+
+def _mamba_shared_apply(params, x, cache, ctx: Ctx):
+    mc = None if cache is None else cache["mamba"]
+    ac = None if cache is None else cache["attn"]
+    x, mcache = _mamba_apply(params, x, mc, ctx)
+    x, acache = _shared_apply(ctx.shared, x, ac, ctx)
+    if cache is None:
+        return x, None
+    return x, {"mamba": mcache, "attn": acache}
+
+
+# ---------------------------------------------------------------------------
+# kind registry
+# ---------------------------------------------------------------------------
+
+def block_init(kind, gen, cfg, device):
+    if kind in ("mamba", "mamba_shared"):
+        return _mamba_init(gen, cfg, device)
+    raise _not_ported(kind)
+
+
+def block_cache_init(kind, cfg, batch, s_max, device):
+    if kind == "mamba":
+        return S.mamba_cache_init(cfg, batch, device)
+    if kind == "mamba_shared":
+        return {"mamba": S.mamba_cache_init(cfg, batch, device),
+                "attn": A.gqa_cache_init(cfg, batch, s_max, device)}
+    raise _not_ported(kind)
+
+
+def block_apply(kind, params, x, cache, ctx: Ctx):
+    """-> (x, cache)."""
+    if kind == "mamba":
+        return _mamba_apply(params, x, cache, ctx)
+    if kind == "mamba_shared":
+        return _mamba_shared_apply(params, x, cache, ctx)
+    raise _not_ported(kind)

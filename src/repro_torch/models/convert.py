@@ -1,0 +1,55 @@
+"""Carry the JAX package's parameters across to the port.
+
+The reference's ``init`` returns a pytree whose repeated unit is stacked
+on a leading axis of length ``repeats`` (``lax.scan`` runs over it).
+:func:`from_jax` takes that tree with numpy leaves, e.g.
+``jax.tree.map(np.asarray, M.init(cfg, key))``, unstacks the unit axis
+and returns the port's parameter dictionary on ``device``.  It needs no
+JAX: the card never runs it, the parity tests do.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def tensor(a, device="cpu") -> torch.Tensor:
+    """A numpy array (float32, int, or ml_dtypes bfloat16) as a tensor."""
+    a = np.array(a)                     # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def from_jax(tree, cfg, device="cpu"):
+    """The port's params from the reference's (numpy leaves)."""
+    _, unit, reps, _ = cfg.pattern_unit()
+    out = {k: _map(v, lambda a: tensor(a, device))
+           for k, v in tree.items() if k != "unit"}
+    out["unit"] = []
+    for j in range(len(unit)):
+        stacked = tree["unit"][j]
+        for leaf in _leaves(stacked):
+            if leaf.shape[0] != reps:
+                raise ValueError(f"unit {j}: leading axis {leaf.shape[0]} "
+                                 f"is not the {reps} repeats")
+        out["unit"].append([_map(stacked, lambda a, r=r: tensor(a[r], device))
+                            for r in range(reps)])
+    return out

@@ -1,0 +1,101 @@
+"""Serving engine: batched prefill + decode over static-shape caches.
+
+The engine owns a fixed-capacity request batch: prefill fills the
+caches, decode advances every row one token per step (one
+``serve_step``).  Greedy or temperature sampling.  PyTorch runs eagerly,
+so the steps are the forward functions themselves (the reference jits
+them); the caches are written in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..core.targets import resolve_device
+from ..models import model as M
+
+
+def make_prefill_step(cfg, target=None):
+    def prefill(params, cache, batch):
+        logits, cache = M.forward(params, cfg, batch, mode="prefill",
+                                  cache=cache, target=target)
+        return logits[:, -1], cache
+    return prefill
+
+
+def make_serve_step(cfg, target=None):
+    """One decode step: (params, cache, tokens, lengths) -> (logits, cache).
+
+    ``target`` pins the step's attention/ssd lowering selections to an
+    explicit machine model.
+    """
+    def serve_step(params, cache, tokens, lengths):
+        logits, cache = M.forward(params, cfg, {"tokens": tokens},
+                                  mode="decode", cache=cache,
+                                  lengths=lengths, target=target)
+        return logits[:, 0], cache
+    return serve_step
+
+
+@dataclasses.dataclass
+class Engine:
+    cfg: Any
+    params: Any
+    max_batch: int
+    max_seq: int
+    temperature: float = 0.0
+    target: Any = None             # explicit lowering target (None=ambient)
+    device: Any = None             # None = the card
+
+    def __post_init__(self):
+        self.device = resolve_device("cuda" if self.device is None
+                                     else self.device)
+        self.cache = M.init_cache(self.cfg, self.max_batch, self.max_seq,
+                                  self.device)
+        self.lengths = torch.zeros((self.max_batch,), dtype=torch.int32,
+                                   device=self.device)
+        self._prefill = make_prefill_step(self.cfg, self.target)
+        self._step = make_serve_step(self.cfg, self.target)
+
+    def prefill(self, prompts):
+        """prompts:(B, S_prompt) — fills the cache, returns first tokens."""
+        prompts = torch.as_tensor(np.asarray(prompts), device=self.device)
+        last_logits, self.cache = self._prefill(self.params, self.cache,
+                                                {"tokens": prompts})
+        self.lengths = torch.full((prompts.shape[0],), prompts.shape[1],
+                                  dtype=torch.int32, device=self.device)
+        return self._sample(last_logits)
+
+    def decode(self, tokens: torch.Tensor, steps: int) -> np.ndarray:
+        """Advance ``steps`` tokens for the whole batch; returns (B, steps)."""
+        out = []
+        cur = tokens
+        for _ in range(steps):
+            logits, self.cache = self._step(self.params, self.cache,
+                                            cur[:, None], self.lengths)
+            self.lengths = self.lengths + 1
+            cur = self._sample(logits)
+            out.append(cur)
+        if not out:
+            return np.zeros((tokens.shape[0], 0), np.int32)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    def _sample(self, logits) -> torch.Tensor:
+        if self.temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        # seeded by the reference's rule (the sum of the lengths); torch's
+        # draws are not jax.random's
+        gen = torch.Generator(device=logits.device)
+        gen.manual_seed(int(self.lengths.sum()))
+        probs = torch.softmax(logits.to(torch.float32) / self.temperature,
+                              dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0] \
+            .to(torch.int32)
+
+    def generate(self, prompts, steps: int) -> np.ndarray:
+        first = self.prefill(prompts)
+        rest = self.decode(first, steps - 1)
+        return np.concatenate([first.cpu().numpy()[:, None], rest], axis=1)

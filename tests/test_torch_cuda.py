@@ -12,6 +12,10 @@ must agree; subnormal inputs are included.  gemm and conv_hwc: fp32
 rtol = atol = 2e-4 (the reference's kernel TOL: the sums run in another
 order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
 indices: bitwise, since they round where their plain versions round.
+flash_attention, decode_attention and ssd: rtol = atol = 2e-4 in fp32
+and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's serving
+shapes and at GQA/window/softcap, Sq < Sk, ragged-length, off-chunk,
+s < 8 and single-group shapes.
 """
 import numpy as np
 import pytest
@@ -237,3 +241,90 @@ def test_build_is_reused(cuda):
     first = _build.build_all()
     assert _build.build_all() == first
     assert all(p.exists() for p in first.values())
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels: flash_attention, decode_attention, ssd
+# ---------------------------------------------------------------------------
+
+LM_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+def _lm_close(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(g).all()
+    tol = LM_TOL[dtype]
+    np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+
+
+# (B, Sq, Sk, H, Hkv, D, causal, window, softcap)
+FLASH_CASES = [(4, 512, 512, 32, 32, 128, True, None, None),   # zamba2
+               (2, 300, 300, 8, 4, 256, True, 64, 50.0),       # gemma2-like
+               (2, 50, 200, 4, 2, 16, True, None, None),       # Sq < Sk
+               (1, 37, 45, 6, 3, 24, False, None, 5.0)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, sk, h, hkv, d, causal, window, softcap = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (torch.from_numpy(_f(rng, s)).to(cuda, dtype)
+               for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, causal, window, softcap)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    _lm_close(got, fa.flash_attention_plain(q, k, v, causal, window,
+                                            softcap), dtype)
+
+
+# (B, S, H, Hkv, D, lengths, window, softcap)
+DECODE_CASES = [(4, 544, 32, 32, 128, (512, 520, 530, 544), None, None),
+                (4, 200, 8, 4, 256, (0, 1, 100, 200), 64, 50.0),
+                (3, 70, 4, 2, 16, (5, 69, 70), None, None)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_decode_attention_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hkv, d, lengths, window, softcap = case
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(_f(rng, shape)).to(cuda, dtype)
+               for shape in ((b, 1, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = fa.LAUNCHES["decode_attention"]
+    got = fa.decode_attention(q, k, v, lens, window, softcap)
+    assert fa.LAUNCHES["decode_attention"] == before + 1
+    _lm_close(got, fa.decode_attention_plain(q, k, v, lens, window,
+                                             softcap), dtype)
+
+
+def _ssd_args(rng, b, s, h, p, g, n, dev, dtype):
+    x = torch.from_numpy(_f(rng, (b, s, h, p))).to(dev, dtype)
+    # slow decays (dt ~ 0.05, |A| ~ 1) so the state carries across chunks
+    dt = torch.nn.functional.softplus(
+        torch.from_numpy(_f(rng, (b, s, h)) - 3.0)).to(dev)
+    A = -torch.from_numpy(np.exp(_f(rng, (h,), 0.5))).to(dev)
+    B = torch.from_numpy(_f(rng, (b, s, g, n), 0.5)).to(dev, dtype)
+    C = torch.from_numpy(_f(rng, (b, s, g, n), 0.5)).to(dev, dtype)
+    D = torch.ones(h, device=dev)
+    return x, dt, A, B, C, D
+
+
+# (b, s, h, p, g, n): zamba2's prefill; s off the chunk; s < 8; g = 1
+SSD_CASES = [(4, 512, 64, 64, 2, 64), (2, 300, 8, 16, 2, 32),
+             (2, 5, 4, 16, 4, 16), (1, 130, 6, 32, 1, 8)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_matches_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels import ssd
+    args = _ssd_args(np.random.default_rng(sum(case)), *case, cuda, dtype)
+    before = ssd.LAUNCHES["ssd"]
+    got = ssd.ssd(*args)
+    assert ssd.LAUNCHES["ssd"] == before + 1
+    _lm_close(got, ssd.ssd_plain(*args), dtype)

@@ -206,7 +206,7 @@ def test_build_target_is_keyed_by_source():
     out = _build._target("elementwise")
     assert out.parent == _build.BUILD_DIR
     assert out.name.startswith("libelementwise-") and out.suffix == ".so"
-    assert _build.sources() == ["conv", "elementwise", "gemm", "ibilinear",
-                                "pooling"]
+    assert _build.sources() == ["conv", "elementwise", "flash_attention",
+                                "gemm", "ibilinear", "pooling", "ssd"]
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -74,3 +74,15 @@ def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
                              cwd=script.parent, timeout=300)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_the_serving_slice_is_covered():
+    """The modules of the serving slice are among those read and
+    imported above, the config copies included."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"configs/__init__.py", "configs/base.py",
+            "configs/zamba2_1p2b.py",
+            "kernels/flash_attention.py", "kernels/ssd.py",
+            "models/layers.py", "models/attention.py", "models/ssm.py",
+            "models/blocks.py", "models/model.py", "models/convert.py",
+            "serve/engine.py", "launch/serve.py"} <= names

@@ -1,0 +1,304 @@
+"""The port's attention, decode-attention and SSD lowerings against the
+JAX reference, on the CPU.
+
+On the CPU each kernel wrapper runs its plain version (and counts no
+launch); it is held against the reference's Pallas kernel in interpret
+mode, as ``tests/test_kernels.py`` runs it.  The port's oracles are held
+against the reference's, and the port's ``ops.*`` against the
+reference's ``ops.*``.  The same numpy-made inputs go to both.
+Tolerance: the reference's kernel TOL, fp32 rtol = atol = 2e-4 (the
+order of the sums differs).
+
+The reference's attention and decode cost/supports lambdas cannot take
+the arguments ``dispatch`` passes positionally (ROADMAP C.7); the port's
+can, and give the reference kernel's counts.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import use_target as juse_target
+from repro.core.registry import REGISTRY as JREG
+from repro.kernels import flash_attention as jfa
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import ssd as jssd
+from repro_torch.core import trace, use_policy, use_target
+from repro_torch.core.registry import REGISTRY
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as tssd
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _f(rng, shape, scale=1.0):
+    return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _np(y):
+    return y.float().numpy() if isinstance(y, torch.Tensor) \
+        else np.asarray(y.astype(jnp.float32))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def _bhsd(a):
+    """(B,S,H,D) numpy -> the reference kernel's (B,H,S,D)."""
+    return jnp.asarray(a.transpose(0, 2, 1, 3))
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, Hkv, D, causal, window, softcap)
+FLASH = [(1, 40, 40, 4, 2, 16, True, None, None),
+         (2, 33, 33, 4, 4, 8, True, 9, None),
+         (1, 24, 24, 2, 1, 16, True, None, 20.0),
+         (1, 30, 30, 4, 2, 16, False, None, None),
+         (2, 12, 40, 4, 2, 16, True, None, None),     # Sq < Sk
+         (1, 20, 50, 6, 2, 24, True, 11, 5.0)]        # all at once
+
+
+def _attn_inputs(case, seed):
+    b, sq, sk, h, hkv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return _f(rng, (b, sq, h, d)), _f(rng, (b, sk, hkv, d)), \
+        _f(rng, (b, sk, hkv, d))
+
+
+@pytest.mark.parametrize("case", FLASH, ids=str)
+def test_flash_plain_matches_interpret_kernel(case):
+    causal, window, softcap = case[6:]
+    q, k, v = _attn_inputs(case, sum(case[:6]))
+    want = jfa.flash_attention(_bhsd(q), _bhsd(k), _bhsd(v), causal=causal,
+                               window=window, softcap=softcap, bq=16, bk=16,
+                               interpret=True).transpose(0, 2, 1, 3)
+    before = dict(fa.LAUNCHES)
+    t = torch.from_numpy
+    got = fa.flash_attention(t(q), t(k), t(v), causal, window, softcap)
+    assert fa.LAUNCHES == before          # the CPU runs no kernel
+    assert got.shape == q.shape and got.dtype == torch.float32
+    _close(got, want)
+
+
+@pytest.mark.parametrize("case", [FLASH[0], FLASH[4], FLASH[5]], ids=str)
+def test_attention_oracles_match_reference(case):
+    causal, window, softcap = case[6:]
+    q, k, v = _attn_inputs(case, 7 + sum(case[:6]))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    _close(ref.attention(*t, **kw), jref.attention(*j, **kw))
+    _close(ref.attention_chunked(*t, q_chunk=16, **kw),
+           jref.attention_chunked(*j, q_chunk=16, **kw))
+
+
+# ---------------------------------------------------------------------------
+# decode attention
+# ---------------------------------------------------------------------------
+
+# (B, S, H, Hkv, D, lengths, window, softcap)
+DECODE = [(3, 40, 4, 2, 16, (1, 17, 40), None, None),
+          (4, 48, 4, 4, 8, (0, 5, 30, 48), 8, None),
+          (2, 64, 6, 2, 24, (64, 33), 16, 10.0)]
+
+
+def _dec_inputs(case):
+    b, s, h, hkv, d = case[:5]
+    rng = np.random.default_rng(b * s + d)
+    return (_f(rng, (b, 1, h, d)), _f(rng, (b, s, hkv, d)),
+            _f(rng, (b, s, hkv, d)), np.asarray(case[5], np.int32))
+
+
+@pytest.mark.parametrize("case", DECODE, ids=str)
+def test_decode_plain_matches_interpret_kernel(case):
+    window, softcap = case[6:]
+    q, k, v, lens = _dec_inputs(case)
+    want = jfa.decode_attention(_bhsd(q), _bhsd(k), _bhsd(v),
+                                jnp.asarray(lens), window=window,
+                                softcap=softcap, bk=16,
+                                interpret=True).transpose(0, 2, 1, 3)
+    t = torch.from_numpy
+    got = fa.decode_attention(t(q), t(k), t(v), t(lens), window, softcap)
+    _close(got, want)
+    if 0 in lens:                         # nothing valid: the output is 0
+        assert not got[list(lens).index(0)].any()
+
+
+@pytest.mark.parametrize("case", DECODE, ids=str)
+def test_decode_oracle_matches_reference(case):
+    window, softcap = case[6:]
+    q, k, v, lens = _dec_inputs(case)
+    keep = lens > 0   # a row with no valid key: the oracles' uniform mean
+    want = jops._dec_ref(*(jnp.asarray(a) for a in (q, k, v, lens)),
+                         window, softcap, None)
+    t = torch.from_numpy
+    got = ref.decode_attention(t(q), t(k), t(v), t(lens), window, softcap)
+    _close(got[t(keep)], np.asarray(want)[keep])
+
+
+# ---------------------------------------------------------------------------
+# ssd
+# ---------------------------------------------------------------------------
+
+# (b, s, h, p, g, n, chunk): on the chunk, off it, s < 8, one group
+SSD = [(2, 64, 4, 16, 2, 32, 32), (2, 100, 4, 16, 2, 32, 32),
+       (1, 37, 4, 8, 4, 16, 64), (2, 5, 2, 8, 1, 8, 128),
+       (1, 130, 6, 8, 2, 8, 128)]
+
+
+def _ssd_inputs(case):
+    b, s, h, p, g, n = case[:6]
+    rng = np.random.default_rng(sum(case))
+    x = _f(rng, (b, s, h, p))
+    dt = np.log1p(np.exp(_f(rng, (b, s, h)) - 1.0)).astype(np.float32)
+    A = -np.exp(_f(rng, (h,), 0.5))
+    return (x, dt, A, _f(rng, (b, s, g, n), 0.5), _f(rng, (b, s, g, n), 0.5),
+            _f(rng, (h,), 0.1))
+
+
+@pytest.mark.parametrize("case", SSD, ids=str)
+def test_ssd_plain_matches_interpret_kernel(case):
+    args = _ssd_inputs(case)
+    chunk = case[6]
+    want = jssd.ssd(*(jnp.asarray(a) for a in args), chunk=chunk,
+                    interpret=True)
+    got = tssd.ssd(*(torch.from_numpy(a) for a in args), chunk=chunk)
+    assert tssd.LAUNCHES == {"ssd": 0}
+    _close(got, want)
+
+
+@pytest.mark.parametrize("case", [SSD[1], SSD[3], SSD[4]], ids=str)
+def test_ssd_oracles_match_reference(case):
+    args = _ssd_inputs(case)
+    j = [jnp.asarray(a) for a in args]
+    t = [torch.from_numpy(a) for a in args]
+    want = jref.ssd(*j)
+    _close(ref.ssd(*t), want)
+    got = ref.ssd_chunked(*t, chunk=case[6])
+    _close(got, want)
+    # the reference's chunked oracle overflows exp(la_i - la_j) above the
+    # diagonal on long chunks (NaN there, ROADMAP C.9); it agrees wherever
+    # it is finite
+    wc = np.asarray(jref.ssd_chunked(*j, chunk=case[6]))
+    fin = np.isfinite(wc)
+    np.testing.assert_allclose(_np(got)[fin], wc[fin], **TOL)
+
+
+def test_ssd_chunked_masks_the_decay_before_exp():
+    """Fast decays over a long chunk overflow exp(la_i - la_j) for i < j;
+    the port masks first and stays finite, equal to the sequential
+    scan."""
+    b, s, h, p, g, n = 1, 64, 2, 4, 1, 4
+    rng = np.random.default_rng(3)
+    x, B, C = _f(rng, (b, s, h, p)), _f(rng, (b, s, g, n)), \
+        _f(rng, (b, s, g, n))
+    dt = np.full((b, s, h), 2.0, np.float32)
+    A = np.array([-1.0, -60.0], np.float32)
+    t = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    got = ref.ssd_chunked(*t, chunk=64)
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref.ssd(*t))
+    _close(tssd.ssd_plain(*t), ref.ssd(*t))
+
+
+# ---------------------------------------------------------------------------
+# ops.* against the reference's ops.*
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["vector", "pallas"])
+def test_ops_match_reference_ops(policy):
+    """Both tiers of the port (the kernel tier chosen under rvv-128 runs
+    its plain version here) against the reference's default dispatch."""
+    q, k, v = _attn_inputs(FLASH[5], 11)
+    dq, dk, dv, lens = _dec_inputs(DECODE[0])
+    sargs = _ssd_inputs((1, 100, 2, 64, 1, 64, 128))
+    J = lambda *a: [jnp.asarray(x) for x in a]          # noqa: E731
+    T = lambda *a: [torch.from_numpy(x) for x in a]     # noqa: E731
+    want = [jops.attention(*J(q, k, v), window=11, softcap=5.0),
+            jops.decode_attention(*J(dq, dk, dv, lens), window=8),
+            jops.ssd(*J(*sargs))]
+    with use_target("rvv-128"), use_policy(policy), trace.count() as c:
+        got = [ops.attention(*T(q, k, v), window=11, softcap=5.0),
+               ops.decode_attention(*T(dq, dk, dv, lens), window=8),
+               ops.ssd(*T(*sargs))]
+    for g, w in zip(got, want):
+        _close(g, w)
+    assert {op for op, _ in c["per_op"]} == {"attention", "decode_attention",
+                                            "ssd"}
+    assert {tier for _, tier in c["per_op"]} == {policy}
+
+
+# ---------------------------------------------------------------------------
+# cost models (ROADMAP C.7)
+# ---------------------------------------------------------------------------
+
+COST_SHAPES = [(2, 512, 32, 128, 32), (1, 300, 8, 64, 4)]
+
+
+@pytest.mark.parametrize("target", ["tpu-v5e", "rvv-128"])
+@pytest.mark.parametrize("shape", COST_SHAPES, ids=str)
+def test_kernel_costs_equal_reference(shape, target):
+    b, s, h, d, hkv = shape
+    qs, ks = (b, s, h, d), (b, s, hkv, d)
+    jq, jk = jnp.zeros(qs, jnp.bfloat16), jnp.zeros(ks, jnp.bfloat16)
+    mq = torch.empty(qs, dtype=torch.bfloat16, device="meta")
+    mk = torch.empty(ks, dtype=torch.bfloat16, device="meta")
+    T = lambda a: a.transpose(0, 2, 1, 3)               # noqa: E731
+    dq, mdq = jq[:, :1], mq[:, :1]
+    lens = torch.empty((b,), dtype=torch.int32, device="meta")
+    xs, ss = (b, s, 2 * h, 64), (b, s, 2, 64)
+    f32 = dict(dtype=torch.float32, device="meta")
+    mx = torch.empty(xs, dtype=torch.bfloat16, device="meta")
+    mB = torch.empty(ss, dtype=torch.bfloat16, device="meta")
+    sargs = (mx, torch.empty(xs[:3], **f32), torch.empty((2 * h,), **f32),
+             mB, mB, torch.empty((2 * h,), **f32))
+    with juse_target(target):
+        want = [jfa.cost(T(jq), T(jk), T(jk), causal=True),
+                jfa.cost(T(dq), T(jk), T(jk), causal=False),
+                jssd.cost(jnp.zeros(xs, jnp.bfloat16), None, None,
+                          jnp.zeros(ss, jnp.bfloat16), None)]
+    with use_target(target):
+        got = [REGISTRY.lowering("attention", "pallas").cost(
+                   mq, mk, mk, True, None, None, None),
+               REGISTRY.lowering("decode_attention", "pallas").cost(
+                   mdq, mk, mk, lens, None, None, None),
+               REGISTRY.lowering("ssd", "pallas").cost(*sargs)]
+    assert got == want
+    # with dispatch's positional arguments the kernel tier is valid and
+    # costed, and wins under the RVV model
+    rows = {
+        "attention": REGISTRY.explain("attention", mq, mk, mk, True, None,
+                                      None, None, policy="pallas",
+                                      target=target),
+        "decode_attention": REGISTRY.explain(
+            "decode_attention", mdq, mk, mk, lens, None, None, None,
+            policy="pallas", target=target),
+        "ssd": REGISTRY.explain("ssd", *sargs, policy="pallas",
+                                target=target)}
+    for op, row in rows.items():
+        (kern,) = [c for c in row["candidates"] if c["tier"] == "pallas"]
+        assert kern["valid"] and kern["cost"] is not None, (op, row)
+        if target == "rvv-128":
+            assert row["chosen"] == "pallas", (op, row)
+
+
+def test_reference_never_ranks_its_attention_kernels():
+    """The fault the port repairs (ROADMAP C.7): with dispatch's
+    positional arguments the reference's attention kernel is uncosted and
+    its decode kernel invalid."""
+    q = jnp.zeros((1, 64, 4, 16), jnp.float32)
+    lens = jnp.ones((1,), jnp.int32)
+    a = JREG.explain("attention", q, q, q, True, None, None, None,
+                     policy="pallas", target="rvv-128")
+    d = JREG.explain("decode_attention", q[:, :1], q, q, lens, None, None,
+                     None, policy="pallas", target="rvv-128")
+    (ka,) = [c for c in a["candidates"] if c["tier"] == "pallas"]
+    (kd,) = [c for c in d["candidates"] if c["tier"] == "pallas"]
+    assert ka["cost"] is None and not kd["valid"]
+    assert a["chosen"] == d["chosen"] == "vector"
