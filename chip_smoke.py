@@ -20,9 +20,12 @@ two main paths:
     model under the vector tier, in bf16 and again with the model in
     float32.
 
-Each path's kernel launches are counted from 0 and checked.  Finally it
-times every kernel beside its plain version, one PyTorch library call
-and the card's bound.  Each phase prints one JSON line; the last line is
+Each path's kernel launches are counted from 0 and checked; gemm's are
+also counted by variant (split-K in decode, wgmma in prefill).  Finally
+it times every kernel beside its plain version, one PyTorch library call
+and the card's bound: gemm also in bf16 at the serving path's shapes
+(M = 4 and 2048 against zamba2's five weight shapes), and split-K
+against the kernel above it at M = 4, 8 and 16 (the small-M threshold).  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
 exits non-zero without that line.  Without CUDA, or without the repo's
 ``src/`` beside it, it exits non-zero at once.
@@ -38,6 +41,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+SPIN_CYCLES = 200_000          # ~0.1 ms of the card's clock (time_ms)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
 BF16_MMA_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
@@ -74,6 +78,15 @@ SOURCE = {op: CSRC + f for op, f in (
     ("flash_attention", "flash_attention.cu"),
     ("decode_attention", "flash_attention.cu"), ("ssd", "ssd.cu"))}
 LM_OPS = ("flash_attention", "decode_attention", "ssd")
+# zamba2-1.2b's gemm weights as (K, N): the Mamba input and output
+# projections, the shared block's q/k/v, MLP up and MLP down (= o) ones;
+# a decode step multiplies M = 4 rows by them, a prefill M = 2048
+SERVE_GEMM = ((2048, 8512), (4096, 2048), (4096, 4096), (4096, 8192),
+              (8192, 2048))
+SERVE_M = (4, 2048)
+# gemm's kernels by variant, as the profiler names them
+GEMM_KERNELS = {"small_m": ("small_m_kernel", "splitk_reduce"),
+                "mma": ("mma::mma_kernel",), "simt": ("simt_kernel",)}
 # The serving path: zamba2-1.2b at full width and depth, bf16
 SERVE = dict(arch="zamba2-1.2b", batch=4, prompt=512, gen=32)
 # LM kernels against their plain versions: the reference's kernel TOL
@@ -491,13 +504,17 @@ def compare(op, got, want):
 
 def time_ms(fn, flush, reps=25):
     """Median device time of ``fn`` in ms, from CUDA events around each
-    call, after warm-up, with L2 flushed before each call."""
+    call, after warm-up, with L2 flushed before each call.  After the
+    flush the card spins for ~0.1 ms, so the host has enqueued the start
+    event and the call before the card reaches them: the events time the
+    device's work, not the host's Python around the launch."""
     import torch
     for _ in range(3):
         fn()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -523,6 +540,7 @@ def profile_steps(run, steps):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_kernel = {}
+    gemm_ms = dict.fromkeys(GEMM_KERNELS, 0.0)
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -530,10 +548,14 @@ def profile_steps(run, steps):
         if str(ev.device_type).endswith("CUDA") and us > 0:
             name = ev.key[:80]
             by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / steps
+            for kind, parts in GEMM_KERNELS.items():
+                if any(part in ev.key for part in parts):
+                    gemm_ms[kind] += us / 1e3 / steps
     busy = sum(by_kernel.values())
     return {"wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy or None,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "gemm_ms_per_step": {**gemm_ms, "all": sum(gemm_ms.values())},
             "kernels_ms_per_step": dict(sorted(by_kernel.items(),
                                                key=lambda kv: -kv[1])[:12])}
 
@@ -548,6 +570,7 @@ def serve_zamba2(dev, modules):
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import trace, use_policy, use_target
+    from repro_torch.kernels import gemm as gemm_mod
     from repro_torch.models import model as M
     from repro_torch.serve.engine import (Engine, make_prefill_step,
                                           make_serve_step)
@@ -609,18 +632,31 @@ def serve_zamba2(dev, modules):
                                           (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"serve: tokens {tokens.shape} out of range")
 
-    # warm: prefill and decode timed apart (selections cached)
+    # warm: prefill and decode timed apart (selections cached), gemm's
+    # launches counted by variant in each
+    def gemm_counts():
+        return {k: v for k, v in gemm_mod.LAUNCHES.items() if k != "gemm"}
+
     with scope():
         eng = Engine(cfg, params, b, max_seq, target=target)
         torch.cuda.synchronize()
+        gemm_mod.reset_launches()
         t0 = time.perf_counter()
         first = eng.prefill(prompts)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        prefill_gemm = gemm_counts()
+        gemm_mod.reset_launches()
         t0 = time.perf_counter()
         rest = eng.decode(first, steps - 1)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
+        decode_gemm = gemm_counts()
+    if prefill_gemm["gemm_mma"] == 0 or decode_gemm["gemm_small_m"] == 0 \
+            or decode_gemm["gemm_mma"] != 0:
+        raise AssertionError(f"serve: gemm variants prefill {prefill_gemm}, "
+                             f"decode {decode_gemm}; expected wgmma in "
+                             "prefill and split-K alone in decode")
     warm = np.concatenate([first.cpu().numpy()[:, None], rest], axis=1)
     if not np.array_equal(warm, tokens):
         raise AssertionError("serve: a second run gave other tokens")
@@ -714,7 +750,9 @@ def serve_zamba2(dev, modules):
         "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": b, "prompt_len": plen, "generated": steps,
         "h100_chosen": h100, "target": target or "h100", "chosen": chosen,
-        "launches": launches, "init_s": init_s, "generate_s": generate_s,
+        "launches": launches, "gemm_launches": {"prefill": prefill_gemm,
+                                                "decode": decode_gemm},
+        "init_s": init_s, "generate_s": generate_s,
         "prefill_ms": prefill_s * 1e3,
         "decode_ms_per_step": decode_s / (steps - 1) * 1e3,
         "tokens_per_s": b * steps / (prefill_s + decode_s),
@@ -1035,13 +1073,60 @@ def main() -> int:
         times[(op, "serve")] = row
         emit("time", **row)
         del out, targs
+    # gemm where the serving path runs it: bf16, M = 4 and M = 2048 rows
+    # against zamba2's five weight shapes, each beside torch.matmul on the
+    # same operands; every output held to the plain version
+    bf, inf = torch.bfloat16, float("inf")
+    for k, n in SERVE_GEMM:
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(bf)
+        for m in SERVE_M:
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf)
+            out = gemm.gemm(x, w)
+            err = compare("gemm", out, gemm.gemm_plain(x, w))
+            k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
+            p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
+            l_ms = time_ms(lambda: torch.matmul(x, w), flush)
+            nbytes = 2 * (x.numel() + w.numel() + out.numel())
+            b_ms, b_by = mma_bound_ms(nbytes, 2 * m * n * k)
+            row = {"op": "gemm", "size": f"serve_m{m}_{k}x{n}",
+                   "dtype": "bfloat16", "shapes": [[m, k], [k, n]],
+                   "variant": gemm.variant(bf, m), "max_abs_err": err,
+                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
+                   "library_ratio": k_ms / l_ms}
+            times[("gemm", row["size"])] = row
+            emit("time", **row)
+            del out, x
+        del w
+    # the small-M threshold: split-K against the kernel that takes the rows
+    # above it, at M = 4, 8 and 16, in both dtypes
+    for k, n in ((2048, 8512), (8192, 2048)):
+        for dt, above in ((bf, "mma"), (torch.float32, "simt")):
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 * k ** -0.5).to(dt)
+            for m in (4, 8, 16):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                row = {"shapes": [[m, k], [k, n]], "dtype": str(dt)[6:]}
+                for kind in ("small_m", above):
+                    row[f"{kind}_ms"] = time_ms(
+                        lambda: gemm.launch(kind, x, w, None, -inf, inf),
+                        flush)
+                emit("gemm_threshold", **row)
+            del w, x
     del flush
 
     # 7. kernels: at their main path's shapes (Figure-2; serving) ---------
+    # gemm at the serving path's commonest call: M = 4, bf16, the Mamba
+    # input projection (38 of a decode step's launches)
     kernels = []
+    lm_launches["gemm"] = serve["launches"]["gemm"]
+    at = {op: (op, "serve") for op in LM_OPS}
+    at["gemm"] = ("gemm", "serve_m4_2048x8512")
+    max_err["gemm"] = times[at["gemm"]]["max_abs_err"]
     for op in ALL_OPS + LM_OPS:
-        t = times[(op, "serve" if op in LM_OPS else "figure2")]
-        n_launch = lm_launches[op] if op in LM_OPS else launches[op]
+        t = times[at.get(op, (op, "figure2"))]
+        n_launch = lm_launches[op] if op in lm_launches else launches[op]
         kernels.append({"name": op, "route": "cuda", "source": SOURCE[op],
                         "replaces": REPLACES[op], "launches": n_launch,
                         "max_abs_err": max_err[op], "ms": t["kernel_ms"],

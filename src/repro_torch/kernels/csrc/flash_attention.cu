@@ -9,21 +9,40 @@
 //
 // Bound on this card.  Prefill attention does 4·B·H·Sq·Sk·D operations
 // (halved under causal order) against (2·B·Sq·H + 2·B·Sk·Hkv)·D elements
-// moved: at zamba2's prefill (B 4, H 32, S 512, D 128, bf16) 2.2 GFLOP
-// against 34 MB, so the operations bound it, 2.2 us at the bf16 tensor-core
+// moved: at zamba2's prefill (B 4, H 32, S 512, D 128, bf16, causal)
+// 4.3 GFLOP of visible pairs against 67 MB, so the bytes bound it: 20 us
+// at 3.35 TB/s, against 4.4 us of operations at the bf16 tensor-core
 // rate.  Decode reads the valid prefix of the cache once per step and does
 // 4 operations per cached element: the bytes bound it (at B 4, S 544,
 // Hkv 32, D 128, bf16: 36 MB, 11 us).
 //
-// Design for those bounds, simple first (no tensor cores yet, fp32 FMA):
-//  * flash: one block per (b, h, 32 query rows), eight warps of four rows;
-//    kv tiles of 32 keys staged in shared memory as fp32 (K rows padded by
-//    one float, so the 32 lanes that read 32 different keys hit 32 banks).
-//    Lane j scores key j against the warp's four rows at once (one K load
-//    feeds four FMAs), the warp reduces max and sum by shuffles, and p·V
-//    runs over lanes along D, each lane holding D/32 accumulators per row
-//    in registers.  Only the kv tiles the causal order and the window
-//    leave visible are visited; the rest are never loaded.
+// Design for those bounds:
+//  * flash, bfloat16: tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//    sums), FlashAttention-2's shape.  One block per (b, h, 64 query
+//    rows), four warps of 16 rows.  Q (64 x D) and a double-buffered ring
+//    of 32-key K and V tiles stay bf16 in shared memory, filled by
+//    cp.async (16-byte chunks, rows past the end zero-filled) while the
+//    previous tile is multiplied; rows are padded by 16 bytes so ldmatrix
+//    reads hit distinct banks.  D is padded with zeros to its bucket (64,
+//    128 or 256; the kernel is templated on it to hold registers), so
+//    every D <= 256 goes through the tensor cores; k-steps that lie
+//    wholly in the padding are skipped.  S = Q Kᵀ comes out in mma
+//    accumulator fragments, where the scale, the softcap, the causal and
+//    window masks (-1e30, on the tiles that cross a mask's edge only) and
+//    the online max and sum (quad shuffles) are applied in log2 units
+//    (exp2f); P is rounded to bf16 in registers as the A operand of P·V;
+//    O stays an fp32 accumulator in registers.  mma.sync rather than
+//    wgmma: its 16-row fragments keep the D buckets, the masked strided
+//    loads and the per-row softmax simple; wgmma is later work.
+//  * flash, float32: fp32 FMA (SIMT), kept so that fp32 stays fp32 (the
+//    tensor cores would round it to TF32).  One block per (b, h, 32 query
+//    rows), eight warps of four rows; kv tiles of 32 keys staged in
+//    shared memory as fp32 (K rows padded by one float, so the 32 lanes
+//    that read 32 different keys hit 32 banks).  Lane j scores key j
+//    against the warp's four rows at once, the warp reduces max and sum
+//    by shuffles, and p·V runs over lanes along D.
+//  * Both flash kernels visit only the kv tiles the causal order and the
+//    window leave visible; the rest are never loaded.
 //  * decode: one block per (b, h); eight warps take interleaved batches of
 //    eight keys from the valid range [max(0, len - window), len), lanes
 //    along D (eight independent loads in flight per lane), each warp with
@@ -31,8 +50,10 @@
 //    The row's length comes from device memory (no scalar prefetch), and
 //    no key outside the valid range is read.
 // Masked logits are -1e30 and their probabilities exactly 0, a zero row
-// sum divides by 1, exp and division are IEEE (no fast math), as in the
-// TPU kernels.  Tensor cores (wgmma) and split-K decode are later work.
+// sum divides by 1, as in the TPU kernels; the SIMT kernels' exp and every
+// division are IEEE (no fast math).  Split-K decode is later work.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -302,6 +323,392 @@ decode_kernel(const typename Elem<T>::Raw* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash, bfloat16, on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using u16 = unsigned short;
+using bf16 = Elem<__nv_bfloat16>;
+
+constexpr int kWarps = 4;
+constexpr int kBQ = 16 * kWarps;       // query rows per block, 16 a warp
+constexpr int kThreads = 32 * kWarps;
+// K/V tiles in the ring: a deeper ring costs blocks per SM (shared
+// memory), which at zamba2's prefill cost more than the deeper prefetch
+// gained
+constexpr int kStages = 2;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 32-key tiles: 52 KB of shared memory at D 128 lets four blocks share an
+// SM (64-key tiles: two, which ran slower at zamba2's prefill)
+template <int DP>
+struct Shape {
+  static constexpr int BKV = 32;                  // keys per tile
+  static constexpr int LD = DP + 8;               // shared row, elements
+  static constexpr int kSmem = (kBQ + 2 * kStages * BKV) * LD * 2;  // Q, K, V
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(const u16* p, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(const u16* p, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(u16 lo, u16 hi) {
+  return uint32_t(lo) | (uint32_t(hi) << 16);
+}
+
+__device__ __forceinline__ void cp16(u16* dst, const u16* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Stage rows [r0, r0 + R) of one head (row stride `ss` elements, D
+// contiguous) into shared rows of LD elements; rows at or past `rows` are
+// zeros.  VEC (D % 8 == 0, 16-byte-aligned rows): 16-byte chunks of
+// columns [0, D) by cp.async, each thread the same chunks of every tile
+// (the index arithmetic is shifts, the loop unrolled); columns [D, DP)
+// were zeroed once.  Otherwise element by element, zeros from D to DP.
+template <int DP, int R, bool VEC>
+__device__ __forceinline__ void load_rows(u16* dst, const u16* src,
+                                          int64_t ss, int64_t r0,
+                                          int64_t rows, int d) {
+  constexpr int LD = Shape<DP>::LD;
+  if (VEC) {
+    constexpr int kC = DP / 8;         // chunks of a padded row
+    static_assert(R * kC % kThreads == 0, "whole passes");
+    const u16* base = src + r0 * ss;
+    const int chunks = d >> 3;
+#pragma unroll
+    for (int j = 0; j < R * kC / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kC, c = i % kC;
+      if (c >= chunks) continue;       // the padding, zeroed once
+      const bool in = r0 + r < rows;
+      cp16(dst + r * LD + c * 8, in ? base + r * ss + c * 8 : src, in);
+    }
+  } else {
+    for (int i = threadIdx.x; i < R * DP; i += kThreads) {
+      const int r = i / DP, c = i - r * DP;
+      dst[r * LD + c] =
+          (r0 + r < rows && c < d) ? src[(r0 + r) * ss + c] : u16(0);
+    }
+  }
+}
+
+// One tile's scores to probabilities, for this thread's elements: e of
+// tile j is row g + 8(e/2), key k0 + 8j + 2t + e%2.  The logits (scale,
+// softcap) go to log2 units; where MASK, keys outside the causal order,
+// the window or the sequence get -1e30 and probability 0 (interior tiles
+// need no mask).  The rows' running max m (quad-reduced) gives alpha, the
+// factor for the earlier sums, and p = 2^(s - m), rounded to bf16 into
+// the A fragments of P·V and summed into lsum as rounded, so the
+// normalisation divides by the weights that were multiplied.
+template <int BKV, bool MASK>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[BKV / 8][4], const Attn& a, int k0, const int (&qpos)[2],
+    int t, float (&m_run)[2], float (&alpha)[2], float (&lsum)[2],
+    uint32_t (&pa)[BKV / 16][4]) {
+  uint32_t ok_bits = 0xffffffffu;
+  float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float x = logit(s[j][e], a) * kLog2e;
+      if (MASK) {
+        const int kj = k0 + j * 8 + 2 * t + (e & 1);
+        bool ok = kj < a.sk;
+        if (a.causal) ok = ok && qpos[h] >= kj;
+        if (a.window >= 0) ok = ok && qpos[h] - kj < a.window;
+        if (!ok) {
+          x = kNeg;
+          ok_bits &= ~(1u << (j * 4 + e));
+        }
+      }
+      s[j][e] = x;
+      mx[h] = fmaxf(mx[h], x);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+    alpha[h] = exp2f(m_run[h] - mx[h]);
+    m_run[h] = mx[h];
+    lsum[h] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int h = e >> 1;
+      u16 pb[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const float p = (ok_bits >> (j * 4 + e + x)) & 1u
+                            ? exp2f(s[j][e + x] - mx[h])
+                            : 0.0f;
+        pb[x] = bf16::put(p);
+        lsum[h] += bf16::get(pb[x]);
+      }
+      // A fragment of k-step j/2: (row g, keys 2t..) in regs 0 and 2,
+      // (row g + 8) in 1 and 3; odd tiles hold keys 8.. of the step
+      pa[j >> 1][(j & 1) * 2 + h] = pack(pb[0], pb[1]);
+    }
+  }
+}
+
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+flash_mma_kernel(const u16* __restrict__ q, const u16* __restrict__ k,
+                 const u16* __restrict__ v, u16* __restrict__ o, Attn a) {
+  constexpr int BKV = Shape<DP>::BKV, LD = Shape<DP>::LD;
+  extern __shared__ __align__(16) u16 sm[];
+  u16* qs = sm;                        // kBQ x LD
+  u16* ks = qs + kBQ * LD;             // kStages x BKV x LD
+  u16* vs = ks + kStages * BKV * LD;   // kStages x BKV x LD
+  const int d = static_cast<int>(a.d);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int64_t hh = blockIdx.y, bb = blockIdx.z;
+  const int64_t kh = hh / (a.h / a.hkv);
+  // positions fit in int (the launch checks sq and sk < 2^30)
+  const int q0 = blockIdx.x * kBQ;
+  const int sq = static_cast<int>(a.sq), sk = static_cast<int>(a.sk);
+  const int q_off = sk - sq;           // query i sits at position q_off + i
+  const u16* qb = q + bb * a.q.b + hh * a.q.h;
+  const u16* kb = k + bb * a.k.b + kh * a.k.h;
+  const u16* vb = v + bb * a.v.b + kh * a.v.h;
+
+  // keys this block can see: [kbeg, kend), walked from a tile boundary
+  const int last = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
+  int kend = sk;
+  if (a.causal && q_off + last + 1 < kend) kend = q_off + last + 1;
+  int kbeg = 0;
+  if (a.window >= 0 && q_off + q0 - a.window + 1 > 0)
+    kbeg = static_cast<int>(q_off + q0 - a.window + 1);
+  const int kstart = (kbeg / BKV) * BKV;
+
+  if (VEC && d < DP) {                 // the zero padding of every row
+    const int c0 = d >> 3, cn = DP / 8 - c0;
+    for (int i = tid; i < (kBQ + 2 * kStages * BKV) * cn; i += kThreads) {
+      const int r = i / cn, c = c0 + i % cn;
+      *reinterpret_cast<uint4*>(sm + r * LD + c * 8) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  // Q with the first tile, then the ring's other slots but one, a group
+  // each
+  load_rows<DP, kBQ, VEC>(qs, qb, a.q.s, q0, a.sq, d);
+  auto request = [&](int t0) {         // the tile at key t0, into its slot
+    const int slot = (t0 - kstart) / BKV % kStages;
+    if (t0 < kend) {
+      load_rows<DP, BKV, VEC>(ks + slot * BKV * LD, kb, a.k.s, t0, a.sk, d);
+      load_rows<DP, BKV, VEC>(vs + slot * BKV * LD, vb, a.v.s, t0, a.sk, d);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) request(kstart + i * BKV);
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m_run[2] = {kNeg, kNeg}, l_run[2] = {0.0f, 0.0f};
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = q_off + q0 + warp * 16 + g + 8 * h;
+
+  for (int k0 = kstart; k0 < kend; k0 += BKV) {
+    // the tile kStages - 1 ahead, into the slot of the tile before this
+    // one (free: the block passed the barrier at that tile's end)
+    request(k0 + (kStages - 1) * BKV);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+    __syncthreads();
+    const int slot = (k0 - kstart) / BKV % kStages;
+    const u16* kt = ks + slot * BKV * LD;
+    const u16* vt = vs + slot * BKV * LD;
+
+    // S = Q Kᵀ: 16 rows x BKV keys per warp
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      if (kk * 16 >= d) break;         // the rest is zero padding
+      uint32_t qa[4];
+      ldsm_x4(qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8,
+              qa);
+#pragma unroll
+      for (int np = 0; np < BKV / 16; ++np) {
+        uint32_t kf[4];
+        ldsm_x4(kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                    ((lane >> 3) & 1) * 8,
+                kf);
+        mma(s[2 * np], qa, kf[0], kf[1]);
+        mma(s[2 * np + 1], qa, kf[2], kf[3]);
+      }
+    }
+
+    // a tile that every row of the block sees whole needs no mask
+    const bool edge = k0 + BKV > sk ||
+                      (a.causal && k0 + BKV - 1 > q_off + q0) ||
+                      (a.window >= 0 &&
+                       q_off + q0 + kBQ - 1 - k0 >= a.window);
+    float alpha[2], lsum[2];
+    uint32_t pa[BKV / 16][4];
+    if (edge)
+      softmax_tile<BKV, true>(s, a, k0, qpos, t, m_run, alpha, lsum, pa);
+    else
+      softmax_tile<BKV, false>(s, a, k0, qpos, t, m_run, alpha, lsum, pa);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_run[h] = alpha[h] * l_run[h] + lsum[h];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[j][0] *= alpha[0];
+      acc[j][1] *= alpha[0];
+      acc[j][2] *= alpha[1];
+      acc[j][3] *= alpha[1];
+    }
+
+    // O += P V
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        if (dp * 16 >= d) break;
+        uint32_t vf[4];
+        ldsm_x4_t(vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                      dp * 16 + (lane >> 4) * 8,
+                  vf);
+        mma(acc[2 * dp], pa[kk], vf[0], vf[1]);
+        mma(acc[2 * dp + 1], pa[kk], vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                   // this slot is free again
+  }
+
+  // the row sums over their quads; a zero sum divides by 1
+  float div[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    div[h] = l == 0.0f ? 1.0f : l;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = q0 + warp * 16 + g + 8 * h;
+    if (qi >= sq) continue;
+    u16* orow = o + ((bb * a.sq + qi) * a.h + hh) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = j * 8 + 2 * t;
+      if (c >= d) break;
+      const u16 y0 = bf16::put(acc[j][2 * h] / div[h]);
+      const u16 y1 = bf16::put(acc[j][2 * h + 1] / div[h]);
+      if ((d & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(orow + c) = pack(y0, y1);
+      } else {
+        orow[c] = y0;
+        if (c + 1 < d) orow[c + 1] = y1;
+      }
+    }
+  }
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_dp(const u16* q, const u16* k, const u16* v, u16* o,
+                      const Attn& a, dim3 grid, cudaStream_t stream) {
+  static bool attr = false;            // set once per instantiation
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_mma_kernel<DP, VEC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Shape<DP>::kSmem);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  flash_mma_kernel<DP, VEC><<<grid, kThreads, Shape<DP>::kSmem, stream>>>(
+      q, k, v, o, a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_vec(const u16* q, const u16* k, const u16* v, u16* o,
+                       const Attn& a, dim3 grid, bool vec,
+                       cudaStream_t stream) {
+  return vec ? launch_dp<DP, true>(q, k, v, o, a, grid, stream)
+             : launch_dp<DP, false>(q, k, v, o, a, grid, stream);
+}
+
+// Every row of q, k and v starts on 16 bytes and D is whole chunks
+bool rows_aligned(const void* q, const void* k, const void* v,
+                  const Attn& a) {
+  const int64_t st[9] = {a.q.b, a.q.s, a.q.h, a.k.b, a.k.s,
+                         a.k.h, a.v.b, a.v.s, a.v.h};
+  bool ok = a.d % 8 == 0;
+  for (int64_t s : st) ok = ok && s % 8 == 0;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  return ok && (bits & 15u) == 0;
+}
+
+int launch(const void* q_, const void* k_, const void* v_, void* o_,
+           const Attn& a, cudaStream_t stream) {
+  const int64_t tiles = (a.sq + kBQ - 1) / kBQ;
+  if (a.sq >= (1 << 30) || a.sk >= (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(a.h),
+                  static_cast<unsigned>(a.b));
+  const bool vec = rows_aligned(q_, k_, v_, a);
+  const u16* q = static_cast<const u16*>(q_);
+  const u16* k = static_cast<const u16*>(k_);
+  const u16* v = static_cast<const u16*>(v_);
+  u16* o = static_cast<u16*>(o_);
+  const cudaError_t err =
+      a.d <= 64    ? launch_vec<64>(q, k, v, o, a, grid, vec, stream)
+      : a.d <= 128 ? launch_vec<128>(q, k, v, o, a, grid, vec, stream)
+                   : launch_vec<256>(q, k, v, o, a, grid, vec, stream);
+  return static_cast<int>(err);
+}
+
+}  // namespace tc
+
 Attn make_args(int64_t b, int64_t h, int64_t hkv, int64_t sq, int64_t sk,
                int64_t d, const int64_t* st, int causal, int64_t window,
                int has_softcap, float softcap, float scale) {
@@ -328,18 +735,23 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   const int64_t tiles = (a.sq + kBQ - 1) / kBQ;
   if (bad_shape(a) || a.sk < 0 || tiles > repro_cuda::kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = flash_smem_bytes(a.d);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(a.h),
-            static_cast<unsigned>(a.b));
-  flash_kernel<T><<<grid, kWarps * 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Raw*>(q), static_cast<const Raw*>(k),
-      static_cast<const Raw*>(v), static_cast<Raw*>(o), a);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!std::is_same<T, float>::value) {
+    // bf16: the tensor-core kernel
+    return tc::launch(q, k, v, o, a, static_cast<cudaStream_t>(stream));
+  } else {
+    const size_t smem = flash_smem_bytes(a.d);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(a.h),
+              static_cast<unsigned>(a.b));
+    flash_kernel<T><<<grid, kWarps * 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const Raw*>(q), static_cast<const Raw*>(k),
+        static_cast<const Raw*>(v), static_cast<Raw*>(o), a);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T>

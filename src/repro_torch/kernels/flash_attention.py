@@ -6,11 +6,15 @@ axis, pad D to 128 lanes and the sequences to their blocks, and take a
 decode row's valid length by scalar prefetch.  The Hopper kernels
 (``csrc/flash_attention.cu``):
 
-  * ``flash_attention`` — one block per (b, h, 32-row query tile), one
-    warp per four query rows; kv tiles of 32 keys, one key per lane,
-    staged in shared memory; m, l and the accumulator in registers.  kv
-    tiles that causal order or the window mask wholly are never
-    visited.
+  * ``flash_attention`` — bfloat16 on the tensor cores (mma.sync
+    m16n8k16, FlashAttention-2's shape): one block per (b, h, 64 query
+    rows), one warp per 16 rows; Q and a double-buffered cp.async ring of
+    64-key K and V tiles in shared memory as bf16, D zero-padded to 64,
+    128 or 256; S, the online softmax and the fp32 O accumulator in
+    registers, P rounded to bf16 as the A operand of P·V.  float32 keeps
+    the fp32 SIMT kernel (one block per 32 rows, 32-key tiles), since the
+    tensor cores would round it to TF32.  kv tiles that causal order or
+    the window mask wholly are never visited.
   * ``decode_attention`` — one block per (b, h); its eight warps split
     the valid prefix of the cache, each with its own online softmax over
     batches of eight keys, merged at the end.  ``lengths`` is read from

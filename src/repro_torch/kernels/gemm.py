@@ -2,20 +2,36 @@
 
 XNNPACK's NEON gemm ladders 4x8 register tiles of C with a fused bias +
 minmax clamp.  The reference's TPU kernel retiles for the MXU with an
-fp32 VMEM accumulator across the K grid axis; the Hopper kernel
-(``csrc/gemm.cu``) computes 64x64 tiles of C per block, each thread a
-4x4 tile of fp32 sums in registers, K walked in 16-deep slices staged in
-shared memory, bias and clamp fused into the store.  Ragged M, N and K
-are masked by bounds; nothing is padded.
+fp32 VMEM accumulator across the K grid axis.  On the H100
+(``csrc/gemm.cu``) the wrapper picks one of three kernels from the dtype
+and M alone (:func:`variant`), deterministically:
 
-Layouts are the reference's: a (M, K), b (K, N), bias (N,), all of one
-dtype (float32 or bfloat16); the output has a's dtype.
+  * ``small_m`` -- M <= ``SMALL_M_MAX[dtype]`` (8 in bf16, 16 in fp32;
+    a decode step: M is the batch).  Split-K weight streaming: B is read
+    once as 16-byte vectors, the M rows of A sit in shared memory, K is
+    cut into :func:`split_k` slices so ~132 blocks are in flight, and
+    a second pass adds the slices' fp32 partial sums (a workspace made
+    here with ``torch.empty``) in slice order, then bias, clamp and one
+    rounding.  No atomics: two runs agree bitwise.
+  * ``mma`` -- M > 8, bfloat16 (prefill).  wgmma (m64n128k16, bf16 in,
+    fp32 sums) on 128 x 128 tiles, K through a 3-stage ring of
+    128-byte-swizzled tiles filled by TMA (element by element where K or
+    N is not a multiple of 8); B read N-major in place with the
+    instruction's transpose bit; bias, clamp and rounding in the store.
+  * ``simt`` -- M > 16, float32.  The fp32 SIMT tile product
+    (``tile_mm.cuh``): the tensor cores would round fp32 to TF32.
 
-  * ``gemm_plain`` — the plain version, in torch ops;
-  * ``gemm`` — the wrapper: a CUDA tensor launches the kernel and counts
-    the launch in ``LAUNCHES``; a CPU tensor runs the plain version; any
-    other device raises, and so does a dtype the kernel does not take;
-  * ``cost`` / ``supports`` — what the registry ranks and validates it
+Ragged M, N and K are masked (zero-filled past the end); no operand is
+padded or copied.  Layouts are the reference's: a (M, K), b (K, N), bias
+(N,), all of one dtype (float32 or bfloat16); the output has a's dtype.
+
+  * ``gemm_plain`` -- the plain version, in torch ops;
+  * ``gemm`` -- the wrapper: a CUDA tensor launches the chosen kernel and
+    counts the launch in ``LAUNCHES["gemm"]`` and in
+    ``LAUNCHES["gemm_<variant>"]``; a CPU tensor runs the plain version;
+    any other device raises, and so does a dtype the kernel does not
+    take;
+  * ``cost`` / ``supports`` -- what the registry ranks and validates it
     by (the reference's cost model, verbatim).
 """
 from __future__ import annotations
@@ -29,26 +45,66 @@ import torch
 from ..core import trace
 from . import _build, ref
 
-LAUNCHES = {"gemm": 0}
+LAUNCHES = {"gemm": 0, "gemm_small_m": 0, "gemm_mma": 0, "gemm_simt": 0}
+VARIANTS = ("small_m", "mma", "simt")
+TAKES = {"small_m": (torch.float32, torch.bfloat16),
+         "mma": (torch.bfloat16,), "simt": (torch.float32,)}
+
+# M at or below which the split-K kernel runs, by dtype (chip_smoke.py's
+# gemm_threshold rows: above 8 bf16 rows wgmma is as fast; fp32 has only
+# the SIMT tiles above it); the kernel keeps M x 8 (bf16) or M x 4 (fp32)
+# sums per thread in registers, so it takes at most 16 rows
+SMALL_M_MAX = {torch.bfloat16: 8, torch.float32: 16}
+# split-K: blocks to put in flight (one per SM of the H100's 132: each
+# block streams its slice with the next rows' loads in flight), and the
+# fewest K rows a slice takes (8 per warp of the block's eight)
+SMALL_M_BLOCKS = 132
+MIN_SLICE = 64
 
 # The plain version is the oracle's own steps: one fp32 product, the bias
 # add and the two-sided clamp, rounded once to a's dtype.
 gemm_plain = ref.gemm
 
 
+def variant(dtype: torch.dtype, m: int) -> str:
+    """The kernel a CUDA call with ``m`` rows of ``dtype`` launches."""
+    if m <= SMALL_M_MAX[dtype]:
+        return "small_m"
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def split_k(n: int, k: int, dtype: torch.dtype) -> tuple:
+    """(splits, ks) of the small-M kernel: slice s covers K rows
+    [s*ks, min(k, (s+1)*ks)); every slice is non-empty and together they
+    cover [0, k) once.  Enough slices that the ceil(n / (32 * vector))
+    column blocks times ``splits`` reach ``SMALL_M_BLOCKS``, each slice a
+    multiple of 8 rows and at least ``MIN_SLICE`` of them, or all of k."""
+    if k <= 0:
+        return 1, 0
+    cols = -(-n // (32 * 16 // dtype.itemsize))
+    want = -(-SMALL_M_BLOCKS // cols)
+    ks = min(k, max(-(-k // want) // 8 * 8, MIN_SLICE))
+    return -(-k // ks), ks
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gemm")
     p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    plain_args = [p, p, p, p, i64, i64, i64, f32, f32, p]
+    for name in ("repro_gemm_simt_f32", "repro_gemm_mma_bf16"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = plain_args
     for dt in _build.DTYPES.values():
-        fn = getattr(lib, f"repro_gemm_{dt}")
+        fn = getattr(lib, f"repro_gemm_small_m_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, i64, i64, i64, f32, f32, p]
+        fn.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, f32, f32, p]
     return lib
 
 
 def gemm(a, b, bias=None, clamp_min=float("-inf"), clamp_max=float("inf")):
-    """clamp(A @ B + bias).  a:(M,K) b:(K,N) bias:(N,) or None."""
+    """clamp(A @ B + bias).  a:(M,K) b:(K,N) bias:(N,) or None.  The
+    kernel is ``variant(a.dtype, M)``."""
     if _build.route("gemm", a, b, bias) == "cpu":
         return gemm_plain(a, b, bias, clamp_min, clamp_max)
     if not _takes(a, b, bias):
@@ -60,17 +116,37 @@ def gemm(a, b, bias=None, clamp_min=float("-inf"), clamp_max=float("inf")):
         raise ValueError(f"gemm: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} + "
                          f"{None if bias is None else tuple(bias.shape)}")
-    a, b = a.contiguous(), b.contiguous()
-    bias = None if bias is None else bias.contiguous()
+    return launch(variant(a.dtype, a.shape[0]), a.contiguous(),
+                  b.contiguous(), None if bias is None else bias.contiguous(),
+                  clamp_min, clamp_max)
+
+
+def launch(kind, a, b, bias, clamp_min, clamp_max):
+    """Launch variant ``kind`` on contiguous CUDA operands that ``gemm``
+    has checked, and count it.  ``gemm`` passes ``variant(dtype, M)``;
+    ``chip_smoke.py`` also passes the others to time them off their M.
+    A variant that does not take the operands raises."""
     (m, k), n = a.shape, b.shape[1]
+    if a.dtype not in TAKES[kind]:
+        raise TypeError(f"gemm: the {kind} kernel does not take {a.dtype}")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    fn = getattr(_lib(), f"repro_gemm_{_build.DTYPES[a.dtype]}")
-    _build.launch(fn, a.device, a.data_ptr(), b.data_ptr(),
-                  _build.ptr(bias), out.data_ptr(), m, n, k, clamp_min,
-                  clamp_max, what="gemm kernel")
+    ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(bias), out.data_ptr())
+    if kind == "small_m":
+        splits, ks = split_k(n, k, a.dtype)
+        ws = torch.empty((splits, m, n), dtype=torch.float32,
+                         device=a.device)
+        fn = getattr(_lib(), f"repro_gemm_small_m_{_build.DTYPES[a.dtype]}")
+        _build.launch(fn, a.device, *ptrs, ws.data_ptr(), m, n, k, splits,
+                      ks, clamp_min, clamp_max, what="gemm small_m kernel")
+    else:
+        fn = getattr(_lib(), "repro_gemm_mma_bf16" if kind == "mma"
+                     else "repro_gemm_simt_f32")
+        _build.launch(fn, a.device, *ptrs, m, n, k, clamp_min, clamp_max,
+                      what=f"gemm {kind} kernel")
     LAUNCHES["gemm"] += 1
+    LAUNCHES[f"gemm_{kind}"] += 1
     return out
 
 
@@ -79,7 +155,8 @@ PLAIN = {"gemm": gemm_plain}
 
 
 def reset_launches() -> None:
-    LAUNCHES["gemm"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _takes(a, b, bias) -> bool:

@@ -12,6 +12,9 @@ must agree; subnormal inputs are included.  gemm and conv_hwc: fp32
 rtol = atol = 2e-4 (the reference's kernel TOL: the sums run in another
 order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
 indices: bitwise, since they round where their plain versions round.
+Each gemm variant (split-K small M, wgmma bf16, SIMT fp32) is held to
+the same tolerance at M, N and K around the small-M threshold and the
+serving shapes, and the split-K kernel to itself bitwise across runs.
 flash_attention, decode_attention and ssd: rtol = atol = 2e-4 in fp32
 and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's serving
 shapes and at GQA/window/softcap, Sq < Sk, ragged-length, off-chunk,
@@ -187,6 +190,67 @@ def test_new_kernels_nan_and_inf_edges(cuda):
             _same(op, pooling.KERNELS[op](tx), pooling.PLAIN[op](tx), dtype)
 
 
+# M straddles the small-M thresholds (8 in bf16, 16 in fp32) and the wgmma
+# tile (64); N 8512 is zamba2's input projection (ragged to 64 and 128),
+# 100 ragged to 8; K 100 is ragged to 16 and to 8
+GEMM_M = (1, 4, 5, 8, 9, 16, 17, 64, 65, 2048)
+GEMM_N = (64, 8512, 100)
+GEMM_K = (2048, 8192, 100)
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "nobias"])
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_gemm_variant_matches_plain_on_card(cuda, dtype, m, n, k, bias):
+    """Each variant against gemm_plain, and the variant that ran is the
+    one ``gemm.variant`` names.  Weights scaled by K**-0.5 as the model's;
+    with a bias the clamp is finite."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m * 7 + n * 3 + k + bias)
+    a = torch.from_numpy(_f(rng, (m, k))).to(cuda, dtype)
+    b = torch.from_numpy(_f(rng, (k, n), k ** -0.5)).to(cuda, dtype)
+    c = torch.from_numpy(_f(rng, (n,))).to(cuda, dtype) if bias else None
+    lo, hi = (-1.5, 1.5) if bias else (float("-inf"), float("inf"))
+    kind = gemm.variant(dtype, m)
+    before = dict(gemm.LAUNCHES)
+    got = gemm.gemm(a, b, c, lo, hi)
+    assert gemm.LAUNCHES["gemm"] == before["gemm"] + 1
+    for v in gemm.VARIANTS:
+        assert gemm.LAUNCHES[f"gemm_{v}"] == \
+            before[f"gemm_{v}"] + (v == kind)
+    _same("gemm", got, gemm.gemm_plain(a, b, c, lo, hi), dtype)
+
+
+@pytest.mark.parametrize("m", (4, 40))
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_gemm_variant_propagates_nan(cuda, dtype, m):
+    """NaN and +-inf in A through each variant and the clamp: a NaN row
+    stays NaN, the infinities are bounded, as in the plain version."""
+    rng = np.random.default_rng(m)
+    a = _f(rng, (m, 24))
+    a[1, 2], a[3, 0] = np.nan, np.inf
+    b, bias = np.abs(_f(rng, (24, 72))) + 0.1, _f(rng, (72,))
+    args = [torch.from_numpy(t).to(cuda, dtype) for t in (a, b, bias)]
+    got = gemm.gemm(*args, -1.0, 1.0)
+    _same("gemm", got, gemm.gemm_plain(*args, -1.0, 1.0), dtype)
+    assert bool(got[1].isnan().all()) and bool((got[3] == 1.0).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_gemm_split_k_is_deterministic(cuda, dtype):
+    """Two runs of the split-K kernel at a decode shape agree bitwise: the
+    slices are added in one fixed order, with no atomics."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(_f(rng, (4, 8192))).to(cuda, dtype)
+    b = torch.from_numpy(_f(rng, (8192, 2048), 8192 ** -0.5)).to(cuda, dtype)
+    assert gemm.split_k(2048, 8192, dtype)[0] > 1
+    first = gemm.gemm(a, b)
+    for _ in range(3):
+        assert torch.equal(gemm.gemm(a, b), first)
+
+
 def test_main_path_launches_each_kernel_once(cuda):
     """The ten Figure-2 ops through ops.* under rvv-128: the kernel tier
     for each, one launch each, the committed customized counts."""
@@ -206,7 +270,9 @@ def test_main_path_launches_each_kernel_once(cuda):
         for op, args in new_args.items():
             getattr(ops, op)(*args)
     launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
-    assert launches == {op: 1 for op in OPS + tuple(NEW)}
+    # the Figure-2 gemm (256 fp32 rows) runs the SIMT variant
+    assert launches == {**{op: 1 for op in OPS + tuple(NEW)},
+                        "gemm_simt": 1, "gemm_small_m": 0, "gemm_mma": 0}
     assert c["per_op"][("vtanh", "pallas")] == 5767168
     assert c["per_op"][("gemm", "pallas")] == 8421376
     assert c["per_op"][("argmaxpool", "pallas")] == 602112
@@ -262,7 +328,10 @@ def _lm_close(got, want, dtype):
 FLASH_CASES = [(4, 512, 512, 32, 32, 128, True, None, None),   # zamba2
                (2, 300, 300, 8, 4, 256, True, 64, 50.0),       # gemma2-like
                (2, 50, 200, 4, 2, 16, True, None, None),       # Sq < Sk
-               (1, 37, 45, 6, 3, 24, False, None, 5.0)]
+               (1, 37, 45, 6, 3, 24, False, None, 5.0),
+               (2, 64, 64, 4, 2, 64, True, None, None),        # D 64
+               (2, 200, 230, 4, 4, 64, True, 100, None),       # Sq > 64, ragged
+               (1, 150, 150, 2, 1, 40, False, None, None)]     # D off 16
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

@@ -104,6 +104,59 @@ def test_gemm_clamp_propagates_nan_like_the_kernel():
     _close(got, want, "float32")
 
 
+VARIANT_CASES = \
+    [(torch.float32, m, "small_m") for m in (1, 4, 5, 8, 9, 16)] + \
+    [(torch.bfloat16, m, "small_m") for m in (1, 4, 5, 8)] + \
+    [(torch.float32, m, "simt") for m in (17, 64, 65, 2048)] + \
+    [(torch.bfloat16, m, "mma") for m in (9, 16, 17, 64, 65, 2048)]
+
+
+@pytest.mark.parametrize("dtype,m,want", VARIANT_CASES,
+                         ids=lambda x: str(x).replace("torch.", ""))
+def test_gemm_variant_is_a_function_of_dtype_and_m(dtype, m, want):
+    """The kernel a CUDA call launches: split-K up to 8 rows in bf16 and
+    16 in fp32, wgmma above it in bf16, the SIMT tiles above it in fp32."""
+    assert gemm.variant(dtype, m) == want
+    assert want in gemm.VARIANTS
+    assert gemm.SMALL_M_MAX == {torch.bfloat16: 8, torch.float32: 16}
+
+
+@pytest.mark.parametrize("kind,dtype", [("mma", torch.float32),
+                                        ("simt", torch.bfloat16)],
+                         ids=["mma-float32", "simt-bfloat16"])
+def test_gemm_variant_refuses_a_dtype_it_does_not_take(kind, dtype):
+    """wgmma takes bf16 only, the SIMT tiles fp32 only: asked for the
+    other, the launch raises before anything is built."""
+    a, b = torch.zeros((32, 8), dtype=dtype), torch.zeros((8, 8), dtype=dtype)
+    with pytest.raises(TypeError, match=f"the {kind} kernel does not take"):
+        gemm.launch(kind, a, b, None, -1.0, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("n,k", [(8512, 2048), (2048, 4096), (4096, 4096),
+                                 (8192, 4096), (2048, 8192), (64, 100),
+                                 (100, 2048), (1, 70), (64, 1), (7, 0),
+                                 (8512, 100003)])
+def test_gemm_split_k_slices_cover_k_once(n, k, dtype):
+    """The small-M kernel's K slices [s*ks, min(k, (s+1)*ks)) are
+    non-empty, disjoint and cover [0, k); a slice is a multiple of 8 rows
+    unless it is all of k; there are enough slices to put
+    ``SMALL_M_BLOCKS`` blocks in flight where k allows 64-row slices."""
+    splits, ks = gemm.split_k(n, k, dtype)
+    covered = np.zeros(k, np.int64)
+    for s in range(splits):
+        lo, hi = s * ks, min(k, (s + 1) * ks)
+        assert hi > lo or k == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all() and splits * ks >= k
+    assert splits == 1 or ks % 8 == 0
+    assert 1 <= splits <= 65535
+    cols = -(-n // (32 * 16 // dtype.itemsize))
+    if k >= gemm.MIN_SLICE * -(-gemm.SMALL_M_BLOCKS // cols):
+        assert cols * splits >= gemm.SMALL_M_BLOCKS
+
+
 # ---------------------------------------------------------------------------
 # conv_hwc / dwconv
 # ---------------------------------------------------------------------------
