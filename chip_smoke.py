@@ -23,9 +23,12 @@ two main paths:
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Finally
 it times every kernel beside its plain version, one PyTorch library call
-and the card's bound: gemm also in bf16 at the serving path's shapes
-(M = 4 and 2048 against zamba2's five weight shapes), and split-K
-against the kernel above it at M = 4, 8 and 16 (the small-M threshold).  Each phase prints one JSON line; the last line is
+and the card's bound: gemm also in bf16 and float32 at the serving
+path's shapes (M = 4 and 2048 against zamba2's five weight shapes), and
+split-K against the kernel above it at M = 4, 8 and 16 (the small-M
+threshold); the fp32 gemm's tile plan (``gemm.simt_plan``) and the
+decode kernel's split plan (``decode_plan``) are printed before their
+times.  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
 exits non-zero without that line.  Without CUDA, or without the repo's
 ``src/`` beside it, it exits non-zero at once.
@@ -85,8 +88,12 @@ SERVE_GEMM = ((2048, 8512), (4096, 2048), (4096, 4096), (4096, 8192),
               (8192, 2048))
 SERVE_M = (4, 2048)
 # gemm's kernels by variant, as the profiler names them
+# (split-K's reduce also finishes the SIMT kernel's K slices, which the
+# bf16 serving path never cuts)
 GEMM_KERNELS = {"small_m": ("small_m_kernel", "splitk_reduce"),
                 "mma": ("mma::mma_kernel",), "simt": ("simt_kernel",)}
+# decode_attention's two kernels (the splits, then their merge)
+DECODE_KERNELS = ("dec::split_kernel", "dec::combine_kernel")
 # The serving path: zamba2-1.2b at full width and depth, bf16
 SERVE = dict(arch="zamba2-1.2b", batch=4, prompt=512, gen=32)
 # LM kernels against their plain versions: the reference's kernel TOL
@@ -315,7 +322,15 @@ def lm_cases(op, rng):
         return [("zamba2", dec(4, 544, 32, 32, 128, (528,) * 4) + (None, None)),
                 ("ragged_window_gqa_softcap",
                  dec(4, 200, 8, 4, 256, (0, 1, 100, 200)) + (64, 50.0)),
-                ("ragged_d16", dec(3, 70, 4, 2, 16, (5, 69, 70)) + (None, None))]
+                ("ragged_d16", dec(3, 70, 4, 2, 16, (5, 69, 70)) + (None, None)),
+                # 17 splits; splits wholly past a row's length or before
+                # its window; D 20 (rows read element by element)
+                ("long_ragged", dec(2, 4096, 8, 2, 128, (4000, 1234))
+                 + (None, None)),
+                ("empty_splits_window",
+                 dec(4, 1024, 4, 4, 64, (0, 10, 300, 1024)) + (100, None)),
+                ("d20_window_softcap",
+                 dec(2, 300, 4, 2, 20, (300, 150)) + (100, 30.0))]
 
     def ssd_args(b, s, h, p, g, n_):
         # slow decays (dt ~ 0.05, |A| ~ 1): the state carries across chunks
@@ -418,6 +433,16 @@ def lm_work(op, args, out):
                                        + 2 * L * p * n)
     return (sum(size(t) for t in args if isinstance(t, torch.Tensor))
             + size(out), 2 * macs)
+
+
+def emit_simt_plan(size, m, n, k):
+    """The fp32 SIMT gemm's plan for (m, k) @ (k, n): its tile, K slices
+    and blocks in flight."""
+    from repro_torch.kernels import gemm
+    bm, bn, splits, ks = gemm.simt_plan(m, n, k)
+    emit("simt_plan", size=size, shapes=[[m, k], [k, n]], tile=[bm, bn],
+         splits=splits, ks=ks,
+         blocks=-(-m // bm) * -(-n // bn) * splits)
 
 
 def mma_bound_ms(nbytes, n_ops):
@@ -541,6 +566,7 @@ def profile_steps(run, steps):
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_kernel = {}
     gemm_ms = dict.fromkeys(GEMM_KERNELS, 0.0)
+    decode_ms = 0.0
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -551,11 +577,14 @@ def profile_steps(run, steps):
             for kind, parts in GEMM_KERNELS.items():
                 if any(part in ev.key for part in parts):
                     gemm_ms[kind] += us / 1e3 / steps
+            if any(part in ev.key for part in DECODE_KERNELS):
+                decode_ms += us / 1e3 / steps
     busy = sum(by_kernel.values())
     return {"wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy or None,
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "gemm_ms_per_step": {**gemm_ms, "all": sum(gemm_ms.values())},
+            "decode_attention_ms_per_step": decode_ms,
             "kernels_ms_per_step": dict(sorted(by_kernel.items(),
                                                key=lambda kv: -kv[1])[:12])}
 
@@ -741,7 +770,7 @@ def serve_zamba2(dev, modules):
         if launches32[op] != n:
             raise AssertionError(f"serve/float32: {launches32[op]} {op} "
                                  f"launches, expected {n}")
-    for op in ("gemm", "vtanh"):
+    for op in ("gemm", "vtanh", "gemm_simt"):
         if launches32[op] == 0:
             raise AssertionError(f"serve/float32: {op} never launched")
     del params32, kern, plain
@@ -1038,6 +1067,9 @@ def main() -> int:
         mod = module[op]
         for size, targs in (("figure2", args[op]),
                             ("large", big_args(op, gen, dev))):
+            if op == "gemm":
+                (m, k), n = targs[0].shape, targs[1].shape[1]
+                emit_simt_plan(size, m, n, k)
             out = mod.KERNELS[op](*targs)
             k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
             p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
@@ -1057,6 +1089,12 @@ def main() -> int:
             del out, targs
     for op in LM_OPS:
         mod, targs = module[op], lm_time_args(op, gen, dev)
+        if op == "decode_attention":
+            b, _, h, d = targs[0].shape
+            splits, ks = fa.decode_plan(b, h, targs[1].shape[1], d)
+            emit("decode_plan", size="serve", shapes=[list(t.shape) for t in
+                                                     targs[:3]],
+                 splits=splits, ks=ks, blocks=b * h * splits)
         out = mod.KERNELS[op](*targs)
         k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
         p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
@@ -1073,32 +1111,43 @@ def main() -> int:
         times[(op, "serve")] = row
         emit("time", **row)
         del out, targs
-    # gemm where the serving path runs it: bf16, M = 4 and M = 2048 rows
-    # against zamba2's five weight shapes, each beside torch.matmul on the
-    # same operands; every output held to the plain version
+    # gemm where the serving path runs it: M = 4 and M = 2048 rows against
+    # zamba2's five weight shapes, in bf16 and in float32 (the float32
+    # serving check), each beside torch.matmul on the same operands (no
+    # bias and no clamp: addmm's function here); every output held to the
+    # plain version
     bf, inf = torch.bfloat16, float("inf")
-    for k, n in SERVE_GEMM:
-        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(bf)
-        for m in SERVE_M:
-            x = torch.randn((m, k), generator=gen, device=dev).to(bf)
-            out = gemm.gemm(x, w)
-            err = compare("gemm", out, gemm.gemm_plain(x, w))
-            k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
-            p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
-            l_ms = time_ms(lambda: torch.matmul(x, w), flush)
-            nbytes = 2 * (x.numel() + w.numel() + out.numel())
-            b_ms, b_by = mma_bound_ms(nbytes, 2 * m * n * k)
-            row = {"op": "gemm", "size": f"serve_m{m}_{k}x{n}",
-                   "dtype": "bfloat16", "shapes": [[m, k], [k, n]],
-                   "variant": gemm.variant(bf, m), "max_abs_err": err,
-                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
-                   "library_ratio": k_ms / l_ms}
-            times[("gemm", row["size"])] = row
-            emit("time", **row)
-            del out, x
-        del w
+    for dt in (bf, torch.float32):
+        for k, n in SERVE_GEMM:
+            w = (torch.randn((k, n), generator=gen, device=dev)
+                 * k ** -0.5).to(dt)
+            for m in SERVE_M:
+                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+                tag = f"serve_m{m}_{k}x{n}" + ("" if dt == bf else "_f32")
+                if gemm.variant(dt, m) == "simt":
+                    emit_simt_plan(tag, m, n, k)
+                out = gemm.gemm(x, w)
+                err = compare("gemm", out, gemm.gemm_plain(x, w))
+                k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
+                p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
+                l_ms = time_ms(lambda: torch.matmul(x, w), flush)
+                nbytes = x.element_size() * (x.numel() + w.numel()
+                                             + out.numel())
+                b_ms, b_by = (mma_bound_ms if dt == bf else bound_ms)(
+                    nbytes, 2 * m * n * k)
+                row = {"op": "gemm", "size": tag,
+                       "dtype": str(dt).replace("torch.", ""),
+                       "shapes": [[m, k], [k, n]],
+                       "variant": gemm.variant(dt, m), "max_abs_err": err,
+                       "kernel_ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nbytes,
+                       "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
+                       "library_ratio": k_ms / l_ms}
+                times[("gemm", row["size"])] = row
+                emit("time", **row)
+                del out, x
+            del w
     # the small-M threshold: split-K against the kernel that takes the rows
     # above it, at M = 4, 8 and 16, in both dtypes
     for k, n in ((2048, 8512), (8192, 2048)):

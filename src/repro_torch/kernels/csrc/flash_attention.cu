@@ -13,8 +13,9 @@
 // 4.3 GFLOP of visible pairs against 67 MB, so the bytes bound it: 20 us
 // at 3.35 TB/s, against 4.4 us of operations at the bf16 tensor-core
 // rate.  Decode reads the valid prefix of the cache once per step and does
-// 4 operations per cached element: the bytes bound it (at B 4, S 544,
-// Hkv 32, D 128, bf16: 36 MB, 11 us).
+// 4 operations per cached element: the bytes bound it (at B 4, 528 valid
+// of S 544 slots, Hkv 32, D 128, bf16: 34.6 MB, 10.3 us at the 3.35 TB/s
+// of the H100 SXM data sheet, 700 W).
 //
 // Design for those bounds:
 //  * flash, bfloat16: tensor cores (mma.sync m16n8k16, bf16 in, fp32
@@ -43,15 +44,26 @@
 //    by shuffles, and p·V runs over lanes along D.
 //  * Both flash kernels visit only the kv tiles the causal order and the
 //    window leave visible; the rest are never loaded.
-//  * decode: one block per (b, h); eight warps take interleaved batches of
-//    eight keys from the valid range [max(0, len - window), len), lanes
-//    along D (eight independent loads in flight per lane), each warp with
-//    its own online softmax; the eight states merge in shared memory.
-//    The row's length comes from device memory (no scalar prefetch), and
-//    no key outside the valid range is read.
+//  * decode: flash-decoding.  The host's plan (decode_plan) cuts each
+//    row's S slots into splits from the shapes alone, so that b * h *
+//    splits blocks put about two on each SM.  A block clips its split
+//    to the row's valid range [max(0, len - window), len), with len read
+//    from device memory (no scalar prefetch), and reads no key outside
+//    it.  K and V rows come in as 16-byte vectors: the lanes of a key's
+//    row (16 for a 256-byte bf16 row, so two keys a warp instruction)
+//    each hold one chunk (two of a 1024-byte fp32 row), and a dot ends
+//    in a butterfly over those lanes only, U keys' side by side.  The next tile's K and V
+//    loads are issued together before this tile's dots and softmax, so
+//    V never waits on the softmax.  Each lane group keeps its own online
+//    softmax; the groups merge in shared memory and the split's (m, l,
+//    acc) goes in fp32 to a workspace; a second kernel merges the splits
+//    in split order and rounds once, so two runs agree bitwise.  Rows
+//    that are not whole 16-byte chunks on 16 bytes are read element by
+//    element in the same layout.
 // Masked logits are -1e30 and their probabilities exactly 0, a zero row
-// sum divides by 1, as in the TPU kernels; the SIMT kernels' exp and every
-// division are IEEE (no fast math).  Split-K decode is later work.
+// sum divides by 1, as in the TPU kernels; every division is IEEE and the
+// fp32 SIMT flash kernel's exp too (no fast math); the tensor-core flash
+// and decode use exp2f (2 ulp) in log2 units.
 #include <type_traits>
 
 #include "common.cuh"
@@ -69,9 +81,6 @@ constexpr int kWarps = 8;
 constexpr int kRows = 4;               // query rows per warp
 constexpr int kBQ = kWarps * kRows;    // query rows per block
 constexpr int kBK = 32;                // keys per tile, one per lane
-// decode
-constexpr int kDecWarps = 8;
-constexpr int kDecBatch = 8;           // keys per warp per step
 
 struct Strides {
   int64_t b, s, h;
@@ -224,104 +233,338 @@ flash_kernel(const typename Elem<T>::Raw* __restrict__ q,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kDecWarps * 32)
-decode_kernel(const typename Elem<T>::Raw* __restrict__ q,
-              const typename Elem<T>::Raw* __restrict__ k,
-              const typename Elem<T>::Raw* __restrict__ v,
-              const int* __restrict__ lengths,
-              typename Elem<T>::Raw* __restrict__ o, Attn a) {
-  __shared__ float part[kDecWarps][32 * kMaxChunks];
-  __shared__ float wm[kDecWarps], wl[kDecWarps];
+// ---------------------------------------------------------------------------
+// decode, split across blocks (flash-decoding)
+// ---------------------------------------------------------------------------
+
+namespace dec {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 16 bytes of a K or V row, kept raw until used: 4 fp32 or 8 bf16
+// elements.  gather reads the first `valid` one by one (zeros after), for
+// rows that are not whole 16-byte chunks on 16 bytes.
+template <typename T> struct Chunk;
+template <> struct Chunk<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ uint4 gather(const float* p, int valid) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = i < valid ? __float_as_uint(p[i]) : 0u;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[N]) {
+    o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+    o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+  }
+};
+template <> struct Chunk<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ uint4 gather(const unsigned short* p,
+                                                 int valid) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (2 * i < valid ? unsigned(p[2 * i]) : 0u) |
+             (2 * i + 1 < valid ? unsigned(p[2 * i + 1]) << 16 : 0u);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[N]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {        // bf16 -> fp32 is exact: shift
+      o[2 * i] = __uint_as_float(w[i] << 16);
+      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// A row bucket of RB bytes (D * itemsize rounded up to 128, 256, 512 or
+// 1024) is C = RB / 16 chunks: LPK = min(C, 32) lanes hold one key's row,
+// CPL = C / LPK chunks each, so a warp covers KPW = 32 / LPK keys a load
+// instruction, and U such loads of K and of V are issued at once.
+template <typename T, int RB>
+struct Shape {
+  static constexpr int C = RB / 16;
+  static constexpr int LPK = C < 32 ? C : 32;
+  static constexpr int CPL = C / LPK;
+  static constexpr int KPW = 32 / LPK;
+  static constexpr int EPC = Chunk<T>::N;
+  static constexpr int U = CPL == 1 ? 4 : 2;
+  static constexpr int kTile = kWarps * KPW * U;  // keys a block tile
+  static constexpr int kGroups = kWarps * KPW;    // online softmaxes
+  static constexpr int kCols = C * EPC;           // row elements
+};
+
+// The partial state of split s of row (b, h) in ws: m (log2 units), l,
+// then acc[0..d), for splits in order.
+template <typename F>
+__device__ __forceinline__ F* partial(F* ws, int64_t bh, int64_t splits,
+                                      int64_t s, int d) {
+  return ws + (bh * splits + s) * (d + 2);
+}
+
+// Block (s, h, b): slots [s ks, (s + 1) ks) of row b's cache, clipped to
+// its valid range [max(0, len - window), len) with len read from device
+// memory; no key outside it is read.  Lane group g (LPK lanes) of warp w
+// takes key t0 + (u kWarps + w) KPW + g of each tile t0 with its own
+// online softmax, the lanes along the row; the next tile's K and V loads
+// are issued before this tile's dots and softmax.  The groups merge in
+// shared memory in a fixed order and the split's (m, l, acc) goes to ws;
+// an empty split writes m = -1e30, l = 0, acc = 0.  VEC: rows of whole
+// 16-byte chunks on 16 bytes; otherwise element by element.
+template <typename T, int RB, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+split_kernel(const typename Elem<T>::Raw* __restrict__ q,
+             const typename Elem<T>::Raw* __restrict__ k,
+             const typename Elem<T>::Raw* __restrict__ v,
+             const int* __restrict__ lengths, float* __restrict__ ws, Attn a,
+             int64_t ks) {
+  using S = Shape<T, RB>;
+  using Raw = typename Elem<T>::Raw;
+  constexpr int U = S::U, CPL = S::CPL, EPC = S::EPC;
+  __shared__ float gm[S::kGroups], gl[S::kGroups];
+  __shared__ float gacc[S::kGroups][S::kCols];
   const int d = static_cast<int>(a.d);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t hh = blockIdx.x, bb = blockIdx.y;
+  const int grp = lane / S::LPK, li = lane % S::LPK;
+  const int64_t sp = blockIdx.x, hh = blockIdx.y, bb = blockIdx.z;
   const int64_t kh = hh / (a.h / a.hkv);
-  const int nc = (d + 31) / 32;
 
   int64_t hi = lengths[bb];
   hi = hi < 0 ? 0 : (hi > a.sk ? a.sk : hi);
   int64_t lo = 0;
   if (a.window >= 0 && hi - a.window > 0) lo = hi - a.window;
+  const int64_t s_lo = sp * ks;
+  const int64_t r_lo = lo > s_lo ? lo : s_lo;
+  const int64_t r_hi = hi < s_lo + ks ? hi : s_lo + ks;
 
-  float qv[kMaxChunks];
+  // this lane's elements: chunk li + c LPK of the row, c < CPL
+  float qv[CPL][EPC];
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int dd = c * 32 + lane;
-    qv[c] = (c < nc && dd < d)
-                ? Elem<T>::get(q[bb * a.q.b + hh * a.q.h + dd])
-                : 0.0f;
-  }
-  float m = kNeg, l = 0.0f, acc[kMaxChunks] = {};
-  const typename Elem<T>::Raw* kb = k + bb * a.k.b + kh * a.k.h;
-  const typename Elem<T>::Raw* vb = v + bb * a.v.b + kh * a.v.h;
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) {
+      const int col = (li + c * S::LPK) * EPC + e;
+      qv[c][e] = col < d ? Elem<T>::get(q[bb * a.q.b + hh * a.q.h + col])
+                         : 0.0f;
+    }
+  const Raw* kb = k + bb * a.k.b + kh * a.k.h;
+  const Raw* vb = v + bb * a.v.b + kh * a.v.h;
+  const int chunks = (d + EPC - 1) / EPC;
 
-  for (int64_t j0 = lo + static_cast<int64_t>(warp) * kDecBatch; j0 < hi;
-       j0 += kDecWarps * kDecBatch) {
-    float s[kDecBatch];
+  // K and V of tile t0 for this lane: zeros past r_hi (never loaded)
+  auto load = [&](int64_t t0, uint4 (&kr)[U][CPL], uint4 (&vr)[U][CPL]) {
 #pragma unroll
-    for (int t = 0; t < kDecBatch; ++t) {
-      const int64_t j = j0 + t;
-      float dot = 0.0f;
-      if (j < hi) {
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = t0 + (u * kWarps + warp) * S::KPW + grp;
 #pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int dd = c * 32 + lane;
-          if (c < nc && dd < d)
-            dot = fmaf(qv[c], Elem<T>::get(kb[j * a.k.s + dd]), dot);
+      for (int c = 0; c < CPL; ++c) {
+        const int ch = li + c * S::LPK;
+        kr[u][c] = vr[u][c] = make_uint4(0u, 0u, 0u, 0u);
+        if (j >= r_hi || ch >= chunks) continue;
+        const Raw* kp = kb + j * a.k.s + ch * EPC;
+        const Raw* vp = vb + j * a.v.s + ch * EPC;
+        if (VEC) {
+          kr[u][c] = __ldg(reinterpret_cast<const uint4*>(kp));
+          vr[u][c] = __ldg(reinterpret_cast<const uint4*>(vp));
+        } else {
+          const int valid = d - ch * EPC;
+          kr[u][c] = Chunk<T>::gather(kp, valid);
+          vr[u][c] = Chunk<T>::gather(vp, valid);
         }
       }
-      s[t] = warp_sum(dot);
     }
-    float mt = kNeg;
+  };
+
+  float m = kNeg, l = 0.0f, acc[CPL][EPC];
 #pragma unroll
-    for (int t = 0; t < kDecBatch; ++t) {
-      s[t] = j0 + t < hi ? logit(s[t], a) : kNeg;
-      mt = fmaxf(mt, s[t]);
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) acc[c][e] = 0.0f;
+  uint4 kr[U][CPL], vr[U][CPL];
+  load(r_lo, kr, vr);
+  for (int64_t t0 = r_lo; t0 < r_hi; t0 += S::kTile) {
+    uint4 kn[U][CPL], vn[U][CPL];
+    load(t0 + S::kTile, kn, vn);       // in flight during this tile
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float dot = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float kf[EPC];
+        Chunk<T>::cvt(kr[u][c], kf);
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) dot = fmaf(qv[c][e], kf[e], dot);
+      }
+      s[u] = dot;
     }
-    const float m_new = fmaxf(m, mt);
-    const float alpha = expf(m - m_new);
-    float psum = 0.0f;
+    // each dot over its key's LPK lanes: U independent butterflies
 #pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) acc[c] *= alpha;
+    for (int o = S::LPK / 2; o > 0; o >>= 1)
 #pragma unroll
-    for (int t = 0; t < kDecBatch; ++t) {
-      const int64_t j = j0 + t;
-      if (j >= hi) continue;
-      const float p = expf(s[t] - m_new);
-      psum += p;
+      for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(kFull, s[u], o);
+    float mt = m;
 #pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int dd = c * 32 + lane;
-        if (c < nc && dd < d)
-          acc[c] = fmaf(p, Elem<T>::get(vb[j * a.v.s + dd]), acc[c]);
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = t0 + (u * kWarps + warp) * S::KPW + grp;
+      s[u] = j < r_hi ? logit(s[u], a) * kLog2e : kNeg;
+      mt = fmaxf(mt, s[u]);
+    }
+    const float alpha = exp2f(m - mt);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) acc[c][e] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t j = t0 + (u * kWarps + warp) * S::KPW + grp;
+      if (j >= r_hi) continue;
+      const float p = exp2f(s[u] - mt);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float vf[EPC];
+        Chunk<T>::cvt(vr[u][c], vf);
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) acc[c][e] = fmaf(p, vf[e], acc[c][e]);
       }
     }
-    l = alpha * l + psum;
-    m = m_new;
+    m = mt;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        kr[u][c] = kn[u][c];
+        vr[u][c] = vn[u][c];
+      }
   }
 
-  // merge the warps' (m, l, acc)
+  // merge the groups in group order
+  const int g = warp * S::KPW + grp;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) part[warp][c * 32 + lane] = acc[c];
-  if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) gacc[g][(li + c * S::LPK) * EPC + e] =
+        acc[c][e];
+  if (li == 0) {
+    gm[g] = m;
+    gl[g] = l;
   }
   __syncthreads();
   float mx = kNeg;
-  for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, wm[w]);
-  float lsum = 0.0f;
-  for (int w = 0; w < kDecWarps; ++w) lsum += wl[w] * expf(wm[w] - mx);
-  const float div = lsum == 0.0f ? 1.0f : lsum;
-  typename Elem<T>::Raw* orow = o + (bb * a.h + hh) * d;
-  for (int dd = threadIdx.x; dd < d; dd += blockDim.x) {
+  for (int i = 0; i < S::kGroups; ++i) mx = fmaxf(mx, gm[i]);
+  float* out = partial(ws, bb * a.h + hh, gridDim.x, sp, d);
+  if (threadIdx.x == 0) {
+    float lsum = 0.0f;
+    for (int i = 0; i < S::kGroups; ++i) lsum += gl[i] * exp2f(gm[i] - mx);
+    out[0] = mx;
+    out[1] = lsum;
+  }
+  for (int col = threadIdx.x; col < d; col += kThreads) {
     float sum = 0.0f;
-    for (int w = 0; w < kDecWarps; ++w)
-      sum += part[w][dd] * expf(wm[w] - mx);
-    orow[dd] = Elem<T>::put(sum / div);
+    for (int i = 0; i < S::kGroups; ++i)
+      sum += gacc[i][col] * exp2f(gm[i] - mx);
+    out[2 + col] = sum;
   }
 }
+
+// Block (h, b): the row's splits merged in split order, divided by the
+// weight sum (by 1 where it is 0: a row with no valid key gives 0) and
+// rounded once into o (b, 1, h, d).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+combine_kernel(const float* __restrict__ ws, typename Elem<T>::Raw* o,
+               int64_t splits, int d) {
+  const int64_t bh = static_cast<int64_t>(blockIdx.y) * gridDim.x +
+                     blockIdx.x;
+  float mx = kNeg;
+  for (int64_t s = 0; s < splits; ++s)
+    mx = fmaxf(mx, partial(ws, bh, splits, s, d)[0]);
+  float lsum = 0.0f;
+  for (int64_t s = 0; s < splits; ++s) {
+    const float* w = partial(ws, bh, splits, s, d);
+    lsum += w[1] * exp2f(w[0] - mx);
+  }
+  const float div = lsum == 0.0f ? 1.0f : lsum;
+  for (int col = threadIdx.x; col < d; col += kThreads) {
+    float sum = 0.0f;
+    for (int64_t s = 0; s < splits; ++s) {
+      const float* w = partial(ws, bh, splits, s, d);
+      sum += w[2 + col] * exp2f(w[0] - mx);
+    }
+    o[bh * d + col] = Elem<T>::put(sum / div);
+  }
+}
+
+template <typename T, int RB>
+cudaError_t launch_rb(const void* q, const void* k, const void* v,
+                      const int* lengths, void* o, float* ws, const Attn& a,
+                      int64_t splits, int64_t ks, bool vec,
+                      cudaStream_t stream) {
+  using Raw = typename Elem<T>::Raw;
+  const dim3 grid(static_cast<unsigned>(splits), static_cast<unsigned>(a.h),
+                  static_cast<unsigned>(a.b));
+  const Raw* rq = static_cast<const Raw*>(q);
+  const Raw* rk = static_cast<const Raw*>(k);
+  const Raw* rv = static_cast<const Raw*>(v);
+  if (vec)
+    split_kernel<T, RB, true><<<grid, kThreads, 0, stream>>>(rq, rk, rv,
+                                                            lengths, ws, a, ks);
+  else
+    split_kernel<T, RB, false><<<grid, kThreads, 0, stream>>>(
+        rq, rk, rv, lengths, ws, a, ks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  combine_kernel<T><<<dim3(static_cast<unsigned>(a.h),
+                           static_cast<unsigned>(a.b)),
+                      kThreads, 0, stream>>>(ws, static_cast<Raw*>(o), splits,
+                                             static_cast<int>(a.d));
+  return cudaGetLastError();
+}
+
+// K and V rows are whole 16-byte chunks that start on 16 bytes
+bool kv_aligned(const void* k, const void* v, const Attn& a, int itemsize) {
+  const int64_t epc = 16 / itemsize;
+  const int64_t st[6] = {a.k.b, a.k.s, a.k.h, a.v.b, a.v.s, a.v.h};
+  bool ok = a.d % epc == 0;
+  for (int64_t s : st) ok = ok && s % epc == 0;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  return ok && (bits & 15u) == 0;
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* lengths,
+           void* o, void* ws, const Attn& a, int64_t splits, int64_t ks,
+           cudaStream_t stream) {
+  constexpr int item = sizeof(typename Elem<T>::Raw);
+  if (splits < 1 || splits > repro_cuda::kMaxBlocks || ks < 0 ||
+      splits * ks < a.sk || ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = kv_aligned(k, v, a, item);
+  const int* lens = static_cast<const int*>(lengths);
+  float* w = static_cast<float*>(ws);
+  const int64_t rb = a.d * item;
+  cudaError_t err;
+  if (rb <= 128)
+    err = launch_rb<T, 128>(q, k, v, lens, o, w, a, splits, ks, vec, stream);
+  else if (rb <= 256)
+    err = launch_rb<T, 256>(q, k, v, lens, o, w, a, splits, ks, vec, stream);
+  else if (rb <= 512)
+    err = launch_rb<T, 512>(q, k, v, lens, o, w, a, splits, ks, vec, stream);
+  else if constexpr (item == 4)
+    err = launch_rb<T, 1024>(q, k, v, lens, o, w, a, splits, ks, vec, stream);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
+}
+
+}  // namespace dec
 
 // ---------------------------------------------------------------------------
 // flash, bfloat16, on the tensor cores
@@ -754,28 +997,14 @@ int launch_flash(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* lengths, void* o, const Attn& a,
-                  void* stream) {
-  using Raw = typename Elem<T>::Raw;
-  if (bad_shape(a) || a.sq != 1 || a.sk < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(a.h), static_cast<unsigned>(a.b));
-  decode_kernel<T><<<grid, kDecWarps * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Raw*>(q), static_cast<const Raw*>(k),
-      static_cast<const Raw*>(v), static_cast<const int*>(lengths),
-      static_cast<Raw*>(o), a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Plain C entry points, bound from Python with ctypes.  q (b, sq, h, d),
 // k and v (b, sk, hkv, d), each with strides (batch, position, head) in
 // elements and a contiguous last axis; o contiguous (b, sq, h, d); decode
-// lengths (b,) int32 on the device.  window < 0 means none.  Each returns
+// lengths (b,) int32 on the device, an fp32 workspace ws of b * h * splits
+// * (d + 2) elements, and the cache cut into splits slices of ks slots
+// (splits * ks >= sk).  window < 0 means none.  Each returns
 // cudaGetLastError() after its launch (0 = launched).
 #define REPRO_ATTN_ENTRY(SUFFIX, T)                                          \
   int repro_flash_attention_##SUFFIX(                                        \
@@ -793,16 +1022,18 @@ int launch_decode(const void* q, const void* k, const void* v,
   }                                                                          \
   int repro_decode_attention_##SUFFIX(                                       \
       const void* q, const void* k, const void* v, const void* lengths,      \
-      void* o, int64_t b, int64_t h, int64_t hkv, int64_t sq, int64_t sk,    \
-      int64_t d, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,         \
-      int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,       \
-      int64_t window, int has_softcap, float softcap, float scale,           \
-      void* stream) {                                                        \
+      void* o, void* ws, int64_t b, int64_t h, int64_t hkv, int64_t sq,      \
+      int64_t sk, int64_t d, int64_t qsb, int64_t qss, int64_t qsh,          \
+      int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,       \
+      int64_t vsh, int64_t window, int has_softcap, float softcap,           \
+      float scale, int64_t splits, int64_t ks, void* stream) {               \
     const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};     \
-    return launch_decode<T>(q, k, v, lengths, o,                             \
-                            make_args(b, h, hkv, sq, sk, d, st, 0, window,   \
-                                      has_softcap, softcap, scale),          \
-                            stream);                                         \
+    const Attn a = make_args(b, h, hkv, sq, sk, d, st, 0, window,            \
+                             has_softcap, softcap, scale);                   \
+    if (bad_shape(a) || a.sq != 1 || a.sk < 0)                               \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    return dec::launch<T>(q, k, v, lengths, o, ws, a, splits, ks,            \
+                          static_cast<cudaStream_t>(stream));                \
   }
 
 extern "C" {

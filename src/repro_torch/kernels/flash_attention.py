@@ -15,11 +15,17 @@ decode row's valid length by scalar prefetch.  The Hopper kernels
     the fp32 SIMT kernel (one block per 32 rows, 32-key tiles), since the
     tensor cores would round it to TF32.  kv tiles that causal order or
     the window mask wholly are never visited.
-  * ``decode_attention`` — one block per (b, h); its eight warps split
-    the valid prefix of the cache, each with its own online softmax over
-    batches of eight keys, merged at the end.  ``lengths`` is read from
-    device memory; nothing past a row's valid length (or before its
-    window) is loaded.
+  * ``decode_attention`` — flash-decoding, bound by the bytes of the
+    cache's valid prefix.  :func:`decode_plan` cuts each row's S slots
+    into splits (from the shapes alone, never ``lengths``), so
+    b * h * splits blocks put ~2 on each SM; each block clips its slots
+    to the row's valid range, read from device memory, and reads no key
+    outside it.  K and V rows come in as 16-byte vectors (a 256-byte bf16
+    row over 16 lanes, two keys a warp instruction; element by element
+    where rows are not whole aligned chunks), the next tile's K and V in
+    flight during this tile's dots and softmax.  Each split's (m, l, acc)
+    goes in fp32 to a workspace made here with ``torch.empty``; a second
+    kernel merges the splits in split order, so two runs agree bitwise.
 
 Both take the JAX package's op-boundary layout, q (B, Sq, H, D) and k, v
 (B, Sk, Hkv, D), and read through strides (D must be contiguous), so the
@@ -51,6 +57,13 @@ from . import _build, ref
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
 MAX_D = 256
+# decode: blocks to put in flight (two per SM of the H100's 132), and the
+# fewest slots a split takes: 64, more where rows are short (at least
+# DEC_MIN_ELEMS elements of K a split), so a block's fixed cost stays
+# small against its reads
+DEC_BLOCKS = 264
+DEC_MIN_SLICE = 64
+DEC_MIN_ELEMS = 8192
 
 
 def _scale(d, scale):
@@ -74,6 +87,22 @@ def decode_attention_plain(q, k, v, lengths, window=None, softcap=None,
     return torch.where((lengths > 0)[:, None, None, None], out, 0.0)
 
 
+def decode_plan(b: int, h: int, s: int, d: int) -> tuple:
+    """(splits, ks) of the decode kernel: split i covers cache slots
+    [i*ks, min(s, (i+1)*ks)); every split is non-empty and together they
+    cover [0, s) once.  The s slots are cut evenly into as many splits as
+    bring b * h * splits to ``DEC_BLOCKS``, as far as each keeps the
+    least length, max(``DEC_MIN_SLICE``, ``DEC_MIN_ELEMS`` / d) slots.  A
+    function of the shapes alone: reading ``lengths`` would need a host
+    sync."""
+    if s <= 0:
+        return 1, 0
+    least = max(DEC_MIN_SLICE, -(-DEC_MIN_ELEMS // d))
+    n = max(1, min(-(-DEC_BLOCKS // (b * h)), s // least))
+    ks = -(-s // n)
+    return -(-s // ks), ks
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -86,7 +115,8 @@ def _lib() -> ctypes.CDLL:
                                                   p]
         fn = getattr(lib, f"repro_decode_attention_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p] + [i64] * 15 + [i64, i32, f32, f32, p]
+        fn.argtypes = [p, p, p, p, p, p] + [i64] * 16 + [i32, f32, f32, i64,
+                                                         i64, p]
     return lib
 
 
@@ -151,13 +181,18 @@ def decode_attention(q, k, v, lengths, window=None, softcap=None,
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    splits, span = decode_plan(b, h, s, d)
+    ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
+                     device=q.device)
     fn = getattr(_lib(), f"repro_decode_attention_{_build.DTYPES[q.dtype]}")
     _build.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), b, h, hkv, 1, s, d,
-                  *qs, *ks, *vs, -1 if window is None else int(window),
+                  lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h,
+                  hkv, 1, s, d, *qs, *ks, *vs,
+                  -1 if window is None else int(window),
                   int(softcap is not None),
                   0.0 if softcap is None else float(softcap),
-                  _scale(d, scale), what="decode_attention kernel")
+                  _scale(d, scale), splits, span,
+                  what="decode_attention kernel")
     LAUNCHES["decode_attention"] += 1
     return out
 

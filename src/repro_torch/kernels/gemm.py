@@ -18,8 +18,17 @@ and M alone (:func:`variant`), deterministically:
     128-byte-swizzled tiles filled by TMA (element by element where K or
     N is not a multiple of 8); B read N-major in place with the
     instruction's transpose bit; bias, clamp and rounding in the store.
-  * ``simt`` -- M > 16, float32.  The fp32 SIMT tile product
-    (``tile_mm.cuh``): the tensor cores would round fp32 to TF32.
+  * ``simt`` -- M > 16, float32.  fp32 FMA (the tensor cores would round
+    fp32 to TF32), bound by operations: 2MNK against the 67 TFLOP/s of
+    the H100 SXM data sheet (700 W).  256 threads a block, 8 x 8 sums a
+    thread on 128 x 128 tiles; K through a 3-stage ``cp.async`` ring of
+    16-deep slots, so loads overlap the products; A stored k-major and B
+    row-major, each thread reading both as ``float4``, bank-conflict
+    free.  :func:`simt_plan` picks the tile from the shapes alone: where
+    128 x 128 tiles leave the card empty, 128 x 64 or 64 x 64, then K
+    slices until ~``SIMT_BLOCKS`` blocks are in flight, their fp32 sums
+    added in slice order by the split-K kernel's second pass (so two runs
+    agree bitwise).
 
 Ragged M, N and K are masked (zero-filled past the end); no operand is
 padded or copied.  Layouts are the reference's: a (M, K), b (K, N), bias
@@ -60,6 +69,12 @@ SMALL_M_MAX = {torch.bfloat16: 8, torch.float32: 16}
 # fewest K rows a slice takes (8 per warp of the block's eight)
 SMALL_M_BLOCKS = 132
 MIN_SLICE = 64
+# the SIMT kernel's block tiles (bm, bn), largest first, its K slot depth,
+# and the blocks it puts in flight before it takes smaller tiles or cuts
+# K (about one per SM of the H100's 132)
+SIMT_TILES = ((128, 128), (128, 64), (64, 64))
+SIMT_BK = 16
+SIMT_BLOCKS = 128
 
 # The plain version is the oracle's own steps: one fp32 product, the bias
 # add and the two-sided clamp, rounded once to a's dtype.
@@ -87,14 +102,34 @@ def split_k(n: int, k: int, dtype: torch.dtype) -> tuple:
     return -(-k // ks), ks
 
 
+def simt_plan(m: int, n: int, k: int) -> tuple:
+    """(bm, bn, splits, ks) of the SIMT kernel: the largest tile of
+    ``SIMT_TILES`` that gives ``SIMT_BLOCKS`` blocks; where none does,
+    the smallest, with K cut into slices [s*ks, min(k, (s+1)*ks)) of a
+    multiple of ``SIMT_BK`` rows and at least ``MIN_SLICE`` of them (or
+    all of k) until the tiles times the slices reach ``SIMT_BLOCKS``.
+    Every slice is non-empty and together they cover [0, k) once."""
+    for bm, bn in SIMT_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        if tiles >= SIMT_BLOCKS:
+            return bm, bn, 1, k
+    if k <= 0:
+        return bm, bn, 1, k
+    want = -(-SIMT_BLOCKS // tiles)
+    ks = min(k, max(-(-k // want) // SIMT_BK * SIMT_BK, MIN_SLICE))
+    return bm, bn, -(-k // ks), ks
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gemm")
     p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    plain_args = [p, p, p, p, i64, i64, i64, f32, f32, p]
-    for name in ("repro_gemm_simt_f32", "repro_gemm_mma_bf16"):
-        getattr(lib, name).restype = ctypes.c_int
-        getattr(lib, name).argtypes = plain_args
+    lib.repro_gemm_mma_bf16.restype = ctypes.c_int
+    lib.repro_gemm_mma_bf16.argtypes = [p, p, p, p, i64, i64, i64, f32, f32,
+                                        p]
+    lib.repro_gemm_simt_f32.restype = ctypes.c_int
+    lib.repro_gemm_simt_f32.argtypes = [p, p, p, p, p] + [i64] * 7 + [f32,
+                                                                     f32, p]
     for dt in _build.DTYPES.values():
         fn = getattr(lib, f"repro_gemm_small_m_{dt}")
         fn.restype = ctypes.c_int
@@ -140,11 +175,16 @@ def launch(kind, a, b, bias, clamp_min, clamp_max):
         fn = getattr(_lib(), f"repro_gemm_small_m_{_build.DTYPES[a.dtype]}")
         _build.launch(fn, a.device, *ptrs, ws.data_ptr(), m, n, k, splits,
                       ks, clamp_min, clamp_max, what="gemm small_m kernel")
+    elif kind == "simt":
+        bm, bn, splits, ks = simt_plan(m, n, k)
+        ws = None if splits == 1 else torch.empty(
+            (splits, m, n), dtype=torch.float32, device=a.device)
+        _build.launch(_lib().repro_gemm_simt_f32, a.device, *ptrs,
+                      _build.ptr(ws), m, n, k, bm, bn, splits, ks, clamp_min,
+                      clamp_max, what="gemm simt kernel")
     else:
-        fn = getattr(_lib(), "repro_gemm_mma_bf16" if kind == "mma"
-                     else "repro_gemm_simt_f32")
-        _build.launch(fn, a.device, *ptrs, m, n, k, clamp_min, clamp_max,
-                      what=f"gemm {kind} kernel")
+        _build.launch(_lib().repro_gemm_mma_bf16, a.device, *ptrs, m, n, k,
+                      clamp_min, clamp_max, what="gemm mma kernel")
     LAUNCHES["gemm"] += 1
     LAUNCHES[f"gemm_{kind}"] += 1
     return out

@@ -14,11 +14,16 @@ order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
 indices: bitwise, since they round where their plain versions round.
 Each gemm variant (split-K small M, wgmma bf16, SIMT fp32) is held to
 the same tolerance at M, N and K around the small-M threshold and the
-serving shapes, and the split-K kernel to itself bitwise across runs.
-flash_attention, decode_attention and ssd: rtol = atol = 2e-4 in fp32
-and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's serving
-shapes and at GQA/window/softcap, Sq < Sk, ragged-length, off-chunk,
-s < 8 and single-group shapes.
+serving shapes; the SIMT kernel also on each of its tiles, with K cut
+into slices, and with B read element by element (N off 4, or B off 16
+bytes); split-K and the SIMT kernel's K slices to themselves bitwise
+across runs.  flash_attention, decode_attention and ssd: rtol = atol =
+2e-4 in fp32 and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's
+serving shapes and at GQA/window/softcap, Sq < Sk, ragged-length,
+off-chunk, s < 8 and single-group shapes; decode also over a long cache
+of many splits, with splits wholly outside a row's valid range, at D 20
+(rows read element by element), through strided views of one cache
+buffer, and bitwise across runs.
 """
 import numpy as np
 import pytest
@@ -251,6 +256,51 @@ def test_gemm_split_k_is_deterministic(cuda, dtype):
         assert torch.equal(gemm.gemm(a, b), first)
 
 
+# (m, n, k) and the plan each takes: the Figure-2 product and a thin one
+# split by K, one with N off 4 split by K, the middle tile, N off 4 and
+# K and N off 4 unsplit
+SIMT_PLANS = [((256, 256, 512), (64, 64, 8, 64)),
+              ((17, 64, 8192), (64, 64, 128, 64)),
+              ((100, 70, 3000), (64, 64, 38, 80)),
+              ((1024, 1024, 1024), (128, 64, 1, 1024)),
+              ((300, 1001, 100), (64, 64, 2, 64)),
+              ((129, 67, 33), (64, 64, 1, 33))]
+
+
+@pytest.mark.parametrize("unaligned", [False, True],
+                         ids=["aligned", "b_off_16"])
+@pytest.mark.parametrize("shape,plan", SIMT_PLANS, ids=str)
+def test_gemm_simt_plans_match_plain_on_card(cuda, shape, plan, unaligned):
+    """The fp32 SIMT kernel on each of its tiles, split by K or not, with
+    B as 16-byte copies or element by element (N off 4, or B a view one
+    element into its storage), against gemm_plain with bias and clamp."""
+    m, n, k = shape
+    assert gemm.simt_plan(m, n, k) == plan
+    rng = np.random.default_rng(m + n + k)
+    a = torch.from_numpy(_f(rng, (m, k))).to(cuda)
+    flat = torch.from_numpy(_f(rng, (k * n + 1,), k ** -0.5)).to(cuda)
+    b = (flat[1:] if unaligned else flat[:-1]).view(k, n)
+    c = torch.from_numpy(_f(rng, (n,))).to(cuda)
+    before = gemm.LAUNCHES["gemm_simt"]
+    got = gemm.gemm(a, b, c, -1.5, 1.5)
+    assert gemm.LAUNCHES["gemm_simt"] == before + 1
+    _same("gemm", got, gemm.gemm_plain(a, b, c, -1.5, 1.5), torch.float32)
+
+
+def test_gemm_simt_split_is_deterministic(cuda):
+    """Two runs of the SIMT kernel with K cut into slices (the Figure-2
+    product) agree bitwise: the slices are added in one fixed order."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(_f(rng, (256, 512))).to(cuda)
+    b = torch.from_numpy(_f(rng, (512, 256))).to(cuda)
+    c = torch.from_numpy(_f(rng, (256,))).to(cuda)
+    assert gemm.variant(torch.float32, 256) == "simt"
+    assert gemm.simt_plan(256, 256, 512)[2] > 1
+    first = gemm.gemm(a, b, c, -1.0, 1.0)
+    for _ in range(3):
+        assert torch.equal(gemm.gemm(a, b, c, -1.0, 1.0), first)
+
+
 def test_main_path_launches_each_kernel_once(cuda):
     """The ten Figure-2 ops through ops.* under rvv-128: the kernel tier
     for each, one launch each, the committed customized counts."""
@@ -352,7 +402,13 @@ def test_flash_attention_matches_plain_on_card(cuda, case, dtype):
 # (B, S, H, Hkv, D, lengths, window, softcap)
 DECODE_CASES = [(4, 544, 32, 32, 128, (512, 520, 530, 544), None, None),
                 (4, 200, 8, 4, 256, (0, 1, 100, 200), 64, 50.0),
-                (3, 70, 4, 2, 16, (5, 69, 70), None, None)]
+                (3, 70, 4, 2, 16, (5, 69, 70), None, None),
+                # a long cache over 17 splits, ragged
+                (2, 4096, 8, 2, 128, (4000, 1234), None, None),
+                # splits wholly past a row's length or before its window
+                (4, 1024, 4, 4, 64, (0, 10, 300, 1024), 100, None),
+                # D 20: rows read element by element
+                (2, 300, 4, 2, 20, (300, 150), 100, 30.0)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -397,3 +453,39 @@ def test_ssd_matches_plain_on_card(cuda, case, dtype):
     got = ssd.ssd(*args)
     assert ssd.LAUNCHES["ssd"] == before + 1
     _lm_close(got, ssd.ssd_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off_16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_attention_reads_strided_cache_views(cuda, dtype, offset):
+    """K and V as strided views of one (B, S + 7, 2, Hkv, D + 8) cache
+    buffer, rows 16-byte aligned or one element off (the element path),
+    against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hkv, d = 3, 700, 8, 4, 64
+    rng = np.random.default_rng(11 + offset)
+    buf = torch.from_numpy(_f(rng, (b, s + 7, 2, hkv, d + 8))).to(cuda, dtype)
+    q = torch.from_numpy(_f(rng, (b, 1, h, d))).to(cuda, dtype)
+    k = buf[:, :s, 0, :, offset:offset + d]
+    v = buf[:, :s, 1, :, offset:offset + d]
+    assert not k.is_contiguous()
+    lens = torch.tensor((700, 333, 1), dtype=torch.int32, device=cuda)
+    got = fa.decode_attention(q, k, v, lens, 500, None)
+    _lm_close(got, fa.decode_attention_plain(q, k, v, lens, 500, None),
+              dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_decode_attention_is_deterministic(cuda, dtype):
+    """Two runs of decode at zamba2's shape (three splits) agree bitwise:
+    the splits are merged in one fixed order, with no atomics."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(_f(rng, shape)).to(cuda, dtype)
+               for shape in ((4, 1, 32, 128), (4, 544, 32, 128),
+                             (4, 544, 32, 128)))
+    lens = torch.tensor((528, 100, 544, 1), dtype=torch.int32, device=cuda)
+    assert fa.decode_plan(4, 32, 544, 128)[0] > 1
+    first = fa.decode_attention(q, k, v, lens)
+    for _ in range(3):
+        assert torch.equal(fa.decode_attention(q, k, v, lens), first)

@@ -157,6 +157,44 @@ def test_gemm_split_k_slices_cover_k_once(n, k, dtype):
         assert cols * splits >= gemm.SMALL_M_BLOCKS
 
 
+# (m, n, k): the Figure-2 product, 2048^3, zamba2's five float32 prefill
+# products, a square one for the middle tile, ragged and tiny ones, K = 0
+SIMT_SHAPES = [(256, 256, 512), (2048, 2048, 2048), (2048, 8512, 2048),
+               (2048, 2048, 4096), (2048, 4096, 4096), (2048, 8192, 4096),
+               (2048, 2048, 8192), (1024, 1024, 1024), (17, 64, 8192),
+               (129, 67, 33), (40, 9, 24), (100, 70, 3000), (64, 64, 0),
+               (17, 1, 1)]
+
+
+@pytest.mark.parametrize("m,n,k", SIMT_SHAPES, ids=str)
+def test_gemm_simt_plan_slices_cover_k_once(m, n, k):
+    """The SIMT kernel's plan: one of its tiles; K slices [s*ks, min(k,
+    (s+1)*ks)) non-empty, disjoint and covering [0, k), each a multiple
+    of the slot depth unless there is one; the largest tile unsplit
+    where it fills the card; else ``SIMT_BLOCKS`` blocks where k allows
+    ``MIN_SLICE``-row slices.  The Figure-2 product reaches 100 blocks,
+    and 2048^3 and the serving shapes are not split."""
+    bm, bn, splits, ks = gemm.simt_plan(m, n, k)
+    assert (bm, bn) in gemm.SIMT_TILES
+    covered = np.zeros(k, np.int64)
+    for s in range(splits):
+        lo, hi = s * ks, min(k, (s + 1) * ks)
+        assert hi > lo or k == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all() and splits * ks >= k
+    assert splits == 1 or ks % gemm.SIMT_BK == 0
+    assert 1 <= splits <= 65535
+    tiles = -(-m // bm) * -(-n // bn)
+    if -(-m // 128) * -(-n // 128) >= gemm.SIMT_BLOCKS:
+        assert (bm, bn, splits) == (128, 128, 1)
+    elif k >= gemm.MIN_SLICE * -(-gemm.SIMT_BLOCKS // tiles):
+        assert tiles * splits >= gemm.SIMT_BLOCKS
+    if (m, n, k) == (256, 256, 512):
+        assert tiles * splits >= 100
+    if m == 2048:
+        assert (bm, bn, splits) == (128, 128, 1)
+
+
 # ---------------------------------------------------------------------------
 # conv_hwc / dwconv
 # ---------------------------------------------------------------------------

@@ -130,6 +130,103 @@ def test_decode_plain_matches_interpret_kernel(case):
         assert not got[list(lens).index(0)].any()
 
 
+# (b, h, s, d): zamba2's decode step, a long cache with few rows, tiny,
+# short rows, wide rows, many rows over a huge cache, one slot, no slot
+PLAN = [(4, 32, 544, 128), (4, 32, 4096, 128), (2, 8, 4096, 128),
+        (1, 1, 10, 128), (3, 2, 256, 16), (4, 8, 200, 256),
+        (64, 32, 100000, 128), (1, 1, 16961, 128), (1, 1, 1, 1),
+        (1, 1, 0, 16)]
+
+
+@pytest.mark.parametrize("b,h,s,d", PLAN, ids=str)
+def test_decode_plan_slices_cover_s_once(b, h, s, d):
+    """The decode kernel's splits [i*ks, min(s, (i+1)*ks)) are non-empty,
+    disjoint and cover [0, s), and at least the least length unless there
+    is one; where s allows ``DEC_BLOCKS`` / (b h) splits of the least
+    length, the even cut gives b * h * splits within a factor least /
+    (least + 1) of ``DEC_BLOCKS``.  zamba2's decode step gets at least
+    264 blocks."""
+    splits, ks = fa.decode_plan(b, h, s, d)
+    covered = np.zeros(s, np.int64)
+    for i in range(splits):
+        lo, hi = i * ks, min(s, (i + 1) * ks)
+        assert hi > lo or s == 0
+        covered[lo:hi] += 1
+    assert (covered == 1).all() and splits * ks >= s
+    least = max(fa.DEC_MIN_SLICE, -(-fa.DEC_MIN_ELEMS // d))
+    assert splits == 1 or ks >= least
+    if s >= least * -(-fa.DEC_BLOCKS // (b * h)):
+        assert b * h * splits * (least + 1) >= fa.DEC_BLOCKS * least
+    if (b, h, s, d) == (4, 32, 544, 128):
+        assert b * h * splits >= 264
+
+
+def _split_merge(q, k, v, lens, window, softcap):
+    """The decode kernel's rule, in torch: the slots cut by
+    ``decode_plan``, each split clipped to its row's valid range [max(0,
+    len - window), len) and reduced to (m, l, acc) (an empty one to
+    (-1e30, 0, 0)), the splits merged in split order, the sum divided by
+    the weight sum, or by 1 where that is 0."""
+    b, _, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    splits, ks = fa.decode_plan(b, h, s, d)
+    out = torch.zeros_like(q)
+    for bb in range(b):
+        hi = min(max(int(lens[bb]), 0), s)
+        lo = max(0, hi - window) if window is not None else 0
+        for hh in range(h):
+            kh = hh // (h // hkv)
+            parts = []
+            for i in range(splits):
+                r_lo, r_hi = max(lo, i * ks), min(hi, (i + 1) * ks)
+                if r_lo >= r_hi:
+                    parts.append((torch.tensor(-1e30), torch.tensor(0.0),
+                                  torch.zeros(d)))
+                    continue
+                x = k[bb, r_lo:r_hi, kh] @ q[bb, 0, hh] * d ** -0.5
+                if softcap is not None:
+                    x = softcap * torch.tanh(x / softcap)
+                m = x.max()
+                p = torch.exp(x - m)
+                parts.append((m, p.sum(), p @ v[bb, r_lo:r_hi, kh]))
+            mx = max(m for m, _, _ in parts)
+            lsum = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+            acc = sum(a * torch.exp(m - mx) for m, _, a in parts)
+            out[bb, 0, hh] = acc / (lsum if lsum != 0 else 1.0)
+    return out
+
+
+# (B, S, H, Hkv, D, lengths, window, softcap): lengths 0, 1 and S; a window
+# that leaves two of four splits empty (GQA); GQA with softcap; D 16
+SPLIT = [(3, 256, 2, 2, 128, (0, 1, 256), None, None),
+         (2, 256, 2, 1, 128, (256, 200), 40, None),
+         (2, 320, 4, 2, 128, (320, 77), None, 20.0),
+         (2, 1024, 2, 1, 16, (1024, 600), None, None)]
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=str)
+def test_decode_split_merge_matches_interpret_kernel(case):
+    """The split-and-merge rule of the decode kernel against the JAX
+    decode_attention in interpret mode, fp32 within 2e-4, on plans of
+    more than one split."""
+    b, s, h, hkv, d = case[:5]
+    window, softcap = case[6:]
+    assert fa.decode_plan(b, h, s, d)[0] > 1
+    rng = np.random.default_rng(b * s + d)
+    q, k, v = (_f(rng, (b, 1, h, d)), _f(rng, (b, s, hkv, d)),
+               _f(rng, (b, s, hkv, d)))
+    lens = np.asarray(case[5], np.int32)
+    want = jfa.decode_attention(_bhsd(q), _bhsd(k), _bhsd(v),
+                                jnp.asarray(lens), window=window,
+                                softcap=softcap, bk=128,
+                                interpret=True).transpose(0, 2, 1, 3)
+    t = torch.from_numpy
+    got = _split_merge(t(q), t(k), t(v), lens, window, softcap)
+    _close(got, want)
+    if 0 in lens:                         # nothing valid: the output is 0
+        assert not got[list(lens).index(0)].any()
+
+
 @pytest.mark.parametrize("case", DECODE, ids=str)
 def test_decode_oracle_matches_reference(case):
     window, softcap = case[6:]
