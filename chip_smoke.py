@@ -7,8 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all started together) and holds each of the thirteen
-against its plain torch version on the card.  Then it drives the port's
-two main paths:
+against its plain torch version on the card (conv_hwc and dwconv also at
+their timed large size, conv_hwc also bitwise against itself under a
+sliced plan, dwconv also through an x off 16 bytes).  Then it drives the
+port's two main paths:
 
   * the ten Figure-2 workloads of the paper through ``ops.* ->
     registry.dispatch -> traced costs -> customized tier -> CUDA kernel``,
@@ -26,8 +28,10 @@ it times every kernel beside its plain version, one PyTorch library call
 and the card's bound: gemm also in bf16 and float32 at the serving
 path's shapes (M = 4 and 2048 against zamba2's five weight shapes), and
 split-K against the kernel above it at M = 4, 8 and 16 (the small-M
-threshold); the fp32 gemm's tile plan (``gemm.simt_plan``) and the
-decode kernel's split plan (``decode_plan``) are printed before their
+threshold); conv_hwc and dwconv also in bf16, beside cuDNN in bf16.
+The fp32 gemm's tile plan (``gemm.simt_plan``), conv_hwc's
+(``conv.conv_plan``), dwconv's launch shape (``conv.dwconv_plan``) and
+the decode kernel's split plan (``decode_plan``) are printed before their
 times.  Each phase prints one JSON line; the last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
 exits non-zero without that line.  Without CUDA, or without the repo's
@@ -81,6 +85,21 @@ SOURCE = {op: CSRC + f for op, f in (
     ("flash_attention", "flash_attention.cu"),
     ("decode_attention", "flash_attention.cu"), ("ssd", "ssd.cu"))}
 LM_OPS = ("flash_attention", "decode_attention", "ssd")
+# conv_hwc off the Figure-2 shape: Ci 3 (an RGB first layer); Ci 24 with
+# K slices (and 16-deep slots) that straddle taps; N 3, so pixel tiles
+# cross images; 5x5 taps at stride 2; 1x1 taps; the unsplit 128 x 64 tile
+CONV_CASES = (((2, 33, 35, 3), (3, 3, 3, 32), (1, 1)),
+              ((1, 12, 12, 24), (3, 3, 24, 40), (1, 1)),
+              ((3, 9, 10, 16), (3, 3, 16, 24), (1, 1)),
+              ((2, 19, 21, 8), (5, 5, 8, 16), (2, 2)),
+              ((2, 7, 9, 32), (1, 1, 32, 48), (1, 1)),
+              ((2, 66, 66, 32), (3, 3, 32, 128), (1, 1)))
+# dwconv off the Figure-2 shape (whose plan takes runs of 2 columns a
+# thread): C 8, C 130 (one channel a thread), a 5x5 and a 1x1 window, and
+# 3x3 runs of 8 and of 4 columns a thread with a ragged last run
+DW_CASES = (((2, 10, 12, 8), (3, 3, 8)), ((1, 9, 11, 130), (3, 3, 130)),
+            ((2, 12, 13, 64), (5, 5, 64)), ((2, 6, 7, 48), (1, 1, 48)),
+            ((8, 64, 67, 128), (3, 3, 128)), ((2, 60, 45, 128), (3, 3, 128)))
 # zamba2-1.2b's gemm weights as (K, N): the Mamba input and output
 # projections, the shared block's q/k/v, MLP up and MLP down (= o) ones;
 # a decode step multiplies M = 4 rows by them, a prefill M = 2048
@@ -178,8 +197,9 @@ def figure2_args(op, rng):
 
 def awkward_args(op, rng):
     """Shapes off the kernels' tiles: ragged M/N/K and no bias for gemm,
-    stride 2 and non-square taps for conv, odd extents for the pools, a
-    pixel count off the block size for ibilinear."""
+    stride 2, non-square taps and CONV_CASES for conv, DW_CASES for
+    dwconv, odd extents for the pools, a pixel count off the block size
+    for ibilinear."""
     n = _normal
     if op == "gemm":
         return [(n(rng, (129, 33)), n(rng, (33, 67)), None),
@@ -188,11 +208,15 @@ def awkward_args(op, rng):
         return [(n(rng, (2, 17, 19, 24)), n(rng, (3, 2, 24, 40), 0.3),
                  n(rng, (40,)), (2, 1)),
                 (n(rng, (2, 17, 19, 24)), n(rng, (1, 3, 24, 40), 0.3), None,
-                 (2, 2))]
+                 (2, 2))] + \
+            [(n(rng, xs), n(rng, ws, 0.3), n(rng, ws[3:]), st)
+             for xs, ws, st in CONV_CASES]
     if op == "dwconv":
         return [(n(rng, (2, 9, 11, 20)), n(rng, (1, 3, 20), 0.3), None),
                 (n(rng, (3, 7, 5, 33)), n(rng, (3, 3, 33), 0.3),
-                 n(rng, (33,)))]
+                 n(rng, (33,)))] + \
+            [(n(rng, xs), n(rng, ws, 0.3), n(rng, ws[2:]))
+             for xs, ws in DW_CASES]
     if op in ("maxpool", "argmaxpool"):
         return [(n(rng, (2, 13, 15, 12)), (2, 2)),
                 (n(rng, (2, 13, 15, 12)), (3, 2))]
@@ -294,6 +318,43 @@ def library_call(op, args):
         return lambda: F.max_pool2d(xc, window,
                                     return_indices=op == "argmaxpool")
     return None
+
+
+def conv_checks(op, rng, dev):
+    """conv_hwc: two runs under a sliced plan (the Figure-2 shape, 6 K
+    slices) agree bitwise.  dwconv: an x that is a view 4 bytes off
+    16-byte alignment (one channel a thread) against the plain version.
+    In fp32 and bf16; returns the cases' records."""
+    import torch
+    from repro_torch.kernels import conv
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        if op == "conv_hwc":
+            args = on(figure2_args(op, rng), dev, dt)
+            splits = conv.conv_plan(args[0].shape, args[1].shape)[2]
+            first = conv.conv_hwc(*args)
+            if splits < 2 or not all(torch.equal(conv.conv_hwc(*args), first)
+                                     for _ in range(3)):
+                raise AssertionError(f"conv_hwc/{dt}: runs under a plan of "
+                                     f"{splits} K slices differ")
+            out.append({"case": "repeat", "dtype": str(dt)[6:],
+                        "splits": splits, "bitwise": True})
+            continue
+        x, w, bias = on((_normal(rng, (2, 12, 14, 64)),
+                         _normal(rng, (3, 3, 64), 0.3),
+                         _normal(rng, (64,))), dev, dt)
+        flat = torch.empty(x.numel() + 8, dtype=dt, device=dev)
+        off = 4 // x.element_size()
+        xv = flat[off:off + x.numel()].view(x.shape)
+        xv.copy_(x)
+        if xv.data_ptr() % 16 != 4 or conv.dwconv_vector(xv, w, bias):
+            raise AssertionError("dwconv: the view is not 4 bytes off 16")
+        err = compare(op, conv.dwconv(xv, w, bias),
+                      conv.dwconv_plain(xv, w, bias))
+        out.append({"case": "x_off_16", "dtype": str(dt)[6:],
+                    "shapes": [list(x.shape), list(w.shape)],
+                    "max_abs_err": err})
+    return out
 
 
 def lm_cases(op, rng):
@@ -443,6 +504,28 @@ def emit_simt_plan(size, m, n, k):
     emit("simt_plan", size=size, shapes=[[m, k], [k, n]], tile=[bm, bn],
          splits=splits, ks=ks,
          blocks=-(-m // bm) * -(-n // bn) * splits)
+
+
+def emit_conv_plan(size, op, args):
+    """conv_hwc's plan (its implicit GEMM's tile, K slices and blocks in
+    flight), or dwconv's launch shape, for these operands."""
+    from repro_torch.kernels import conv
+    x, w = args[:2]
+    dtype = str(x.dtype).replace("torch.", "")
+    shapes = [list(x.shape), list(w.shape)]
+    if op == "dwconv":
+        emit("dwconv_plan", size=size, dtype=dtype, shapes=shapes,
+             **conv.dwconv_plan(x.shape, w.shape,
+                                conv.dwconv_vector(*args[:3])))
+        return
+    stride = args[3] if len(args) > 3 else (1, 1)
+    n, h, iw, ci = x.shape
+    kh, kw, _, co = w.shape
+    oh, ow = conv.out_hw(h, iw, kh, kw, stride)
+    bm, bn, splits, ks = conv.conv_plan(x.shape, w.shape, stride)
+    emit("conv_plan", size=size, dtype=dtype, shapes=shapes,
+         gemm=[n * oh * ow, co, kh * kw * ci], tile=[bm, bn], splits=splits,
+         ks=ks, blocks=-(-n * oh * ow // bm) * -(-co // bn) * splits)
 
 
 def mma_bound_ms(nbytes, n_ops):
@@ -692,6 +775,7 @@ def serve_zamba2(dev, modules):
     # where a decode step's time goes: two steps under the profiler
     with scope():
         eng.lengths = eng.lengths - 2       # rewrite the last two positions
+        eng.position -= 2
         again = torch.as_tensor(rest[:, -3], device=dev)
         decode_profile = profile_steps(lambda: eng.decode(again, 2), 2)
         prefill_profile = profile_steps(lambda: eng.prefill(prompts), 1)
@@ -885,6 +969,8 @@ def main() -> int:
             [("awkward", a) for a in awkward_args(op, rng)] + \
             [("edge", a) for a in edge_args(op, rng)] + \
             [("serve", a) for a in serve_args(op, serve_rng)]
+        if op in ("conv_hwc", "dwconv"):    # the timed large size
+            labelled.append(("large", big_args(op, gen, dev)))
         for label, host_args in labelled:
             for dt in (torch.float32, torch.bfloat16):
                 # ibilinear's weights stay float32; its image takes dt
@@ -898,6 +984,8 @@ def main() -> int:
                              "max_abs_err": err})
                 if label == "figure2" and dt == torch.float32:
                     max_err[op] = err
+        if op in ("conv_hwc", "dwconv"):
+            errs += conv_checks(op, rng, dev)
         torch.cuda.synchronize()
         emit("kernel_vs_plain", op=op,
              tolerance="bitwise" if op in EXACT else MM_TOL, cases=errs)
@@ -1065,28 +1153,43 @@ def main() -> int:
             emit("time", **row)
     for op in NEW_OPS:
         mod = module[op]
-        for size, targs in (("figure2", args[op]),
-                            ("large", big_args(op, gen, dev))):
+        # the two convs also in bf16, beside cuDNN in bf16
+        dts = (torch.float32, torch.bfloat16) if op in ("conv_hwc", "dwconv") \
+            else (torch.float32,)
+        for size, size_args in (("figure2", args[op]),
+                                ("large", big_args(op, gen, dev))):
             if op == "gemm":
-                (m, k), n = targs[0].shape, targs[1].shape[1]
+                (m, k), n = size_args[0].shape, size_args[1].shape[1]
                 emit_simt_plan(size, m, n, k)
-            out = mod.KERNELS[op](*targs)
-            k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
-            p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
-            lib = library_call(op, targs)
-            l_ms = None if lib is None else time_ms(lib, flush)
-            nbytes, n_ops = work(op, targs, out)
-            b_ms, b_by = bound_ms(nbytes, n_ops)
-            row = {"op": op, "size": size, "dtype": "float32",
-                   "shapes": [list(a.shape) for a in targs
-                              if isinstance(a, torch.Tensor)],
-                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes, "ops": n_ops,
-                   "bound_share": b_ms / k_ms}
-            times[(op, size)] = row
-            emit("time", **row)
-            del out, targs
+            for dt in dts:
+                targs = on(size_args, dev, dt)
+                if op in ("conv_hwc", "dwconv"):
+                    emit_conv_plan(size, op, targs)
+                out = mod.KERNELS[op](*targs)
+                k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+                p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+                lib = library_call(op, targs)
+                l_ms = None if lib is None else time_ms(lib, flush)
+                nbytes, n_ops = work(op, targs, out)
+                # bf16 conv_hwc: the least time is the bf16 tensor cores'
+                b_ms, b_by = (mma_bound_ms if op == "conv_hwc" and
+                              dt == torch.bfloat16 else bound_ms)(nbytes,
+                                                                  n_ops)
+                row = {"op": op, "size": size,
+                       "dtype": str(dt).replace("torch.", ""),
+                       "shapes": [list(a.shape) for a in targs
+                                  if isinstance(a, torch.Tensor)],
+                       "kernel_ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "bytes": nbytes, "ops": n_ops,
+                       "bound_share": b_ms / k_ms}
+                if l_ms is not None:
+                    row["library_ratio"] = k_ms / l_ms
+                times[(op, size if dt == torch.float32
+                       else f"{size}_bf16")] = row
+                emit("time", **row)
+                del out, targs
+            del size_args
     for op in LM_OPS:
         mod, targs = module[op], lm_time_args(op, gen, dev)
         if op == "decode_attention":

@@ -5,10 +5,15 @@ reference's TPU kernel holds a whole (H, W, Ci) image in VMEM and turns
 the kh*kw taps into (oh*ow, Ci) x (Ci, Co) MXU products.  A whole image
 does not fit the 227 KB of shared memory a Hopper block can use, so the
 CUDA kernel (``csrc/conv.cu``) is an implicit GEMM instead: M = N*oh*ow
-output pixels, N = Co, K = kh*kw*Ci walked tap by tap in 16-channel
-slices, the im2col rows staged from x without ever being written.
-dwconv has no contraction: one thread per output runs the reference
-kernel's multiply-add chain over the taps in (i, j) order.
+output pixels, N = Co, K = kh*kw*Ci, on the fp32 SIMT product that gemm's
+fp32 variant runs (``csrc/simt_mm.cuh``), with tile and K slices from
+:func:`conv_plan` (``gemm.simt_plan`` of those three) and A read as the
+im2col rows of x, never written: :func:`im2col_offsets` is the decode the
+kernel does.  dwconv has no contraction: a thread runs the reference
+kernel's multiply-add chain over the taps in (i, j) order for 4
+channels (one vector) along a run of output columns
+(:func:`dwconv_plan`), so its loads and stores are vectors and each input
+column is loaded once per output row.
 
 Layouts are the reference's: x NHWC (N, H, W, Ci), conv weights HWIO
 (Kh, Kw, Ci, Co), depthwise weights (Kh, Kw, C), bias (Co,); VALID
@@ -33,9 +38,17 @@ import torch
 
 from ..core import trace
 from ..core.vtypes import vmem_fit
-from . import _build, ref
+from . import _build, gemm, ref
 
 LAUNCHES = {"conv_hwc": 0, "dwconv": 0}
+# dwconv's launch shape: channels a thread takes on its vector path,
+# threads a block, the output columns a thread may take (largest first),
+# and the blocks to put in flight before it takes fewer (one per SM of
+# the H100's 132)
+DW_LANES = 4
+DW_THREADS = 256
+DW_RUNS = (8, 4, 2, 1)
+DW_BLOCKS = 132
 
 # The plain conv is the oracle's own steps: one fp32 convolution, then
 # the bias add, rounded once to x's dtype.
@@ -59,6 +72,71 @@ def dwconv_plain(x, w, bias=None):
     return acc.to(x.dtype)
 
 
+def out_hw(h, w, kh, kw, stride=(1, 1)):
+    """(oh, ow) of a VALID conv."""
+    return (h - kh) // stride[0] + 1, (w - kw) // stride[1] + 1
+
+
+def conv_plan(x_shape, w_shape, stride=(1, 1)) -> tuple:
+    """(bm, bn, splits, ks) of conv_hwc's kernel: ``gemm.simt_plan`` of
+    the implicit GEMM, M = N*oh*ow pixels, N = Co, K = kh*kw*Ci."""
+    n, h, w, ci = x_shape
+    kh, kw, _, co = w_shape
+    oh, ow = out_hw(h, w, kh, kw, stride)
+    return gemm.simt_plan(n * oh * ow, co, kh * kw * ci)
+
+
+def im2col_offsets(x_shape, w_shape, stride=(1, 1)):
+    """The kernel's decode of A = im2col(x), as element offsets into the
+    contiguous x: A[r, kc] = x.flatten()[rows[r] + cols[kc]].  Row r is
+    output pixel (img, oy, ox) and starts at its window origin; column kc
+    = (i*kw + j)*Ci + c is tap (i, j), channel c, which lies
+    (kc // (kw*Ci)) * W*Ci + kc % (kw*Ci) past it (a row of kw taps is
+    one contiguous run of x).  Returns two int64 tensors (M,), (K,)."""
+    n, h, w, ci = x_shape
+    kh, kw, _, _ = w_shape
+    oh, ow = out_hw(h, w, kh, kw, stride)
+    g = torch.arange(n * oh * ow, dtype=torch.int64)
+    ox, oy, img = g % ow, g // ow % oh, g // (ow * oh)
+    rows = ((img * h + oy * stride[0]) * w + ox * stride[1]) * ci
+    kc = torch.arange(kh * kw * ci, dtype=torch.int64)
+    run = kw * ci
+    return rows, kc // run * (w * ci) + kc % run
+
+
+def dwconv_plan(x_shape, w_shape, vector: bool) -> dict:
+    """dwconv's launch shape.  ``vector``: a thread takes ``DW_LANES``
+    channels (:func:`dwconv_vector`), else one.  A block takes ``group``
+    channel vectors (the next power of two, up to 32) by ``DW_THREADS //
+    group`` tasks; a task is ``run`` output columns of one output row,
+    the largest of ``DW_RUNS`` that still gives ``DW_BLOCKS`` blocks (or
+    1)."""
+    n, h, w, c = x_shape
+    kh, kw, _ = w_shape
+    oh, ow = out_hw(h, w, kh, kw)
+    lanes = DW_LANES if vector else 1
+    nv = c // lanes
+    group = min(32, 1 << (nv - 1).bit_length())
+    rows = DW_THREADS // group
+    gy = -(-nv // group)
+    for run in DW_RUNS:
+        gx = -(-(n * oh * -(-ow // run)) // rows)
+        if gx * gy >= DW_BLOCKS:
+            break
+    return {"vector": vector, "lanes": lanes, "group": group, "run": run,
+            "block": [group, rows], "grid": [gx, gy], "blocks": gx * gy}
+
+
+def dwconv_vector(x, w, bias=None) -> bool:
+    """Whether dwconv's kernel takes 4 channels a thread (one 16-byte fp32
+    or 8-byte bf16 vector) for these operands: C a multiple of 4 and
+    every operand aligned to the vector (the output, made by
+    ``torch.empty``, always is)."""
+    size = DW_LANES * x.element_size()
+    return x.shape[-1] % DW_LANES == 0 and all(
+        t is None or t.data_ptr() % size == 0 for t in (x, w, bias))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("conv")
@@ -66,10 +144,10 @@ def _lib() -> ctypes.CDLL:
     for dt in _build.DTYPES.values():
         fn = getattr(lib, f"repro_conv_hwc_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i64] * 9 + [p]
+        fn.argtypes = [p] * 5 + [i64] * 13 + [p]
         fn = getattr(lib, f"repro_dwconv_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p] + [i64] * 6 + [p]
+        fn.argtypes = [p] * 4 + [i64] * 9 + [p]
     return lib
 
 
@@ -102,16 +180,20 @@ def conv_hwc(x, w, bias=None, stride=(1, 1)):
     if sh < 1 or sw < 1:
         raise ValueError(f"conv_hwc: stride {stride}")
     n, h, iw, ci = x.shape
-    oh, ow = (h - kh) // sh + 1, (iw - kw) // sw + 1
+    oh, ow = out_hw(h, iw, kh, kw, stride)
     x, w = x.contiguous(), w.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    bm, bn, splits, ks = conv_plan(x.shape, w.shape, stride)
+    ws = None if splits == 1 else torch.empty(
+        (splits, n * oh * ow, co), dtype=torch.float32, device=x.device)
     fn = getattr(_lib(), f"repro_conv_hwc_{_build.DTYPES[x.dtype]}")
     _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
-                  _build.ptr(bias), out.data_ptr(), n, h, iw, ci, kh, kw,
-                  co, sh, sw, what="conv_hwc kernel")
+                  _build.ptr(bias), out.data_ptr(), _build.ptr(ws), n, h, iw,
+                  ci, kh, kw, co, sh, sw, bm, bn, splits, ks,
+                  what="conv_hwc kernel")
     LAUNCHES["conv_hwc"] += 1
     return out
 
@@ -129,9 +211,11 @@ def dwconv(x, w, bias=None):
                       device=x.device)
     if out.numel() == 0:
         return out
+    plan = dwconv_plan(x.shape, w.shape, dwconv_vector(x, w, bias))
     fn = getattr(_lib(), f"repro_dwconv_{_build.DTYPES[x.dtype]}")
     _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
                   _build.ptr(bias), out.data_ptr(), n, h, iw, c, kh, kw,
+                  int(plan["vector"]), plan["group"], plan["run"],
                   what="dwconv kernel")
     LAUNCHES["dwconv"] += 1
     return out
@@ -177,8 +261,7 @@ def supports_dwconv(x, w, bias=None, stride=(1, 1), **kw) -> bool:
 def cost_conv(x, w, bias=None, stride=(1, 1), **_) -> int:
     n, h, iw, ci = x.shape
     kh, kw_, _, co = w.shape
-    sh, sw = stride
-    oh, ow = (h - kh) // sh + 1, (iw - kw_) // sw + 1
+    oh, ow = out_hw(h, iw, kh, kw_, stride)
     tgt = trace.current_target()
     if tgt.mxu >= 8:
         return kh * kw_ * n * math.ceil(oh * ow / tgt.mxu) * \

@@ -1,5 +1,6 @@
 // Shared by the port's kernel sources: element access for fp32 and bf16,
-// the NaN-propagating clamp, and the launch helpers.
+// the NaN-propagating clamp, the launch helpers, and the 16-byte alignment
+// and shared-memory address helpers.
 //
 // Build flags (kernels/_build.py) carry no --use_fast_math and no -ftz:
 // the kernels need IEEE rounding and keep subnormals.
@@ -42,6 +43,15 @@ __device__ __forceinline__ float clip(float v, float lo, float hi) {
 inline unsigned blocks_for(int64_t items, int threads) {
   const int64_t need = (items + threads - 1) / threads;
   return static_cast<unsigned>(need < kMaxBlocks ? need : kMaxBlocks);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The shared-memory address of a generic pointer, for PTX operands
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 }  // namespace repro_cuda

@@ -34,46 +34,26 @@
 //      (K, N) row-major matrix, read N-major with the instruction's
 //      transpose bit, never copied.  Bias, clamp and the single rounding
 //      to bf16 are fused into the store.
-//  (c) large M, fp32: bound by operations (2MNK fp32 FMAs; at 2048^3
-//      0.257 ms at the 67 TFLOP/s of the H100 SXM data sheet, 700 W).
-//      No tensor cores: they would round fp32 to TF32 and miss the
-//      reference's fp32 tolerance.  SIMT register tiles of 256 threads,
-//      each keeping 8 x 8 fp32 sums of a 128 x 128 block tile (8 x 4 of
-//      128 x 64, 4 x 4 of 64 x 64 where larger tiles leave the card
-//      empty).  What it does about the three holds of a plain tiled
-//      kernel (64 x 64 tiles, 4 x 4 sums, synchronous scalar loads):
-//      - loads overlap the products: K runs through a 3-stage ring of
-//        16-deep slots filled by cp.async (dynamic shared memory: at
-//        128 x 128 the ring passes the static limit), so slots t+1 and
-//        t+2 load while slot t is multiplied, one barrier a slot; each
-//        thread's copy addresses are set once and step by a slot;
-//      - fewer shared-memory loads: A sits k-major (copied element by
-//        element, the transpose happening in the copy; a warp's copies
-//        still cover whole 32-byte sectors of A, and a pad of 4 floats a
-//        row spreads its stores over the 32 banks), B row-major (16-byte
-//        copies; element by element where N is not a multiple of 4 or B
-//        is off 16 bytes).  Per k a thread reads its 8 A and 8 B values
-//        as four float4 for 64 FMAs; a warp's A reads are two broadcast
-//        addresses and its B reads 256 contiguous bytes, so no bank
-//        conflicts;
-//      - grid fill: the host plan (gemm.simt_plan) takes smaller tiles,
-//        then cuts K into slices, until ~128 blocks are in flight; the
-//        slices' fp32 sums go to a workspace and splitk_reduce adds them
-//        in slice order, so two runs agree bitwise.
+//  (c) large M, fp32: bound by operations (2MNK fp32 FMAs).  The SIMT
+//      register tiles of simt_mm.cuh (shared with conv.cu's conv_hwc):
+//      8 x 8 fp32 sums a thread on 128 x 128 blocks, K through a 3-stage
+//      cp.async ring of 16-deep slots, and K slices from the host plan
+//      (gemm.simt_plan) added in slice order by splitk_reduce where the
+//      tiles leave the card empty, so two runs agree bitwise.  A is read
+//      as the plain row-major matrix (simt::DenseA).
 //
 // The clamp is two comparisons, so a NaN propagates as through jnp.clip.
 #include <cuda.h>
 
-#include "common.cuh"
+#include "simt_mm.cuh"
 
 namespace {
 
+using repro_cuda::aligned16;
 using repro_cuda::clip;
 using repro_cuda::Elem;
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
+using repro_cuda::smem_u32;
+using repro_cuda::splitk_reduce;
 
 // ---------------------------------------------------------------------------
 // (a) small M: split-K weight streaming
@@ -237,24 +217,6 @@ small_m_kernel(const typename Elem<T>::Raw* __restrict__ a,
   }
 }
 
-// c[i] = clip(sum over slices of ws[s][i] + bias, lo, hi), slices in order,
-// rounded once to T.
-template <typename T>
-__global__ void splitk_reduce(const float* __restrict__ ws,
-                              const typename Elem<T>::Raw* __restrict__ bias,
-                              typename Elem<T>::Raw* __restrict__ c,
-                              int64_t mn, int64_t n, int splits, float lo,
-                              float hi) {
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < mn; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float sum = ws[i];
-    for (int sp = 1; sp < splits; ++sp) sum += ws[sp * mn + i];
-    if (bias != nullptr) sum = __fadd_rn(sum, Elem<T>::get(bias[i % n]));
-    c[i] = Elem<T>::put(clip(sum, lo, hi));
-  }
-}
-
 template <typename T, int MT>
 cudaError_t launch_mt(const typename Elem<T>::Raw* a,
                       const typename Elem<T>::Raw* b, float* ws, int m,
@@ -314,10 +276,6 @@ constexpr int kStageBytes = kATile + kBTile;
 constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment slack
 
 using u16 = unsigned short;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // The 128-byte swizzle of wgmma and TMA: in each 8-row x 128-byte atom,
 // 16-byte chunk c of row r sits at chunk c ^ (r % 8).
@@ -641,263 +599,6 @@ int launch(const void* a, const void* b, const void* bias, void* c,
 
 }  // namespace mma
 
-// ---------------------------------------------------------------------------
-// (c) large M, fp32: SIMT register tiles fed by cp.async
-// ---------------------------------------------------------------------------
-
-namespace simt {
-
-constexpr int kThreads = 256;          // 16 x 16
-constexpr int BK = 16;                 // K rows a ring slot
-constexpr int kStages = 3;
-
-using mma::smem_u32;
-
-// Thread (ty, tx) = (tid / 16, tid % 16) owns rows 64 g + 4 ty + i and
-// columns 64 h + 4 tx + j of the block tile: TM / 4 groups of 4 rows, TN
-// / 4 groups of 4 columns, each read from shared memory as one float4.
-template <int TM, int TN>
-struct Tile {
-  static constexpr int BM = 16 * TM, BN = 16 * TN;
-  static constexpr int LDA = BM + 4;   // an A row (one k), padded
-  static constexpr int kA = BK * LDA, kB = BK * BN;  // floats a slot
-  static constexpr int kSmem = kStages * (kA + kB) * 4;
-  // copies a thread issues a slot: A rows tid / 8 + 32 i at columns
-  // tid % 8 and tid % 8 + 8; B rows tid / (BN / 4) + j (1024 / BN) at
-  // columns 4 (tid % (BN / 4)) .. + 3 (or single columns tid % BN)
-  static_assert(BK == 16, "the A copies cover columns tid % 8 and + 8");
-  static constexpr int kARows = BM / 32;
-  static constexpr int kBVec = BK * BN / 4 / kThreads;
-  static constexpr int kBOne = BK * BN / kThreads;
-};
-
-// cp.async of 4 or 16 bytes, zero-filled where !ok (src must still be a
-// valid address)
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-// Block (x, y, z): rows m0 = BM x .., columns n0 = BN y .., K slice
-// [z ks, min(k, (z + 1) ks)).  One slice (gridDim.z == 1) stores
-// clip(acc + bias) into c; several store their raw sums into slice z of
-// ws, and splitk_reduce finishes them.  VEC: n % 4 == 0 and b on 16
-// bytes, so B slots are 16-byte copies and the stores float4.  A warp's
-// A copies are 4 rows x 8 columns (whole 32-byte sectors; banks 4 q + r,
-// all 32 distinct).
-template <int TM, int TN, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
-simt_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            const float* __restrict__ bias, float* __restrict__ c,
-            float* __restrict__ ws, int64_t m, int64_t n, int64_t k,
-            int64_t ks, float lo, float hi) {
-  using S = Tile<TM, TN>;
-  extern __shared__ __align__(16) float smem[];
-  float* const sa = smem;                        // kStages x kA
-  float* const sb = smem + kStages * S::kA;      // kStages x kB
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * S::BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * S::BN;
-  const int64_t kb = static_cast<int64_t>(blockIdx.z) * ks;
-  const int64_t ke = kb + ks < k ? kb + ks : k;
-  const int64_t nt = ke > kb ? (ke - kb + BK - 1) / BK : 0;
-
-  // this thread's copies, fixed for the walk: A rows below a_rows valid,
-  // B columns valid where b_col < n
-  const int aq = tid & 7, ar = tid >> 3;
-  const int64_t a_left = m - m0 - ar;
-  const int a_rows = a_left <= 0 ? 0
-                     : a_left >= 32 * S::kARows ? S::kARows
-                                                : static_cast<int>((a_left + 31) / 32);
-  const float* const a_src = a + (m0 + ar) * k + kb + aq;
-  constexpr int kBRow = VEC ? S::BN / 4 : S::BN;  // copies a B row
-  const int bq = tid / kBRow;
-  const int bc = VEC ? (tid % kBRow) * 4 : tid % kBRow;
-  const bool b_col = n0 + bc < n;
-  const float* const b_src = b + (kb + bq) * n + n0 + bc;
-
-  auto load = [&](int64_t t) {         // slot t of the slice
-    const int64_t k0 = kb + t * BK;
-    float* da = sa + (t % kStages) * S::kA + aq * S::LDA + ar;
-    float* db = sb + (t % kStages) * S::kB + bq * S::BN + bc;
-    const bool c0 = k0 + aq < ke, c1 = k0 + aq + 8 < ke;
-    const float* p = a_src + t * BK;
-#pragma unroll
-    for (int i = 0; i < S::kARows; ++i) {
-      const bool ok = i < a_rows;
-      cp4(da + 32 * i, ok && c0 ? p : a, ok && c0);
-      cp4(da + 8 * S::LDA + 32 * i, ok && c1 ? p + 8 : a, ok && c1);
-      p += 32 * k;
-    }
-    const float* pb = b_src + t * BK * n;
-    constexpr int kStep = kThreads / kBRow;      // B rows between copies
-#pragma unroll
-    for (int j = 0; j < (VEC ? S::kBVec : S::kBOne); ++j) {
-      const bool ok = b_col && k0 + bq + j * kStep < ke;
-      const float* src = ok ? pb + j * kStep * n : b;
-      if (VEC)
-        cp16(db + j * kStep * S::BN, src, ok);
-      else
-        cp4(db + j * kStep * S::BN, src, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < nt) load(t);
-    else asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  for (int64_t t = 0; t < nt; ++t) {
-    // slot t has landed (this thread's copies, then everyone's), and
-    // every thread is done with slot t - 1, which slot t + 2 reuses
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
-    __syncthreads();
-    if (t + kStages - 1 < nt) load(t + kStages - 1);
-    else asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const float* pa = sa + (t % kStages) * S::kA + ty * 4;
-    const float* pb = sb + (t % kStages) * S::kB + tx * 4;
-#pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int g = 0; g < TM / 4; ++g) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(pa + q * S::LDA + g * 64);
-        av[4 * g] = x.x; av[4 * g + 1] = x.y;
-        av[4 * g + 2] = x.z; av[4 * g + 3] = x.w;
-      }
-#pragma unroll
-      for (int h = 0; h < TN / 4; ++h) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(pb + q * S::BN + h * 64);
-        bv[4 * h] = x.x; bv[4 * h + 1] = x.y;
-        bv[4 * h + 2] = x.z; bv[4 * h + 3] = x.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-
-  // epilogue: the bias add rounds before the clamp, as the reference's
-  // separate add; a K slice stores its raw sums
-  const bool whole = gridDim.z == 1;
-  float* out = whole ? c : ws + static_cast<int64_t>(blockIdx.z) * m * n;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t row = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (row >= m) continue;
-#pragma unroll
-    for (int h = 0; h < TN / 4; ++h) {
-      const int64_t col = n0 + h * 64 + tx * 4;
-      if (col >= n) continue;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[j] = acc[i][4 * h + j];
-        if (whole && col + j < n) {
-          if (bias != nullptr) v[j] = __fadd_rn(v[j], bias[col + j]);
-          v[j] = clip(v[j], lo, hi);
-        }
-      }
-      float* p = out + row * n + col;
-      if (VEC) {
-        *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (col + j < n) p[j] = v[j];
-      }
-    }
-  }
-}
-
-template <int TM, int TN, bool VEC>
-cudaError_t launch_vec(const float* a, const float* b, const float* bias,
-                       float* c, float* ws, int64_t m, int64_t n, int64_t k,
-                       int64_t ks, float lo, float hi, dim3 grid,
-                       cudaStream_t stream) {
-  constexpr int smem = Tile<TM, TN>::kSmem;
-  static bool attr = false;            // set once per instantiation
-  if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        simt_kernel<TM, TN, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return err;
-    attr = true;
-  }
-  simt_kernel<TM, TN, VEC><<<grid, kThreads, smem, stream>>>(
-      a, b, bias, c, ws, m, n, k, ks, lo, hi);
-  return cudaGetLastError();
-}
-
-template <int TM, int TN>
-cudaError_t launch_tile(const float* a, const float* b, const float* bias,
-                        float* c, float* ws, int64_t m, int64_t n, int64_t k,
-                        int64_t splits, int64_t ks, float lo, float hi,
-                        bool vec, cudaStream_t stream) {
-  using S = Tile<TM, TN>;
-  const int64_t gx = (m + S::BM - 1) / S::BM, gy = (n + S::BN - 1) / S::BN;
-  if (gx > repro_cuda::kMaxBlocks || gy > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(gx), static_cast<unsigned>(gy),
-                  static_cast<unsigned>(splits));
-  return vec ? launch_vec<TM, TN, true>(a, b, bias, c, ws, m, n, k, ks, lo,
-                                        hi, grid, stream)
-             : launch_vec<TM, TN, false>(a, b, bias, c, ws, m, n, k, ks, lo,
-                                         hi, grid, stream);
-}
-
-// Tiles bm x bn of 128 x 128, 128 x 64 or 64 x 64; K cut into `splits`
-// slices of ks rows (a multiple of BK where there are several, which then
-// need ws: splits * m * n floats).
-int launch(const float* a, const float* b, const float* bias, float* c,
-           float* ws, int64_t m, int64_t n, int64_t k, int64_t bm,
-           int64_t bn, int64_t splits, int64_t ks, float lo, float hi,
-           cudaStream_t stream) {
-  if (k < 0 || splits < 1 || splits > 65535 || ks < 0 || splits * ks < k ||
-      (splits > 1 && (ks % BK != 0 || ws == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = n % 4 == 0 && aligned16(b);
-  cudaError_t err;
-  if (bm == 128 && bn == 128)
-    err = launch_tile<8, 8>(a, b, bias, c, ws, m, n, k, splits, ks, lo, hi,
-                            vec, stream);
-  else if (bm == 128 && bn == 64)
-    err = launch_tile<8, 4>(a, b, bias, c, ws, m, n, k, splits, ks, lo, hi,
-                            vec, stream);
-  else if (bm == 64 && bn == 64)
-    err = launch_tile<4, 4>(a, b, bias, c, ws, m, n, k, splits, ks, lo, hi,
-                            vec, stream);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t mn = m * n;
-  small::splitk_reduce<float>
-      <<<repro_cuda::blocks_for(mn, 256), 256, 0, stream>>>(
-          ws, bias, c, mn, n, static_cast<int>(splits), lo, hi);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace simt
-
 }  // namespace
 
 // Plain C entry points, bound from Python with ctypes: row-major a (m, k),
@@ -913,11 +614,12 @@ int repro_gemm_simt_f32(const void* a, const void* b, const void* bias,
                         int64_t bm, int64_t bn, int64_t splits, int64_t ks,
                         float lo, float hi, void* s) {
   if (m <= 0 || n <= 0) return 0;
-  return simt::launch(static_cast<const float*>(a),
-                      static_cast<const float*>(b),
-                      static_cast<const float*>(bias), static_cast<float*>(c),
-                      static_cast<float*>(ws), m, n, k, bm, bn, splits, ks,
-                      lo, hi, static_cast<cudaStream_t>(s));
+  namespace simt = repro_cuda::simt;
+  return simt::launch<float>(
+      static_cast<const float*>(a), simt::DenseA{k},
+      static_cast<const float*>(b), static_cast<const float*>(bias),
+      static_cast<float*>(c), static_cast<float*>(ws), m, n, k, bm, bn,
+      splits, ks, lo, hi, static_cast<cudaStream_t>(s));
 }
 
 int repro_gemm_mma_bf16(const void* a, const void* b, const void* bias,

@@ -5,6 +5,13 @@ caches, decode advances every row one token per step (one
 ``serve_step``).  Greedy or temperature sampling.  PyTorch runs eagerly,
 so the steps are the forward functions themselves (the reference jits
 them); the caches are written in place.
+
+The cache holds positions 0 .. ``max_seq`` - 1.  ``decode`` refuses, before
+its first step, to run past them (ValueError), where the reference drops
+the cache writes and goes on (ROADMAP C.11): on the card such a write is
+an out-of-range index, a device-side assert that leaves the CUDA context
+unusable.  The check reads the engine's host copy of the position, never
+device data.
 """
 from __future__ import annotations
 
@@ -49,6 +56,9 @@ class Engine:
     temperature: float = 0.0
     target: Any = None             # explicit lowering target (None=ambient)
     device: Any = None             # None = the card
+    # the next cache position every row writes: ``lengths`` kept on the
+    # host, so the bound check never reads the device
+    position: int = dataclasses.field(default=0, init=False)
 
     def __post_init__(self):
         self.device = resolve_device("cuda" if self.device is None
@@ -67,16 +77,25 @@ class Engine:
                                                 {"tokens": prompts})
         self.lengths = torch.full((prompts.shape[0],), prompts.shape[1],
                                   dtype=torch.int32, device=self.device)
+        self.position = prompts.shape[1]
         return self._sample(last_logits)
 
     def decode(self, tokens: torch.Tensor, steps: int) -> np.ndarray:
-        """Advance ``steps`` tokens for the whole batch; returns (B, steps)."""
+        """Advance ``steps`` tokens for the whole batch; returns (B, steps).
+        Raises ValueError, before any step, where a step would write at or
+        past ``max_seq``."""
+        if self.position + steps > self.max_seq:
+            raise ValueError(
+                f"decode: {steps} steps from position {self.position} would "
+                f"write cache positions up to {self.position + steps - 1}, "
+                f"past max_seq {self.max_seq}")
         out = []
         cur = tokens
         for _ in range(steps):
             logits, self.cache = self._step(self.params, self.cache,
                                             cur[:, None], self.lengths)
             self.lengths = self.lengths + 1
+            self.position += 1
             cur = self._sample(logits)
             out.append(cur)
         if not out:

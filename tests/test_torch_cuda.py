@@ -12,12 +12,16 @@ must agree; subnormal inputs are included.  gemm and conv_hwc: fp32
 rtol = atol = 2e-4 (the reference's kernel TOL: the sums run in another
 order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
 indices: bitwise, since they round where their plain versions round.
-Each gemm variant (split-K small M, wgmma bf16, SIMT fp32) is held to
-the same tolerance at M, N and K around the small-M threshold and the
-serving shapes; the SIMT kernel also on each of its tiles, with K cut
-into slices, and with B read element by element (N off 4, or B off 16
-bytes); split-K and the SIMT kernel's K slices to themselves bitwise
-across runs.  flash_attention, decode_attention and ssd: rtol = atol =
+conv_hwc also at Ci 3, Ci 24 under K slices that straddle taps, N 3,
+5x5 taps at stride 2, 1x1 taps and its 128 x 64 tile, and to itself
+bitwise across runs under a sliced plan; dwconv also at C 8 and 130, 5x5
+and 1x1 windows, runs of 8, 4 and 2 columns a thread with a ragged last
+one, and an x off 16 bytes.  Each gemm variant (split-K small M, wgmma bf16,
+SIMT fp32) is held to the same tolerance at M, N and K around the
+small-M threshold and the serving shapes; the SIMT kernel also on each
+of its tiles, with K cut into slices, and with B read element by element
+(N off 4, or B off 16 bytes); split-K and the SIMT kernel's K slices to
+themselves bitwise across runs.  flash_attention, decode_attention and ssd: rtol = atol =
 2e-4 in fp32 and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's
 serving shapes and at GQA/window/softcap, Sq < Sk, ragged-length,
 off-chunk, s < 8 and single-group shapes; decode also over a long cache
@@ -98,6 +102,24 @@ def _ib(rng, h, w, c, p):
             rng.random(p).astype(np.float32))
 
 
+# conv_hwc off the Figure-2 shape: Ci 3 (an RGB first layer); Ci 24 with
+# K slices (and 16-deep slots) that straddle taps; N 3, so pixel tiles
+# cross images; 5x5 taps at stride 2; 1x1 taps; the unsplit 128 x 64 tile
+CONV_CASES = [((2, 33, 35, 3), (3, 3, 3, 32), (1, 1)),
+              ((1, 12, 12, 24), (3, 3, 24, 40), (1, 1)),
+              ((3, 9, 10, 16), (3, 3, 16, 24), (1, 1)),
+              ((2, 19, 21, 8), (5, 5, 8, 16), (2, 2)),
+              ((2, 7, 9, 32), (1, 1, 32, 48), (1, 1)),
+              ((2, 66, 66, 32), (3, 3, 32, 128), (1, 1))]
+# dwconv off the Figure-2 shape (whose plan takes runs of 2 columns a
+# thread): C 8, C 130 (one channel a thread), a 5x5 and a 1x1 window, C
+# 33, and 3x3 runs of 8 and of 4 columns a thread with a ragged last run
+DW_CASES = [((2, 10, 12, 8), (3, 3, 8)), ((1, 9, 11, 130), (3, 3, 130)),
+            ((2, 12, 13, 64), (5, 5, 64)), ((2, 6, 7, 48), (1, 1, 48)),
+            ((3, 7, 5, 33), (3, 3, 33)), ((8, 64, 67, 128), (3, 3, 128)),
+            ((2, 60, 45, 128), (3, 3, 128))]
+
+
 def _cases(op, rng):
     """(float arrays, other arrays, extra args) at the Figure-2 shape and
     at awkward ones: ragged tiles, no bias, stride 2, non-square taps,
@@ -114,12 +136,16 @@ def _cases(op, rng):
                 ((_f(rng, (2, 17, 19, 24)), _f(rng, (3, 2, 24, 40), 0.3),
                   _f(rng, (40,))), (), ((2, 1),)),
                 ((_f(rng, (2, 17, 19, 24)), _f(rng, (1, 3, 24, 40), 0.3),
-                  None), (), ((2, 2),))]
+                  None), (), ((2, 2),))] + \
+            [((_f(rng, xs), _f(rng, ws, 0.3), _f(rng, ws[3:])), (), (st,))
+             for xs, ws, st in CONV_CASES]
     if op == "dwconv":
         return [((_f(rng, (1, 56, 56, 128)), _f(rng, (3, 3, 128), 0.3),
                   _f(rng, (128,))), (), ()),
                 ((_f(rng, (2, 9, 11, 20)), _f(rng, (1, 3, 20), 0.3), None),
-                 (), ())]
+                 (), ())] + \
+            [((_f(rng, xs), _f(rng, ws, 0.3), _f(rng, ws[2:])), (), ())
+             for xs, ws in DW_CASES]
     if op in ("maxpool", "argmaxpool"):
         return [((_f(rng, (1, 56, 56, 256)),), (), ((2, 2),)),
                 ((_f(rng, (2, 13, 15, 12)),), (), ((2, 2),)),
@@ -299,6 +325,37 @@ def test_gemm_simt_split_is_deterministic(cuda):
     first = gemm.gemm(a, b, c, -1.0, 1.0)
     for _ in range(3):
         assert torch.equal(gemm.gemm(a, b, c, -1.0, 1.0), first)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_conv_hwc_split_is_deterministic(cuda, dtype):
+    """Two runs of conv_hwc under a sliced plan (the Figure-2 shape: 6 K
+    slices of 192) agree bitwise: the slices are added in one fixed
+    order."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(_f(rng, (1, 28, 28, 128))).to(cuda, dtype)
+    w = torch.from_numpy(_f(rng, (3, 3, 128, 128), 0.1)).to(cuda, dtype)
+    b = torch.from_numpy(_f(rng, (128,))).to(cuda, dtype)
+    assert conv.conv_plan(x.shape, w.shape)[2] > 1
+    first = conv.conv_hwc(x, w, b)
+    for _ in range(3):
+        assert torch.equal(conv.conv_hwc(x, w, b), first)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_dwconv_reads_an_x_off_16_bytes(cuda, dtype):
+    """x a view 4 bytes off 16-byte alignment: the one-channel path,
+    bitwise equal to the plain version."""
+    rng = np.random.default_rng(7)
+    shape = (2, 12, 14, 64)
+    flat = torch.from_numpy(_f(rng, (int(np.prod(shape)) + 8,))).to(
+        cuda, dtype)
+    off = 4 // flat.element_size()
+    x = flat[off:off + int(np.prod(shape))].view(shape)
+    assert x.data_ptr() % 16 == 4
+    w = torch.from_numpy(_f(rng, (3, 3, 64), 0.3)).to(cuda, dtype)
+    b = torch.from_numpy(_f(rng, (64,))).to(cuda, dtype)
+    _same("dwconv", conv.dwconv(x, w, b), conv.dwconv_plain(x, w, b), dtype)
 
 
 def test_main_path_launches_each_kernel_once(cuda):

@@ -104,11 +104,44 @@ def test_zamba2_engine_matches_reference(zamba, tier):
         assert c["per_op"][("decode_attention", "pallas")] > 0
 
 
+def test_decode_past_max_seq_is_refused_where_the_reference_drops_it():
+    """ROADMAP C.11, both packages pinned: 2 prompts of 12 tokens and
+    max_seq 16.  The reference's Engine returns all 10 tokens of
+    ``generate(..., 10)`` (its cache writes at slots 16..20 are dropped);
+    the port's raises ValueError naming max_seq before any decode step.
+    ``generate(..., 5)`` writes positions up to 12 + 5 - 1 = 16 - 1 and
+    gives the reference's tokens."""
+    jcfg, cfg = _cfgs("zamba2-1.2b")
+    jparams = JM.init(jcfg, jax.random.PRNGKey(0))
+    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    prompts = np.random.default_rng(1).integers(
+        2, jcfg.vocab_size, (2, 12)).astype(np.int32)
+
+    def jax_engine():
+        return JE.Engine(jcfg, jparams, max_batch=2, max_seq=16)
+
+    def port_engine():
+        return E.Engine(cfg, params, max_batch=2, max_seq=16, device="cpu")
+
+    dropped = np.asarray(jax_engine().generate(jnp.asarray(prompts), 10))
+    assert dropped.shape == (2, 10)
+    eng, steps = port_engine(), []
+    step = eng._step
+    eng._step = lambda *a: steps.append(a) or step(*a)
+    with pytest.raises(ValueError, match="max_seq 16"):
+        eng.generate(prompts, 10)
+    assert steps == [] and eng.position == 12
+    want = np.asarray(jax_engine().generate(jnp.asarray(prompts), 5))
+    eng = port_engine()
+    np.testing.assert_array_equal(eng.generate(prompts, 5), want)
+    assert eng.position == 16
+
+
 def _uncounted(cfg):
     """Elements of the parameter tree that ``param_counts()`` (the
     reference's estimate, copied as it is) leaves out: the norms, the conv
     biases, the padded vocabulary rows and, in zamba2's shared block, the
-    down projection of the gated MLP (ROADMAP C.9)."""
+    down projection of the gated MLP (ROADMAP C.10)."""
     d, n_mamba = cfg.d_model, cfg.n_layers
     conv_b = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     out = n_mamba * (d + cfg.d_inner + conv_b) + d
