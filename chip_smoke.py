@@ -9,27 +9,33 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all started together) and holds each of the thirteen
 against its plain torch version on the card (conv_hwc and dwconv also at
 their timed large size, conv_hwc also bitwise against itself under a
-sliced plan, dwconv also through an x off 16 bytes).  Then it drives the
-port's two main paths:
+sliced plan, dwconv also through an x off 16 bytes; the elementwise four
+at odd sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
+positions, with fast decays, and bitwise against itself).  Then it drives
+the port's two main paths:
 
   * the ten Figure-2 workloads of the paper through ``ops.* ->
-    registry.dispatch -> traced costs -> customized tier -> CUDA kernel``,
-    checking the paper's Figure-2 selection properties;
+    registry.dispatch -> traced costs -> customized tier -> CUDA kernel``
+    under the rvv-128 cost model, checking the paper's Figure-2 selection
+    properties;
   * zamba2-1.2b serving at full width and depth (bf16, seeded random
-    weights): ``Engine.generate`` for 4 requests of 512-token prompts and
-    32 greedy tokens, through gemm, vtanh, flash attention, flash decode
-    and ssd, then a teacher-forced check of its logits against the same
-    model under the vector tier, in bf16 and again with the model in
-    float32.
+    weights) under the default target (h100) and policy:
+    ``Engine.generate`` for 4 requests of 512-token prompts and 32 greedy
+    tokens, which must run the kernel tier of gemm, vtanh, flash
+    attention, flash decode and ssd, then a teacher-forced check of its
+    logits against the same model under the vector tier, in bf16 and
+    again with the model in float32, both runs on the kernel tier of all
+    five ops under the default target.
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Finally
 it times every kernel beside its plain version, one PyTorch library call
-and the card's bound: gemm also in bf16 and float32 at the serving
-path's shapes (M = 4 and 2048 against zamba2's five weight shapes), and
-split-K against the kernel above it at M = 4, 8 and 16 (the small-M
-threshold); conv_hwc and dwconv also in bf16, beside cuDNN in bf16.
-The fp32 gemm's tile plan (``gemm.simt_plan``), conv_hwc's
+and the card's bound: the elementwise four also in bf16 and vtanh at the
+gelu's serving shapes, ssd also in float32, gemm also in bf16 and float32
+at the serving path's shapes (M = 4 and 2048 against zamba2's five weight
+shapes), and split-K against the kernel above it at M = 4, 8 and 16 (the
+small-M threshold); conv_hwc and dwconv also in bf16, beside cuDNN in
+bf16.  The fp32 gemm's tile plan (``gemm.simt_plan``), conv_hwc's
 (``conv.conv_plan``), dwconv's launch shape (``conv.dwconv_plan``) and
 the decode kernel's split plan (``decode_plan``) are printed before their
 times.  Each phase prints one JSON line; the last line is
@@ -401,10 +407,23 @@ def lm_cases(op, rng):
                                   .astype(np.float32)),
                 n(rng, (b, s, g, n_), 0.5), n(rng, (b, s, g, n_), 0.5),
                 torch.ones(h))
+    def fast_decay(b, s, h, p, g, n_):
+        # dt 2 and A down to -60: exp(la_i - la_j) above the diagonal
+        # overflows unless masked first (ROADMAP C.9a)
+        args = list(ssd_args(b, s, h, p, g, n_))
+        args[1] = torch.full((b, s, h), 2.0)
+        args[2] = -torch.linspace(1.0, 60.0, h)
+        return tuple(args)
     return [("zamba2", ssd_args(4, 512, 64, 64, 2, 64)),
             ("off_chunk", ssd_args(2, 300, 8, 16, 2, 32)),
             ("s_lt_8", ssd_args(2, 5, 4, 16, 4, 16)),
-            ("g_lt_h", ssd_args(1, 130, 6, 32, 1, 8))]
+            ("g_lt_h", ssd_args(1, 130, 6, 32, 1, 8)),
+            ("s_1", ssd_args(2, 1, 4, 64, 2, 64)),
+            ("s_8", ssd_args(2, 8, 4, 16, 1, 16)),
+            ("s_2048_16_chunks", ssd_args(1, 2048, 8, 64, 2, 64)),
+            ("p_128", ssd_args(1, 300, 4, 128, 2, 64)),
+            ("p_20_n_12", ssd_args(2, 260, 4, 20, 2, 12)),
+            ("fast_decay", fast_decay(1, 300, 4, 64, 1, 64))]
 
 
 def lm_keep(op):
@@ -674,15 +693,17 @@ def profile_steps(run, steps):
 
 def serve_zamba2(dev, modules):
     """Drive zamba2-1.2b serving at full width and depth through the
-    port's Engine, count the kernel launches of that run, time prefill and
-    decode, and hold its logits against the vector tier's (teacher
-    forced), in bf16 and in float32.  Returns the phase's record."""
-    import contextlib
+    port's Engine under the default target (h100) and policy, count the
+    kernel launches of that run, time prefill and decode, and hold its
+    logits against the vector tier's (teacher forced), in bf16 and in
+    float32.  Returns the phase's record."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core import trace, use_policy, use_target
+    from repro_torch.core import trace, use_policy
+    from repro_torch.core.registry import REGISTRY
     from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.models import model as M
     from repro_torch.serve.engine import (Engine, make_prefill_step,
                                           make_serve_step)
@@ -704,25 +725,11 @@ def serve_zamba2(dev, modules):
         return {op: sorted({t for (o, t) in counted["per_op"] if o == op})
                 for op in ops_}
 
-    # what the default target (h100) and policy pick on this path: one
-    # prefill and one decode step
-    with trace.count() as probe:
-        Engine(cfg, params, b, max_seq).generate(prompts, 2)
-    h100 = tiers(probe)
-    # where h100 keeps an LM op on the vector tier, the run is pinned to
-    # the rvv-128 cost model (the Engine's target for attention/ssd, the
-    # ambient target for gemm and vtanh), under which all five pick their
-    # kernels; the cost models themselves are not changed
-    target = "rvv-128" if any(h100[op] != ["pallas"] for op in
-                              ("attention", "decode_attention", "ssd")) \
-        else None
-    scope = (lambda: use_target(target)) if target else contextlib.nullcontext
-
     # the main path: counts set to 0, one Engine.generate, counts read
     for m in modules:
         m.reset_launches()
-    with scope(), trace.count() as counted:
-        eng = Engine(cfg, params, b, max_seq, target=target)
+    with trace.count() as counted:
+        eng = Engine(cfg, params, b, max_seq)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tokens = eng.generate(prompts, steps)
@@ -730,7 +737,13 @@ def serve_zamba2(dev, modules):
         generate_s = time.perf_counter() - t0
     launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
     chosen = tiers(counted)
-    want = {"ssd": cfg.n_layers, "flash_attention": cfg.n_layers //
+    emit("serve_tiers", target="h100", policy=REGISTRY.policy,
+         dtype=cfg.dtype, chosen=chosen)
+    if any(chosen[op] != ["pallas"] for op in ops_):
+        raise AssertionError(f"serve: h100 picked {chosen}; every LM op "
+                             "must run its kernel tier")
+    want = {"ssd": cfg.n_layers * ssd_mod.launches(plen),
+            "flash_attention": cfg.n_layers //
             cfg.shared_attn_every, "decode_attention": cfg.n_layers //
             cfg.shared_attn_every * (steps - 1)}
     for op, n in want.items():
@@ -749,21 +762,20 @@ def serve_zamba2(dev, modules):
     def gemm_counts():
         return {k: v for k, v in gemm_mod.LAUNCHES.items() if k != "gemm"}
 
-    with scope():
-        eng = Engine(cfg, params, b, max_seq, target=target)
-        torch.cuda.synchronize()
-        gemm_mod.reset_launches()
-        t0 = time.perf_counter()
-        first = eng.prefill(prompts)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        prefill_gemm = gemm_counts()
-        gemm_mod.reset_launches()
-        t0 = time.perf_counter()
-        rest = eng.decode(first, steps - 1)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        decode_gemm = gemm_counts()
+    eng = Engine(cfg, params, b, max_seq)
+    torch.cuda.synchronize()
+    gemm_mod.reset_launches()
+    t0 = time.perf_counter()
+    first = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_gemm = gemm_counts()
+    gemm_mod.reset_launches()
+    t0 = time.perf_counter()
+    rest = eng.decode(first, steps - 1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    decode_gemm = gemm_counts()
     if prefill_gemm["gemm_mma"] == 0 or decode_gemm["gemm_small_m"] == 0 \
             or decode_gemm["gemm_mma"] != 0:
         raise AssertionError(f"serve: gemm variants prefill {prefill_gemm}, "
@@ -773,19 +785,18 @@ def serve_zamba2(dev, modules):
     if not np.array_equal(warm, tokens):
         raise AssertionError("serve: a second run gave other tokens")
     # where a decode step's time goes: two steps under the profiler
-    with scope():
-        eng.lengths = eng.lengths - 2       # rewrite the last two positions
-        eng.position -= 2
-        again = torch.as_tensor(rest[:, -3], device=dev)
-        decode_profile = profile_steps(lambda: eng.decode(again, 2), 2)
-        prefill_profile = profile_steps(lambda: eng.prefill(prompts), 1)
+    eng.lengths = eng.lengths - 2           # rewrite the last two positions
+    eng.position -= 2
+    again = torch.as_tensor(rest[:, -3], device=dev)
+    decode_profile = profile_steps(lambda: eng.decode(again, 2), 2)
+    prefill_profile = profile_steps(lambda: eng.prefill(prompts), 1)
     del eng
 
     # teacher forced: the kernel run's tokens into both runs, logits kept
     def logits_of(cfg_, params_, policy):
-        with scope(), use_policy(policy):
-            prefill = make_prefill_step(cfg_, target)
-            step = make_serve_step(cfg_, target)
+        with use_policy(policy):
+            prefill = make_prefill_step(cfg_)
+            step = make_serve_step(cfg_)
             cache = M.init_cache(cfg_, b, max_seq, dev)
             lg, cache = prefill(params_, cache, {
                 "tokens": torch.as_tensor(prompts, device=dev)})
@@ -837,8 +848,9 @@ def serve_zamba2(dev, modules):
 
     # the same model in float32 (weights drawn anew from the seed), the
     # same prompts and tokens: the kernels against the vector tier with no
-    # bf16 rounding between them; the kernel run's launches are counted
-    # to show that the kernels carried it
+    # bf16 rounding between them, the kernel run under the default target
+    # as the bf16 one; its launches and tiers are counted to show that the
+    # kernels carried it
     cfg32 = cfg.replace(dtype="float32")
     gen.manual_seed(SEED)
     params32 = M.init(cfg32, gen, dev)
@@ -847,8 +859,14 @@ def serve_zamba2(dev, modules):
     with trace.count() as counted32:
         kern = logits_of(cfg32, params32, "pallas")
     launches32 = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    chosen32 = tiers(counted32)
+    emit("serve_tiers", target="h100", policy="pallas", dtype="float32",
+         chosen=chosen32)
+    if any(chosen32[op] != ["pallas"] for op in ops_):
+        raise AssertionError(f"serve/float32: h100 picked {chosen32}; "
+                             "every LM op must run its kernel tier")
     plain = logits_of(cfg32, params32, "vector")
-    f32_check = {"launches": launches32, "chosen": tiers(counted32),
+    f32_check = {"launches": launches32, "chosen": chosen32,
                  **held(kern, plain, E2E_F32_TOL, cfg32.dtype)}
     for op, n in want.items():
         if launches32[op] != n:
@@ -862,7 +880,7 @@ def serve_zamba2(dev, modules):
         "arch": cfg.name, "params": M.count_params(params),
         "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": b, "prompt_len": plen, "generated": steps,
-        "h100_chosen": h100, "target": target or "h100", "chosen": chosen,
+        "target": "h100", "chosen": chosen,
         "launches": launches, "gemm_launches": {"prefill": prefill_gemm,
                                                 "decode": decode_gemm},
         "init_s": init_s, "generate_s": generate_s,
@@ -930,9 +948,12 @@ def main() -> int:
     # 3. every kernel against its plain version on the card -------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    cases = [(s, dt) for s in ((1024, 1024), (127,), (3, 5, 7))
+    # the Figure-2 size, odd sizes around the vector and the block, and
+    # the gelu's shapes in zamba2's prefill and decode (bf16 serves them)
+    cases = [(s, dt) for s in ((1024, 1024), (1,), (7,), (127,), (8191,),
+                               (8193,), (3, 5, 7), (4, 1, 8192),
+                               (4, 512, 8192), (1 << 26,))
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append(((1 << 26,), torch.float32))
     max_err = {}
     for op in EW_OPS:
         errs = []
@@ -998,6 +1019,10 @@ def main() -> int:
                 err = compare(op, got, module[op].PLAIN[op](*args))
                 if not bool(got.isfinite().all()):
                     raise AssertionError(f"{op}/{label}: non-finite output")
+                if op == "ssd" and not torch.equal(
+                        module[op].KERNELS[op](*args), got):
+                    raise AssertionError(f"ssd/{label}/{dt}: two runs "
+                                         "differ")
                 errs.append({"case": label, "dtype": str(dt)[6:],
                              "shapes": [list(a.shape) for a in args
                                         if isinstance(a, torch.Tensor)],
@@ -1090,6 +1115,9 @@ def main() -> int:
     with use_target("h100"):
         h100 = {op: REGISTRY.explain(op, *args[op])["chosen"]
                 for op in ALL_OPS}
+    if any(t != "pallas" for t in h100.values()):
+        raise AssertionError(f"h100 picked {h100} at the Figure-2 size; "
+                             "every op must take its kernel tier")
     emit("main_path", target="rvv-128", policy=REGISTRY.policy,
          chosen=chosen, launches=launches, counted=per_op,
          committed=want_counts, oracle_max_abs_err=oracle_err,
@@ -1130,27 +1158,38 @@ def main() -> int:
                "vsqrt": ew.vsqrt_math, "vtanh": ew.vtanh_math,
                "vsigmoid": ew.vsigmoid_math}
     times = {}
-    for op in EW_OPS:
-        for n in (1 << 20, 1 << 26):
-            x = workload(op, torch.randn(n, generator=gen, device=dev))
-            ex = extra_args(op)
-            k_ms = time_ms(lambda: ew.KERNELS[op](x, *ex), flush)
-            p_ms = time_ms(lambda: ew.PLAIN[op](x, *ex), flush)
-            l_ms = time_ms(lambda: library[op](x), flush)
-            nbytes = 2 * n * x.element_size()
-            with use_target("h100"):
-                vreg = trace.vreg_for(x.dtype)
-                n_ops = trace.fx_vector_instrs(math_fn[op], x) * vreg
-            b_ms, b_by = bound_ms(nbytes, n_ops)
-            row = {"op": op, "size": "figure2" if n == 1 << 20 else "large",
-                   "n": n, "dtype": "float32",
-                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": b_ms, "bound_by": b_by,
-                   "bytes": nbytes, "ops": n_ops,
-                   "kernel_GBps": nbytes / (k_ms * 1e-3) / 1e9,
-                   "library_GBps": nbytes / (l_ms * 1e-3) / 1e9}
-            times[(op, row["size"])] = row
-            emit("time", **row)
+    # fp32 and bf16 at the Figure-2 and the large size; vtanh also at the
+    # shapes of zamba2's gelu in prefill and decode, in bf16
+    ew_sizes = [(op, dt, size, shape)
+                for op in EW_OPS for dt in (torch.float32, torch.bfloat16)
+                for size, shape in (("figure2", (1 << 20,)),
+                                    ("large", (1 << 26,)))]
+    ew_sizes += [("vtanh", torch.bfloat16, "serve_prefill", (4, 512, 8192)),
+                 ("vtanh", torch.bfloat16, "serve_decode", (4, 1, 8192))]
+    for op, dt, size, shape in ew_sizes:
+        x = workload(op, torch.randn(shape, generator=gen,
+                                     device=dev)).to(dt)
+        ex = extra_args(op)
+        k_ms = time_ms(lambda: ew.KERNELS[op](x, *ex), flush)
+        p_ms = time_ms(lambda: ew.PLAIN[op](x, *ex), flush)
+        l_ms = time_ms(lambda: library[op](x), flush)
+        n = x.numel()
+        nbytes = 2 * n * x.element_size()
+        with use_target("h100"):
+            f32 = torch.empty(shape, device="meta")
+            n_ops = trace.fx_vector_instrs(math_fn[op], f32) * \
+                trace.vreg_for(f32.dtype)
+        b_ms, b_by = bound_ms(nbytes, n_ops)
+        dtype = str(dt).replace("torch.", "")
+        row = {"op": op, "size": size, "n": n, "shape": list(shape),
+               "dtype": dtype, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "ops": n_ops, "bound_share": b_ms / k_ms,
+               "library_ratio": k_ms / l_ms,
+               "plan": list(ew.plan(n, x.element_size()))}
+        times[(op, size if dt == torch.float32 else f"{size}_bf16")] = row
+        emit("time", **row)
+        del x
     for op in NEW_OPS:
         mod = module[op]
         # the two convs also in bf16, beside cuDNN in bf16
@@ -1190,8 +1229,12 @@ def main() -> int:
                 emit("time", **row)
                 del out, targs
             del size_args
-    for op in LM_OPS:
-        mod, targs = module[op], lm_time_args(op, gen, dev)
+    lm_timed = [(op, lm_time_args(op, gen, dev)) for op in LM_OPS]
+    # ssd also in float32 (the float32 serving check's calls)
+    lm_timed.append(("ssd", on(lm_timed[-1][1], dev, torch.float32,
+                               keep=lm_keep("ssd"))))
+    for op, targs in lm_timed:
+        mod = module[op]
         if op == "decode_attention":
             b, _, h, d = targs[0].shape
             splits, ks = fa.decode_plan(b, h, targs[1].shape[1], d)
@@ -1204,16 +1247,25 @@ def main() -> int:
         lib = lm_library_call(op, targs)
         l_ms = None if lib is None else time_ms(lib, flush)
         nbytes, n_ops = lm_work(op, targs, out)
-        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
-        row = {"op": op, "size": "serve", "dtype": "bfloat16",
+        bf16 = targs[0].dtype == torch.bfloat16
+        if op == "ssd" and not bf16:
+            # float32 ssd runs on the bf16 tensor cores too, each product
+            # as three of its operands' split terms (csrc/ssd.cu)
+            n_ops *= 3
+        # the bf16 tensor cores' rate where the kernel runs on them
+        b_ms, b_by = (mma_bound_ms if bf16 or op == "ssd" else bound_ms)(
+            nbytes, n_ops)
+        row = {"op": op, "size": "serve",
+               "dtype": "bfloat16" if bf16 else "float32",
                "shapes": [list(a.shape) for a in targs
                           if isinstance(a, torch.Tensor)],
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "ops": n_ops, "bound_share": b_ms / k_ms}
-        times[(op, "serve")] = row
+        times[(op, "serve" if bf16 else "serve_f32")] = row
         emit("time", **row)
         del out, targs
+    del lm_timed
     # gemm where the serving path runs it: M = 4 and M = 2048 rows against
     # zamba2's five weight shapes, in bf16 and in float32 (the float32
     # serving check), each beside torch.matmul on the same operands (no

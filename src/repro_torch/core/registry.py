@@ -31,7 +31,13 @@ Selection (:meth:`_Registry.select`):
      register (the paper's ``vlen >= width`` Table-2 rule);
   3. each valid candidate's declared ``cost(*args)`` is evaluated under
      the active target and the cheapest wins; tier rank is only the
-     tie-break (higher — more specialized — first).
+     tie-break (higher — more specialized — first).  On a CUDA target
+     (the default ``h100``) the kernel tier wins wherever it is valid:
+     on the card the port runs its hand-written kernel, never a plain
+     torch version in the kernel's place, and the declared costs model
+     the reference's TPU and RVV machines, not the card.  Where the
+     kernel tier is invalid the costs rank the lower tiers as on any
+     target.
 
 Selections are memoized in a bounded LRU on (op, abstract
 shapes/dtypes/device types, policy, target).  :meth:`_Registry.explain`
@@ -248,12 +254,16 @@ class _Registry:
         return cands
 
     @staticmethod
-    def _pick(cands: List[Candidate]) -> Optional[Candidate]:
+    def _pick(cands: List[Candidate],
+              kernel_first: bool = False) -> Optional[Candidate]:
         valid = [c for c in cands if c.valid]
         if not valid:
             return None
         costed = [c for c in valid if c.cost is not None]
-        if costed:
+        kernel = [c for c in valid if c.tier == "pallas"]
+        if kernel_first and kernel:
+            best = kernel[0]
+        elif costed:
             best = min(costed, key=lambda c: (c.cost,
                                               -_TIER_RANK[c.tier]))
         else:
@@ -290,7 +300,8 @@ class _Registry:
         else:
             with self._cache_lock:
                 self._uncacheable += 1
-        best = self._pick(self._candidates(op, args, kw, pol, tgt))
+        best = self._pick(self._candidates(op, args, kw, pol, tgt),
+                          tgt.kind == "cuda")
         if best is None:
             raise KeyError(f"no valid lowering for op {op!r} at policy "
                            f"{pol!r} on target {tgt.name!r} with given args")
@@ -333,7 +344,7 @@ class _Registry:
             raise ValueError(f"unknown policy {pol!r}")
         tgt = _targets.resolve_target(target)
         cands = self._candidates(op, args, kw, pol, tgt)
-        best = self._pick(cands)
+        best = self._pick(cands, tgt.kind == "cuda")
         return {
             "op": op,
             "policy": pol,

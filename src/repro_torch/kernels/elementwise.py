@@ -124,17 +124,42 @@ def vrelu_plain(x, clamp_min=0.0, clamp_max=float("inf")):
 # kernel launch
 # ---------------------------------------------------------------------------
 
+# The launch plan (csrc/elementwise.cu).  A bf16 thread takes two 16-byte
+# vectors where that still gives TWO_WAVES blocks of THREADS (every SM's
+# 8 resident blocks, twice over), else one; fp32 always one.  A grid of
+# fewer than SMS blocks halves its blocks, down to 32 threads, so that a
+# decode step's 32768 bf16 elements run on 128 SMs and not on 16.
+THREADS = 256
+SMS = 132                   # H100 SXM
+TWO_WAVES = 2 * 8 * SMS
+
+
+def plan(n: int, itemsize: int, aligned: bool = True):
+    """(threads a block, vectors a thread, blocks) of the kernel for n
+    elements of ``itemsize`` bytes; a vector is 16 bytes when ``aligned``,
+    else one element."""
+    per_vec = 16 // itemsize if aligned else 1
+    items = max(1, n // per_vec)
+    if itemsize == 2 and -(-items // (2 * THREADS)) >= TWO_WAVES:
+        return THREADS, 2, -(-items // (2 * THREADS))
+    threads = THREADS
+    while threads > 32 and -(-items // threads) < SMS:
+        threads //= 2
+    return threads, 1, -(-items // threads)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The elementwise library with every entry point's types declared."""
     lib = _build.load("elementwise")
-    p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    p, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
+                        ctypes.c_int)
     for op in LAUNCHES:
         for dt in _build.DTYPES.values():
             fn = getattr(lib, f"repro_{op}_{dt}")
             fn.restype = ctypes.c_int
-            fn.argtypes = ([p, p, i64, f32, f32, p] if op == "vrelu"
-                           else [p, p, i64, p])
+            fn.argtypes = ([p, p, i64, f32, f32, i32, i32, p] if op == "vrelu"
+                           else [p, p, i64, i32, i32, p])
     return lib
 
 
@@ -146,9 +171,11 @@ def _launch(op: str, x: torch.Tensor, *scalars) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    threads, per_thread, _ = plan(x.numel(), x.element_size(), aligned)
     fn = getattr(_lib(), f"repro_{op}_{_build.DTYPES[x.dtype]}")
     _build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
-                  *scalars, what=f"{op} kernel")
+                  *scalars, threads, per_thread, what=f"{op} kernel")
     LAUNCHES[op] += 1
     return out
 

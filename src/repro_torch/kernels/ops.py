@@ -357,7 +357,7 @@ register("ssd", "vector", cost=trace.traced_cost(_ssd_vector),
 
 
 @register("ssd", "pallas", cost=_ssd.cost, supports=_ssd.supports,
-          doc="chunked SSD, shared-memory-carried state")
+          doc="chunk-parallel SSD, start states chained in chunk order")
 def _ssd_pallas(x, dt, A, B, C, D=None, *, chunk=128):
     return _ssd.ssd(x, dt, A, B, C, D, chunk)
 

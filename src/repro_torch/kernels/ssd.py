@@ -6,25 +6,34 @@ The sequential recurrence
 
 runs, in the reference's TPU kernel, as chunks of L steps on a
 sequential grid axis with the (p, n) state in VMEM scratch.  The Hopper
-kernel (``csrc/ssd.cu``) gives each (batch, head) one block, which walks
-the chunks in order with the state, the chunk's x, B, C and its L x L
-decay matrix in shared memory:
+kernels (``csrc/ssd.cu``) are parallel over chunks of KL = 128 rows:
 
-    y_intra = ((C B^T) * decay) @ (dt * x)
-    y_inter = exp(la) * (C @ S^T)
-    S_next  = exp(la_L) S + (w * x)^T B
+  * ``ssd_state_kernel`` (every chunk but the last): the chunk's state
+    change dS_c = (w * x)^T B with w_j = exp(la_L - la_j) dt_j, and its
+    end decay; the last block of a (batch, head) to finish chains them
+    in chunk order into the state at each chunk's start,
+    S_{c+1} = exp(la_L,c) S_c + dS_c;
+  * ``ssd_out_kernel`` (every chunk): from the chunk's inputs and S_c,
 
-Groups are read per head (h // (h/g)), nothing is repeated or padded in
-device memory: rows past the sequence load as zero (dt = 0 is a no-op
-step).  The skip term D is added outside the kernel, as the reference
-adds it.
+        y_inter = exp(la) * (C @ S_c^T)
+        y_intra = ((C B^T) * decay) @ (dt * x)
+
+Both run their products on the tensor cores, fp32 operands split into two
+bf16 terms.  The block decomposition is exact for any chunk length, so
+the kernels' fixed 128 rows give the function of any ``chunk``.  Groups
+are read per head (h // (h/g)), nothing is repeated or padded in device
+memory: rows past the sequence load as zero (dt = 0 is a no-op step).
+The output kernel adds the skip term D before it rounds y; the
+reference, and the plain version, add it outside.
 
   * ``ssd_plain`` — the plain version: ``ref.ssd_chunked`` at the
-    kernel's chunk length (the decay masked before ``exp``);
-  * ``ssd`` — the wrapper: a CUDA tensor launches the kernel and counts
-    it in ``LAUNCHES``, a CPU tensor runs the plain version;
-  * ``cost`` / ``supports`` — the reference's, verbatim; ``supports``
-    adds the kernel's dtypes and its shared-memory budget.
+    reference's chunk length (the decay masked before ``exp``);
+  * ``ssd`` — the wrapper: a CUDA tensor launches the kernels (two for
+    more than one chunk, else one) and counts each in ``LAUNCHES``, a CPU
+    tensor runs the plain version;
+  * ``cost`` / ``supports`` — the reference's cost, verbatim;
+    ``supports`` adds the kernels' dtypes, p <= 128 and their shared
+    memory.
 """
 from __future__ import annotations
 
@@ -40,18 +49,40 @@ from . import _build, ref
 
 LAUNCHES = {"ssd": 0}
 SUBLANE_F32 = 8            # the reference's chunk rounding (fp32 sublane)
+KL = 128                   # the kernels' chunk rows (csrc/ssd.cu: kL)
+P_MAX = 128                # the output kernel's register tiles
 
 
 def chunk_len(s: int, chunk: int = 128) -> int:
-    """The kernel's chunk length: the reference's min(chunk, round_up(s,
-    8))."""
+    """The reference's chunk length: min(chunk, round_up(s, 8))."""
     return min(chunk, round_up(max(1, s), SUBLANE_F32))
 
 
-def smem_bytes(L: int, p: int, n: int) -> int:
-    """Shared memory of one block: x (L,p), B (L,n+1), C (L,n), the state
-    (p,n+1), the decay matrix (L,L) and three length-L vectors, fp32."""
-    return 4 * (L * p + L * (n + 1) + L * n + p * (n + 1) + L * L + 3 * L)
+def chunks(s: int) -> int:
+    """Chunks of KL rows the kernels cut s positions into."""
+    return -(-s // KL)
+
+
+def launches(s: int) -> int:
+    """Kernel launches of one call: the state pass runs only where there is
+    a chunk before the last."""
+    return 2 if chunks(s) > 1 else 1
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def smem_bytes(p: int, n: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of the larger of the two kernels' blocks
+    (csrc/ssd.cu: state_smem, out_smem): bf16 planes, two for an fp32
+    operand, rows padded to 16 columns + 8."""
+    terms = 2 if dtype == torch.float32 else 1
+    ldp, ldn = _pad16(p) + 8, _pad16(n) + 8
+    state = 2 * (2 * KL * ldp + terms * KL * ldn) + 3 * 4 * KL
+    out = 2 * (terms * (2 * KL * ldn + KL * ldp) + 2 * _pad16(p) * ldn) \
+        + 2 * 4 * KL
+    return max(state, out)
 
 
 def _smem_budget() -> int:
@@ -67,7 +98,7 @@ def _add_d(y, x, D):
 
 def ssd_plain(x, dt, A, B, C, D=None, chunk=128):
     """x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n) -> y:(b,s,h,p): the
-    chunked oracle at the kernel's chunk length."""
+    chunked oracle at the reference's chunk length."""
     return ref.ssd_chunked(x, dt, A, B, C, D,
                            chunk=chunk_len(x.shape[1], chunk))
 
@@ -75,11 +106,14 @@ def ssd_plain(x, dt, A, B, C, D=None, chunk=128):
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for dt in _build.DTYPES.values():
-        fn = getattr(lib, f"repro_ssd_{dt}")
+        fn = getattr(lib, f"repro_ssd_state_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ptr] * 6 + [i64] * 7 + [i64] * 12 + [ptr]
+        fn.argtypes = [ptr] * 8 + [i64] * 6 + [i64] * 12 + [i32, ptr]
+        fn = getattr(lib, f"repro_ssd_out_{dt}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr] * 8 + [i64] * 6 + [i64] * 12 + [i32, ptr]
     return lib
 
 
@@ -89,8 +123,18 @@ def _takes(x, dt, A, B, C) -> bool:
             and A.dtype == torch.float32)
 
 
+def _vec(x, B, C) -> bool:
+    """bf16 operands whose rows the kernels copy 16 bytes at a time."""
+    p, n = x.shape[-1], B.shape[-1]
+    return (x.dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 and
+                    all(st % 8 == 0 for st in t.stride()[:3])
+                    for t in (x, B, C)))
+
+
 def ssd(x, dt, A, B, C, D=None, chunk=128):
-    """Chunked SSD.  x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n)."""
+    """Chunked SSD.  x:(b,s,h,p) dt:(b,s,h) A:(h,) B,C:(b,s,g,n).
+    ``chunk`` is the plain version's chunk length; the kernels' is KL."""
     if _build.route("ssd", x, dt, A, B, C, D) == "cpu":
         return ssd_plain(x, dt, A, B, C, D, chunk)
     if not _takes(x, dt, A, B, C):
@@ -99,28 +143,49 @@ def ssd(x, dt, A, B, C, D=None, chunk=128):
                         f"{B.dtype}/{C.dtype}, {dt.dtype}/{A.dtype}")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    L = chunk_len(s, chunk)
     if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) or \
             B.shape != C.shape or tuple(B.shape[:2]) != (b, s) or \
-            g == 0 or h % g or smem_bytes(L, p, n) > _smem_budget():
+            g == 0 or h % g or p > P_MAX or \
+            smem_bytes(p, n, x.dtype) > _smem_budget():
         raise ValueError(f"ssd: shapes x {tuple(x.shape)} dt "
                          f"{tuple(dt.shape)} A {tuple(A.shape)} B "
-                         f"{tuple(B.shape)} C {tuple(C.shape)}; the kernel "
-                         f"takes h % g == 0 and {_smem_budget()} bytes of "
-                         f"shared memory per block")
+                         f"{tuple(B.shape)} C {tuple(C.shape)}; the kernels "
+                         f"take h % g == 0, p <= {P_MAX} and "
+                         f"{_smem_budget()} bytes of shared memory per block")
     ts = [t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C)]
     x_, B_, C_ = ts
     dt_, A_ = dt.contiguous(), A.contiguous()
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    if y.numel() and b * h:
-        fn = getattr(_lib(), f"repro_ssd_{_build.DTYPES[x.dtype]}")
-        _build.launch(fn, x.device, x_.data_ptr(), dt_.data_ptr(),
-                      A_.data_ptr(), B_.data_ptr(), C_.data_ptr(),
-                      y.data_ptr(), b, s, h, p, g, n, L,
-                      *x_.stride()[:3], *dt_.stride(), *B_.stride()[:3],
-                      *C_.stride()[:3], what="ssd kernel")
+    if y.numel() == 0 or n == 0:
+        return _add_d(y.zero_(), x, D)
+    D_ = None if D is None else D.to(torch.float32).contiguous()
+    lib, sfx = _lib(), _build.DTYPES[x.dtype]
+    shape = (b, s, h, p, g, n, *x_.stride()[:3], *dt_.stride(),
+             *B_.stride()[:3], *C_.stride()[:3], int(_vec(x_, B_, C_)))
+    nch1, dev = chunks(s) - 1, x.device
+    # the state pass's workspace: each chunk's state change (fp32) and the
+    # chained start states (two bf16 planes), both (p, n) padded to 16, the
+    # end decays and a finished-block count per (batch, head)
+    states = torch.empty(b * h * nch1 * 2 * _pad16(p) * _pad16(n),
+                         dtype=torch.int16, device=dev)
+    if nch1:
+        changes = torch.empty(b * h * nch1 * _pad16(p) * _pad16(n),
+                              dtype=torch.float32, device=dev)
+        decay = torch.empty(b * h * nch1, dtype=torch.float32, device=dev)
+        count = torch.zeros(b * h, dtype=torch.int32, device=dev)
+        _build.launch(getattr(lib, f"repro_ssd_state_{sfx}"), dev,
+                      x_.data_ptr(), dt_.data_ptr(), A_.data_ptr(),
+                      B_.data_ptr(), changes.data_ptr(), states.data_ptr(),
+                      decay.data_ptr(), count.data_ptr(), *shape,
+                      what="ssd state kernel")
         LAUNCHES["ssd"] += 1
-    return _add_d(y, x, D)
+    _build.launch(getattr(lib, f"repro_ssd_out_{sfx}"), dev,
+                  x_.data_ptr(), dt_.data_ptr(), A_.data_ptr(),
+                  B_.data_ptr(), C_.data_ptr(), _build.ptr(D_),
+                  states.data_ptr(), y.data_ptr(), *shape,
+                  what="ssd output kernel")
+    LAUNCHES["ssd"] += 1
+    return y
 
 
 KERNELS = {"ssd": ssd}
@@ -132,12 +197,12 @@ def reset_launches() -> None:
 
 
 def supports(x, dt, A, B, C, D=None, *_, **kw) -> bool:
-    """The reference's rule (h % g == 0), with the kernel's dtypes and its
-    shared-memory budget at the default chunk."""
+    """The reference's rule (h % g == 0), with the kernels' dtypes, p and
+    shared memory."""
     b, s, h, p = x.shape
     n = B.shape[-1]
-    return (h % B.shape[2] == 0 and _takes(x, dt, A, B, C)
-            and smem_bytes(chunk_len(s), p, n) <= _smem_budget())
+    return (h % B.shape[2] == 0 and _takes(x, dt, A, B, C) and p <= P_MAX
+            and smem_bytes(p, n, x.dtype) <= _smem_budget())
 
 
 def cost(x, dt, A, B, C, D=None, *, chunk=128, **_) -> int:

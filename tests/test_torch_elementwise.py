@@ -153,6 +153,24 @@ def test_cpu_tensors_never_reach_the_builder(monkeypatch):
     assert ew.LAUNCHES == before
 
 
+def test_launch_plan():
+    """Two 16-byte vectors a thread only for a large bf16 tensor; a decode
+    step's 32768 bf16 elements spread over more than 16 blocks; every plan
+    covers the tensor with blocks of 32 to 256 threads."""
+    assert ew.plan(1 << 26, 4) == (256, 1, 1 << 16)
+    assert ew.plan(1 << 26, 2) == (256, 2, 1 << 14)
+    assert ew.plan(4 * 512 * 8192, 2)[1] == 2
+    threads, per, blocks = ew.plan(4 * 8192, 2)
+    assert per == 1 and blocks >= ew.SMS - 4 and threads == 32
+    for n in (1, 7, 127, 8191, 8193, 1 << 20, (1 << 26) + 3):
+        for size in (2, 4):
+            for aligned in (True, False):
+                threads, per, blocks = ew.plan(n, size, aligned)
+                assert 32 <= threads <= 256 and threads & (threads - 1) == 0
+                vec = 16 // size if aligned else 1
+                assert threads * per * blocks * vec >= n // vec * vec
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.empty(8, device="meta")
     for op in OPS:

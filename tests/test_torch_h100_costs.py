@@ -1,0 +1,210 @@
+"""Selection on the ``h100`` target: the port's default target runs the
+kernel tier wherever it is valid, and every other target keeps the
+reference's instruction counts and its cheapest-wins ranking.
+
+The calls are those of PERF.md §6 (each row's op, shapes and dtypes) and
+zamba2-1.2b's serving calls in bf16 and float32.  The torch side runs on
+meta tensors: selection reads no device data.  The tpu/rvv costs are held
+to the JAX package's registry on the same shapes.
+"""
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core.registry import REGISTRY as JREG
+from repro.kernels import ops as jops  # noqa: F401  (registers)
+from repro_torch.core import targets
+from repro_torch.core.registry import REGISTRY, TIERS
+from repro_torch.kernels import ops  # noqa: F401  (registers)
+
+BF, F32, I32 = torch.bfloat16, torch.float32, torch.int32
+INF = float("inf")
+
+
+def _m(*shape, dtype=BF):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _gemm(m, k, n, dtype, bias=False, lo=-INF, hi=INF):
+    return (_m(m, k, dtype=dtype), _m(k, n, dtype=dtype),
+            _m(n, dtype=dtype) if bias else None, lo, hi)
+
+
+def _ssd(dtype, D=False):
+    return (_m(4, 512, 64, 64, dtype=dtype), _m(4, 512, 64, dtype=F32),
+            _m(64, dtype=F32), _m(4, 512, 2, 64, dtype=dtype),
+            _m(4, 512, 2, 64, dtype=dtype), _m(64, dtype=F32) if D else None)
+
+
+def _attn(dtype):
+    return (_m(4, 512, 32, 128, dtype=dtype),) * 3 + (True, None, None, None)
+
+
+def _decode(dtype):
+    return (_m(4, 1, 32, 128, dtype=dtype), _m(4, 544, 32, 128, dtype=dtype),
+            _m(4, 544, 32, 128, dtype=dtype), _m(4, dtype=I32), None, None,
+            None)
+
+
+SERVE_GEMM = ((2048, 8512), (4096, 2048), (4096, 4096), (4096, 8192),
+              (8192, 2048))
+_IDX = (_m(3136, dtype=I32), _m(3136, dtype=I32), _m(3136, dtype=F32),
+        _m(3136, dtype=F32))
+_IDX_BIG = (_m(262144, dtype=I32), _m(262144, dtype=I32),
+            _m(262144, dtype=F32), _m(262144, dtype=F32))
+
+# (§6 row, op, arguments): every call PERF.md §6 timed on the card
+TIMED = [
+    *[(r, op, (_m(*shape, dtype=dt),) + ((0.0, 6.0) if op == "vrelu" else ()))
+      for r, op in (("1", "vtanh"), ("2", "vsigmoid"), ("3", "vsqrt"),
+                    ("4", "vrelu"))
+      for dt in (F32, BF) for shape in ((1 << 20,), (1 << 26,))],
+    ("1", "vtanh", (_m(4, 512, 8192),)), ("1", "vtanh", (_m(4, 1, 8192),)),
+    ("5", "gemm", _gemm(256, 512, 256, F32, True, -1.0, 1.0)),
+    ("5", "gemm", _gemm(2048, 2048, 2048, F32, True, -1.0, 1.0)),
+    *[(f"5{'abcde'[i]}", "gemm", _gemm(4, k, n, BF))
+      for i, (k, n) in enumerate(SERVE_GEMM)],
+    *[(f"5{'fghij'[i]}", "gemm", _gemm(2048, k, n, BF))
+      for i, (k, n) in enumerate(SERVE_GEMM)],
+    *[(f"5{'klmno'[i]}", "gemm", _gemm(2048, k, n, F32))
+      for i, (k, n) in enumerate(SERVE_GEMM)],
+    *[(f"6{s}", "conv_hwc", (_m(*x, dtype=dt), _m(3, 3, 128, 128, dtype=dt),
+                             _m(128, dtype=dt)))
+      for s, dt in (("", F32), ("b", BF))
+      for x in ((1, 28, 28, 128), (8, 56, 56, 128))],
+    *[(f"7{s}", "dwconv", (_m(*x, dtype=dt), _m(3, 3, 128, dtype=dt),
+                           _m(128, dtype=dt)))
+      for s, dt in (("", F32), ("b", BF))
+      for x in ((1, 56, 56, 128), (16, 112, 112, 128))],
+    *[(r, op, (_m(*x, dtype=F32), (2, 2), None))
+      for r, op in (("8", "maxpool"), ("9", "argmaxpool"))
+      for x in ((1, 56, 56, 256), (16, 112, 112, 256))],
+    ("10", "ibilinear", (_m(56, 56, 64, dtype=F32), *_IDX)),
+    ("10", "ibilinear", (_m(512, 512, 128, dtype=F32), *_IDX_BIG)),
+    ("11", "attention", _attn(BF)),
+    ("12", "decode_attention", _decode(BF)),
+    ("13", "ssd", _ssd(BF)),
+    ("13b", "ssd", _ssd(F32)),
+]
+
+# zamba2-1.2b's serving calls (configs/zamba2_1p2b.py), in bf16 and in
+# float32 (the float32 logit check): gemm at a decode step's M = 4 and a
+# prefill's M = 2048 rows against the five weight shapes, the shared
+# block's gelu (vtanh) in prefill and decode, prefill attention, decode
+# attention against the 544-slot cache, ssd with the skip term
+SERVE = [(f"{str(dt)[6:]}-{name}", op, args)
+         for dt in (BF, F32)
+         for name, op, args in (
+             *[(f"gemm_m{m}_{k}x{n}", "gemm", _gemm(m, k, n, dt))
+               for m in (4, 2048) for k, n in SERVE_GEMM],
+             ("vtanh_prefill", "vtanh", (_m(4, 512, 8192, dtype=dt),)),
+             ("vtanh_decode", "vtanh", (_m(4, 1, 8192, dtype=dt),)),
+             ("attention", "attention", _attn(dt)),
+             ("decode", "decode_attention", _decode(dt)),
+             ("ssd", "ssd", _ssd(dt, D=True)))]
+
+
+def _row_id(row):
+    label, op, args = row
+    shapes = "x".join(str(tuple(a.shape)) for a in args
+                      if isinstance(a, torch.Tensor))
+    return f"{label}-{op}-{str(args[0].dtype)[6:]}-{shapes}"
+
+
+def _chosen(op, args, target="h100"):
+    return REGISTRY.explain(op, *args, policy="pallas",
+                            target=target)["chosen"]
+
+
+@pytest.mark.parametrize("row", TIMED, ids=_row_id)
+def test_h100_ranks_as_the_card_timed_the_tiers(row):
+    """Every call PERF.md §6 timed on the card takes the kernel tier on
+    h100, those where the kernel beat its plain version by more than 10%
+    (decode at 544 slots, gemm at M = 4 against zamba2's five weights,
+    prefill attention, ssd) among them."""
+    _, op, args = row
+    assert _chosen(op, args) == "pallas"
+
+
+@pytest.mark.parametrize("row", SERVE, ids=lambda r: r[0])
+def test_h100_serves_zamba2_through_the_kernels(row):
+    _, op, args = row
+    assert _chosen(op, args) == "pallas"
+    # the default target is h100, and selection under it is the same
+    assert targets.current_target().name == "h100"
+    assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
+
+
+def test_h100_leaves_an_invalid_kernel_to_the_costs():
+    """Where the kernel tier is invalid (int32 pooling; the policy capped
+    at vector) h100 ranks the lower tiers by their declared counts."""
+    x = torch.zeros((1, 8, 8, 4), dtype=torch.int32)
+    rep = REGISTRY.explain("maxpool", x, (2, 2), None, policy="pallas",
+                           target="h100")
+    cands = {c["tier"]: c for c in rep["candidates"]}
+    assert not cands["pallas"]["valid"]
+    assert rep["chosen"] == min(
+        (t for t in ("generic", "vector") if cands[t]["valid"]),
+        key=lambda t: cands[t]["cost"])
+    args = _gemm(4, 2048, 8512, BF)
+    assert REGISTRY.explain("gemm", *args, policy="vector",
+                            target="h100")["chosen"] == "vector"
+
+
+OTHER = ["tpu-v5e", "tpu-v6", "rvv-64", *targets.RVV_FAMILY, "rvv-128-m2",
+         "rvv-512-m4", "rvv-1024-m8"]
+
+
+@pytest.mark.parametrize("target", OTHER)
+def test_other_targets_rank_by_the_declared_models(target):
+    """Both TPU models, every RVV width and each LMUL grouping, at every
+    §6 call and serving call: each valid candidate's cost is its declared
+    model's count, and the cheapest wins (a tie to the higher tier; none
+    where the target's registers are too narrow for every tier)."""
+    for _, op, args in TIMED + SERVE:
+        row = REGISTRY.explain(op, *args, policy="pallas", target=target)
+        costed = []
+        with targets.use_target(target):
+            for c in row["candidates"]:
+                if c["valid"]:
+                    low = REGISTRY.lowering(op, c["tier"])
+                    assert c["cost"] == int(low.cost(*args)), (op, c)
+                    costed.append((c["cost"], -TIERS.index(c["tier"]),
+                                   c["tier"]))
+        want = min(costed)[2] if costed else None
+        assert row["chosen"] == want, (op, target)
+
+
+_JDT = {BF: jnp.bfloat16, F32: jnp.float32, I32: jnp.int32}
+
+
+def _jax(args):
+    return tuple(jnp.zeros(a.shape, _JDT[a.dtype])
+                 if isinstance(a, torch.Tensor) else a for a in args)
+
+
+# the tiers whose torch cost model is the reference's formula: the
+# kernel's structure count and the scalar emulation at every call, and
+# for the elementwise ops the vector tier's count too (the other vector
+# tiers are counted off the port's own aten graphs)
+def _shared_tiers(op):
+    return ("generic", "vector", "pallas") if op == "vtanh" \
+        else ("generic", "pallas")
+
+
+@pytest.mark.parametrize("target", ["tpu-v5e", "tpu-v6", "rvv-128",
+                                    "rvv-512-m2", "rvv-1024"])
+@pytest.mark.parametrize("row", SERVE, ids=lambda r: r[0])
+def test_tpu_and_rvv_costs_are_unchanged(row, target):
+    """The costs on the reference's machines are the JAX registry's, on
+    the same shapes and dtypes (the trailing None options dropped: the
+    reference's attention models take no positional window)."""
+    _, op, args = row
+    while args[-1] is None:
+        args = args[:-1]
+    mine = REGISTRY.explain(op, *args, policy="pallas", target=target)
+    ref = JREG.explain(op, *_jax(args), policy="pallas", target=target)
+    costs = [{c["tier"]: c["cost"] for c in r["candidates"]
+              if c["tier"] in _shared_tiers(op)} for r in (mine, ref)]
+    assert costs[0] == costs[1]
+    assert costs[0]["pallas"] is not None

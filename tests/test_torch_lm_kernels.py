@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core import use_target as juse_target
 from repro.core.registry import REGISTRY as JREG
@@ -24,7 +25,7 @@ from repro.kernels import flash_attention as jfa
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import ssd as jssd
-from repro_torch.core import trace, use_policy, use_target
+from repro_torch.core import targets, trace, use_policy, use_target
 from repro_torch.core.registry import REGISTRY
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
@@ -302,6 +303,142 @@ def test_ssd_chunked_masks_the_decay_before_exp():
     assert bool(torch.isfinite(got).all())
     _close(got, ref.ssd(*t))
     _close(tssd.ssd_plain(*t), ref.ssd(*t))
+
+
+def test_ssd_kernel_shapes():
+    """The kernels' chunks of KL rows: one launch for one chunk, two (state
+    pass, output pass) beyond; zamba2's p = n = 64 fits a block's shared
+    memory in both dtypes, p above 128 does not run the kernel tier."""
+    assert [tssd.launches(s) for s in (1, tssd.KL, tssd.KL + 1, 512)] == \
+        [1, 1, 2, 2]
+    assert tssd.chunks(512) == 512 // tssd.KL
+    budget = targets.get_target("h100").vmem_bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        assert tssd.smem_bytes(64, 64, dtype) <= budget
+    f32, bf = torch.float32, torch.bfloat16
+    x = torch.empty((1, 8, 2, 136), dtype=bf, device="meta")
+    B = torch.empty((1, 8, 1, 16), dtype=bf, device="meta")
+    dt = torch.empty((1, 8, 2), dtype=f32, device="meta")
+    A = torch.empty((2,), dtype=f32, device="meta")
+    assert not tssd.supports(x, dt, A, B, B)
+    assert tssd.supports(x[..., :128], dt, A, B, B)
+
+
+# The CUDA kernels' decomposition (csrc/ssd.cu), mirrored in torch ops:
+# chunks of tssd.KL rows; the state pass's dS_c = (w * x)^T B and the chain
+# S_{c+1} = exp(la_L) S_c + dS_c in chunk order; the output pass's
+# exp(la_i) C_i S_c^T + ((C B^T) * decay) x with the decay masked before
+# exp.  Every fp32 operand the kernels split is split the same way into
+# two bf16 terms, hi = bf16(v) and lo = bf16(v - hi), and each product
+# takes the term pairs whose order sums to at most one; the products are
+# taken in float64, so the mirror differs from the kernels only by their
+# fp32 sums.  Log-decays are in log2 units, decays exp2, as there.
+
+LOG2E = 1.4426950408889634
+
+
+def _split(v, terms=2):
+    """v as its bf16 terms (fp32 tensors): (hi,) or (hi, lo)."""
+    hi = v.to(torch.bfloat16).float()
+    return (hi,) if terms == 1 else (hi, (v - hi).to(torch.bfloat16).float())
+
+
+def _products(eq, a_terms, b_terms):
+    """sum over term pairs (i, j), i + j <= 1, of einsum(eq, a_i, b_j),
+    in float64, rounded to fp32."""
+    out = 0.0
+    for i, a in enumerate(a_terms):
+        for j, b in enumerate(b_terms):
+            if i + j <= 1:
+                out = out + torch.einsum(eq, a.double(), b.double())
+    return out.float()
+
+
+def ssd_mirror(x, dt, A, B, C, D=None, *, bf16=False):
+    """y of the kernels' decomposition; ``bf16``: x, B, C are bf16 values,
+    taken as one exact term (the kernels' bf16 path)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    L, rep = tssd.KL, h // g
+    nch = -(-s // L)
+    pad = nch * L - s
+    terms = 1 if bf16 else 2
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Bh = F.pad(torch.repeat_interleave(B.float(), rep, dim=2),
+               (0, 0, 0, 0, 0, pad))
+    Ch = F.pad(torch.repeat_interleave(C.float(), rep, dim=2),
+               (0, 0, 0, 0, 0, pad))
+    # (nch, b, h, L, .) chunk-major
+    xs = xf.reshape(b, nch, L, h, p).permute(1, 0, 3, 2, 4)
+    dts = dtf.reshape(b, nch, L, h).permute(1, 0, 3, 2)
+    Bs = Bh.reshape(b, nch, L, h, n).permute(1, 0, 3, 2, 4)
+    Cs = Ch.reshape(b, nch, L, h, n).permute(1, 0, 3, 2, 4)
+    la = torch.cumsum(dts * (A.float() * LOG2E)[None, None, :, None], -1)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    state, ys = torch.zeros((b, h, p, n)), []
+    for c in range(nch):
+        lac, dtc = la[c], dts[c]
+        xt, Bt, Ct = (_split(t, terms) for t in (xs[c], Bs[c], Cs[c]))
+        y = 0.0
+        if c:
+            y = torch.exp2(lac)[..., None] * _products(
+                "zhlk,zhqk->zhlq", Ct, _split(state))
+        G = _products("zhik,zhjk->zhij", Ct, Bt)
+        diff = torch.where(causal, lac[..., :, None] - lac[..., None, :], 0.0)
+        M = torch.where(causal, G * (torch.exp2(diff) * dtc[..., None, :]),
+                        0.0)
+        y = y + _products("zhij,zhjq->zhiq", _split(M), xt)
+        if D is not None:
+            y = y + D.float()[None, :, None, None] * xs[c]
+        ys.append(y)
+        if c + 1 < nch:                       # the state pass and the chain
+            w = torch.exp2(lac[..., -1:] - lac) * dtc
+            dS = _products("zhjq,zhjk->zhqk", _split(xs[c] * w[..., None]),
+                           Bt)
+            state = torch.exp2(lac[..., -1])[..., None, None] * state + dS
+    y = torch.stack(ys, 0).permute(1, 0, 3, 2, 4).reshape(b, nch * L, h, p)
+    return y[:, :s]
+
+
+# (b, s, h, p, g, n): one step; s < 8; one chunk and a row past it; three
+# chunks; four (zamba2's length) with h / g = 32; h / g = 1
+SSD_MIRROR = [(2, 1, 4, 8, 2, 16), (1, 8, 2, 16, 1, 8),
+              (1, 130, 6, 8, 2, 16), (2, 300, 4, 16, 2, 8),
+              (1, 512, 32, 8, 1, 16), (1, 300, 4, 8, 4, 8)]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SSD_MIRROR, ids=str)
+def test_ssd_kernel_decomposition_matches_reference(case, bf16):
+    """The mirror against the reference's Pallas kernel in interpret mode
+    and against the sequential scan, within the LM TOL (fp32 2e-4); with
+    ``bf16`` the inputs are bf16 values and x, B, C single terms."""
+    x, dt, A, B, C, D = _ssd_inputs(case + (128,))
+    if bf16:
+        x, B, C = (np.asarray(torch.from_numpy(t).to(torch.bfloat16)
+                              .float()) for t in (x, B, C))
+    got = ssd_mirror(*map(torch.from_numpy, (x, dt, A, B, C, D)), bf16=bf16)
+    want = jssd.ssd(*(jnp.asarray(a) for a in (x, dt, A, B, C, D)),
+                    interpret=True)
+    _close(got, want)
+    _close(got, ref.ssd(*map(torch.from_numpy, (x, dt, A, B, C, D))))
+
+
+def test_ssd_kernel_decomposition_masks_the_decay_before_exp():
+    """Fast decays over a long chunk (ROADMAP C.9a): dt 2, A -60 overflow
+    exp(la_i - la_j) above the diagonal; the mirror, as the kernels, masks
+    first and stays finite, equal to the sequential scan."""
+    b, s, h, p, g, n = 1, 200, 2, 4, 1, 4
+    rng = np.random.default_rng(3)
+    x, B, C = _f(rng, (b, s, h, p)), _f(rng, (b, s, g, n)), \
+        _f(rng, (b, s, g, n))
+    dt = np.full((b, s, h), 2.0, np.float32)
+    A = np.array([-1.0, -60.0], np.float32)
+    t = [torch.from_numpy(a) for a in (x, dt, A, B, C)]
+    got = ssd_mirror(*t)
+    assert bool(torch.isfinite(got).all())
+    _close(got, ref.ssd(*t))
 
 
 # ---------------------------------------------------------------------------
