@@ -9,8 +9,11 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 nvcc per source, all started together) and holds each of the thirteen
 against its plain torch version on the card (conv_hwc and dwconv also at
 their timed large size, conv_hwc also bitwise against itself under a
-sliced plan, dwconv also through an x off 16 bytes; the elementwise four
-at odd sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
+sliced plan, dwconv also through an x off 16 bytes; the pools and
+ibilinear also at C off their 16-byte vector, the pools in the generic
+window and with NaN, inf and ties on the vector path, both through an
+input off 16 bytes, each call one launch; the elementwise four at odd
+sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
 positions, with fast decays, and bitwise against itself).  Then it drives
 the port's two main paths:
 
@@ -34,14 +37,24 @@ and the card's bound: the elementwise four also in bf16 and vtanh at the
 gelu's serving shapes, ssd also in float32, gemm also in bf16 and float32
 at the serving path's shapes (M = 4 and 2048 against zamba2's five weight
 shapes), and split-K against the kernel above it at M = 4, 8 and 16 (the
-small-M threshold); conv_hwc and dwconv also in bf16, beside cuDNN in
-bf16.  The fp32 gemm's tile plan (``gemm.simt_plan``), conv_hwc's
-(``conv.conv_plan``), dwconv's launch shape (``conv.dwconv_plan``) and
-the decode kernel's split plan (``decode_plan``) are printed before their
-times.  Each phase prints one JSON line; the last line is
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the run
-exits non-zero without that line.  Without CUDA, or without the repo's
-``src/`` beside it, it exits non-zero at once.
+small-M threshold); conv_hwc, dwconv, the pools and ibilinear also in
+bf16, beside the library call in bf16 where there is one; ibilinear's
+rows also carry ``corner_bytes`` (its bytes if no corner run is reused)
+and their share at the HBM rate.  The fp32 gemm's tile plan
+(``gemm.simt_plan``), conv_hwc's (``conv.conv_plan``), the launch shapes
+of dwconv (``conv.dwconv_plan``), the pools (``pooling.pool_plan``) and
+ibilinear (``ibilinear.ibilinear_plan``) and the decode kernel's split
+plan (``decode_plan``) are printed before their times.  Each phase
+prints one JSON line; the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises, and the run exits non-zero without that line.
+Without CUDA, or without the repo's ``src/`` beside it, it exits
+non-zero at once.
+
+``python3 chip_smoke.py --times maxpool,argmaxpool,ibilinear [--src
+DIR]`` only builds and times the named Figure-2 kernels (not the
+elementwise four) at both sizes and in both dtypes; ``--src`` runs the
+``repro_torch`` under another ``src/``, such as an unpacked parent
+commit, so that two commits can be timed in turns in one call.
 """
 from __future__ import annotations
 
@@ -138,6 +151,10 @@ E2E_F32_TOL = 2e-4
 TOL = {"float32": (1e-5, 2e-6), "bfloat16": (8e-3, 8e-3)}
 MM_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (3e-2, 3e-2)}
 EXACT = ("vrelu", "dwconv", "maxpool", "argmaxpool", "ibilinear")
+# The dtypes each Figure-2 kernel but the elementwise four is timed in
+# (gemm's bf16 rows are at the serving path's shapes)
+NEW_DTYPES = {op: ("float32", "bfloat16") for op in NEW_OPS}
+NEW_DTYPES["gemm"] = ("float32",)
 # the main path's outputs against the torch oracles: the reference's TOL
 ORACLE_TOL = 2e-4
 # The Figure-2 clamp bounds of vrelu (benchmarks/xnnpack_suite.py)
@@ -258,6 +275,44 @@ def edge_args(op, rng):
         x[1, 6:8, 6:8, 3] = np.nan
         return [(torch.from_numpy(x), (2, 2))]
     return []
+
+
+def vector_args(op, rng):
+    """The pools and ibilinear on and off their 16-byte vectors, as
+    (label, args): C 12 (off the bf16 vector) and 130 (off both), the
+    generic window (3x3, also on the vector at C 16), the NaN, inf and
+    tie case at C 16 (on the vector in both dtypes), and the Figure-2
+    input, which main() moves into a view 4 bytes off 16-byte alignment
+    ("off16")."""
+    import numpy as np
+    import torch
+    n = _normal
+    if op == "ibilinear":
+        return [("awkward", ibilinear_args(rng, 20, 24, 12, 777)),
+                ("awkward", ibilinear_args(rng, 20, 24, 130, 333)),
+                ("off16", figure2_args(op, rng))]
+    x = np.round(rng.standard_normal((2, 9, 8, 16))).astype(np.float32)
+    x[0, 0, 0, 0], x[0, 2, 3, 1], x[1, 5, 5, 2] = np.nan, np.inf, -np.inf
+    x[1, 6:8, 6:8, 3] = np.nan
+    return [("awkward", (n(rng, (2, 13, 15, 12)), (3, 3))),
+            ("awkward", (n(rng, (2, 12, 13, 16)), (3, 3))),
+            ("awkward", (n(rng, (2, 13, 15, 130)), (2, 2))),
+            ("edge", (torch.from_numpy(x), (2, 2))),
+            ("edge", (torch.from_numpy(x), (3, 3))),
+            ("off16", figure2_args(op, rng))]
+
+
+def off16(t):
+    """A copy of ``t`` in a view 4 bytes off 16-byte alignment, so that a
+    kernel takes its one-element path."""
+    import torch
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    base = (-flat.data_ptr() % 16 + 4) // flat.element_size()
+    v = flat[base:base + t.numel()].view(t.shape)
+    v.copy_(t)
+    if v.data_ptr() % 16 != 4:
+        raise AssertionError(f"off16: view at {v.data_ptr() % 16} bytes")
+    return v
 
 
 def big_args(op, gen, dev):
@@ -525,15 +580,28 @@ def emit_simt_plan(size, m, n, k):
          blocks=-(-m // bm) * -(-n // bn) * splits)
 
 
-def emit_conv_plan(size, op, args):
-    """conv_hwc's plan (its implicit GEMM's tile, K slices and blocks in
-    flight), or dwconv's launch shape, for these operands."""
-    from repro_torch.kernels import conv
+def emit_plan(size, op, args):
+    """The launch plan of a Figure-2 kernel other than gemm for these
+    operands: conv_hwc's implicit GEMM (tile, K slices, blocks in
+    flight), dwconv's launch shape, the pools' (vector width, window
+    instantiation, block size, index width) or ibilinear's (vector width,
+    threads a pixel, block size, index width)."""
+    from repro_torch.kernels import _build, conv, ibilinear, pooling
     x, w = args[:2]
     dtype = str(x.dtype).replace("torch.", "")
-    shapes = [list(x.shape), list(w.shape)]
+    shapes = [list(a.shape) for a in args if hasattr(a, "shape")]
+    if op in ("maxpool", "argmaxpool"):
+        emit("pool_plan", size=size, op=op, dtype=dtype, shapes=shapes,
+             taps=list(w), **pooling.pool_plan(x.shape, x.dtype, w,
+                                                 _build.vector16(x)))
+        return
+    if op == "ibilinear":
+        emit("ibilinear_plan", size=size, dtype=dtype, shapes=shapes,
+             **ibilinear.ibilinear_plan(x.shape, w.shape[0], x.dtype,
+                                        _build.vector16(x)))
+        return
     if op == "dwconv":
-        emit("dwconv_plan", size=size, dtype=dtype, shapes=shapes,
+        emit("dwconv_plan", size=size, dtype=dtype, shapes=shapes[:2],
              **conv.dwconv_plan(x.shape, w.shape,
                                 conv.dwconv_vector(*args[:3])))
         return
@@ -542,7 +610,7 @@ def emit_conv_plan(size, op, args):
     kh, kw, _, co = w.shape
     oh, ow = conv.out_hw(h, iw, kh, kw, stride)
     bm, bn, splits, ks = conv.conv_plan(x.shape, w.shape, stride)
-    emit("conv_plan", size=size, dtype=dtype, shapes=shapes,
+    emit("conv_plan", size=size, dtype=dtype, shapes=shapes[:2],
          gemm=[n * oh * ow, co, kh * kw * ci], tile=[bm, bn], splits=splits,
          ks=ks, blocks=-(-n * oh * ow // bm) * -(-co // bn) * splits)
 
@@ -587,6 +655,48 @@ def bound_ms(nbytes, n_ops):
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
         else "operations"
+
+
+def corner_bytes(args, out):
+    """ibilinear's bytes if no corner run is reused: each pixel's four
+    C-element corners read from memory, its four per-pixel scalars read
+    once and its C outputs written once."""
+    img, *per_pixel = args
+    p, c = out.shape
+    return 4 * p * c * img.element_size() + \
+        sum(t.numel() * t.element_size() for t in per_pixel) + \
+        out.numel() * out.element_size()
+
+
+def time_new(op, mod, size, targs, flush):
+    """One time row of a Figure-2 kernel other than the elementwise four:
+    the kernel, its plain version and the library call on ``targs``,
+    beside the card's bound (bf16 conv_hwc: its tensor cores'); for
+    ibilinear also ``corner_bytes`` and their time at the HBM rate as a
+    share of the kernel's."""
+    import torch
+    out = mod.KERNELS[op](*targs)
+    k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+    p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+    lib = library_call(op, targs)
+    l_ms = None if lib is None else time_ms(lib, flush)
+    nbytes, n_ops = work(op, targs, out)
+    dt = targs[0].dtype
+    b_ms, b_by = (mma_bound_ms if op == "conv_hwc" and dt == torch.bfloat16
+                  else bound_ms)(nbytes, n_ops)
+    row = {"op": op, "size": size, "dtype": str(dt).replace("torch.", ""),
+           "shapes": [list(a.shape) for a in targs
+                      if isinstance(a, torch.Tensor)],
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": n_ops,
+           "bound_share": b_ms / k_ms}
+    if l_ms is not None:
+        row["library_ratio"] = k_ms / l_ms
+    if op == "ibilinear":
+        row["corner_bytes"] = corner_bytes(targs, out)
+        row["corner_share"] = \
+            row["corner_bytes"] / HBM_BYTES_PER_S * 1e3 / k_ms
+    return row
 
 
 def compare(op, got, want):
@@ -897,17 +1007,89 @@ def serve_zamba2(dev, modules):
     return record
 
 
-def main() -> int:
+def time_figure2(ops, module, args, gen, dev, flush, plans):
+    """Time the Figure-2 kernels ``ops`` other than the elementwise four at
+    the Figure-2 size (``args``) and the large one (``big_args``), in each
+    dtype of NEW_DTYPES; emit each row, after its launch plan where
+    ``plans``, and return the rows by (op, size, with "_bf16" in bf16)."""
     import torch
+    rows = {}
+    for op in ops:
+        for size, size_args in (("figure2", args[op]),
+                                ("large", big_args(op, gen, dev))):
+            if plans and op == "gemm":
+                (m, k), n = size_args[0].shape, size_args[1].shape[1]
+                emit_simt_plan(size, m, n, k)
+            for dt in map(lambda name: getattr(torch, name),
+                          NEW_DTYPES[op]):
+                targs = on(size_args, dev, dt,
+                           keep=(3, 4) if op == "ibilinear" else ())
+                if plans and op != "gemm":
+                    emit_plan(size, op, targs)
+                row = time_new(op, module[op], size, targs, flush)
+                rows[(op, size if dt == torch.float32
+                      else f"{size}_bf16")] = row
+                emit("time", **row)
+                del targs
+            del size_args
+    return rows
+
+
+def time_only(ops, dev):
+    """``--times``: build and time only ``ops``, on inputs made as main()
+    makes them, with no launch plans printed.  With ``--src`` this times
+    another checkout's kernels, so that two commits can be compared in
+    one call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import conv, gemm, ibilinear, pooling
+    module = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv,
+              "maxpool": pooling, "argmaxpool": pooling,
+              "ibilinear": ibilinear}
+    unknown = set(ops) - set(module)
+    if unknown:
+        raise SystemExit(f"chip_smoke: --times takes {sorted(module)}, not "
+                         f"{sorted(unknown)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    args = {op: on(figure2_args(op, rng), dev) for op in ALL_OPS}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    time_figure2(ops, module, args, gen, dev, flush, plans=False)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--times", default="", help="comma-separated ops: "
+                        "only build and time these (e.g. maxpool,ibilinear)")
+    parser.add_argument("--src", default=str(ROOT / "src"), help="the src/ "
+                        "directory whose repro_torch is run (default: the "
+                        "one beside this script)")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
-              "from a checkout of the repo", file=sys.stderr)
+    src = Path(opts.src).resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no repro_torch under {src}; run it from a "
+              "checkout of the repo", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    if opts.times:
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             src=str(src))
+        return time_only(opts.times.split(","), torch.device("cuda"))
     import numpy as np
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
@@ -924,11 +1106,6 @@ def main() -> int:
     modules = (ew, gemm, conv, pooling, ibilinear, fa, ssd)
 
     # 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit("device", name=torch.cuda.get_device_name(0),
@@ -984,6 +1161,7 @@ def main() -> int:
         emit("kernel_vs_plain", op=op, tolerance=TOL, cases=errs)
     rng = np.random.default_rng(SEED + 1)
     serve_rng = np.random.default_rng(SEED + 2)
+    vec_rng = np.random.default_rng(SEED + 3)
     for op in NEW_OPS:
         mod, errs = module[op], []
         labelled = [("figure2", figure2_args(op, rng))] + \
@@ -992,13 +1170,22 @@ def main() -> int:
             [("serve", a) for a in serve_args(op, serve_rng)]
         if op in ("conv_hwc", "dwconv"):    # the timed large size
             labelled.append(("large", big_args(op, gen, dev)))
+        if op in ("maxpool", "argmaxpool", "ibilinear"):
+            labelled += vector_args(op, vec_rng)
         for label, host_args in labelled:
             for dt in (torch.float32, torch.bfloat16):
                 # ibilinear's weights stay float32; its image takes dt
                 args = on(host_args, dev, dt,
                           keep=(3, 4) if op == "ibilinear" else ())
-                err = compare(op, mod.KERNELS[op](*args),
-                              mod.PLAIN[op](*args))
+                if label == "off16":
+                    args = (off16(args[0]),) + args[1:]
+                before = mod.LAUNCHES[op]
+                got = mod.KERNELS[op](*args)
+                if mod.LAUNCHES[op] != before + 1:
+                    raise AssertionError(f"{op}/{label}: "
+                                         f"{mod.LAUNCHES[op] - before} "
+                                         "launches, expected 1")
+                err = compare(op, got, mod.PLAIN[op](*args))
                 errs.append({"case": label, "dtype": str(dt)[6:],
                              "shapes": [list(a.shape) for a in args
                                         if isinstance(a, torch.Tensor)],
@@ -1190,45 +1377,8 @@ def main() -> int:
         times[(op, size if dt == torch.float32 else f"{size}_bf16")] = row
         emit("time", **row)
         del x
-    for op in NEW_OPS:
-        mod = module[op]
-        # the two convs also in bf16, beside cuDNN in bf16
-        dts = (torch.float32, torch.bfloat16) if op in ("conv_hwc", "dwconv") \
-            else (torch.float32,)
-        for size, size_args in (("figure2", args[op]),
-                                ("large", big_args(op, gen, dev))):
-            if op == "gemm":
-                (m, k), n = size_args[0].shape, size_args[1].shape[1]
-                emit_simt_plan(size, m, n, k)
-            for dt in dts:
-                targs = on(size_args, dev, dt)
-                if op in ("conv_hwc", "dwconv"):
-                    emit_conv_plan(size, op, targs)
-                out = mod.KERNELS[op](*targs)
-                k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
-                p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
-                lib = library_call(op, targs)
-                l_ms = None if lib is None else time_ms(lib, flush)
-                nbytes, n_ops = work(op, targs, out)
-                # bf16 conv_hwc: the least time is the bf16 tensor cores'
-                b_ms, b_by = (mma_bound_ms if op == "conv_hwc" and
-                              dt == torch.bfloat16 else bound_ms)(nbytes,
-                                                                  n_ops)
-                row = {"op": op, "size": size,
-                       "dtype": str(dt).replace("torch.", ""),
-                       "shapes": [list(a.shape) for a in targs
-                                  if isinstance(a, torch.Tensor)],
-                       "kernel_ms": k_ms, "plain_ms": p_ms,
-                       "library_ms": l_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "bytes": nbytes, "ops": n_ops,
-                       "bound_share": b_ms / k_ms}
-                if l_ms is not None:
-                    row["library_ratio"] = k_ms / l_ms
-                times[(op, size if dt == torch.float32
-                       else f"{size}_bf16")] = row
-                emit("time", **row)
-                del out, targs
-            del size_args
+    times.update(time_figure2(NEW_OPS, module, args, gen, dev, flush,
+                              plans=True))
     lm_timed = [(op, lm_time_args(op, gen, dev)) for op in LM_OPS]
     # ssd also in float32 (the float32 serving check's calls)
     lm_timed.append(("ssd", on(lm_timed[-1][1], dev, torch.float32,

@@ -41,6 +41,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # The dtypes every kernel takes, and the suffix of their C entry points
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+# Launch shapes of the streaming kernels (the pools, ibilinear): blocks of
+# THREADS threads, halved (down to 32) while the grid would have fewer
+# blocks than the card has SMs, so that a small call spreads over the
+# card; a vector is 16 bytes of the channel (last) dimension.
+THREADS = 256
+SMS = 132                   # H100 SXM
+VECTOR_BYTES = 16
+INT32_MAX = 2 ** 31 - 1
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -138,6 +147,32 @@ def route(op: str, *tensors) -> str:
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """Device address for a ctypes pointer argument; None passes NULL."""
     return None if t is None else t.data_ptr()
+
+
+def lanes(dtype: torch.dtype, vector: bool) -> int:
+    """Elements of ``dtype`` a thread takes at a time: one 16-byte vector
+    (4 fp32, 8 bf16) where ``vector``, else one."""
+    return VECTOR_BYTES // dtype.itemsize if vector else 1
+
+
+def vector16(x: torch.Tensor, *outs: Optional[torch.Tensor]) -> bool:
+    """Whether a kernel may take 16-byte vectors along x's last (channel)
+    dimension: its length a multiple of the vector's lanes, and x and the
+    outputs 16-byte aligned (outputs made by ``torch.empty`` always are; x
+    may be a view that is not).  ``None`` outputs are skipped."""
+    return x.shape[-1] % lanes(x.dtype, True) == 0 and all(
+        t.data_ptr() % VECTOR_BYTES == 0 for t in (x, *outs)
+        if t is not None)
+
+
+def spread(items: int):
+    """(threads a block, blocks) for one thread an item: THREADS a block,
+    halved down to 32 while that gives fewer than SMS blocks; the blocks
+    capped at the grid's limit (the kernels loop past it)."""
+    threads = THREADS
+    while threads > 32 and -(-items // threads) < SMS:
+        threads //= 2
+    return threads, min(-(-items // threads), INT32_MAX)
 
 
 def launch(fn, device: torch.device, *args, what: str) -> None:

@@ -1,6 +1,7 @@
 // Shared by the port's kernel sources: element access for fp32 and bf16,
-// the NaN-propagating clamp, the launch helpers, and the 16-byte alignment
-// and shared-memory address helpers.
+// 16-byte vectors of either (Vec, and Elems for one element or one
+// vector at a time), the NaN-propagating clamp, the launch helpers, and
+// the 16-byte alignment and shared-memory address helpers.
 //
 // Build flags (kernels/_build.py) carry no --use_fast_math and no -ftz:
 // the kernels need IEEE rounding and keep subnormals.
@@ -8,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro_cuda {
 
@@ -28,6 +31,91 @@ template <> struct Elem<__nv_bfloat16> {
   }
   static __device__ __forceinline__ Raw put(float v) {
     return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// 16 bytes, kept raw in registers until used: 8 bf16 or 4 fp32 elements.
+// ldg reads an aligned vector, gather the first `valid` elements one by
+// one (zeros after), cvt widens to fp32, pack rounds fp32 back to T.
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  static constexpr int V = 4;
+  static __device__ __forceinline__ uint4 ldg(const float* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ uint4 gather(const float* p, int valid) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = i < valid ? __float_as_uint(p[i]) : 0u;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[V]) {
+    o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+    o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&o)[V]) {
+    return make_uint4(__float_as_uint(o[0]), __float_as_uint(o[1]),
+                      __float_as_uint(o[2]), __float_as_uint(o[3]));
+  }
+};
+template <> struct Vec<__nv_bfloat16> {
+  static constexpr int V = 8;
+  static __device__ __forceinline__ uint4 ldg(const unsigned short* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ uint4 gather(const unsigned short* p,
+                                                 int valid) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = (2 * i < valid ? unsigned(p[2 * i]) : 0u) |
+             (2 * i + 1 < valid ? unsigned(p[2 * i + 1]) << 16 : 0u);
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[V]) {
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {        // bf16 -> fp32 is exact: shift
+      o[2 * i] = __uint_as_float(w[i] << 16);
+      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&o)[V]) {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)          // each rounded to nearest even
+      w[i] = Elem<__nv_bfloat16>::put(o[2 * i]) |
+             unsigned(Elem<__nv_bfloat16>::put(o[2 * i + 1])) << 16;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// V consecutive elements of T at a time: one 16-byte Vec where V is
+// Vec<T>::V (the pointer then 16-byte aligned), else (V = 1) one element.
+// ld keeps them raw (Bits) so that a thread can issue all of its loads
+// before it uses any; cvt widens them to fp32; st rounds V fp32 values to
+// T and stores them; st_cs does so with the streaming hint (evict first),
+// for an output that should not push inputs out of L2.
+template <typename T, int V>
+struct Elems {
+  using Raw = typename Elem<T>::Raw;
+  static_assert(V == 1 || V == Vec<T>::V, "one element or one 16-byte vector");
+  using Bits = typename std::conditional<V == 1, Raw, uint4>::type;
+  static __device__ __forceinline__ Bits ld(const Raw* p) {
+    if constexpr (V == 1) return __ldg(p);
+    else return Vec<T>::ldg(p);
+  }
+  static __device__ __forceinline__ void cvt(Bits b, float (&o)[V]) {
+    if constexpr (V == 1) o[0] = Elem<T>::get(b);
+    else Vec<T>::cvt(b, o);
+  }
+  static __device__ __forceinline__ void st(Raw* p, const float (&o)[V]) {
+    if constexpr (V == 1) *p = Elem<T>::put(o[0]);
+    else *reinterpret_cast<uint4*>(p) = Vec<T>::pack(o);
+  }
+  static __device__ __forceinline__ void st_cs(Raw* p, const float (&o)[V]) {
+    if constexpr (V == 1) __stcs(p, Elem<T>::put(o[0]));
+    else __stcs(reinterpret_cast<uint4*>(p), Vec<T>::pack(o));
   }
 };
 

@@ -66,49 +66,7 @@ constexpr int kWarpsK = kThreads / 32;  // warps along K
 constexpr int kChunk = 512;             // K rows of A staged at a time
 constexpr int kUnroll = 8;              // B rows a thread loads at once
 
-// 16 bytes of B, kept raw in registers until used: 8 bf16 or 4 fp32
-// columns.  ldg reads an aligned vector, gather the first `valid`
-// elements one by one (zeros after), cvt widens to fp32.
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  static constexpr int V = 4;
-  static __device__ __forceinline__ uint4 ldg(const float* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ uint4 gather(const float* p, int valid) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = i < valid ? __float_as_uint(p[i]) : 0u;
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[V]) {
-    o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
-    o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
-  }
-};
-template <> struct Vec<__nv_bfloat16> {
-  static constexpr int V = 8;
-  static __device__ __forceinline__ uint4 ldg(const unsigned short* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ uint4 gather(const unsigned short* p,
-                                                 int valid) {
-    unsigned w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = (2 * i < valid ? unsigned(p[2 * i]) : 0u) |
-             (2 * i + 1 < valid ? unsigned(p[2 * i + 1]) << 16 : 0u);
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-  static __device__ __forceinline__ void cvt(uint4 u, float (&o)[V]) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {        // bf16 -> fp32 is exact: shift
-      o[2 * i] = __uint_as_float(w[i] << 16);
-      o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
+using repro_cuda::Vec;
 
 // This thread's B rows kk, kk + kWarpsK, ... (kUnroll of them) of the
 // chunk at row c0, columns col..col+V-1; zeros past the chunk's kn rows

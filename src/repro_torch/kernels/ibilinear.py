@@ -4,9 +4,15 @@ XNNPACK precomputes per-output-pixel top-left corners and fractional
 weights, and the NEON microkernel loads 2x2 corner pairs.  The
 reference's TPU kernel brings the corners in by scalar prefetch and
 slices 2x2xC corners out of a whole image held in VMEM.  The CUDA kernel
-(``csrc/ibilinear.cu``) keeps the image in global memory: one thread per
-output (pixel, channel), neighbouring threads on neighbouring channels,
-corner reads clamped to the image.
+(``csrc/ibilinear.cu``) keeps the image in global memory: a group of
+threads takes a pixel, each thread 16 bytes of channels at a time (4
+fp32 or 8 bf16; one channel where C or an operand's alignment does not
+allow a vector), several pixels a warp when C is small; a pixel's
+iy/ix/wy/wx are read once and shared by shuffle, its four corner loads
+(two adjacent runs a row) issued before the blend, corner reads clamped
+to the image.  :func:`ibilinear_plan` picks the vector width, the group,
+the block size and 32- or 64-bit image offsets; the C entry point
+re-checks each claim and refuses one that does not hold.
 
 Layouts are the reference's: img (H, W, C) float32 or bfloat16, iy/ix
 (P,) int32 top-left corners in [0, H-2] x [0, W-2], wy/wx (P,) float32
@@ -50,6 +56,26 @@ def ibilinear_plain(img, iy, ix, wy, wx):
     return (top * (1 - fy) + bot * fy).to(img.dtype)
 
 
+def ibilinear_plan(img_shape, p, dtype, vector: bool) -> dict:
+    """The kernel's launch shape for an image of ``img_shape`` (H, W, C)
+    and ``dtype`` at ``p`` pixels.  ``vector`` (``_build.vector16``): a
+    thread takes 16-byte vectors of channels (``lanes`` 4 fp32 or 8
+    bf16), else one channel at a time.  ``group`` threads take a pixel:
+    the C // lanes vectors rounded up to a power of two, at most 32 (a
+    group loops over more); ``pixels_per_warp`` = 32 // group; blocks of
+    ``threads`` (``_build.spread``).  ``wide``: 64-bit offsets, where
+    H*W*C or P*C reach 2^31."""
+    h, w, c = img_shape
+    lanes = _build.lanes(dtype, vector)
+    group = min(32, 1 << (c // lanes - 1).bit_length())
+    per_warp = 32 // group
+    threads, blocks = _build.spread(max(1, -(-p // per_warp)) * 32)
+    return {"vector": vector, "lanes": lanes, "group": group,
+            "pixels_per_warp": per_warp, "threads": threads,
+            "blocks": blocks,
+            "wide": max(h * w * c, p * c) > _build.INT32_MAX}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ibilinear")
@@ -57,7 +83,7 @@ def _lib() -> ctypes.CDLL:
     for dt in _build.DTYPES.values():
         fn = getattr(lib, f"repro_ibilinear_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * 6 + [i64] * 4 + [p]
+        fn.argtypes = [p] * 6 + [i64] * 8 + [p]
     return lib
 
 
@@ -86,10 +112,14 @@ def ibilinear(img, iy, ix, wy, wx):
     out = torch.empty((p, c), dtype=img.dtype, device=img.device)
     if out.numel() == 0:
         return out
+    plan = ibilinear_plan(img.shape, p, img.dtype,
+                          _build.vector16(img, out))
     fn = getattr(_lib(), f"repro_ibilinear_{_build.DTYPES[img.dtype]}")
     _build.launch(fn, img.device, img.data_ptr(), iy.data_ptr(),
                   ix.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-                  out.data_ptr(), h, w, c, p, what="ibilinear kernel")
+                  out.data_ptr(), h, w, c, p, plan["lanes"], plan["group"],
+                  plan["threads"], int(plan["wide"]),
+                  what="ibilinear kernel")
     LAUNCHES["ibilinear"] += 1
     return out
 

@@ -5,10 +5,15 @@ reference's TPU kernel reduces (rows, W, C) slabs in VMEM by reshape
 decimation, and argmaxpool tracks the running max and its window index
 with a select ladder (the paper's vceq->merge composition).  The CUDA
 kernel (``csrc/pooling.cu``) is one template with the index output
-switched on for argmaxpool: one thread per output (n, oh, ow, c), so
-neighbouring threads read neighbouring channels.  The ragged tail rows
-and columns are never read (VALID: oh = H // kh), so nothing is trimmed
-or padded.
+switched on for argmaxpool.  With stride equal to the window no input
+element is read twice, so it is a pure stream: a thread makes one
+output vector of 16 bytes (4 fp32 or 8 bf16 channels; one channel where
+C or an operand's alignment does not allow a vector), issuing all the
+loads of a 2x2 window before its compares.  :func:`pool_plan` picks the
+vector width, the compile-time 2x2 window or the generic one, the block
+size and 32- or 64-bit indexing; the C entry point re-checks each claim
+and refuses one that does not hold.  The ragged tail rows and columns
+are never read (VALID: oh = H // kh), so nothing is trimmed or padded.
 
 Layout is the reference's: x NHWC (N, H, W, C), float32 or bfloat16 for
 the kernel; argmaxpool's indices are int32, ``i * kw + j`` within the
@@ -69,6 +74,26 @@ def argmaxpool_plain(x, window=(2, 2)):
     return best, best_i
 
 
+def pool_plan(shape, dtype, window, vector: bool) -> dict:
+    """The kernel's launch shape for x of ``shape`` (N, H, W, C) and
+    ``dtype`` pooled by ``window``.  ``vector`` (``_build.vector16``): a
+    thread's channels are one 16-byte vector (``lanes`` 4 fp32 or 8 bf16),
+    else one channel.  ``window`` "2x2" is the compile-time 2x2
+    instantiation, "generic" reads the taps at run time.  A thread makes
+    one output vector, in blocks of ``threads`` (``_build.spread``);
+    ``blocks`` is the 1-D grid (no grid dimension of 65535 to outgrow).
+    ``wide``: 64-bit indexing, where x has 2^31 or more elements."""
+    n, h, w, c = shape
+    kh, kw = window
+    lanes = _build.lanes(dtype, vector)
+    threads, blocks = _build.spread(
+        max(1, n * (h // kh) * (w // kw) * (c // lanes)))
+    return {"vector": vector, "lanes": lanes,
+            "window": "2x2" if (kh, kw) == (2, 2) else "generic",
+            "threads": threads, "blocks": blocks,
+            "wide": n * h * w * c > _build.INT32_MAX}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pooling")
@@ -76,10 +101,10 @@ def _lib() -> ctypes.CDLL:
     for dt in _build.DTYPES.values():
         fn = getattr(lib, f"repro_maxpool_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p] + [i64] * 6 + [p]
+        fn.argtypes = [p, p] + [i64] * 10 + [p]
         fn = getattr(lib, f"repro_argmaxpool_{dt}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p] + [i64] * 6 + [p]
+        fn.argtypes = [p, p, p] + [i64] * 10 + [p]
     return lib
 
 
@@ -98,11 +123,13 @@ def _launch(op, x, window):
         if op == "argmaxpool" else None
     if out.numel() == 0:
         return out, idx
+    plan = pool_plan(x.shape, x.dtype, window, _build.vector16(x, out, idx))
     fn = getattr(_lib(), f"repro_{op}_{_build.DTYPES[x.dtype]}")
     ptrs = (x.data_ptr(), out.data_ptr()) + (
         () if idx is None else (idx.data_ptr(),))
-    _build.launch(fn, x.device, *ptrs, n, h, w, c, kh, kw,
-                  what=f"{op} kernel")
+    _build.launch(fn, x.device, *ptrs, n, h, w, c, kh, kw, plan["lanes"],
+                  int(plan["window"] == "2x2"), plan["threads"],
+                  int(plan["wide"]), what=f"{op} kernel")
     LAUNCHES[op] += 1
     return out, idx
 

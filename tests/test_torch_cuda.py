@@ -12,6 +12,12 @@ must agree; subnormal inputs are included.  gemm and conv_hwc: fp32
 rtol = atol = 2e-4 (the reference's kernel TOL: the sums run in another
 order), bf16 3e-2.  dwconv, ibilinear, the pools and argmaxpool's
 indices: bitwise, since they round where their plain versions round.
+The pools also at C off their 16-byte vector (12 in bf16, 130), in the
+generic window (3x2, 3x3, also on the vector), through an x off 16
+bytes, with NaN, inf and ties on the vector path, and past 2^31 elements
+in bf16 (the 64-bit path, ~4.3 GB); ibilinear also at C 12 and 130,
+through an image off 16 bytes and on a bf16 image past 2^31 elements
+(its 64-bit path); each call one launch.
 conv_hwc also at Ci 3, Ci 24 under K slices that straddle taps, N 3,
 5x5 taps at stride 2, 1x1 taps and its 128 x 64 tile, and to itself
 bitwise across runs under a sliced plan; dwconv also at C 8 and 130, 5x5
@@ -150,11 +156,13 @@ def _cases(op, rng):
     if op in ("maxpool", "argmaxpool"):
         return [((_f(rng, (1, 56, 56, 256)),), (), ((2, 2),)),
                 ((_f(rng, (2, 13, 15, 12)),), (), ((2, 2),)),
-                ((_f(rng, (2, 13, 15, 12)),), (), ((3, 2),))]
-    img, iy, ix, wy, wx = _ib(rng, 56, 56, 64, 3136)
-    img2, iy2, ix2, wy2, wx2 = _ib(rng, 20, 24, 8, 1001)
-    return [((img,), (iy, ix, wy, wx), ()),
-            ((img2,), (iy2, ix2, wy2, wx2), ())]
+                ((_f(rng, (2, 13, 15, 12)),), (), ((3, 2),)),
+                ((_f(rng, (2, 13, 15, 12)),), (), ((3, 3),)),
+                ((_f(rng, (2, 12, 13, 16)),), (), ((3, 3),)),
+                ((_f(rng, (2, 13, 15, 130)),), (), ((2, 2),))]
+    return [(a[:1], a[1:], ()) for a in (
+        _ib(rng, 56, 56, 64, 3136), _ib(rng, 20, 24, 8, 1001),
+        _ib(rng, 20, 24, 12, 777), _ib(rng, 20, 24, 130, 333))]
 
 
 NEW = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv, "maxpool": pooling,
@@ -220,6 +228,96 @@ def test_new_kernels_nan_and_inf_edges(cuda):
         tx = torch.from_numpy(x).to(cuda, dtype)
         for op in ("maxpool", "argmaxpool"):
             _same(op, pooling.KERNELS[op](tx), pooling.PLAIN[op](tx), dtype)
+
+
+def _off16(t):
+    """A copy of ``t`` in a view 4 bytes off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    base = (-flat.data_ptr() % 16 + 4) // flat.element_size()
+    v = flat[base:base + t.numel()].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == 4
+    return v
+
+
+def _launched_once(mod, op, *args):
+    before = mod.LAUNCHES[op]
+    out = mod.KERNELS[op](*args)
+    assert mod.LAUNCHES[op] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_pools_and_ibilinear_read_a_view_off_16_bytes(cuda, dtype):
+    """x or img a view 4 bytes off 16-byte alignment: the one-channel path
+    (the plan says so), bitwise equal to the plain version."""
+    rng = np.random.default_rng(12)
+    x = _off16(torch.from_numpy(_f(rng, (2, 12, 14, 64))).to(cuda, dtype))
+    assert not _build.vector16(x)
+    for op in ("maxpool", "argmaxpool"):
+        _same(op, _launched_once(pooling, op, x, (2, 2)),
+              pooling.PLAIN[op](x, (2, 2)), dtype)
+    floats, others, _ = _cases("ibilinear", rng)[0]
+    img = _off16(_to(floats[0], cuda, dtype))
+    rest = [_to(a, cuda, torch.float32) for a in others]
+    assert not _build.vector16(img)
+    _same("ibilinear", _launched_once(ibilinear, "ibilinear", img, *rest),
+          ibilinear.ibilinear_plain(img, *rest), dtype)
+
+
+@pytest.mark.parametrize("window", [(2, 2), (3, 3)], ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_pools_nan_inf_and_ties_on_the_vector_path(cuda, dtype, window):
+    """The NaN, inf and tie case at C 16, where both dtypes take 16-byte
+    vectors: NaN propagates through maxpool and is never taken by
+    argmaxpool, ties go to the first tap."""
+    x = np.round(_f(np.random.default_rng(5), (2, 9, 9, 16)))
+    x[0, 0, 0, 0], x[0, 2, 3, 1], x[1, 5, 5, 2] = np.nan, np.inf, -np.inf
+    x[1, 6:8, 6:8, 3] = np.nan
+    x[0, 3:6, 3:6, 9] = np.nan
+    tx = torch.from_numpy(x).to(cuda, dtype)
+    assert _build.vector16(tx)
+    for op in ("maxpool", "argmaxpool"):
+        _same(op, _launched_once(pooling, op, tx, window),
+              pooling.PLAIN[op](tx, window), dtype)
+
+
+def test_pools_past_2_31_elements(cuda):
+    """A bf16 x of 2,149,580,800 elements (~4.3 GB, W odd, so a tail
+    column is dropped): the plan takes 64-bit indexing, and both pools
+    equal their plain versions bitwise, past the 2^31st element too."""
+    shape = (2, 1024, 1025, 1024)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    assert pooling.pool_plan(x.shape, x.dtype, (2, 2), True)["wide"]
+    for op in ("maxpool", "argmaxpool"):
+        got = _launched_once(pooling, op, x, (2, 2))
+        _same(op, got, pooling.PLAIN[op](x, (2, 2)), torch.bfloat16)
+        del got
+    torch.cuda.empty_cache()
+
+
+def test_ibilinear_past_2_31_elements(cuda):
+    """A bf16 image of 2,149,580,800 elements (4.3 GB) read at corners in
+    its last rows, most of them past element 2^31: the plan takes 64-bit
+    offsets, and the kernel equals its plain version bitwise."""
+    h, w, c, p = 1024, 1025, 2048, 999
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    img = torch.randn((h, w, c), generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+    iy = torch.randint(h - 3, h - 1, (p,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    ix = torch.randint(0, w - 1, (p,), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    wy, wx = (torch.rand(p, generator=gen, device=cuda) for _ in range(2))
+    assert ibilinear.ibilinear_plan(img.shape, p, img.dtype, True)["wide"]
+    _same("ibilinear",
+          _launched_once(ibilinear, "ibilinear", img, iy, ix, wy, wx),
+          ibilinear.ibilinear_plain(img, iy, ix, wy, wx), torch.bfloat16)
+    del img
+    torch.cuda.empty_cache()
 
 
 # M straddles the small-M thresholds (8 in bf16, 16 in fp32) and the wgmma

@@ -235,8 +235,12 @@ def test_dwconv_plain_matches_interpret_kernel(taps, bias, dtype):
 # maxpool / argmaxpool
 # ---------------------------------------------------------------------------
 
+# C 12 and 130 lie off the kernel's 16-byte vector (8 bf16; 4 fp32 for
+# 130), and 3x3 is its generic window
 POOLS = [((2, 10, 12, 8), (2, 2)), ((2, 11, 13, 8), (2, 2)),
-         ((2, 10, 12, 8), (3, 3)), ((1, 9, 7, 5), (2, 3))]
+         ((2, 10, 12, 8), (3, 3)), ((1, 9, 7, 5), (2, 3)),
+         ((2, 10, 12, 12), (2, 2)), ((1, 9, 11, 130), (2, 2)),
+         ((2, 9, 9, 12), (3, 3)), ((1, 9, 11, 130), (3, 3))]
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -306,6 +310,20 @@ def test_ibilinear_plain_matches_interpret_kernel(dtype):
     want = jib.ibilinear(jimg, *map(jnp.asarray, rest), interpret=True)
     got = ibilinear.ibilinear(timg, *map(torch.from_numpy, rest))
     assert got.shape == (23, 8) and got.dtype == timg.dtype
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("c", [12, 130])
+def test_ibilinear_plain_matches_interpret_kernel_off_the_vector(c, dtype):
+    """C 12 and 130: off the kernel's 16-byte vector (bf16; fp32 for
+    130), so its group loops or idles threads."""
+    img, iy, ix, wy, wx = _ib_inputs(np.random.default_rng(c), c=c, p=37)
+    jimg, timg = _both(img, dtype)
+    rest = (iy, ix, wy, wx)
+    want = jib.ibilinear(jimg, *map(jnp.asarray, rest), interpret=True)
+    got = ibilinear.ibilinear(timg, *map(torch.from_numpy, rest))
+    assert got.shape == (37, c) and got.dtype == timg.dtype
     _close(got, want, dtype)
 
 
