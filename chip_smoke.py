@@ -31,7 +31,30 @@ the port's two main paths:
     five ops under the default target.
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
-also counted by variant (split-K in decode, wgmma in prefill).  Finally
+also counted by variant (split-K in decode, wgmma in prefill).  Then the
+NEON-migration frontend runs on the card:
+
+  * ``isa``: every op of ``repro_torch.core.isa`` in each of its tiers on
+    CUDA tensors and again on the CPU, on the same numpy-made inputs
+    (``isa_cases``: every NEON lane dtype the op takes below 64 bits,
+    wraparound and saturation edges on unsigned 16- and 32-bit lanes,
+    NaN and +-inf for the float ops, offsets that clamp, wrap or drop for
+    the memory ops); integers bitwise, floats bitwise but for
+    ``CARD_ULP``'s ops (rsqrt, the float sums), each op's largest ULP gap
+    printed; every output on the card;
+  * ``port``: ``repro_torch.port.load_corpus("examples/neon_corpus")``,
+    each of the 24 kernels through ``PortedKernel``'s interpreter ->
+    ``isa`` -> ``registry.dispatch`` on CUDA tensors under ``h100`` and
+    ``rvv-128`` (policy pallas), at benchmarks/port_suite.py's wall
+    geometry (n = 2048, tail 2051) and at n in {0, 1, strip - 1,
+    strip + 1}, each output on the card and held to the harness's NumPy
+    reference within tests/test_port_conformance.py's ULP budgets; one
+    ``port_kernel`` line a kernel and target with its host-clock ms,
+    dispatches, host reads and tiers; then counted under ``trace.count``
+    at rvv-128 and n = 64, which must equal BENCH_port.json's
+    ``total_instrs``.
+
+Finally
 it times every kernel beside its plain version, one PyTorch library call
 and the card's bound: the elementwise four also in bf16 and vtanh at the
 gelu's serving shapes, ssd also in float32, gemm also in bf16 and float32
@@ -63,7 +86,10 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -182,7 +208,6 @@ def workload(op, base):
 
 
 def _normal(rng, shape, scale=1.0):
-    import numpy as np
     import torch
     return torch.from_numpy((scale * rng.standard_normal(shape))
                             .astype(np.float32))
@@ -190,7 +215,6 @@ def _normal(rng, shape, scale=1.0):
 
 def ibilinear_args(rng, h, w, c, p):
     """img, top-left corners in [0, H-2] x [0, W-2], weights in [0, 1)."""
-    import numpy as np
     import torch
     return (_normal(rng, (h, w, c)),
             torch.from_numpy(rng.integers(0, h - 2, p).astype(np.int32)),
@@ -261,7 +285,6 @@ def serve_args(op, rng):
 
 def edge_args(op, rng):
     """NaN and +-inf through the gemm clamp and the pools (with ties)."""
-    import numpy as np
     import torch
     if op == "gemm":
         a = _normal(rng, (40, 24))
@@ -284,7 +307,6 @@ def vector_args(op, rng):
     tie case at C 16 (on the vector in both dtypes), and the Figure-2
     input, which main() moves into a view 4 bytes off 16-byte alignment
     ("off16")."""
-    import numpy as np
     import torch
     n = _normal
     if op == "ibilinear":
@@ -423,7 +445,6 @@ def lm_cases(op, rng):
     zamba2's serving shapes first, then GQA with a window and softcap 50,
     Sq < Sk with D 16 (attention), ragged lengths with a window (decode),
     s off the chunk, s < 8 and g < h (ssd)."""
-    import numpy as np
     import torch
     n = _normal
     if op == "flash_attention":
@@ -807,7 +828,6 @@ def serve_zamba2(dev, modules):
     kernel launches of that run, time prefill and decode, and hold its
     logits against the vector tier's (teacher forced), in bf16 and in
     float32.  Returns the phase's record."""
-    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import trace, use_policy
@@ -1035,12 +1055,529 @@ def time_figure2(ops, module, args, gen, dev, flush, plans):
     return rows
 
 
+# -- the NEON frontend: the isa ops and the corpus ----------------------------
+
+INTS = ("int8", "int16", "int32", "uint8", "uint16", "uint32")
+FLOATS = ("float16", "float32")
+ALL = INTS + FLOATS
+# (narrow, wide) lane pairs of the width-changing families
+WIDEN = (("int8", "int16"), ("int16", "int32"), ("uint8", "uint16"),
+         ("uint16", "uint32"))
+# The card against the CPU, float lanes: bitwise but for these ops, whose
+# result may round differently on the card (ULP of the lane type): rsqrt
+# is not a division there, and the reductions sum in another order
+CARD_ULP = {"vrsqrte": 2, "vaddv": 2, "vfold": 2}
+# benchmarks/port_suite.py's wall-clock geometry
+WALL_N, WALL_TAIL_N = 2048, 2051
+PORT_TARGETS = ("h100", "rvv-128")
+
+
+class DT(str):
+    """A dtype argument (``vcvt(a, DT("int32"))``)."""
+
+
+def _ints(rng, dt, n):
+    info = np.iinfo(dt)
+    edge = np.array([info.min, info.max, 0, 1, info.max - 1,
+                     info.min + 1, info.max // 2 + 1], dtype=dt)
+    vals = rng.integers(info.min, int(info.max) + 1, n, dtype=dt)
+    vals[:min(n, len(edge))] = edge[:min(n, len(edge))]
+    return rng.permutation(vals)
+
+
+def _floats(rng, dt, n, edges=True, lo=-4.0, hi=4.0):
+    vals = rng.uniform(lo, hi, n).astype(dt)
+    if edges:
+        edge = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-3],
+                        dtype=dt)
+        vals[:min(n, len(edge))] = edge[:min(n, len(edge))]
+    return rng.permutation(vals)
+
+
+def _vec(rng, dt, n, **kw):
+    if np.issubdtype(np.dtype(dt), np.integer):
+        return _ints(rng, dt, n)
+    return _floats(rng, dt, n, **kw)
+
+
+def _lanes(dt):
+    return 16 // np.dtype(dt).itemsize
+
+
+def isa_cases(op):  # noqa: C901 — one table of every op's inputs
+    """(label, args) pairs of numpy inputs for the isa op ``op``: every
+    NEON lane dtype it takes below 64 bits, wraparound and saturation
+    edges, NaN and +-inf for the float ops, offsets out of range for the
+    memory ops."""
+    rng = np.random.default_rng(zlib.crc32(op.encode()))
+    out = []
+
+    def add(label, *args):
+        out.append((label, args))
+
+    if op in ("vadd", "vsub", "vmul", "vmax", "vmin", "vqadd", "vqsub",
+              "vceq", "vcgt", "vcge", "vclt", "vcle", "vpadd", "vzip",
+              "vcombine"):
+        for dt in ALL:
+            n = _lanes(dt)
+            add(dt, _vec(rng, dt, n), _vec(rng, dt, n))
+            if op in ("vmax", "vmin") and dt in FLOATS:
+                add(f"{dt}-zeros", np.array([0.0, -0.0, 0.0, -0.0], dt),
+                    np.array([-0.0, 0.0, 0.0, -0.0], dt))
+            if op in ("vqadd", "vqsub", "vadd", "vsub") and dt in INTS:
+                info = np.iinfo(dt)
+                a = np.array([info.max] * 2 + [info.min] * 2 + [0, 1],
+                             dtype=dt)
+                b = np.array([1, info.max, 1, info.max, info.max,
+                              info.max], dtype=dt)
+                add(f"{dt}-sat", a, b)
+    elif op in ("vand", "vorr", "veor"):
+        for dt in INTS:
+            add(dt, _ints(rng, dt, _lanes(dt)), _ints(rng, dt, _lanes(dt)))
+    elif op in ("vabs", "vneg", "vget_high", "vget_low", "vrev64",
+                "vaddv", "vmaxv", "vminv"):
+        for dt in ALL:
+            edges = op not in ("vaddv",) or dt in INTS
+            add(dt, _vec(rng, dt, _lanes(dt), edges=edges))
+        if op in ("vmaxv", "vminv", "vaddv"):
+            add("float32x2", _floats(rng, "float32", 2, edges=False))
+        if op in ("vmaxv", "vminv"):
+            for dt in FLOATS:
+                for z in ([-0.0, 0.0, -1.0, -2.0], [0.0, -0.0, 1.0, 2.0],
+                          [-0.0, -0.0, -1.0, -3.0], [0.0, 0.0, 1.0, 3.0]):
+                    add(f"{dt}-zeros", np.array(z, dt))
+    elif op in ("vshl_n", "vshr_n"):
+        for dt in INTS:
+            w = np.dtype(dt).itemsize * 8
+            for n in (0, 1, w - 1, w, w + 3):
+                add(f"{dt}<<{n}", _ints(rng, dt, _lanes(dt)), n)
+    elif op == "vbsl":
+        for dt in ALL:
+            n = _lanes(dt)
+            u = f"uint{np.dtype(dt).itemsize * 8}"
+            mask = rng.choice(np.array([0, np.iinfo(u).max, 1], u), n)
+            add(dt, mask, _vec(rng, dt, n), _vec(rng, dt, n))
+    elif op in ("vmla", "vmls"):
+        for dt in ALL:
+            n = _lanes(dt)
+            add(dt, *(_vec(rng, dt, n, edges=False) for _ in range(3)))
+    elif op == "vfma":
+        for dt in FLOATS:
+            n = _lanes(dt)
+            add(dt, *(_vec(rng, dt, n, edges=False) for _ in range(3)))
+            add(f"{dt}-bcast", _vec(rng, dt, n, edges=False),
+                _vec(rng, dt, 1, edges=False), _vec(rng, dt, n, edges=False))
+    elif op == "vext":
+        for dt in ALL:
+            n = _lanes(dt)
+            for k in (0, 1, n - 1):
+                add(f"{dt}:{k}", _vec(rng, dt, n), _vec(rng, dt, n), k)
+    elif op == "vrbit":
+        for dt in ("uint8", "int8", "int16", "uint16"):
+            add(dt, _ints(rng, dt, 16))
+    elif op == "vdup":
+        for dt in ALL:
+            x = _vec(rng, dt, 1)[0]
+            add(dt, np.dtype(dt).type(x), (_lanes(dt),))
+    elif op in ("vrecpe", "vrsqrte"):
+        for dt in FLOATS:
+            add(dt, _floats(rng, dt, 16, lo=-9.0, hi=9.0))
+            add(f"{dt}-pos", _floats(rng, dt, 16, edges=False, lo=1e-3,
+                                     hi=9.0))
+    elif op in ("vrecps", "vrsqrts"):
+        for dt in FLOATS:
+            add(dt, _floats(rng, dt, 8), _floats(rng, dt, 8))
+    elif op == "vcvt":
+        wild = np.array([np.nan, np.inf, -np.inf, 3e9, -3e9, 2147483520.0,
+                         2147483648.0, -2.7, 2.7, 70000.0, -70000.0, 255.5,
+                         -128.9, 0.0, -0.0, 1e-30], np.float32)
+        for dt in INTS:
+            add(f"float32->{dt}", wild, DT(dt))
+            with np.errstate(over="ignore"):
+                add(f"float16->{dt}", wild.astype(np.float16), DT(dt))
+            add(f"{dt}->float32", _ints(rng, dt, 8), DT("float32"))
+        add("float32->float16", _floats(rng, "float32", 8), DT("float16"))
+        add("float16->float32", _floats(rng, "float16", 8), DT("float32"))
+        add("int32->int16", _ints(rng, "int32", 8), DT("int16"))
+    elif op == "vtbl":
+        for dt in ALL:
+            table = _vec(rng, dt, 8)
+            add(f"{dt}[u8]", table, np.array([0, 7, 8, 200, 255, 3, 1, 6],
+                                             np.uint8))
+            add(f"{dt}[s8]", table, np.array([0, -1, -8, -9, 8, 100, -128,
+                                              5], np.int8))
+    elif op == "vreinterpret":
+        for src in ALL:
+            for dst in ("int8", "uint16", "uint32", "float16", "float32"):
+                if src != dst:
+                    add(f"{src}->{dst}", _vec(rng, src, _lanes(src)),
+                        DT(dst))
+    elif op in ("vmull", "vaddl", "vsubl"):
+        for nar, wide in WIDEN:
+            add(f"{nar}->{wide}", _ints(rng, nar, 8), _ints(rng, nar, 8),
+                DT(wide))
+    elif op in ("vmlal", "vmlsl"):
+        for nar, wide in WIDEN:
+            add(f"{nar}->{wide}", _ints(rng, wide, 8), _ints(rng, nar, 8),
+                _ints(rng, nar, 8), DT(wide))
+    elif op == "vmovl":
+        for nar, wide in WIDEN:
+            add(f"{nar}->{wide}", _ints(rng, nar, 8), DT(wide))
+    elif op in ("vmovn", "vqmovn"):
+        for nar, wide in WIDEN:
+            add(f"{wide}->{nar}", _ints(rng, wide, 8), DT(nar))
+    elif op == "vqmovun":
+        for src, dst in (("int16", "uint8"), ("int32", "uint16")):
+            add(f"{src}->{dst}", _ints(rng, src, 8), DT(dst))
+    elif op == "vtile":
+        for dt in ALL:
+            for reps in (1, 3):
+                add(f"{dt}x{reps}", _vec(rng, dt, 4), reps)
+    elif op == "vfold":
+        for dt in ALL:
+            for factor in (2, 4):
+                add(f"{dt}/{factor}", _vec(rng, dt, 16, edges=dt in INTS),
+                    factor)
+    else:
+        out.extend(_isa_memory_cases(op, rng))
+    assert out, op
+    return out
+
+
+# offsets around both ends of a 16-element buffer, including the ones
+# that wrap once (-1 .. -16) and the ones that wrap and still fall out;
+# lane types of each width, signed, unsigned and float
+_OFFSETS = (0, 13, 20, -3, -20)
+MEM = ("int8", "uint16", "uint32", "float32")
+
+
+def _isa_memory_cases(op, rng):
+    out = []
+    base = op.rstrip("m") if op not in ("vld1gm",) else "vld1g"
+    masked = op.endswith("m")
+    for dt in MEM:
+        buf = _vec(rng, dt, 16)
+        for off in _OFFSETS:
+            o = np.int64(off)
+            if base == "vld1":
+                for lanes in (4, 20):
+                    if masked:
+                        out.append((f"{dt}@{off}/{lanes}", (buf, o, lanes,
+                                                           np.int64(3), 0)))
+                    else:
+                        out.append((f"{dt}@{off}/{lanes}", (buf, o, lanes)))
+            elif base == "vst1":
+                for m in (4, 20):
+                    val = _vec(rng, dt, m)
+                    if masked:
+                        out.append((f"{dt}@{off}/{m}", (buf, o, val,
+                                                       np.int64(3))))
+                    else:
+                        out.append((f"{dt}@{off}/{m}", (buf, o, val)))
+            elif base == "vld1g":
+                extra = (np.int64(2), 0) if masked else ()
+                out.append((f"{dt}@{off}", (buf, o, 4, 3) + extra))
+            elif base.startswith("vld"):
+                k = int(base[3])
+                for lanes in (2, 8):
+                    extra = (np.int64(1), 0) if masked else ()
+                    out.append((f"{dt}@{off}/{lanes}",
+                                (buf, o, lanes) + extra))
+            elif base.startswith("vst"):
+                k = int(base[3])
+                for lanes in (2, 8):
+                    vs = tuple(_vec(rng, dt, lanes) for _ in range(k))
+                    extra = (np.int64(1),) if masked else ()
+                    out.append((f"{dt}@{off}/{lanes}",
+                                (buf, o) + vs + extra))
+    return out
+
+
+
+
+def isa_args(op, args, dev):
+    """A case's numpy arguments as the port takes them on ``dev``: arrays
+    as tensors, dtype names as torch dtypes, vdup's scalar as a 0-d
+    tensor (offsets and counts stay host integers)."""
+    import torch
+    from repro_torch.core import isa
+    from repro_torch.core.vtypes import torch_dtype
+    out = []
+    for i, a in enumerate(args):
+        if isinstance(a, DT):
+            a = torch_dtype(str(a))
+        elif isinstance(a, np.ndarray):
+            a = torch.from_numpy(a.copy()).to(dev)
+        elif op == "vdup" and i == 0:
+            a = isa.lane_scalar(a.item(), a.dtype, dev)
+        out.append(a)
+    return out
+
+
+def ulp_gap(got, want):
+    """Largest gap in units in the last place between two float arrays of
+    one dtype: 0 only where they agree bitwise (-0.0 is one ULP from 0.0),
+    NaN lanes must sit at the same places."""
+    if not np.array_equal(np.isnan(got), np.isnan(want)):
+        return float("inf")
+    keep = ~np.isnan(want)
+    width = {2: np.int16, 4: np.int32}[want.dtype.itemsize]
+    top = np.int64(np.iinfo(width).max)
+
+    def ordered(x):
+        i = np.ascontiguousarray(x[keep]).view(width).astype(np.int64)
+        return np.where(i < 0, -(i & top) - 1, i)
+
+    gap = np.abs(ordered(got) - ordered(want))
+    return int(gap.max()) if gap.size else 0
+
+
+def isa_phase(dev):
+    """Every op of ``isa.__all__`` in each of its tiers, on the card and
+    then on the CPU, on the same numpy-made inputs: integers bitwise,
+    floats bitwise but for CARD_ULP's ops; each output on the card."""
+    import torch
+    from repro_torch.core import isa
+    from repro_torch.core.registry import REGISTRY
+    rows, n_cases = {}, 0
+    for op in isa.__all__:
+        gap, cases = 0, 0
+        for tier in REGISTRY.tiers_of(op):
+            fn = REGISTRY.lowering(op, tier).fn
+            for label, args in isa_cases(op):
+                card = fn(*isa_args(op, args, dev))
+                host = fn(*isa_args(op, args, "cpu"))
+                card = card if isinstance(card, tuple) else (card,)
+                host = host if isinstance(host, tuple) else (host,)
+                where = f"isa {op}/{tier}/{label}"
+                for c, h in zip(card, host, strict=True):
+                    if c.device.type != "cuda":
+                        raise AssertionError(f"{where}: output on {c.device}")
+                    g, w = c.cpu().numpy(), h.numpy()
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        raise AssertionError(f"{where}: {g.shape}/{g.dtype} "
+                                             f"against {w.shape}/{w.dtype}")
+                    if np.issubdtype(w.dtype, np.floating):
+                        d = ulp_gap(g.reshape(-1), w.reshape(-1))
+                        if d > CARD_ULP.get(op, 0):
+                            raise AssertionError(f"{where}: {d} ulp from "
+                                                 "the CPU")
+                        gap = max(gap, d)
+                    elif not np.array_equal(g, w):
+                        raise AssertionError(f"{where}: differs from the "
+                                             "CPU bitwise")
+                cases += 1
+        rows[op] = {"tiers": REGISTRY.tiers_of(op), "cases": cases,
+                    "max_ulp": gap}
+        n_cases += cases
+    torch.cuda.synchronize()
+    emit("isa", ops=len(rows), cases=n_cases, card_ulp_allowed=CARD_ULP,
+         rows=rows)
+    return rows
+
+
+def strip_step(fn):
+    """The step of a ported kernel's first strip loop, matched as the
+    reference's re-vectorizer matches them (top-level loops first, then
+    nested ones): a loop whose counter ``n`` steps down by a constant
+    ``k`` under ``n >= k`` (k > 1) or ``n != 0``, with a vector intrinsic
+    in its body.  8 where there is none."""
+    from repro_torch.port.ir import IfOp, Loop
+
+    def consts(block):
+        return {ins.result: ins.attrs["value"] for ins in block.instrs
+                if ins.op == "const"}
+
+    def has_vector(block):
+        for ins in block.instrs:
+            if ins.op == "intrin":
+                return True
+            if isinstance(ins, Loop) and has_vector(ins.body):
+                return True
+            if isinstance(ins, IfOp) and (has_vector(ins.then)
+                                          or has_vector(ins.els)):
+                return True
+        return False
+
+    def match(loop):
+        cmp_ = [i for i in loop.cond.instrs if i.result is loop.cond_value
+                and i.op == "scmp"]
+        if not cmp_ or not has_vector(loop.body):
+            return None
+        phi, bound = cmp_[0].args
+        bound = consts(loop.cond).get(bound)
+        if phi not in loop.phis or bound is None:
+            return None
+        y = loop.yields[loop.phis.index(phi)]
+        body = consts(loop.body)
+        dec = [i for i in loop.body.instrs if i.result is y
+               and i.op == "sbin" and i.attrs["op"] == "-"
+               and i.args[0] is phi and i.args[1] in body]
+        if not dec:
+            return None
+        k = body[dec[0].args[1]]
+        op = cmp_[0].attrs["op"]
+        if (op == ">=" and bound == k and k > 1) or \
+                (op == "!=" and bound == 0 and k >= 1):
+            return k
+        return None
+
+    level = [fn.body]
+    while level:
+        nxt = []
+        for block in level:
+            for ins in block.instrs:
+                if isinstance(ins, Loop):
+                    k = match(ins)
+                    if k is not None:
+                        return k
+                    nxt.append(ins.body)
+                elif isinstance(ins, IfOp):
+                    nxt += [ins.then, ins.els]
+        level = nxt
+    return 8
+
+
+def conform_ulp(got, want, case):
+    """tests/test_port_conformance.py's gate (:53-55, _assert_conforms):
+    integers bitwise; floats within max(4, 2 rtol / eps) ULP, or within
+    max(atol, 1e-6) absolute.  Returns the largest float ULP gap."""
+    eps = float(np.finfo(np.float32).eps)
+    budget = max(4, int(2 * case.rtol / eps))
+    worst = 0
+    for g, w in zip(got, want, strict=True):
+        g, w = np.asarray(g), np.asarray(w)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{case.kernel}: {g.shape}/{g.dtype} "
+                                 f"against {w.shape}/{w.dtype}")
+        if np.issubdtype(w.dtype, np.integer):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"{case.kernel}: not bitwise")
+            continue
+        i = g.astype(np.float32).view(np.int32).astype(np.int64)
+        j = w.astype(np.float32).view(np.int32).astype(np.int64)
+        ulp = np.abs(np.where(i < 0, -(i & 0x7FFFFFFF), i)
+                     - np.where(j < 0, -(j & 0x7FFFFFFF), j))
+        close = np.abs(g.astype(np.float64) - w.astype(np.float64)) \
+            <= max(case.atol, 1e-6)
+        if not bool(np.all((ulp <= budget) | close)):
+            raise AssertionError(f"{case.kernel}: {int(ulp.max())} ulp "
+                                 f"(budget {budget})")
+        worst = max(worst, int(ulp.max()) if ulp.size else 0)
+    return worst
+
+
+def run_ported(kernel, case, args, target, dev):
+    """One call of a ported corpus kernel on the card, held to the
+    harness's NumPy reference: its host-clock ms, dispatches, host reads,
+    the tiers its ops took, and the counted instructions."""
+    import torch
+    from repro_torch import port
+    from repro_torch.core import trace
+    from repro_torch.core.registry import REGISTRY
+    m = port.Machine(kernel.fn, policy="pallas", target=target, device=dev)
+    before = REGISTRY.cache_info()["lookups"]
+    with trace.count() as counted:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = m.run(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    outs = out if isinstance(out, tuple) else (out,)
+    for t in outs:
+        if t.device.type != "cuda":
+            raise AssertionError(f"{case.kernel}: output on {t.device}")
+    want = case.reference(*args)
+    ulp = conform_ulp([t.cpu().numpy() for t in outs],
+                      want if isinstance(want, tuple) else (want,), case)
+    return {"ms": ms, "dispatches": REGISTRY.cache_info()["lookups"] - before,
+            "host_reads": m.host_reads, "instrs": counted["total"],
+            "tiers": sorted({f"{op}:{tier}"
+                             for op, tier in counted["per_op"]}),
+            "max_ulp": ulp}
+
+
+def padded(args):
+    """n = 0 builds zero-length buffers: one element keeps them valid
+    (the kernels touch the first n only), as the conformance suite does."""
+    return tuple(np.zeros(1, a.dtype) if isinstance(a, np.ndarray)
+                 and a.size == 0 else a for a in args)
+
+
+def port_phase(dev, modules):
+    """The 24 corpus kernels through ``repro_torch.port`` on the card
+    under h100 and rvv-128 (policy pallas): at the wall-clock geometry of
+    benchmarks/port_suite.py and at n in {0, 1, strip - 1, strip + 1},
+    each held to the harness's NumPy reference; then counted under
+    rvv-128 at n = 64 against BENCH_port.json.  The isa ops reach no
+    CUDA kernel: the kernels' launch counts, set to 0 before, stay 0."""
+    from repro_torch import port
+    from repro_torch.core import trace
+    corpus = ROOT / "examples" / "neon_corpus"
+    # the NumPy references only: harness.run_differential is never called
+    # (it imports the JAX package)
+    sys.path.insert(0, str(corpus))
+    import harness
+    for m in modules:
+        m.reset_launches()
+    kernels = port.load_corpus(str(corpus))
+    names = [c.kernel for c in harness.cases()]
+    if sorted(kernels) != sorted(names) or len(names) != 24:
+        raise AssertionError(f"corpus: {sorted(kernels)}")
+    rows = []
+    for target in PORT_TARGETS:
+        wall = harness.cases(n=WALL_N, tail_n=WALL_TAIL_N)
+        for i, case in enumerate(wall):
+            k = kernels[case.kernel]
+            row = run_ported(k, case, padded(
+                case.make_args(np.random.default_rng(SEED + i))),
+                target, dev)
+            step = strip_step(k.fn)
+            tails = sorted({0, 1, step - 1, step + 1})
+            for n in tails:
+                small = {c.kernel: c for c in harness.cases(
+                    n=n, tail_n=n)}[case.kernel]
+                r = run_ported(k, small, padded(
+                    small.make_args(np.random.default_rng(SEED + n))),
+                    target, dev)
+                row["max_ulp"] = max(row["max_ulp"], r["max_ulp"])
+            row.update(kernel=case.kernel, target=target, n=WALL_N,
+                       tail_n=WALL_TAIL_N, strip=step, tails=tails)
+            emit("port_kernel", **row)
+            rows.append(row)
+    bench = json.loads((ROOT / "BENCH_port.json").read_text())
+    counted = {}
+    for i, case in enumerate(harness.cases(n=64)):
+        with trace.count() as c:
+            kernels[case.kernel](*case.make_args(np.random.default_rng(i)),
+                                 target="rvv-128", device=dev)
+        want = bench["kernels"][case.kernel]["targets"]["rvv-128"][
+            "total_instrs"]
+        if c["total"] != want:
+            raise AssertionError(f"{case.kernel}: counted {c['total']} at "
+                                 f"rvv-128, committed {want}")
+        counted[case.kernel] = c["total"]
+    total = {t: {"ms": sum(r["ms"] for r in rows if r["target"] == t),
+                 "dispatches": sum(r["dispatches"] for r in rows
+                                   if r["target"] == t),
+                 "host_reads": sum(r["host_reads"] for r in rows
+                                   if r["target"] == t)}
+             for t in PORT_TARGETS}
+    launched = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the corpus launched CUDA kernels: {launched}")
+    emit("port", kernels=len(names), targets=list(PORT_TARGETS),
+         wall_total=total, counted_rvv128_n64=counted,
+         kernel_launches=launched)
+    return rows
+
+
+
 def time_only(ops, dev):
     """``--times``: build and time only ``ops``, on inputs made as main()
     makes them, with no launch plans printed.  With ``--src`` this times
     another checkout's kernels, so that two commits can be compared in
     one call."""
-    import numpy as np
     import torch
     from repro_torch.kernels import conv, gemm, ibilinear, pooling
     module = {"gemm": gemm, "conv_hwc": conv, "dwconv": conv,
@@ -1090,7 +1627,6 @@ def main(argv=None) -> int:
         emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
              src=str(src))
         return time_only(opts.times.split(","), torch.device("cuda"))
-    import numpy as np
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
     from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, \
@@ -1336,7 +1872,11 @@ def main(argv=None) -> int:
     serve = serve_zamba2(dev, modules)
     lm_launches = {op: serve["launches"][op] for op in LM_OPS}
 
-    # 6. times ------------------------------------------------------------
+    # 6. the NEON frontend: every isa op, then the corpus through port ----
+    isa_phase(dev)
+    port_phase(dev, modules)
+
+    # 7. times ------------------------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB
     library = {"vrelu": lambda x: torch.clamp(x, *RELU_BOUNDS),
                "vsqrt": torch.sqrt, "vtanh": torch.tanh,
@@ -1470,7 +2010,7 @@ def main(argv=None) -> int:
             del w, x
     del flush
 
-    # 7. kernels: at their main path's shapes (Figure-2; serving) ---------
+    # 8. kernels: at their main path's shapes (Figure-2; serving) ---------
     # gemm at the serving path's commonest call: M = 4, bf16, the Mamba
     # input projection (38 of a decode step's launches)
     kernels = []

@@ -4,11 +4,10 @@ A portability layer that maps a fixed-width logical vector ISA (NEON
 semantics) onto a target vector machine through a set of lowerings
 (generic / vector / customized kernel) chosen per (op, shape, dtype,
 target) by evaluated instruction cost, with explicit type-tiling and
-tail predication.  The PyTorch counterpart of ``repro.core``; the
-logical-op table (``isa``) arrives with the NEON frontend that issues
-those ops.
+tail predication.  The PyTorch counterpart of ``repro.core``, the
+logical-op table (``isa``) that the NEON frontend issues included.
 """
-from . import masks, registry, targets, trace, vtypes
+from . import isa, masks, registry, targets, trace, vtypes
 from .registry import (REGISTRY, dispatch, explain, register, select,
                        use_policy)
 from .targets import (Target, compile_target, current_target, get_target,
@@ -16,7 +15,7 @@ from .targets import (Target, compile_target, current_target, get_target,
 from .vtypes import LVec, TileMap, neon_type_table, tile_for
 
 __all__ = [
-    "masks", "registry", "targets", "trace", "vtypes",
+    "isa", "masks", "registry", "targets", "trace", "vtypes",
     "REGISTRY", "dispatch", "explain", "register", "select", "use_policy",
     "Target", "compile_target", "current_target", "get_target",
     "set_default_target", "use_target", "with_lmul",

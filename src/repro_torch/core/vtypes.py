@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .targets import Target, itemsize, resolve_target
@@ -135,6 +136,38 @@ NEON_TYPES = {
     "float32x4_t": ((4,), torch.float32),
     "float64x2_t": ((2,), torch.float64),
 }
+
+
+def neon_lvec(type_name: str) -> LVec:
+    """The LVec for a NEON register type name (KeyError if unknown)."""
+    shape, dtype = NEON_TYPES[type_name]
+    return LVec(shape, dtype)
+
+
+# torch dtype <-> numpy dtype name (the reference's lane names)
+_NAME = {torch.float16: "float16", torch.float32: "float32",
+         torch.float64: "float64", torch.bfloat16: "bfloat16",
+         torch.int8: "int8", torch.int16: "int16", torch.int32: "int32",
+         torch.int64: "int64", torch.uint8: "uint8", torch.uint16: "uint16",
+         torch.uint32: "uint32", torch.uint64: "uint64", torch.bool: "bool"}
+_OF_NAME = {v: k for k, v in _NAME.items()}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype for a torch dtype, a numpy dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _OF_NAME[np.dtype(dtype).name]
+
+
+def dtype_name(dtype) -> str:
+    """The numpy name of a lane dtype ('float32', 'uint16', ...)."""
+    return _NAME[torch_dtype(dtype)]
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of the same name as a torch dtype."""
+    return np.dtype(dtype_name(dtype))
 
 
 def neon_type_table(target: Optional[Union[str, Target]] = None):

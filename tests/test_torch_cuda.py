@@ -17,7 +17,10 @@ generic window (3x2, 3x3, also on the vector), through an x off 16
 bytes, with NaN, inf and ties on the vector path, and past 2^31 elements
 in bf16 (the 64-bit path, ~4.3 GB); ibilinear also at C 12 and 130,
 through an image off 16 bytes and on a bf16 image past 2^31 elements
-(its 64-bit path); each call one launch.
+(its 64-bit path); each call one launch.  Every op of
+``repro_torch.core.isa`` in each tier: the card equals the CPU bitwise
+(floats within ``chip_smoke.CARD_ULP`` for rsqrt and the float sums), on
+unsigned lanes and out-of-range offsets.
 conv_hwc also at Ci 3, Ci 24 under K slices that straddle taps, N 3,
 5x5 taps at stride 2, 1x1 taps and its 128 x 64 tile, and to itself
 bitwise across runs under a sliced plan; dwconv also at C 8 and 130, 5x5
@@ -666,3 +669,44 @@ def test_decode_attention_is_deterministic(cuda, dtype):
     first = fa.decode_attention(q, k, v, lens)
     for _ in range(3):
         assert torch.equal(fa.decode_attention(q, k, v, lens), first)
+
+
+# -- the logical-op table (core.isa) on the card ------------------------------
+#
+# Every op in each of its tiers, on chip_smoke.isa_cases' inputs: unsigned
+# 16- and 32-bit lanes (wraparound, saturation, logical shifts, ordered
+# compares), float conversions of NaN/inf/out-of-range values, and the
+# memory ops at offsets that clamp (whole-register windows), wrap once or
+# drop (per-lane and masked stores) or gather clamped (per-lane loads).
+# The card's result equals the CPU's bitwise; float lanes within
+# chip_smoke.CARD_ULP for rsqrt and the float sums.
+
+def _isa_on_card():
+    from repro_torch.core import isa
+    from repro_torch.core.registry import REGISTRY
+    return [(op, t) for op in isa.__all__ for t in REGISTRY.tiers_of(op)]
+
+
+@pytest.mark.parametrize("op,tier", _isa_on_card(),
+                         ids=[f"{o}-{t}" for o, t in _isa_on_card()])
+def test_isa_tier_on_the_card_equals_the_cpu(cuda, op, tier):
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from repro_torch.core.registry import REGISTRY
+    fn = REGISTRY.lowering(op, tier).fn
+    for label, args in cs.isa_cases(op):
+        card = fn(*cs.isa_args(op, args, cuda))
+        host = fn(*cs.isa_args(op, args, "cpu"))
+        card = card if isinstance(card, tuple) else (card,)
+        host = host if isinstance(host, tuple) else (host,)
+        for c, h in zip(card, host, strict=True):
+            assert c.device.type == "cuda", label
+            g, w = c.cpu().numpy(), h.numpy()
+            assert g.shape == w.shape and g.dtype == w.dtype, label
+            if np.issubdtype(w.dtype, np.floating):
+                assert cs.ulp_gap(g.reshape(-1), w.reshape(-1)) <= \
+                    cs.CARD_ULP.get(op, 0), label
+            else:
+                np.testing.assert_array_equal(g, w, err_msg=label)
