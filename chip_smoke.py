@@ -52,7 +52,21 @@ NEON-migration frontend runs on the card:
     ``port_kernel`` line a kernel and target with its host-clock ms,
     dispatches, host reads and tiers; then counted under ``trace.count``
     at rvv-128 and n = 64, which must equal BENCH_port.json's
-    ``total_instrs``.
+    ``total_instrs``;
+  * ``port_compiled``: the same kernels through ``PortedKernel.compile``
+    (one CUDA graph per call signature) under ``h100`` and ``rvv-128``,
+    and re-tiled (``revec=True``) for ``rvv-1024``, on CUDA tensors at
+    the same five lengths: every signature captured with no host read,
+    each output held to the harness's reference (``conform_ulp``), to the
+    interpreter of the same IR on the card (integers bitwise, floats
+    within rtol 2e-6 / atol 2e-7) and bitwise to the eager walk
+    (``jit=False``) and to each replay; one ``port_compiled_kernel``
+    line a kernel and target (first-call and median replay ms on the
+    host clock, host reads, captured, the interpreter's ms); then
+    ``run_resilient`` under ``h100``, which must be served by
+    ``compiled+revec`` undegraded for all 24, and with one fault forced
+    at ``compile.run`` by a lower rung with the same bits.  No CUDA
+    kernel is launched by either phase.
 
 Finally
 it times every kernel beside its plain version, one PyTorch library call
@@ -78,6 +92,8 @@ DIR]`` only builds and times the named Figure-2 kernels (not the
 elementwise four) at both sizes and in both dtypes; ``--src`` runs the
 ``repro_torch`` under another ``src/``, such as an unpacked parent
 commit, so that two commits can be timed in turns in one call.
+``python3 chip_smoke.py --port`` runs only the ``port`` and
+``port_compiled`` phases (no build) and prints no result line.
 """
 from __future__ import annotations
 
@@ -1573,6 +1589,183 @@ def port_phase(dev, modules):
 
 
 
+# compiled runs of the corpus: (target, re-tiled); rvv-1024 widens the
+# strips up to 8x (16x on the widening kernels)
+COMPILED_RUNS = (("h100", False), ("rvv-128", False), ("rvv-1024", True))
+REPLAYS = 10
+# tests/test_port_compile.py:63-69: compiled against the interpreter
+COMPILED_RTOL, COMPILED_ATOL = 2e-6, 2e-7
+
+
+def same_bits(got, want, what):
+    for g, w in zip(got, want, strict=True):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not np.array_equal(g.view(np.uint8), w.view(np.uint8)):
+            raise AssertionError(f"{what}: not bitwise equal")
+
+
+def near_interp(got, want, what):
+    """Integers bitwise; floats within the reference's compiled-versus-
+    interpreter gate."""
+    for g, w in zip(got, want, strict=True):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{what}: {g.shape}/{g.dtype} against "
+                                 f"{w.shape}/{w.dtype}")
+        if np.issubdtype(w.dtype, np.floating):
+            ok = np.allclose(g, w, rtol=COMPILED_RTOL, atol=COMPILED_ATOL,
+                             equal_nan=True)
+        else:
+            ok = np.array_equal(g, w)
+        if not ok:
+            raise AssertionError(f"{what}: compiled and interpreted differ")
+
+
+def run_compiled(kernel, case, args, target, revec, dev):
+    """One ported kernel compiled for ``target`` on the card, its buffers
+    CUDA tensors: the first call (walk, capture, instantiate, replay) and
+    ``REPLAYS`` more, each on the host clock around a synchronized call.  The output is held to
+    the harness's NumPy reference (``conform_ulp``), to the interpreter
+    of the same IR on the card (``near_interp``), and bitwise to the
+    eager walk (``jit=False``) on the card and to every replay."""
+    import torch
+    from repro_torch import port
+    host_args, args = args, tuple(
+        torch.as_tensor(a, device=dev) if isinstance(a, np.ndarray) else a
+        for a in args)
+    ck = kernel.compile(target=target, revec=revec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ck(*args)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first = dict(ck.last_call)
+    outs = out if isinstance(out, tuple) else (out,)
+    replay_ms = []
+    for _ in range(REPLAYS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = ck(*args)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        same_bits(again if isinstance(again, tuple) else (again,), outs,
+                  f"{case.kernel}/{target}: a replay")
+    for t in outs:
+        if t.device.type != "cuda":
+            raise AssertionError(f"{case.kernel}: output on {t.device}")
+    eager = kernel.compile(target=target, revec=revec, jit=False)(*args)
+    same_bits(eager if isinstance(eager, tuple) else (eager,), outs,
+              f"{case.kernel}/{target}: the eager walk")
+    m = port.Machine(ck.fn, policy="pallas", target=target, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    interp = m.run(*args)
+    torch.cuda.synchronize()
+    interp_ms = (time.perf_counter() - t0) * 1e3
+    near_interp(outs, interp if isinstance(interp, tuple) else (interp,),
+                f"{case.kernel}/{target}")
+    want = case.reference(*host_args)
+    ulp = conform_ulp([t.cpu().numpy() for t in outs],
+                      want if isinstance(want, tuple) else (want,), case)
+    return {"first_ms": first_ms, "replay_ms": statistics.median(replay_ms),
+            "captured": first["captured"],
+            "host_reads": ck.last_call["host_reads"],
+            "issues": first["issues"], "interp_ms": interp_ms,
+            "factor": ck.retiling.factor if ck.retiling else 1,
+            "max_ulp": ulp}
+
+
+def port_compiled_phase(dev, modules, interp_rows):
+    """The 24 corpus kernels compiled on the card
+    (``PortedKernel.compile``: one CUDA graph per call signature) under
+    h100 and rvv-128, and re-tiled for rvv-1024, at the ``port`` phase's
+    lengths, each held three ways (``run_compiled``); every signature
+    must be captured with no host read.  Then the ladder on the card:
+    ``run_resilient`` under h100 must be served by ``compiled+revec``
+    undegraded for every kernel, and with one fault forced at
+    ``compile.run`` by a lower rung with the same values.  No CUDA kernel
+    is launched (the 13 kernels' counts stay 0)."""
+    import torch
+    from repro_torch import port
+    from repro_torch.port import faultinject, resilience
+    corpus = ROOT / "examples" / "neon_corpus"
+    sys.path.insert(0, str(corpus))
+    import harness
+    for m in modules:
+        m.reset_launches()
+    kernels = port.load_corpus(str(corpus))
+    port_ms = {(r["kernel"], r["target"]): r["ms"] for r in interp_rows}
+    rows = []
+    wall = harness.cases(n=WALL_N, tail_n=WALL_TAIL_N)
+    for target, revec in COMPILED_RUNS:
+        port.compiled_cache_clear()
+        for i, case in enumerate(wall):
+            k = kernels[case.kernel]
+            args = padded(case.make_args(np.random.default_rng(SEED + i)))
+            row = run_compiled(k, case, args, target, revec, dev)
+            step = strip_step(k.fn)
+            tails = sorted({0, 1, step - 1, step + 1})
+            captured, reads = [row["captured"]], [row["host_reads"]]
+            for n in tails:
+                small = {c.kernel: c for c in harness.cases(
+                    n=n, tail_n=n)}[case.kernel]
+                r = run_compiled(k, small, padded(
+                    small.make_args(np.random.default_rng(SEED + n))),
+                    target, revec, dev)
+                row["max_ulp"] = max(row["max_ulp"], r["max_ulp"])
+                captured.append(r["captured"])
+                reads.append(r["host_reads"])
+            if not all(captured) or any(reads):
+                raise AssertionError(f"{case.kernel}/{target}: captured "
+                                     f"{captured}, host reads {reads}")
+            row.update(kernel=case.kernel, target=target, revec=revec,
+                       n=WALL_N, tail_n=WALL_TAIL_N, tails=tails,
+                       port_phase_interp_ms=port_ms.get(
+                           (case.kernel, target)))
+            emit("port_compiled_kernel", **row)
+            rows.append(row)
+    # the ladder on the card
+    port.compiled_cache_clear()
+    resilience.reset_resilience()
+    ladder = {}
+    for i, case in enumerate(wall):
+        k = kernels[case.kernel]
+        args = padded(case.make_args(np.random.default_rng(SEED + i)))
+        out, rec = k.run_resilient(*args, target="h100")
+        if rec.used != "compiled+revec" or rec.degraded:
+            raise AssertionError(f"{case.kernel}: the ladder on the card "
+                                 f"served {rec.to_dict()}")
+        with faultinject.injected("compile.run",
+                                  error=resilience.ExecError, times=1):
+            down, drec = k.run_resilient(*args, target="h100")
+        if not drec.degraded or drec.used == "compiled+revec":
+            raise AssertionError(f"{case.kernel}: a forced fault did not "
+                                 f"degrade: {drec.to_dict()}")
+        same_bits(down if isinstance(down, tuple) else (down,),
+                  out if isinstance(out, tuple) else (out,),
+                  f"{case.kernel}: the degraded rung")
+        ladder[case.kernel] = [rec.used, drec.used]
+    launched = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the compiled corpus launched CUDA kernels: "
+                             f"{launched}")
+    total = {}
+    for target, revec in COMPILED_RUNS:
+        mine = [r for r in rows if r["target"] == target]
+        total[target] = {key: sum(r[key] for r in mine) for key in (
+            "first_ms", "replay_ms", "interp_ms", "issues")}
+        total[target].update(revec=revec, captured=sum(
+            r["captured"] for r in mine), kernels=len(mine))
+    port.compiled_cache_clear()
+    torch.cuda.synchronize()
+    emit("port_compiled", targets=[t for t, _ in COMPILED_RUNS],
+         wall_total=total, ladder=ladder,
+         resilience=resilience.resilience_stats(),
+         kernel_launches=launched)
+    return rows
+
+
 def time_only(ops, dev):
     """``--times``: build and time only ``ops``, on inputs made as main()
     makes them, with no launch plans printed.  With ``--src`` this times
@@ -1604,6 +1797,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--times", default="", help="comma-separated ops: "
                         "only build and time these (e.g. maxpool,ibilinear)")
+    parser.add_argument("--port", action="store_true", help="only run the "
+                        "corpus phases (port, port_compiled): no build, no "
+                        "result line")
     parser.add_argument("--src", default=str(ROOT / "src"), help="the src/ "
                         "directory whose repro_torch is run (default: the "
                         "one beside this script)")
@@ -1627,6 +1823,16 @@ def main(argv=None) -> int:
         emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
              src=str(src))
         return time_only(opts.times.split(","), torch.device("cuda"))
+    if opts.port:
+        from repro_torch.kernels import conv, gemm, ibilinear, pooling, ssd
+        from repro_torch.kernels import elementwise as ew
+        from repro_torch.kernels import flash_attention as fa
+        emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
+             torch=torch.__version__, cuda=torch.version.cuda)
+        modules = (ew, gemm, conv, pooling, ibilinear, fa, ssd)
+        dev = torch.device("cuda")
+        port_compiled_phase(dev, modules, port_phase(dev, modules))
+        return 0
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
     from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, \
@@ -1874,7 +2080,7 @@ def main(argv=None) -> int:
 
     # 6. the NEON frontend: every isa op, then the corpus through port ----
     isa_phase(dev)
-    port_phase(dev, modules)
+    port_compiled_phase(dev, modules, port_phase(dev, modules))
 
     # 7. times ------------------------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB

@@ -264,11 +264,18 @@ def host_value(t):
 
 
 def store_scalar(buf, off, value):
-    """``buf.at[off].set(value)`` (functional) for a host scalar: a
-    negative offset wraps once, one still outside the buffer is
-    dropped."""
-    return _scatter_prefix(buf, off, lane_scalar(value, buf.dtype,
-                                                 buf.device).reshape(1), 1)
+    """``buf.at[off].set(value)`` (functional) for a host scalar or a 0-d
+    tensor of the buffer's lane type: a negative offset wraps once, one
+    still outside the buffer is dropped."""
+    if not isinstance(value, torch.Tensor):
+        value = lane_scalar(value, buf.dtype, buf.device)
+    return _scatter_prefix(buf, off, value.reshape(1), 1)
+
+
+def where(cond, a, b):
+    """``torch.where`` for any lane dtype (unsigned through its twin);
+    ``b`` takes ``a``'s dtype."""
+    return _as(torch.where(cond, _s(a), _s(b)), a.dtype)
 
 
 def _flat_bcast(a, b):

@@ -4,17 +4,22 @@ The reference's ``init`` returns a pytree whose repeated unit is stacked
 on a leading axis of length ``repeats`` (``lax.scan`` runs over it).
 :func:`from_jax` takes that tree with numpy leaves, e.g.
 ``jax.tree.map(np.asarray, M.init(cfg, key))``, unstacks the unit axis
-and returns the port's parameter dictionary on ``device``.  It needs no
-JAX: the card never runs it, the parity tests do.
+and returns the port's parameter dictionary on ``device``: the card
+unless told otherwise, as every entry point of the port (the parity tests
+pass ``device="cpu"``).  It needs no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core.targets import resolve_device
 
-def tensor(a, device="cpu") -> torch.Tensor:
-    """A numpy array (float32, int, or ml_dtypes bfloat16) as a tensor."""
+
+def tensor(a, device=None) -> torch.Tensor:
+    """A numpy array (float32, int, or ml_dtypes bfloat16) as a tensor on
+    ``device`` (default: the card)."""
+    device = resolve_device("cuda" if device is None else device)
     a = np.array(a)                     # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16) \
@@ -38,8 +43,10 @@ def _leaves(tree):
     return [tree]
 
 
-def from_jax(tree, cfg, device="cpu"):
-    """The port's params from the reference's (numpy leaves)."""
+def from_jax(tree, cfg, device=None):
+    """The port's params from the reference's (numpy leaves), on
+    ``device`` (default: the card)."""
+    device = resolve_device("cuda" if device is None else device)
     _, unit, reps, _ = cfg.pattern_unit()
     out = {k: _map(v, lambda a: tensor(a, device))
            for k, v in tree.items() if k != "unit"}

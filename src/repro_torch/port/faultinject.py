@@ -24,15 +24,13 @@ The seams of the pipeline (see DESIGN.md §13):
     sim.mem          simulator memory fault on a vector access
     engine.batch     batched-executable failure inside PortEngine
 
-The port's interpreter calls ``interp.run``; the other seams arrive with
-the modules that hold them (revec, compile, the RVV simulator and the
-port engine: ROADMAP A.10c, A.11, A.12).
+Every seam but ``engine.batch`` is wired in the port; that one arrives
+with the port engine (ROADMAP A.12).
 
 Plus two cache-shaped helpers that need no seam: ``eviction_storm``
 (shrinks the compiled LRU so every lookup thrashes) and
 ``corrupt_cache_entry`` (poisons a live entry in place, exercising the
-cache's hit-validation path).  Both need the compiled-kernel cache of
-A.10c and raise NotImplementedError until it exists.
+cache's hit-validation path).
 
 Everything is deterministic: probabilities draw from a
 ``random.Random(seed)`` owned by the armed seam, and fire budgets are
@@ -194,7 +192,7 @@ def corrupt_value(seam: str, value: Any, **ctx: Any) -> Any:
 @contextlib.contextmanager
 def eviction_storm(capacity: int = 1):
     """Shrink the compiled-kernel LRU so every lookup thrashes."""
-    port = _compiled_port()
+    from .. import port
     old = port.compiled_cache_info()["capacity"]
     port.set_compiled_cache_capacity(capacity)
     try:
@@ -208,7 +206,7 @@ def corrupt_cache_entry(kernel: Optional[str] = None) -> List:
     across keys, or break a lone entry's callable) and return the
     affected keys.  The cache's hit validation must detect the damage
     and transparently recompile."""
-    port = _compiled_port()
+    from .. import port
     cache = port._COMPILED_CACHE
     with cache._lock:
         keys = [k for k in cache._cache
@@ -225,14 +223,6 @@ def corrupt_cache_entry(kernel: Optional[str] = None) -> List:
         entry._call = _broken_callable
         entry._corrupted = True
         return [k]
-
-
-def _compiled_port():
-    from .. import port
-    if not hasattr(port, "_COMPILED_CACHE"):
-        raise NotImplementedError(
-            "the compiled-kernel cache is not ported yet (ROADMAP A.10c)")
-    return port
 
 
 def _broken_callable(*_a, **_k):

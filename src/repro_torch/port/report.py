@@ -10,12 +10,6 @@ each target, abstract-interprets the kernel to get
   logical-ISA op and its per-issue/total dynamic instruction cost,
 * whole-kernel estimated dynamic vector instructions, against the
   original-SIMDe ladder baseline (the ``use_policy('vector')`` cap).
-
-These are the estimate columns.  The reference's three further columns
-need modules the port does not have yet, and ask for them by name:
-``compiled`` the re-vectorizer (ROADMAP A.10c), ``resilience`` the
-degradation ladder (A.10c) and ``executed`` the RVV code generator and
-simulator (A.11).
 """
 from __future__ import annotations
 
@@ -29,11 +23,6 @@ __all__ = ["report", "format_report", "PORT_SWEEP"]
 # (Q-register intrinsics that cannot map) actually bite
 PORT_SWEEP = ("rvv-64", "rvv-128", "rvv-256", "rvv-512", "rvv-1024")
 
-# report column -> the ROADMAP item that ports what it needs
-_NOT_PORTED = {"compiled": "A.10c (revec)",
-               "resilience": "A.10c (run_resilient)",
-               "executed": "A.11 (rvv codegen and simulator)"}
-
 
 def report(kernel, *example_args,
            sweep: Sequence[str] = PORT_SWEEP,
@@ -41,24 +30,47 @@ def report(kernel, *example_args,
            baseline_policy: Optional[str] = "vector",
            compiled: bool = False,
            executed: bool = False,
-           resilience: bool = False) -> Dict:
+           resilience: bool = False,
+           device=None) -> Dict:
     """Per-intrinsic migration report for ``kernel`` on ``example_args``.
 
     ``kernel`` is a :class:`repro_torch.port.PortedKernel`; the example
     args fix buffer shapes and trip counts (instruction counts are
-    dynamic, like the paper's Spike methodology).  Only their shapes and
-    dtypes are read: the kernel runs abstractly, on no device.
+    dynamic, like the paper's Spike methodology).  The estimate,
+    ``compiled`` and ``executed`` columns read only their shapes, dtypes
+    and scalar values: the kernel runs abstractly or on the NumPy
+    simulator, on no device.
 
-    ``compiled``, ``executed`` and ``resilience`` name the reference's
-    re-vectorization, simulator and ladder columns; each raises
-    NotImplementedError naming the ROADMAP item that brings it.
+    ``compiled=True`` adds the JIT backend's re-vectorization column:
+    each target row gains ``revec`` — the strip loops re-tiled at that
+    target's VLEN x LMUL (repro_torch.port.revec) and
+    abstract-interpreted for the re-tiled dynamic instruction count.
+    This is where the sweep finally *diverges* across the RVV family: the
+    fixed-width port costs the same from rvv-128 to rvv-1024, the
+    re-tiled one shrinks with the register.
+
+    ``resilience=True`` adds the degradation-ladder column: each target
+    row gains ``resilience`` — the kernel is actually executed down the
+    ladder (:func:`repro_torch.port.resilience.run_resilient`, eager
+    mode, on ``device``: default the card) and the row records which
+    rung served the result, whether it degraded, and the per-rung
+    attempt trail; a fully-failed ladder
+    records the typed error instead of raising.  The ladder contract
+    is that rungs only trade speed, never values, so the report's
+    numbers stay comparable whatever rung answered.
+
+    ``executed=True`` adds the instruction-level fact-check: the kernel
+    is run through real RVV codegen (:mod:`repro_torch.rvv`) and the
+    emitted instruction stream executes on the in-repo simulator, so each
+    target row gains ``executed`` — *retired* dynamic instructions
+    (vector + vsetvli), the LMUL-weighted ``vuops``, and a
+    per-intrinsic comparison against the cost model's re-tiled
+    estimate with divergences flagged.  Estimates charge LMUL micro-ops
+    per grouped issue while the machine retires one instruction per
+    mnemonic, so a flagged divergence is not an error — it is the gap
+    the executed column exists to expose (e.g. ``vbsl`` estimates 3
+    bitwise ops but retires a 2-instruction mask+merge).
     """
-    for column, wanted in (("compiled", compiled), ("executed", executed),
-                           ("resilience", resilience)):
-        if wanted:
-            raise NotImplementedError(
-                f"report column {column!r} needs ROADMAP "
-                f"{_NOT_PORTED[column]}, not ported yet")
     fn = kernel.fn
     sites: Dict[str, Dict] = {}
     for ins in fn.intrinsic_sites():
@@ -89,6 +101,80 @@ def report(kernel, *example_args,
             row["baseline_total_instrs"] = base["total_instrs"]
             row["speedup"] = round(
                 base["total_instrs"] / max(1, est["total_instrs"]), 3)
+        rv = None
+        if compiled or executed:
+            from .interp import Machine
+            from .revec import retile
+            res = retile(fn, tgt)
+            rv = Machine(res.fn, policy=policy, target=tgt,
+                         abstract=True).run(*example_args)
+        if compiled:
+            row["revec"] = {
+                "factor": res.factor,
+                "effective_vlen": tgt.effective_vlen,
+                "retiled": res.retiled,
+                "masked": res.masked,
+                "strips": res.strips,
+                "narrow_fallbacks": res.narrow_fallbacks,
+                "vetoes": [{"site": v.get("site", ""),
+                            "reason": v.get("reason", ""),
+                            "line": v.get("line", 0)}
+                           for v in res.vetoes],
+                "total_instrs": rv["total_instrs"],
+                "scalar_instrs": rv["scalar_instrs"],
+                "speedup_vs_fixed": round(
+                    est["total_instrs"] / max(1, rv["total_instrs"]), 3),
+            }
+        if resilience:
+            from . import resilience as _resilience
+            try:
+                _, drec = _resilience.run_resilient(
+                    kernel, *example_args, target=tgt, policy=policy,
+                    jit=False, device=device)
+                row["resilience"] = drec.to_dict()
+            except _resilience.PortError as e:
+                row["resilience"] = {
+                    "kernel": fn.name, "target": tname,
+                    "used": None, "degraded": False,
+                    "error": str(e), "error_type": type(e).__name__,
+                }
+        if executed:
+            from .. import rvv
+            from ..core import trace as _trace
+            prog = rvv.emit(kernel, tgt)
+            _, counts = rvv.run(prog, *example_args, with_counts=True)
+            per = {}
+            calib = _trace.get_calibration()
+            # join on the *union* of simulated sites and estimated
+            # intrinsics: a vl=0 parked site still retires (the sim
+            # counts per-site before dispatch, access-free)
+            # and an estimate-only intrinsic shows executed=0 — neither
+            # side of the join can silently drop a site and make the
+            # kernel look cheaper than it retires.
+            names = set(counts["per_site"]) | set(rv["per_intrinsic"])
+            for name in sorted(names):
+                retired = counts["per_site"].get(name, 0)
+                est_row = rv["per_intrinsic"].get(name, {})
+                estimate = est_row.get("instrs", 0)
+                per[name] = {"executed": retired,
+                             "revec_instrs": estimate,
+                             "diverges": retired != estimate}
+                if calib is not None:
+                    # the measured-count term: what the installed
+                    # calibration predicts this site retires
+                    f = calib["factors"].get(est_row.get("isa_op", ""),
+                                             calib["default"])
+                    pred = int(round(estimate * f / max(1, tgt.lmul)))
+                    per[name]["calibrated"] = pred
+                    per[name]["diverges_calibrated"] = retired != pred
+            row["executed"] = {
+                "total": counts["executed"],
+                "vector": counts["vector"],
+                "vsetvli": (counts["vsetvli"] +
+                            counts["implicit_vsetvli"]),
+                "vuops": counts["vuops"],
+                "per_intrinsic": per,
+            }
         out["targets"][tname] = row
     return out
 

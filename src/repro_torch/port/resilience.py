@@ -23,24 +23,24 @@ keeps the historical bases (``SyntaxError``/``TypeError``/
 ``RuntimeError``) so existing ``except`` clauses and tests keep
 working unchanged.
 
-The **degradation ladder** resolves a kernel execution down three
-rungs —
+The **degradation ladder** (:func:`run_resilient`) resolves a kernel
+execution down three rungs —
 
     compiled+revec  ->  compiled (narrow)  ->  interpreter
 
 — recording every attempt in a :class:`DegradationRecord`.  The ladder
-contract: a lower rung may only trade *speed*, never *values*.  A
-per-(kernel, target, rung) circuit breaker quarantines a rung after
-``K`` consecutive failures so a poisoned kernel fails fast instead of
-stalling a slate.  This module holds the ladder's records, breaker and
-counters; the ladder itself (``run_resilient``) needs the compiled rungs
-and comes with them (ROADMAP A.10c).
+contract: a lower rung may only trade *speed*, never *values*; each
+rung is conformance-identical (tests/test_port_conformance.py), so a
+degraded result is still a correct result.  A per-(kernel, target,
+rung) circuit breaker quarantines a rung after ``K`` consecutive
+failures so a poisoned kernel fails fast instead of stalling a slate.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
@@ -48,7 +48,7 @@ __all__ = [
     "CompileTimeout", "ExecError", "SimError", "CacheCorruption",
     "DeadlineExceeded", "LadderExhausted",
     "Attempt", "DegradationRecord", "CircuitBreaker",
-    "wrap_error", "degradation_records", "resilience_stats",
+    "run_resilient", "wrap_error", "degradation_records", "resilience_stats",
     "reset_resilience", "breaker", "RUNGS",
 ]
 
@@ -332,12 +332,23 @@ def reset_resilience() -> None:
         _STATE.breaker.reset()
 
 
+def _bump(key: str, n: int = 1) -> None:
+    with _STATE.lock:
+        _STATE.counters[key] += n
+
+
+def _bump_fallback(rung: str) -> None:
+    with _STATE.lock:
+        _STATE.counters["degraded"] += 1
+        _STATE.counters["fallback_rungs"][rung] += 1
+
+
 # ---------------------------------------------------------------------------
-# error coercion (the ladder's seam)
+# the ladder
 # ---------------------------------------------------------------------------
 
 def wrap_error(exc: Exception, *, stage: str, kernel: str,
-               target: str) -> PortError:
+          target: str) -> PortError:
     """Coerce any exception into the taxonomy with provenance."""
     if isinstance(exc, PortError):
         return exc.add_context(kernel=kernel, target=target)
@@ -346,3 +357,113 @@ def wrap_error(exc: Exception, *, stage: str, kernel: str,
               target=target, stage=stage)
     err.__cause__ = exc
     return err
+
+
+def run_resilient(kernel, *args,
+                  target=None,
+                  policy: str = "pallas",
+                  revec: bool = True,
+                  jit: bool = True,
+                  deadline_s: Optional[float] = None,
+                  compile_retries: int = 1,
+                  breaker: Optional[CircuitBreaker] = None,
+                  record: bool = True,
+                  device=None):
+    """Execute ``kernel`` down the degradation ladder.
+
+    Returns ``(result, DegradationRecord)``.  The ladder tries
+    ``compiled+revec`` (skipped when ``revec=False``), then narrow
+    ``compiled``, then the interpreter.  Transient failures (e.g. a
+    :class:`CompileTimeout`) are retried up to ``compile_retries``
+    times on the same rung before falling through.  Rungs whose
+    breaker is open are skipped without being attempted.  When every
+    rung fails, raises :class:`LadderExhausted` (a typed
+    :class:`PortError`) chaining the last rung error.
+
+    Contract: any rung that succeeds returns conformance-identical
+    values — the ladder may only trade speed, never values.  Every rung
+    runs on ``device`` (default: the card); a compiled rung's failed
+    graph capture is an error of that rung like any other, so it shows
+    as a degraded record, never as a silent eager run.
+    """
+    from ..core import targets as _targets
+    tgt = _targets.resolve_target(target)
+    brk = breaker if breaker is not None else _STATE.breaker
+    requested = "compiled+revec" if revec else "compiled"
+    rungs = RUNGS[RUNGS.index(requested):]
+    rec = DegradationRecord(kernel=kernel.fn.name, target=tgt.name,
+                            requested=requested)
+    t0 = time.monotonic()
+    last_err: Optional[PortError] = None
+    _bump("runs")
+
+    def _finish(result, rung):
+        rec.used = rung
+        brk.success((rec.kernel, rec.target, rung))
+        if rec.degraded:
+            _bump_fallback(rung)
+        if record:
+            with _STATE.lock:
+                _STATE.records.append(rec)
+        return result, rec
+
+    for rung in rungs:
+        key = (rec.kernel, rec.target, rung)
+        if brk.is_open(key):
+            rec.attempts.append(Attempt(
+                rung, skipped=True, error="quarantined (circuit open)",
+                error_type="CircuitOpen"))
+            continue
+        if deadline_s is not None and time.monotonic() - t0 >= deadline_s:
+            _bump("deadline_misses")
+            err = DeadlineExceeded(
+                f"deadline of {deadline_s}s passed before rung "
+                f"{rung!r}", kernel=rec.kernel, target=rec.target)
+            rec.attempts.append(Attempt(
+                rung, error=str(err), error_type="DeadlineExceeded"))
+            if record:
+                with _STATE.lock:
+                    _STATE.records.append(rec)
+            raise err
+        attempt = Attempt(rung)
+        ta = time.monotonic()
+        while True:
+            try:
+                if rung == "interp":
+                    out = kernel(*args, policy=policy, target=tgt,
+                                 device=device)
+                else:
+                    ck = kernel.compile(target=tgt, policy=policy,
+                                        revec=(rung == "compiled+revec"),
+                                        jit=jit, device=device)
+                    out = ck(*args)
+                attempt.ok = True
+                attempt.elapsed_ms = (time.monotonic() - ta) * 1e3
+                rec.attempts.append(attempt)
+                return _finish(out, rung)
+            except Exception as exc:        # noqa: BLE001 — ladder seam
+                stage = "execute" if rung == "interp" else "compile"
+                err = wrap_error(exc, stage=stage, kernel=rec.kernel,
+                            target=rec.target)
+                if err.transient and attempt.retries < compile_retries:
+                    attempt.retries += 1
+                    _bump("transient_retries")
+                    continue
+                attempt.elapsed_ms = (time.monotonic() - ta) * 1e3
+                attempt.error = str(err)
+                attempt.error_type = type(err).__name__
+                rec.attempts.append(attempt)
+                if brk.failure(key):
+                    _bump("breaker_trips")
+                last_err = err
+                break
+
+    _bump("exhausted")
+    if record:
+        with _STATE.lock:
+            _STATE.records.append(rec)
+    exhausted = LadderExhausted(
+        "every ladder rung failed or was quarantined",
+        attempts=rec.attempts, kernel=rec.kernel, target=rec.target)
+    exhausted.__cause__ = last_err
+    raise exhausted

@@ -710,3 +710,178 @@ def test_isa_tier_on_the_card_equals_the_cpu(cuda, op, tier):
                     cs.CARD_ULP.get(op, 0), label
             else:
                 np.testing.assert_array_equal(g, w, err_msg=label)
+
+
+# ---------------------------------------------------------------------------
+# the port's JIT backend on the card: one CUDA graph per call signature
+# ---------------------------------------------------------------------------
+#
+# ``PortedKernel.compile`` captures its first walk of a signature in a
+# CUDA graph and replays it: the output equals the eager walk
+# (``jit=False``) on the card bitwise, and the CPU's compiled output
+# within the harness's conformance budget (integers bitwise).
+
+_COMPILED_TARGETS = (("h100", False), ("rvv-1024", True))
+
+
+def _corpus():
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root / "examples" / "neon_corpus"))
+    sys.path.insert(0, str(root))
+    import chip_smoke as cs
+    import harness
+    from repro_torch import port
+    return cs, harness, port.load_corpus(str(root / "examples" /
+                                               "neon_corpus"))
+
+
+def _corpus_names():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] /
+                           "examples" / "neon_corpus"))
+    import harness
+    return sorted(c.kernel for c in harness.cases())
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+@pytest.mark.parametrize("target,revec", _COMPILED_TARGETS,
+                         ids=[t for t, _ in _COMPILED_TARGETS])
+@pytest.mark.parametrize("kernel", _corpus_names())
+def test_compiled_kernel_replays_a_cuda_graph(cuda, kernel, target, revec):
+    cs, harness, kernels = _corpus()
+    from repro_torch import port
+    k = kernels[kernel]
+    port.compiled_cache_clear()
+    step = cs.strip_step(k.fn)
+    for n in sorted({0, 1, step - 1, step + 1, 64, 67}):
+        case = {c.kernel: c for c in harness.cases(n=n, tail_n=n)}[kernel]
+        args = cs.padded(case.make_args(np.random.default_rng(n)))
+        ck = k.compile(target=target, revec=revec)
+        out = _tuple(ck(*args))
+        assert ck.last_call["captured"] and not ck.last_call["host_reads"]
+        assert all(t.device.type == "cuda" for t in out)
+        for _ in range(2):
+            cs.same_bits(_tuple(ck(*args)), out, f"{kernel}/n={n} replay")
+        cs.same_bits(_tuple(k.compile(target=target, revec=revec,
+                                      jit=False)(*args)), out,
+                     f"{kernel}/n={n} eager")
+        # the CPU's compiled output: integers bitwise, floats within the
+        # harness's budget (the card sums the reductions in another order)
+        host = k.compile(target=target, revec=revec, device="cpu")(*args)
+        cs.conform_ulp([t.cpu().numpy() for t in out],
+                       [t.numpy() for t in _tuple(host)], case)
+        want = case.reference(*args)
+        cs.conform_ulp([t.cpu().numpy() for t in out], _tuple(want), case)
+    port.compiled_cache_clear()
+
+
+_BRANCH = """
+void f(size_t n, const float* x, float* y) {
+  float32x4_t v = vld1q_f32(x);
+  float s = vaddvq_f32(v);
+  float32x4_t w = vdupq_n_f32(0.0f);
+  if (s > 0.0f) {
+    w = vaddq_f32(v, v);
+    vst1q_f32(y + 4, w);
+  }
+  vst1q_f32(y, w);
+  *y = s > 1.0f ? s : -s;
+}
+"""
+_GATHER = """
+void f(size_t n, const int32_t* idx, const float* x, float* y) {
+  int32_t k = vgetq_lane_s32(vld1q_s32(idx), 0);
+  *y = *(x + k);
+}
+"""
+
+
+def test_a_branch_on_device_data_is_captured(cuda):
+    """Both arms run inside the graph and merge: each replay follows the
+    data it is given, with no host read."""
+    from repro_torch import port
+    k = port.compile_kernel(_BRANCH)
+    ck = k.compile(target="rvv-128")
+    for sign in (1.0, -1.0, 1.0):
+        x = (sign * np.array([0.5, 0.25, 1.0, 2.0], np.float32))
+        args = (4, x, np.full(8, 9.0, np.float32))
+        got = ck(*args)
+        assert ck.last_call["captured"] and not ck.last_call["host_reads"]
+        want = k(*args, target="rvv-128", device="cpu")
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_data_reaching_an_offset_runs_without_a_graph(cuda):
+    from repro_torch import port
+    ck = port.compile_kernel(_GATHER).compile(target="rvv-128")
+    x = np.arange(8, dtype=np.float32)
+    for j in (3, 6):
+        got = ck(4, np.array([j, 0, 0, 0], np.int32), x,
+                 np.zeros(1, np.float32))
+        assert float(got.cpu()[0]) == j
+        assert not ck.last_call["captured"]
+        assert ck.last_call["host_reads"] == 1
+
+
+def test_captures_in_two_threads(cuda):
+    """Capture is thread-local: two threads building and replaying their
+    own kernels at once both get the eager walk's bits."""
+    import threading
+    cs, harness, kernels = _corpus()
+    from repro_torch import port
+    port.compiled_cache_clear()
+    names = ("xnn_f32_vtanh_ukernel", "qs8_gemm_mx8_ukernel")
+    cases = {c.kernel: c for c in harness.cases(n=256, tail_n=259)}
+    results, errors = {}, []
+
+    def work(name):
+        try:
+            args = cs.padded(cases[name].make_args(
+                np.random.default_rng(1)))
+            ck = kernels[name].compile(target="h100")
+            results[name] = (args, [_tuple(ck(*args)) for _ in range(3)])
+        except Exception as e:   # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for name, (args, outs) in results.items():
+        eager = _tuple(kernels[name].compile(target="h100", jit=False)(
+            *args))
+        for out in outs:
+            cs.same_bits(out, eager, name)
+    port.compiled_cache_clear()
+
+
+def test_the_ladder_on_the_card_is_not_degraded(cuda):
+    cs, harness, kernels = _corpus()
+    from repro_torch import port
+    from repro_torch.port import faultinject, resilience
+    port.compiled_cache_clear()
+    resilience.reset_resilience()
+    case = {c.kernel: c for c in harness.cases(n=67, tail_n=67)}[
+        "xnn_f32_vdot_ukernel"]
+    args = case.make_args(np.random.default_rng(0))
+    k = kernels[case.kernel]
+    out, rec = k.run_resilient(*args, target="h100")
+    assert rec.used == "compiled+revec" and not rec.degraded
+    assert out.device.type == "cuda"
+    with faultinject.injected("compile.run", error=resilience.ExecError,
+                              times=1):
+        down, drec = k.run_resilient(*args, target="h100")
+    assert drec.used == "compiled" and drec.degraded
+    cs.same_bits((down,), (out,), "degraded rung")
+    # a CPU entry of the cache never serves the card
+    assert k.compile(target="h100", device="cpu") is not \
+        k.compile(target="h100")
+    port.compiled_cache_clear()

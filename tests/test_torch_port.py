@@ -195,12 +195,26 @@ def test_report_equals_the_reference_and_the_committed_file(kernel,
 
 
 def test_report_columns_not_ported_say_which_item():
+    """Every report column is ported now (the re-vectorizer and ladder of
+    ROADMAP A.10c, the simulator of A.11): each one the reference names
+    is there, the ladder's on the device asked for."""
     k = port.compile_file(os.path.join(CORPUS, "vadd.c"))
+    jk = jport.compile_file(os.path.join(CORPUS, "vadd.c"))
     args = CASES["xnn_f32_vadd_ukernel"].make_args(np.random.default_rng(0))
-    for column, item in (("compiled", "A.10c"), ("resilience", "A.10c"),
-                         ("executed", "A.11")):
-        with pytest.raises(NotImplementedError, match=item):
-            port.report(k, *args, **{column: True})
+    for column, key in (("compiled", "revec"), ("executed", "executed"),
+                        ("resilience", "resilience")):
+        kw = {column: True, "sweep": ("rvv-128",)}
+        got = port.report(k, *args, device="cpu", **kw)
+        want = jport.report(jk, *args, **kw)
+        g, w = got["targets"]["rvv-128"], want["targets"]["rvv-128"]
+        if column == "resilience":
+            assert (g[key]["used"], g[key]["degraded"]) == \
+                (w[key]["used"], w[key]["degraded"]) == \
+                ("compiled+revec", False)
+        else:
+            assert g[key] == w[key]
+        assert port.format_report(got).splitlines()[-1].split()[:2] == \
+            jport.format_report(want).splitlines()[-1].split()[:2]
 
 
 def test_default_device_is_the_card():
@@ -241,9 +255,10 @@ def test_interp_seam_fires_in_the_port():
     assert plan.fired == 1
     assert ei.value.kernel == "xnn_f32_vadd_ukernel"
     k(*args, device="cpu")            # disarmed again
-    with pytest.raises(NotImplementedError, match="A.10c"):
-        with faultinject.eviction_storm():
-            pass
+    # the compiled-kernel cache's chaos helper works on the port's LRU
+    with faultinject.eviction_storm():
+        assert port.compiled_cache_info()["capacity"] == 1
+    assert port.compiled_cache_info()["capacity"] == 256
 
 
 def test_resilience_records_and_breaker_are_the_reference_s():

@@ -57,7 +57,8 @@ def _reference_run(name):
                              lens)
         lens = lens + 1
         out.append(np.asarray(logits))
-    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
     return cfg, params, prompts, np.asarray(tokens), out
 
 
@@ -113,7 +114,8 @@ def test_decode_past_max_seq_is_refused_where_the_reference_drops_it():
     gives the reference's tokens."""
     jcfg, cfg = _cfgs("zamba2-1.2b")
     jparams = JM.init(jcfg, jax.random.PRNGKey(0))
-    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
     prompts = np.random.default_rng(1).integers(
         2, jcfg.vocab_size, (2, 12)).astype(np.int32)
 
@@ -191,10 +193,35 @@ def test_full_width_parameter_tree_equals_reference():
 def test_convert_carries_bfloat16():
     a = jnp.asarray(np.linspace(-3, 3, 12, dtype=np.float32)
                     .reshape(3, 4)).astype(jnp.bfloat16)
-    t = convert.tensor(np.asarray(a))
+    t = convert.tensor(np.asarray(a), device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(),
                                   np.asarray(a.astype(jnp.float32)))
+
+
+def test_convert_defaults_to_the_card():
+    """Like every entry point of the port, the weight carrier builds on
+    the card unless told otherwise; without one it raises with
+    ``resolve_device``'s message."""
+    from repro_torch.core.targets import resolve_device
+    a = np.ones((2, 3), np.float32)
+    tree = {"embed": a}
+    cfg = get_config("zamba2-1.2b").reduced()
+    _, unit, _, _ = cfg.pattern_unit()
+    tree["unit"] = [{"w": np.ones((cfg.pattern_unit()[2], 2), np.float32)}
+                    for _ in unit]
+    if torch.cuda.is_available():
+        assert convert.tensor(a).device.type == "cuda"
+        assert convert.from_jax(tree, cfg)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError) as want:
+        resolve_device("cuda")
+    for build in (lambda: convert.tensor(a),
+                  lambda: convert.from_jax(tree, cfg)):
+        with pytest.raises(RuntimeError) as got:
+            build()
+        assert str(got.value) == str(want.value)
+    assert convert.tensor(a, device="cpu").device.type == "cpu"
 
 
 def test_unported_archs_and_kinds_name_their_roadmap_item():
