@@ -65,8 +65,21 @@ NEON-migration frontend runs on the card:
     host clock, host reads, captured, the interpreter's ms); then
     ``run_resilient`` under ``h100``, which must be served by
     ``compiled+revec`` undegraded for all 24, and with one fault forced
-    at ``compile.run`` by a lower rung with the same bits.  No CUDA
-    kernel is launched by either phase.
+    at ``compile.run`` by a lower rung with the same bits; each replay is
+    also compared bit for bit with the interpreter of the same IR on the
+    card, and the kernels that differ print their largest ULP gap;
+  * ``port_serve``: ``repro_torch.serve.PortEngine`` on the card with
+    benchmarks/serve_port_suite.py's shape (vadd, vdot and the qs8 dot;
+    rvv-128, rvv-1024 and h100; batches 1, 8 and 32; the ``fine`` and
+    ``coarse`` buckets; lengths 20-61 and 20-121): one CUDA graph a
+    bucket, every later slate a replay, 32 distinct lengths in a bucket
+    capturing no new graph, every output held to a direct compiled call
+    (integers bitwise, floats within the harness's budget), no fault or
+    fallback, programs within buckets x targets x kernels; one
+    ``port_serve_row`` line a kernel, target and batch with requests/s
+    and p50 / p99 ms a submit (host clock, synchronized) and the graph's
+    device ms; batch 32 must reach 5x batch 1's requests/s on at least
+    one target a kernel.  No CUDA kernel is launched by these phases.
 
 Finally
 it times every kernel beside its plain version, one PyTorch library call
@@ -92,8 +105,9 @@ DIR]`` only builds and times the named Figure-2 kernels (not the
 elementwise four) at both sizes and in both dtypes; ``--src`` runs the
 ``repro_torch`` under another ``src/``, such as an unpacked parent
 commit, so that two commits can be timed in turns in one call.
-``python3 chip_smoke.py --port`` runs only the ``port`` and
-``port_compiled`` phases (no build) and prints no result line.
+``python3 chip_smoke.py --port`` runs only the ``port``,
+``port_compiled`` and ``port_serve`` phases (no build) and prints no
+result line.
 """
 from __future__ import annotations
 
@@ -1663,8 +1677,8 @@ def run_compiled(kernel, case, args, target, revec, dev):
     interp = m.run(*args)
     torch.cuda.synchronize()
     interp_ms = (time.perf_counter() - t0) * 1e3
-    near_interp(outs, interp if isinstance(interp, tuple) else (interp,),
-                f"{case.kernel}/{target}")
+    interp = interp if isinstance(interp, tuple) else (interp,)
+    near_interp(outs, interp, f"{case.kernel}/{target}")
     want = case.reference(*host_args)
     ulp = conform_ulp([t.cpu().numpy() for t in outs],
                       want if isinstance(want, tuple) else (want,), case)
@@ -1672,8 +1686,24 @@ def run_compiled(kernel, case, args, target, revec, dev):
             "captured": first["captured"],
             "host_reads": ck.last_call["host_reads"],
             "issues": first["issues"], "interp_ms": interp_ms,
+            "interp_ulp": interp_gap(outs, interp),
             "factor": ck.retiling.factor if ck.retiling else 1,
             "max_ulp": ulp}
+
+
+def interp_gap(got, want):
+    """The replay against the interpreter of the same IR on the card
+    (ROADMAP C.17): 0 where every output agrees bitwise, else the largest
+    float gap in ULP (``near_interp`` has already held the integers
+    bitwise and the floats to its tolerance)."""
+    gap = 0
+    for g, w in zip(got, want, strict=True):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if np.array_equal(g.view(np.uint8), w.view(np.uint8)):
+            continue
+        gap = max(gap, ulp_gap(g, w) if np.issubdtype(w.dtype, np.floating)
+                  else float("inf"))
+    return gap
 
 
 def port_compiled_phase(dev, modules, interp_rows):
@@ -1707,6 +1737,7 @@ def port_compiled_phase(dev, modules, interp_rows):
             step = strip_step(k.fn)
             tails = sorted({0, 1, step - 1, step + 1})
             captured, reads = [row["captured"]], [row["host_reads"]]
+            gaps = [row["interp_ulp"]]
             for n in tails:
                 small = {c.kernel: c for c in harness.cases(
                     n=n, tail_n=n)}[case.kernel]
@@ -1716,6 +1747,8 @@ def port_compiled_phase(dev, modules, interp_rows):
                 row["max_ulp"] = max(row["max_ulp"], r["max_ulp"])
                 captured.append(r["captured"])
                 reads.append(r["host_reads"])
+                gaps.append(r["interp_ulp"])
+            row["interp_ulp"] = max(gaps)
             if not all(captured) or any(reads):
                 raise AssertionError(f"{case.kernel}/{target}: captured "
                                      f"{captured}, host reads {reads}")
@@ -1759,10 +1792,236 @@ def port_compiled_phase(dev, modules, interp_rows):
             r["captured"] for r in mine), kernels=len(mine))
     port.compiled_cache_clear()
     torch.cuda.synchronize()
+    c17 = {"rows": len(rows),
+           "bitwise": sum(r["interp_ulp"] == 0 for r in rows),
+           "max_ulp": {f"{r['kernel']}/{r['target']}": r["interp_ulp"]
+                       for r in rows if r["interp_ulp"]}}
     emit("port_compiled", targets=[t for t, _ in COMPILED_RUNS],
-         wall_total=total, ladder=ladder,
+         wall_total=total, ladder=ladder, compiled_vs_interp=c17,
          resilience=resilience.resilience_stats(),
          kernel_launches=launched)
+    return rows
+
+
+# the serving tier of the frontend: benchmarks/serve_port_suite.py's
+# shape (:40-57), with the card's own target beside the two RVV ones
+SERVE_KERNELS = {"xnn_f32_vadd_ukernel": "vadd.c",
+                 "xnn_f32_vdot_ukernel": "vdot.c",
+                 "qs8_vmlal_dot_ukernel": "vmlal_dot.c"}
+SERVE_TARGETS = ("rvv-128", "rvv-1024", "h100")
+SERVE_BATCHES = (1, 8, 32)
+SERVE_POLICIES = ("fine", "coarse")
+SHORT_N, LONG_N = (20, 61), (70, 121)
+SERVE_REPEATS = 40
+SPEEDUP_FLOOR = 5.0        # batch-32 against batch-1 requests/s
+
+
+def serve_requests(kernel, count, n_range, rng, target=None, dev=None):
+    """serve_port_suite._make_requests: ``count`` requests of lengths
+    drawn from ``n_range``; buffers on the card when ``dev`` is given."""
+    from repro_torch.serve import Request
+    import torch
+    reqs = []
+    for _ in range(count):
+        n = int(rng.integers(*n_range))
+        if kernel.name == "qs8_vmlal_dot_ukernel":
+            a = rng.integers(-2, 3, n).astype(np.int8)
+            b = rng.integers(-2, 3, n).astype(np.int8)
+            out = np.zeros(1, np.int16)
+        else:
+            a = rng.standard_normal(n).astype(np.float32)
+            b = rng.standard_normal(n).astype(np.float32)
+            out = np.zeros(1 if kernel.name == "xnn_f32_vdot_ukernel"
+                           else n, np.float32)
+        args = (n, a, b, out)
+        if dev is not None:
+            args = (n,) + tuple(torch.as_tensor(x, device=dev)
+                                for x in args[1:])
+        reqs.append(Request(kernel, args, target=target))
+    return reqs
+
+
+def held_to_direct(reqs, results, cases, what):
+    """Every served row against a direct ``PortedKernel.compile`` call of
+    the same request on the card (revec, as the engine's first rung):
+    integers bitwise, floats within the harness's conformance budget.
+    Returns how many rows agree bitwise."""
+    import torch
+    same = 0
+    for req, got in zip(reqs, results, strict=True):
+        if not isinstance(got, torch.Tensor) or got.device.type != "cuda":
+            raise AssertionError(f"{what}: a result is {type(got)}")
+        want = req.kernel.compile(target=req.target, revec=True)(*req.args)
+        conform_ulp([got.cpu().numpy()], [want.cpu().numpy()],
+                    cases[req.kernel.name])
+        same += bool(torch.equal(got, want))
+    return same
+
+
+def graph_ms(prog, reps=20):
+    """Device ms of one replay of ``prog``'s latest graph (CUDA events
+    around ``reps`` replays)."""
+    import torch
+    plan = next(reversed(prog._plans.values()))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    plan.graph.replay()
+    start.record()
+    for _ in range(reps):
+        plan.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def port_serve_phase(dev, modules):
+    """``repro_torch.serve.PortEngine`` on the card: requests/s and p50 /
+    p99 ms a submit (host clock, synchronized) at batch 1, 8 and 32 for
+    vadd, vdot and the qs8 dot under rvv-128, rvv-1024 and h100 (SHORT
+    lengths, ``fine`` buckets); every slate after the first replays its
+    bucket's graph, and every output is held to a direct compiled call.
+    Batch 32 must reach SPEEDUP_FLOOR x batch 1 on at least one target a
+    kernel.  Then MIXED lengths through the ``fine`` and ``coarse``
+    policies: programs within the buckets x targets x kernels bound, and
+    a second slate of fresh lengths in the same buckets captures no new
+    graph.  No fault, fallback or CUDA kernel launch is allowed."""
+    import torch
+    from repro_torch import port
+    from repro_torch.port import resilience
+    from repro_torch.serve import BucketPolicy, PortEngine
+    corpus = ROOT / "examples" / "neon_corpus"
+    sys.path.insert(0, str(corpus))
+    import harness
+    for m in modules:
+        m.reset_launches()
+    port.compiled_cache_clear()
+    resilience.reset_resilience()
+    kernels = {name: port.compile_file(str(corpus / f), name=name)
+               for name, f in SERVE_KERNELS.items()}
+    cases = {c.kernel: c for c in harness.cases()}
+    engines = []
+    bitwise = [0, 0]
+
+    def held(reqs, results, what):
+        bitwise[0] += held_to_direct(reqs, results, cases, what)
+        bitwise[1] += len(reqs)
+
+    def clean(eng, what):
+        r = eng.stats()["resilience"]
+        bad = {k: r[k] for k in ("batch_faults", "row_fallbacks",
+                                 "program_fallbacks", "errors_returned")
+               if r[k]}
+        if bad:
+            raise AssertionError(f"{what}: {bad}")
+
+    rows = {}
+    for kname, kernel in kernels.items():
+        for tgt in SERVE_TARGETS:
+            for B in SERVE_BATCHES:
+                rng = np.random.default_rng(SEED)
+                eng = PortEngine(target=tgt, max_batch=B,
+                                 bucket_policy="fine")
+                engines.append(eng)
+                reqs = serve_requests(kernel, B, SHORT_N, rng)
+                for r in reqs:
+                    r.target = tgt
+                what = f"{kname}/{tgt}/b{B}"
+                held(reqs, eng.submit(reqs), what)
+                graphs = eng.stats()["graphs"]
+                lat = []
+                for _ in range(SERVE_REPEATS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    eng.submit(reqs)
+                    torch.cuda.synchronize()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                prog = next(iter(eng._programs.values()))
+                if eng.stats()["graphs"] != graphs or \
+                        not prog.last_call.get("captured"):
+                    raise AssertionError(f"{what}: a slate did not replay")
+                if B == max(SERVE_BATCHES):
+                    # B distinct lengths of the same bucket: no new graph
+                    ns = rng.permutation(np.arange(*SHORT_N))[:B]
+                    fresh = [serve_requests(kernel, 1, (int(n), int(n) + 1),
+                                            rng, tgt)[0] for n in ns]
+                    held(fresh, eng.submit(fresh), what + "/distinct")
+                    if eng.stats()["graphs"] != graphs:
+                        raise AssertionError(f"{what}: {B} distinct lengths "
+                                             "captured a new graph")
+                clean(eng, what)
+                p50 = float(np.percentile(lat, 50))
+                row = {"kernel": kname, "target": tgt, "batch": B,
+                       "reqs_per_s": B / (p50 / 1e3), "p50_ms": p50,
+                       "p99_ms": float(np.percentile(lat, 99)),
+                       "graph_ms": graph_ms(prog), "graphs": graphs}
+                rows[(kname, tgt, B)] = row
+                emit("port_serve_row", **row)
+    speedups = {k: {t: rows[(k, t, max(SERVE_BATCHES))]["reqs_per_s"]
+                    / rows[(k, t, 1)]["reqs_per_s"] for t in SERVE_TARGETS}
+                for k in kernels}
+    for k, per in speedups.items():
+        if max(per.values()) < SPEEDUP_FLOOR:
+            raise AssertionError(f"{k}: batch-32 reaches only "
+                                 f"{max(per.values()):.2f}x batch-1 "
+                                 f"requests/s (floor {SPEEDUP_FLOOR}): {per}")
+    # the tensor path: request buffers already on the card
+    for kname, kernel in kernels.items():
+        eng = PortEngine(target="rvv-128", max_batch=8)
+        reqs = serve_requests(kernel, 8, LONG_N, np.random.default_rng(SEED),
+                              target="rvv-128", dev=dev)
+        held(reqs, eng.submit(reqs), f"{kname}/tensors")
+        clean(eng, f"{kname}/tensors")
+    policies = {}
+    for pol in SERVE_POLICIES:
+        policy = BucketPolicy.preset(pol)
+        eng = PortEngine(max_batch=32, bucket_policy=pol)
+        engines.append(eng)
+        rng = np.random.default_rng(SEED + 1)
+        sigs, lat = set(), []
+        for kname, kernel in kernels.items():
+            for tgt in SERVE_TARGETS:
+                reqs = (serve_requests(kernel, 16, SHORT_N, rng, tgt)
+                        + serve_requests(kernel, 16, LONG_N, rng, tgt))
+                sigs |= {(kname, tgt, policy.bucket(int(r.args[0])))
+                         for r in reqs}
+                held(reqs, eng.submit(reqs), f"{pol}/{kname}/{tgt}")
+                graphs = eng.stats()["graphs"]
+                # fresh lengths in the same buckets: replays only
+                again = (serve_requests(kernel, 16, SHORT_N, rng, tgt)
+                         + serve_requests(kernel, 16, LONG_N, rng, tgt))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                served = eng.submit(again)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                held(again, served, f"{pol}/{kname}/{tgt}")
+                if eng.stats()["graphs"] != graphs:
+                    raise AssertionError(f"{pol}/{kname}/{tgt}: fresh "
+                                         "lengths captured a new graph")
+        st = eng.stats()
+        clean(eng, pol)
+        if st["batch_programs"] > len(sigs):
+            raise AssertionError(f"{pol}: {st['batch_programs']} programs "
+                                 f"over the bound {len(sigs)}")
+        policies[pol] = {"batch_programs": st["batch_programs"],
+                         "program_bound": len(sigs), "graphs": st["graphs"],
+                         "buckets": sorted({b for _, _, b in sigs}),
+                         "pad_overhead": st["pad_overhead"],
+                         "inert_rows": st["inert_rows"],
+                         "submit_p50_ms": float(np.median(lat))}
+    launched = {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"the served corpus launched CUDA kernels: "
+                             f"{launched}")
+    torch.cuda.synchronize()
+    emit("port_serve", targets=list(SERVE_TARGETS),
+         batches=list(SERVE_BATCHES), speedup_floor=SPEEDUP_FLOOR,
+         batch_speedup=speedups, engines=policies,
+         rows_bitwise_to_direct=bitwise,
+         graphs=sum(e.stats()["graphs"] for e in engines),
+         compile_cache=port.compiled_cache_info(),
+         kernel_launches=launched)
+    port.compiled_cache_clear()
     return rows
 
 
@@ -1798,8 +2057,8 @@ def main(argv=None) -> int:
     parser.add_argument("--times", default="", help="comma-separated ops: "
                         "only build and time these (e.g. maxpool,ibilinear)")
     parser.add_argument("--port", action="store_true", help="only run the "
-                        "corpus phases (port, port_compiled): no build, no "
-                        "result line")
+                        "corpus phases (port, port_compiled, port_serve): no "
+                        "build, no result line")
     parser.add_argument("--src", default=str(ROOT / "src"), help="the src/ "
                         "directory whose repro_torch is run (default: the "
                         "one beside this script)")
@@ -1832,6 +2091,7 @@ def main(argv=None) -> int:
         modules = (ew, gemm, conv, pooling, ibilinear, fa, ssd)
         dev = torch.device("cuda")
         port_compiled_phase(dev, modules, port_phase(dev, modules))
+        port_serve_phase(dev, modules)
         return 0
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
@@ -2081,6 +2341,7 @@ def main(argv=None) -> int:
     # 6. the NEON frontend: every isa op, then the corpus through port ----
     isa_phase(dev)
     port_compiled_phase(dev, modules, port_phase(dev, modules))
+    port_serve_phase(dev, modules)
 
     # 7. times ------------------------------------------------------------
     flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)  # 256 MiB

@@ -1115,11 +1115,13 @@ def _vfold_cost(a, factor, *_, **__):
           doc="halving vslidedown+add ladder over the register group")
 @register("vfold", "generic", cost=lambda a, factor, *_, **__: _numel(a))
 def _vfold(a, factor):
+    # the groups are the lane axis's outer split, so leading (batch) axes
+    # fold row by row
     f = int(factor)
-    lanes = a.shape[0] // f
+    groups = a.shape[:-1] + (f, a.shape[-1] // f)
     if a.dtype.is_floating_point:
-        return torch.sum(a.reshape(f, lanes), dim=0)
-    return _from64(torch.sum(_widen64(a).reshape(f, lanes), dim=0), a.dtype)
+        return torch.sum(a.reshape(groups), dim=-2)
+    return _from64(torch.sum(_widen64(a).reshape(groups), dim=-2), a.dtype)
 
 
 def vfold(a, factor):
@@ -1579,6 +1581,225 @@ def vst4m(buf, offset, v0, v1, v2, v3, cnt):
     return dispatch("vst4m", buf, offset, v0, v1, v2, v3, cnt)
 
 
+# ---------------------------------------------------------------------------
+# batched memory access: one buffer row per request
+# ---------------------------------------------------------------------------
+#
+# The port's batched walk (``repro_torch.port.compile.BatchedFn``) runs a
+# whole bucket of requests at once: a buffer is ``(B, n)``, one row per
+# request, and an offset or count is a host integer shared by every row
+# or a ``(B,)`` int64 tensor of per-row values.  Each function below is
+# its lowering's addressing applied row by row — the same clamp, wrap and
+# drop rules against the row's length ``n`` — so row ``r`` of the result
+# is what the unbatched lowering gives on row ``r``'s operands.  Stores
+# take ``active``, a ``(B,)`` bool or None: an inactive row (its loop has
+# ended, or its branch was not taken) keeps its memory.
+
+def _col(x):
+    """A per-row operand as a column; a host integer stays one."""
+    return x.reshape(-1, 1) if isinstance(x, torch.Tensor) else int(x)
+
+
+def _lanes_of(m, buf):
+    return torch.arange(int(m), device=buf.device)
+
+
+def _wrap_once(i, n: int):
+    if isinstance(i, torch.Tensor):
+        return torch.where(i < 0, i + n, i)
+    return i + n if i < 0 else i
+
+
+def _clip(i, lo: int, hi: int):
+    if isinstance(i, torch.Tensor):
+        return i.clamp(lo, hi)
+    return min(max(i, lo), hi)
+
+
+def _bgather(buf, idx):
+    """``out[r, j] = buf[r, idx[j]]`` (shared idx) or ``buf[r, idx[r, j]]``."""
+    s = _s(buf)
+    out = s.index_select(1, idx) if idx.dim() == 1 else \
+        torch.gather(s, 1, idx.expand(buf.shape[0], -1))
+    return _as(out, buf.dtype)
+
+
+def _bwindow_idx(buf, off, m: int):
+    """``_window``'s elements (``dynamic_slice``) for every row."""
+    n = buf.shape[-1]
+    lane = _lanes_of(m, buf)
+    if m > n:
+        return (_col(off) + lane).clamp(0, n - 1)
+    return _clip(_wrap_once(_col(off), n), 0, n - m) + lane
+
+
+def _bwindow(buf, off, m: int):
+    n = buf.shape[-1]
+    if not isinstance(off, torch.Tensor) and m <= n:
+        s = _clip(_wrap_once(int(off), n), 0, n - m)
+        return buf[:, s:s + m]
+    return _bgather(buf, _bwindow_idx(buf, off, m))
+
+
+def _bnorm_clamp(buf, idx):
+    n = buf.shape[-1]
+    return _bgather(buf, torch.where(idx < 0, idx + n, idx).clamp(0, n - 1))
+
+
+def _bmasked(buf, idx, active, fill):
+    v = _s(_bgather(buf, idx.clamp(0, buf.shape[-1] - 1)))
+    fill = lane_scalar(fill, buf.dtype, buf.device)
+    return _as(torch.where(active, v, _s(fill)), buf.dtype)
+
+
+def _bscatter(buf, idx, valid, val, active):
+    """``out[r, idx[r, j]] = val[r, j]`` where ``valid[r, j]`` and
+    ``active[r]`` (functional); the valid indices of a row are distinct."""
+    B, n = buf.shape
+    if active is not None:
+        a = active.reshape(-1, 1)
+        valid = a if valid is None else valid & a
+    s, v = _s(buf), _s(val).expand(B, -1)
+    if valid is None:
+        return _as(s.scatter(1, idx.expand(B, -1), v), buf.dtype)
+    # dropped lanes land in a spare column that is cut off again
+    idx = torch.where(valid, idx, n).expand(B, -1)
+    spare = torch.cat([s, s.new_zeros((B, 1))], dim=1)
+    return _as(spare.scatter(1, idx, v)[:, :n], buf.dtype)
+
+
+def _bscatter_prefix(buf, off, val, k, active):
+    """``_scatter_prefix`` row by row: lane ``p < k`` goes to ``off + p``,
+    wrapped once if negative, dropped if still outside the row; where a
+    wrapped lane and a later lane meet, the later one wins."""
+    n, m = buf.shape[-1], val.shape[-1]
+    lane = _lanes_of(m, buf)
+    i = _col(off) + lane
+    k = _clip(_col(k), 0, m)
+    inside = (i >= 0) & (i < n)
+    wrapped = (i < 0) & (i >= -n) & (lane + n >= k)
+    valid = (lane < k) & (inside | wrapped)
+    return _bscatter(buf, torch.where(i < 0, i + n, i), valid, val, active)
+
+
+def _bupdate_window(buf, off, val, active):
+    """``_update_window`` row by row (``dynamic_update_slice``)."""
+    n, m = buf.shape[-1], val.shape[-1]
+    if m > n:
+        return _bscatter_prefix(buf, off, val, m, active)
+    if not isinstance(off, torch.Tensor):
+        s = _clip(_wrap_once(int(off), n), 0, n - m)
+        out, v = _s(buf).clone(), _s(val)
+        if active is not None:
+            v = torch.where(active.reshape(-1, 1), v, out[:, s:s + m])
+        out[:, s:s + m] = v
+        return _as(out, buf.dtype)
+    return _bscatter(buf, _bwindow_idx(buf, off, m), None, val, active)
+
+
+def batched_index(buf, off):
+    """``buf[static_index(off, n)]`` for every row: a ``(B,)`` tensor."""
+    n = buf.shape[-1]
+    i = _clip(_wrap_once(_col(off), n), 0, n - 1)
+    if not isinstance(i, torch.Tensor):
+        return buf[:, i]
+    return _bgather(buf, i)[:, 0]
+
+
+def batched_store_scalar(buf, off, value, active=None):
+    """``store_scalar`` for every row; ``value`` is a ``(B,)`` tensor of
+    the buffer's lane type or a 0-d one shared by all rows."""
+    return _bscatter_prefix(buf, off, value.reshape(-1, 1), 1, active)
+
+
+def _b_vld1_v(buf, off, lanes):
+    return _bwindow(buf, off, int(lanes))
+
+
+def _b_vld1_g(buf, off, lanes):
+    return _bnorm_clamp(buf, _col(off) + _lanes_of(lanes, buf))
+
+
+def _b_vst1_v(buf, off, val, active=None):
+    return _bupdate_window(buf, off, val, active)
+
+
+def _b_vst1_g(buf, off, val, active=None):
+    return _bscatter_prefix(buf, off, val, val.shape[-1], active)
+
+
+def _b_vld1m(buf, off, lanes, cnt, fill=0):
+    lane = _lanes_of(lanes, buf)
+    return _bmasked(buf, _col(off) + lane, lane < _col(cnt), fill)
+
+
+def _b_vst1m(buf, off, val, cnt, active=None):
+    return _bscatter_prefix(buf, off, val, cnt, active)
+
+
+def _b_vld1g(buf, off, reps, groups):
+    g = _lanes_of(int(reps) * int(groups), buf) // int(reps)
+    return _bgather(buf, (_col(off) + g).clamp(0, buf.shape[-1] - 1))
+
+
+def _b_vld1gm(buf, off, reps, groups, cnt, fill=0):
+    g = _lanes_of(int(reps) * int(groups), buf) // int(reps)
+    return _bmasked(buf, _col(off) + g, g < _col(cnt), fill)
+
+
+def _b_segment_family(n):
+    def ld_v(buf, off, lanes):
+        x = _bwindow(buf, off, n * int(lanes))
+        return tuple(x[:, i::n] for i in range(n))
+
+    def ld_g(buf, off, lanes):
+        lane = _lanes_of(lanes, buf)
+        return tuple(_bnorm_clamp(buf, _col(off) + n * lane + i)
+                     for i in range(n))
+
+    def st_v(buf, off, *vs, active=None):
+        return _bupdate_window(buf, off, _binterleave(vs[:n]), active)
+
+    def ldm(buf, off, lanes, cnt, fill=0):
+        lane = _lanes_of(lanes, buf)
+        act = lane < _col(cnt)
+        return tuple(_bmasked(buf, _col(off) + n * lane + i, act, fill)
+                     for i in range(n))
+
+    def stm(buf, off, *args, active=None):
+        vs, cnt = args[:n], args[n]
+        k = n * (cnt.clamp(min=0) if isinstance(cnt, torch.Tensor)
+                 else max(0, int(cnt)))
+        return _bscatter_prefix(buf, off, _binterleave(vs), k, active)
+
+    return {(f"vld{n}", "pallas"): ld_v, (f"vld{n}", "vector"): ld_v,
+            (f"vld{n}", "generic"): ld_g,
+            (f"vst{n}", "pallas"): st_v, (f"vst{n}", "vector"): st_v,
+            (f"vst{n}", "generic"): st_v,
+            (f"vld{n}m", "vector"): ldm, (f"vld{n}m", "generic"): ldm,
+            (f"vst{n}m", "vector"): stm, (f"vst{n}m", "generic"): stm}
+
+
+def _binterleave(vs):
+    dt = vs[0].dtype
+    return _as(torch.stack([_s(v) for v in vs], dim=-1).reshape(
+        vs[0].shape[0], len(vs) * vs[0].shape[-1]), dt)
+
+
+# (op, tier) -> the lowering's batched form; stores take ``active=``
+BATCHED_MEMORY = {
+    ("vld1", "vector"): _b_vld1_v, ("vld1", "generic"): _b_vld1_g,
+    ("vst1", "vector"): _b_vst1_v, ("vst1", "generic"): _b_vst1_g,
+    ("vld1m", "vector"): _b_vld1m, ("vld1m", "generic"): _b_vld1m,
+    ("vst1m", "vector"): _b_vst1m, ("vst1m", "generic"): _b_vst1m,
+    ("vld1g", "vector"): _b_vld1g, ("vld1g", "generic"): _b_vld1g,
+    ("vld1gm", "vector"): _b_vld1gm, ("vld1gm", "generic"): _b_vld1gm,
+}
+for _n in (2, 3, 4):
+    BATCHED_MEMORY.update(_b_segment_family(_n))
+del _n
+
+
 # vtbl's two tiers disagree out of range, as the reference's do (ROADMAP
 # C.12): the generic tier's per-lane index wraps once if negative and
 # clamps; the vector tier's gather (jnp.take, mode "fill") wraps once and
@@ -1590,10 +1811,16 @@ def _tbl_index(table, idx):
     return torch.where(j < 0, j + t, j), t
 
 
+def _tbl_take(table, j):
+    """``table[j]`` along the lane axis, row by row for leading axes."""
+    t = _s(table)
+    return torch.gather(t.expand(j.shape[:-1] + t.shape[-1:]), -1, j)
+
+
 @register("vtbl", "generic", cost=scalar_cost(2), doc="per-lane table lookup")
 def _vtbl_g(table, idx):
     j, t = _tbl_index(table, idx)
-    return _as(_s(table)[..., j.clamp(0, t - 1)], table.dtype)
+    return _as(_tbl_take(table, j.clamp(0, t - 1)), table.dtype)
 
 
 def _take_fill(dtype):
@@ -1607,7 +1834,7 @@ def _take_fill(dtype):
 @register("vtbl", "vector", cost=vector_cost(2), doc="vrgather")
 def _vtbl_v(table, idx):
     j, t = _tbl_index(table, idx)
-    got = _s(table)[..., j.clamp(0, t - 1)]
+    got = _tbl_take(table, j.clamp(0, t - 1))
     fill = torch.full((), _take_fill(table.dtype), dtype=got.dtype,
                       device=got.device)
     return _as(torch.where((j >= 0) & (j < t), got, fill), table.dtype)

@@ -31,7 +31,9 @@ whole kernel is walked once per call signature and, on the card, captured
 in one CUDA graph that later calls replay; ``revec`` re-tiles the strip
 loops at an RVV target's VLEN x LMUL first.  Compiled kernels live in a
 process-wide LRU (:func:`compiled_cache_info`) keyed on the device too.
-``autotune`` (``compile(tuned=True)``) is not ported yet (ROADMAP A.10d).
+``autotune`` calibrates the cost models against the RVV simulator and
+tunes LMUL and the retile knobs per (kernel, target); ``compile(tuned=True)``
+applies the cached decision.
 """
 from __future__ import annotations
 
@@ -71,6 +73,7 @@ __all__ = [
     "CacheCorruption", "DeadlineExceeded", "LadderExhausted",
     "DegradationRecord", "run_resilient", "degradation_records",
     "resilience_stats", "reset_resilience", "resilience", "faultinject",
+    "autotune",
 ]
 
 
@@ -296,15 +299,26 @@ class PortedKernel:
         Results come from the process-wide bounded LRU (see
         :func:`compiled_cache_info`), keyed on this kernel plus the
         resolved Target *value*, the retile knobs and the device.
-        ``tuned=True`` (the autotuner's decisions) needs ROADMAP A.10d and
-        raises NotImplementedError until it is ported.
+
+        ``tuned=True`` consults the persisted autotuning cache
+        (:mod:`repro_torch.port.autotune`): when a tuned decision exists
+        for this kernel on the resolved target, its LMUL regrouping
+        (``Target.with_lmul``) and retile knobs (factor cap, tail
+        policy) are applied; without one the static default compiles
+        unchanged.  Explicit ``factor_cap``/``tail`` arguments override
+        the cached decision.
         """
         from ..core import targets as _targets
-        if tuned:
-            raise NotImplementedError(
-                "compile(tuned=True) needs the autotuner, not ported yet "
-                "(ROADMAP A.10d)")
         tgt = _targets.resolve_target(target)
+        if tuned and revec and tgt.vla:
+            from . import autotune as _autotune
+            d = _autotune.lookup(self, tgt)
+            if d is not None:
+                tgt = _targets.with_lmul(tgt, d.lmul)
+                if factor_cap is None:
+                    factor_cap = d.factor_cap
+                if tail == "auto":
+                    tail = d.tail
         return _COMPILED_CACHE.get(self, target=tgt, policy=policy,
                                    revec=revec, jit=jit,
                                    factor_cap=factor_cap, tail=tail,
@@ -388,6 +402,14 @@ class CompiledKernel:
     def __call__(self, *args):
         return self._call(*args)
 
+    def batched(self):
+        """A :class:`~repro_torch.port.compile.BatchedFn` of the IR this
+        kernel runs (re-tiled where it is): a bucket of requests as one
+        walk, on the card one CUDA graph a bucket."""
+        from .compile import BatchedFn
+        return BatchedFn(self.fn, policy=self.policy, target=self.target,
+                         device=self.device)
+
     def estimate(self, *args) -> Dict:
         """Abstract dynamic-instruction estimate of the (possibly
         re-tiled) IR this compiled kernel executes."""
@@ -451,3 +473,7 @@ def report(kernel, *example_args, **kw) -> Dict:
     if isinstance(kernel, str):
         kernel = compile_kernel(kernel)
     return _report(kernel, *example_args, **kw)
+
+
+# imported last: autotune consults PortedKernel/CompiledKernel machinery
+from . import autotune  # noqa: E402

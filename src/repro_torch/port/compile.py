@@ -37,10 +37,17 @@ mirrors the JAX package's ``repro.port.compile`` (one jaxpr per shape):
 side stream); on the CPU, or with ``jit=False``, the same walk runs
 eagerly on every call.  ``torch.compile`` is not used: the unrolled strip
 loops would give FX graphs of 10^4-10^5 nodes.
+
+:class:`BatchedFn` walks the same IR over a bucket of requests at once —
+``(B, L)`` buffers, per-row scalars, loops unrolled to a host envelope
+with each row masked past its own trip count — so that on the card one
+graph serves a whole bucket (the serving engine,
+:mod:`repro_torch.serve.port_engine`).
 """
 from __future__ import annotations
 
 import collections
+import itertools
 import threading
 import warnings
 from typing import Any, Dict, List, Optional
@@ -56,11 +63,12 @@ from ..core.targets import resolve_device
 from ..core.vtypes import numpy_dtype, torch_dtype
 from . import faultinject as _fi
 from .interp import _as_np_index, _sbin, _scast, _scmp
-from .ir import IfOp, Instr, Loop, PtrType, TFunction, Value
+from .ir import IfOp, Instr, Loop, PtrType, ScalarType, TFunction, Value
 from .resilience import CompileError
 from .revec import loop_affine, loop_condition
 
-__all__ = ["CompileError", "compile_fn", "CompiledFn"]
+__all__ = ["CompileError", "compile_fn", "CompiledFn", "BatchedFn",
+           "envelope"]
 
 # call signatures kept per compiled function (each may hold a CUDA graph)
 SIGNATURES = 32
@@ -177,62 +185,70 @@ class CompiledFn:
     def _first(self, inputs):
         """Walk once through the registry, then capture where allowed."""
         walk = self._walk()
-        if self._graphs:
-            side = torch.cuda.Stream(self.device)
-            main = torch.cuda.current_stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                outs = walk.run(inputs)
-            main.wait_stream(side)
-            for t in outs:
-                t.record_stream(main)
-        else:
-            outs = walk.run(inputs)
+        outs = _warm(self.device, lambda: walk.run(inputs)) \
+            if self._graphs else walk.run(inputs)
         plan = _Plan(walk.recorded if walk.host_reads == 0 else None,
                      walk.host_reads, walk.issues)
         if self._graphs and plan.tape is not None:
-            self._capture(plan, inputs)
-            outs = self._replay(plan, inputs)
+            plan.static_in = [t.clone() if isinstance(t, torch.Tensor)
+                              else t for t in inputs]
+            cap = self._walk(plan.tape)
+            plan.graph, plan.static_out = _capture(
+                self.device, lambda: cap.run(plan.static_in), self.fn.name,
+                self.target)
+            if cap.host_reads:
+                raise CompileError(f"{self.fn.name}: the capture read "
+                                   f"{cap.host_reads} scalars to the host",
+                                   kernel=self.fn.name)
+            outs = _replay(plan, inputs)
         return outs, plan
 
     def _again(self, plan: _Plan, inputs):
         if plan.graph is not None:
-            return self._replay(plan, inputs), 0
+            return _replay(plan, inputs), 0
         walk = self._walk(plan.tape)
         return walk.run(inputs), walk.host_reads
 
-    def _capture(self, plan: _Plan, inputs):
-        plan.static_in = [t.clone() if isinstance(t, torch.Tensor) else t
-                          for t in inputs]
-        graph = torch.cuda.CUDAGraph()
-        walk = self._walk(plan.tape)
-        try:
-            with _CAPTURE_LOCK, warnings.catch_warnings():
-                # a signature that launches nothing (n = 0 with no store)
-                # captures an empty graph, which replays as a no-op
-                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
-                with torch.cuda.graph(graph,
-                                      stream=_capture_stream(self.device),
-                                      capture_error_mode="thread_local"):
-                    plan.static_out = walk.run(plan.static_in)
-        except Exception as e:   # noqa: BLE001 — any capture failure
-            raise CompileError(f"{self.fn.name}: CUDA graph capture "
-                               f"failed: {e}", kernel=self.fn.name,
-                               target=getattr(self.target, "name",
-                                              None)) from e
-        if walk.host_reads:
-            raise CompileError(f"{self.fn.name}: the capture read "
-                               f"{walk.host_reads} scalars to the host",
-                               kernel=self.fn.name)
-        plan.graph = graph
 
-    @staticmethod
-    def _replay(plan: _Plan, inputs):
-        for s, t in zip(plan.static_in, inputs):
-            if isinstance(s, torch.Tensor):
-                s.copy_(t)
-        plan.graph.replay()
-        return [t.clone() for t in plan.static_out]
+def _warm(device, run):
+    """``run()`` on a side stream (a first walk before a capture)."""
+    side = torch.cuda.Stream(device)
+    main = torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        outs = run()
+    main.wait_stream(side)
+    for t in outs:
+        t.record_stream(main)
+    return outs
+
+
+def _capture(device, run, name: str, target):
+    """Capture ``run()`` in a CUDA graph: ``(graph, its outputs)``."""
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with _CAPTURE_LOCK, warnings.catch_warnings():
+            # a signature that launches nothing (n = 0 with no store)
+            # captures an empty graph, which replays as a no-op
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            with torch.cuda.graph(graph, stream=_capture_stream(device),
+                                  capture_error_mode="thread_local"):
+                outs = run()
+    except CompileError:
+        raise
+    except Exception as e:   # noqa: BLE001 — any capture failure
+        raise CompileError(f"{name}: CUDA graph capture failed: {e}",
+                           kernel=name,
+                           target=getattr(target, "name", None)) from e
+    return graph, outs
+
+
+def _replay(plan, inputs):
+    for s, t in zip(plan.static_in, inputs):
+        if isinstance(s, torch.Tensor):
+            s.copy_(t)
+    plan.graph.replay()
+    return [t.clone() for t in plan.static_out]
 
 
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
@@ -268,8 +284,9 @@ class _Walk:
         self.memory: Dict[str, torch.Tensor] = {}
         self.host_reads = 0
         self.issues = 0
+        self._forms: Dict[int, tuple] = {}
 
-    def issue(self, isa_op: str, *args):
+    def issue(self, isa_op: str, *args, site=None):
         """One intrinsic: chosen by the registry on a first walk, the
         recorded lowering on a later one."""
         self.issues += 1
@@ -298,6 +315,22 @@ class _Walk:
 
     def index(self, x) -> int:
         return int(self.host(x))
+
+    # -- the hooks the batched walk overrides ----------------------------
+    def offset(self, x):
+        return self.index(x)
+
+    def select_ptr(self, c, a, b):
+        """``c ? a : b`` over pointers: control, read to the host."""
+        return a if self.host(c) else b
+
+    @staticmethod
+    def load_scalar(t, off):
+        return t[isa.static_index(off, t.shape[0])]
+
+    @staticmethod
+    def store_scalar(t, off, v):
+        return isa.store_scalar(t, off, v)
 
     # -- entry ------------------------------------------------------------
     def run(self, inputs):
@@ -330,46 +363,16 @@ class _Walk:
             carried = [env[y] for y in ins.yields]
         env.update(zip(ins.results, carried))
 
-    def _trip_count(self, ins: Loop, env) -> int:
+    def _trip_count(self, ins: Loop, env):
         """The reference's closed form (``compile.py`` ``_trip_count``)
         over host integers."""
-        cond = loop_condition(ins)
-        if cond is None:
-            raise CompileError(
-                f"{self.fn.name}: loop condition is not of the affine "
-                f"form `phi + c <op> bound` — compile needs a counted "
-                f"loop (the interpreter still runs it)")
-        phi, phi_off, op, bound = cond
-        step = loop_affine(ins).get(phi)
-        if step is None or step == 0:
-            raise CompileError(
-                f"{self.fn.name}: counter {phi.hint!r} has no constant "
-                f"integer step — cannot derive a trip count")
-        v0 = self.index(env[ins.init[ins.phis.index(phi)]]) + phi_off
-        if bound.root is None:
-            b = bound.off
-        else:
-            broot = env.get(bound.root)
-            if broot is None:
-                raise CompileError(f"loop bound {bound.root} is unbound")
-            b = self.index(broot) + bound.off
-        d = step
-        if d < 0 and op in (">=", ">"):
-            lo = b if op == ">=" else b + 1
-            t = v0 - lo
-            return max(0, (-1 if t < 0 else t // (-d)) + 1)
-        if d < 0 and op == "!=":
-            return max(0, (v0 - b) // (-d))
-        if d > 0 and op in ("<", "<="):
-            hi = b if op == "<" else b + 1
-            return max(0, (hi - v0 + d - 1) // d)
-        if d > 0 and op == "!=":
-            return max(0, (b - v0) // d)
-        raise CompileError(
-            f"{self.fn.name}: loop `{phi.hint} {op} ...` with step {d} "
-            f"has no closed-form trip count")
+        return _loop_trips(self.fn.name, ins, env, self.trip_operand,
+                           self._forms)
 
-    def if_op(self, ins: IfOp, env):
+    def trip_operand(self, x):
+        return self.index(x)
+
+    def if_op(self, ins: IfOp, env):  # noqa: C901
         cond = env[ins.cond_value]
         if not isinstance(cond, torch.Tensor):
             arm, ys = (ins.then, ins.then_yields) if cond else \
@@ -439,8 +442,8 @@ class _Walk:
         elif op == "sselect":
             c, a, b = (env[v] for v in ins.args)
             if isinstance(c, torch.Tensor) and (_is_ptr(a) or _is_ptr(b)):
-                c = self.host(_truth(c))
-            if not isinstance(c, torch.Tensor):
+                env[ins.result] = self.select_ptr(_truth(c), a, b)
+            elif not isinstance(c, torch.Tensor):
                 env[ins.result] = a if c else b
             else:
                 env[ins.result] = _dwhere(_truth(c), a, b, self.device)
@@ -451,13 +454,13 @@ class _Walk:
                 _dscast(v, dt)
         elif op == "ptradd":
             buf, off = env[ins.args[0]]
-            env[ins.result] = (buf, off + self.index(env[ins.args[1]]))
+            env[ins.result] = (buf, off + self.offset(env[ins.args[1]]))
         elif op == "ptrcast":
             env[ins.result] = env[ins.args[0]]
         elif op == "sload":
             buf, off = env[ins.args[0]]
-            t = self.memory[buf]
-            env[ins.result] = _scalar(t[isa.static_index(off, t.shape[0])])
+            env[ins.result] = _scalar(self.load_scalar(self.memory[buf],
+                                                       off))
         elif op == "sstore":
             buf, off = env[ins.args[0]]
             t = self.memory[buf]
@@ -467,7 +470,7 @@ class _Walk:
                 v = np.asarray(v).astype(numpy_dtype(t.dtype)).item()
             else:
                 v = isa.astype(v, t.dtype)
-            self.memory[buf] = isa.store_scalar(t, off, v)
+            self.memory[buf] = self.store_scalar(t, off, v)
         elif op == "intrin":
             self.intrin(ins, env)
         else:
@@ -554,16 +557,606 @@ class _Walk:
         else:
             raise CompileError(f"unknown intrinsic kind {kind!r}")
 
-        out = self.issue(isa_op, *args)
+        out = self.issue(isa_op, *args, site=ins)
         if kind in _STORES:
             self.memory[env[ins.args[0]][0]] = out
         elif kind == "reduce":
             env[ins.result] = _scalar(out)
         else:
-            # NEON semantics fix the result register type statically
-            if isinstance(out, torch.Tensor) and out.dtype != rty.dtype:
-                out = isa.astype(out, rty.dtype)
-            env[ins.result] = out
+            env[ins.result] = _typed(out, rty)
+
+
+# ---------------------------------------------------------------------------
+# the batched walk: a bucket of requests, one graph
+# ---------------------------------------------------------------------------
+#
+# A serving engine answers many small requests of one kernel at once.  The
+# batched walk takes ``(B, L)`` buffers, one padded row per request, and a
+# ``(B,)`` vector per scalar param, and gives every row what a direct call
+# on that row's buffers gives:
+#
+# * a loop whose trip count differs per row runs to a host bound, the
+#   *envelope*: the largest count any row of the bucket can need, found on
+#   the host by walking only the scalar control for every value the
+#   steering scalars can take (the strip counter up to the bucket, the
+#   others up to the chunk's largest).  Iteration ``it`` is live in the
+#   rows with ``it < trips``; a loop-carried value keeps its old value in
+#   the others (``torch.where``), and stores drop their rows.  An affine
+#   phi (a counter, a pointer) is ``init + it * step`` inside the loop and
+#   ``init + trips * step`` after it, so offsets inside a strip stay host
+#   integers and only what follows a ragged loop addresses per row.
+# * a branch on a per-row condition runs both arms with their rows live.
+# * the lowering of every intrinsic site is chosen once, by the registry
+#   on the per-row shapes, and reused by every later walk; the memory ops
+#   run their lowering's batched form (``isa.BATCHED_MEMORY``), which keeps
+#   each op's clamp, wrap and drop rules per row against the padded ``L``.
+#
+# Data that steers control (a host read in the unbatched walk) cannot be
+# batched: the batched walk raises CompileError and the engine serves those
+# rows one at a time.
+
+# assignments the envelope may enumerate before the bucket is refused
+ENVELOPE_LIMIT = 1 << 16
+
+
+class _Opaque:
+    """A scalar the control walk does not know: loaded data (``params``
+    empty) or a function of the scalar params ``params``."""
+
+    __slots__ = ("params",)
+
+    def __init__(self, params=frozenset()):
+        self.params = frozenset(params)
+
+
+_DATA = _Opaque()
+
+
+def _opaque(*xs) -> Optional[_Opaque]:
+    """The _Opaque that ``xs`` together make, or None if all are known."""
+    found = [x for x in xs if isinstance(x, _Opaque)]
+    if not found:
+        return None
+    if any(not o.params for o in found):
+        return _DATA
+    return _Opaque(frozenset().union(*(o.params for o in found)))
+
+
+class _Steered(Exception):
+    """Scalar params ``params`` reach a trip count."""
+
+    def __init__(self, params):
+        super().__init__(sorted(params))
+        self.params = params
+
+
+def _advance(v, k, device):
+    """An affine phi ``v`` after ``k`` steps of one (``k`` may be a
+    per-row tensor)."""
+    if _is_ptr(v):
+        off = v[1]
+        return (v[0], off if isinstance(off, _Opaque) else off + k)
+    if isinstance(v, _Opaque):
+        return v
+    if _static(v, k):
+        return v + k
+    return _dsbin("+", v, k, device)
+
+
+def _has_loop(block) -> bool:
+    for ins in block.instrs:
+        if isinstance(ins, Loop):
+            return True
+        if isinstance(ins, IfOp) and (_has_loop(ins.then) or
+                                      _has_loop(ins.els)):
+            return True
+    return False
+
+
+class _ControlWalk:
+    """The scalar control of ``fn`` under one assignment of its scalar
+    params, recording the largest trip count each loop instance (a loop at
+    one unrolled position) has had.  Vectors and loaded data are opaque."""
+
+    def __init__(self, fn: TFunction):
+        self.fn = fn
+        self.trips: Dict[tuple, int] = {}
+        self._forms: Dict[int, tuple] = {}
+        self._steps: Dict[int, dict] = {}
+        self._flat: Dict[int, bool] = {}
+
+    def run(self, values):
+        env: Dict[Value, Any] = {}
+        for p, v in zip(self.fn.params, values):
+            env[p] = (p.hint, 0) if isinstance(p.type, PtrType) else v
+        self.block(self.fn.body, env, ())
+
+    def block(self, b, env, path):
+        for ins in b.instrs:
+            if isinstance(ins, Loop):
+                self.loop(ins, env, path)
+            elif isinstance(ins, IfOp):
+                self.if_op(ins, env, path)
+            else:
+                self.instr(ins, env)
+
+    def _operand(self, x):
+        if isinstance(x, _Opaque):
+            if x.params:
+                raise _Steered(x.params)
+            raise CompileError(f"{self.fn.name}: loaded data steers a "
+                               f"loop; the kernel does not batch",
+                               kernel=self.fn.name)
+        return int(x)
+
+    def loop(self, ins: Loop, env, path):
+        key = path + (id(ins),)
+        trips = _loop_trips(self.fn.name, ins, env, self._operand,
+                            self._forms)
+        self.trips[key] = max(self.trips.get(key, 0), trips)
+        steps = self._steps.get(id(ins))
+        if steps is None:
+            steps = self._steps[id(ins)] = loop_affine(ins)
+            self._flat[id(ins)] = not _has_loop(ins.body) and all(
+                steps.get(p) is not None for p in ins.phis
+                if isinstance(p.type, (PtrType, ScalarType)))
+        init = [env[v] for v in ins.init]
+        if self._flat[id(ins)]:
+            # no loop inside and every scalar phi affine: closed form
+            out = [_advance(v, trips * steps[p], None)
+                   if steps.get(p) is not None else _DATA
+                   for p, v in zip(ins.phis, init)]
+        else:
+            out = init
+            for it in range(trips):
+                env.update(zip(ins.phis, out))
+                self.block(ins.body, env, key + (it,))
+                out = [env[y] for y in ins.yields]
+        env.update(zip(ins.results, out))
+
+    def if_op(self, ins: IfOp, env, path):
+        c = env[ins.cond_value]
+        if not isinstance(c, _Opaque):
+            arm, ys = (ins.then, ins.then_yields) if c else \
+                (ins.els, ins.els_yields)
+            self.block(arm, env, path)
+            env.update(zip(ins.results, [env[y] for y in ys]))
+            return
+        arms = []
+        for block, ys in ((ins.then, ins.then_yields),
+                          (ins.els, ins.els_yields)):
+            inner = dict(env)
+            self.block(block, inner, path)
+            arms.append([inner[y] for y in ys])
+        env.update(zip(ins.results, [self._join(c, a, b)
+                                     for a, b in zip(*arms)]))
+
+    @staticmethod
+    def _join(c, a, b):
+        if _is_ptr(a) and _is_ptr(b):
+            same = a[0] == b[0] and not _opaque(a[1], b[1]) and a[1] == b[1]
+            return a if same else (a[0], _opaque(c, a[1], b[1]))
+        if not _opaque(a, b) and type(a) is type(b) and \
+                not isinstance(a, tuple) and a == b:
+            return a
+        return _opaque(c, a, b) if not isinstance(a, tuple) else _DATA
+
+    def instr(self, ins: Instr, env):  # noqa: C901
+        op = ins.op
+        args = [env.get(a) for a in ins.args]
+        if op == "const":
+            env[ins.result] = ins.attrs["value"]
+        elif op in ("sbin", "scmp"):
+            unknown = _opaque(*args)
+            env[ins.result] = unknown if unknown else (
+                _sbin if op == "sbin" else _scmp)(ins.attrs["op"], *args)
+        elif op in ("sneg", "snot", "sinv", "scast"):
+            v = args[0]
+            if isinstance(v, _Opaque):
+                env[ins.result] = v
+            elif op == "sneg":
+                env[ins.result] = -v
+            elif op == "snot":
+                env[ins.result] = not v
+            elif op == "sinv":
+                env[ins.result] = ~int(v)
+            else:
+                env[ins.result] = _scast(v, ins.result.type.dtype)
+        elif op == "sselect":
+            c, a, b = args
+            env[ins.result] = self._join(c, a, b) \
+                if isinstance(c, _Opaque) else (a if c else b)
+        elif op == "ptradd":
+            (buf, off), k = args
+            unknown = _opaque(off, k)
+            env[ins.result] = (buf, unknown if unknown else off + int(k))
+        elif op == "ptrcast":
+            env[ins.result] = args[0]
+        elif ins.result is not None:
+            env[ins.result] = _DATA         # loads and intrinsics
+
+
+def envelope(fn: TFunction, domains: Dict[int, Any],
+             steering: set) -> Dict[tuple, int]:
+    """Every loop instance's largest trip count over all assignments of
+    the scalar params in ``steering`` within ``domains`` (``{param index:
+    the values it may take}``); the other scalar params are opaque.  A
+    param found to steer a trip count joins ``steering`` (in place) and
+    the walk starts over; one without a domain (a float) makes the kernel
+    unbatchable."""
+    params = fn.params
+    while True:
+        steer = sorted(steering)
+        missing = [i for i in steer if i not in domains]
+        if missing:
+            raise CompileError(
+                f"{fn.name}: scalar param(s) "
+                f"{[params[i].hint for i in missing]} steer a loop but "
+                f"are not integers; the kernel does not batch",
+                kernel=fn.name)
+        sizes = [len(domains[i]) for i in steer]
+        if int(np.prod(sizes, dtype=np.int64)) > ENVELOPE_LIMIT:
+            raise CompileError(
+                f"{fn.name}: the loop envelope would enumerate "
+                f"{sizes} values of {[params[i].hint for i in steer]}; "
+                f"the bucket does not batch", kernel=fn.name)
+        walk = _ControlWalk(fn)
+        values = [None if isinstance(p.type, PtrType) else
+                  _Opaque(frozenset([i])) for i, p in enumerate(params)]
+        try:
+            for combo in itertools.product(*(domains[i] for i in steer)):
+                for i, v in zip(steer, combo):
+                    values[i] = v
+                walk.run(values)
+        except _Steered as e:
+            steering |= set(e.params)
+            continue
+        return walk.trips
+
+
+class _BatchWalk(_Walk):
+    """One walk over ``(B, L)`` buffers and ``(B,)`` scalars: pointers
+    are (buffer name, host or per-row offset), and stores write only the
+    ``active`` rows."""
+
+    def __init__(self, fn, policy, target, device, rows: int,
+                 sites: dict, trips: Dict[tuple, int], frozen: bool):
+        super().__init__(fn, policy, target, device)
+        self.rows = rows
+        self.sites = sites
+        self.trips = trips
+        self.frozen = frozen
+        self.active: Optional[torch.Tensor] = None
+        self.path: tuple = ()
+        self._steps: Dict[int, dict] = {}
+
+    # -- host values: a per-row scalar never becomes one -----------------
+    def host(self, x):
+        if isinstance(x, torch.Tensor):
+            raise CompileError(
+                f"{self.fn.name}: a per-row scalar steers host control (a "
+                f"shift, a lane or a pointer choice); the kernel does not "
+                f"batch", kernel=self.fn.name,
+                target=getattr(self.target, "name", None))
+        return x
+
+    def trip_operand(self, x):
+        return _int(x) if isinstance(x, torch.Tensor) else int(x)
+
+    offset = trip_operand
+
+    def select_ptr(self, c, a, b):
+        return self._merge(c, a, b)
+
+    @staticmethod
+    def load_scalar(t, off):
+        return isa.batched_index(t, off)
+
+    def store_scalar(self, t, off, v):
+        if not isinstance(v, torch.Tensor):
+            v = isa.lane_scalar(v, t.dtype, t.device)
+        return isa.batched_store_scalar(t, off, v, self.active)
+
+    # -- lowerings: chosen once per site on the per-row shapes -------------
+    def lowering(self, site, isa_op: str, row_args):
+        self.issues += 1
+        low = self.sites.get(site)
+        if low is None:
+            if self.frozen:
+                raise CompileError(f"{self.fn.name}: the batched walk met "
+                                   f"an intrinsic its first walk did not "
+                                   f"({isa_op})", kernel=self.fn.name)
+            low, cost = REGISTRY._select_entry(isa_op, row_args, {},
+                                               self.policy, self.target)
+            _trace.record(low, *row_args, cost=cost)
+            self.sites[site] = low
+        return low
+
+    def issue(self, isa_op: str, *args, site=None):
+        return self.lowering(site, isa_op, [_row(a) for a in args]).fn(*args)
+
+    # -- regions ----------------------------------------------------------
+    def loop(self, ins: Loop, env):
+        trips = self._trip_count(ins, env)
+        ragged = isinstance(trips, torch.Tensor)
+        key = self.path + (id(ins),)
+        bound = self.trips.get(key, 0) if ragged else trips
+        steps = self._steps.get(id(ins))
+        if steps is None:
+            steps = self._steps[id(ins)] = loop_affine(ins)
+        init = [env[v] for v in ins.init]
+        carried = list(init)
+        outer, outer_path = self.active, self.path
+        try:
+            for it in range(bound):
+                if ragged:
+                    live = trips > it
+                    self.active = live if outer is None else outer & live
+                for j, p in enumerate(ins.phis):
+                    d = steps.get(p)
+                    env[p] = carried[j] if d is None else \
+                        _advance(init[j], it * d, self.device)
+                self.path = key + (it,)
+                self.block(ins.body, env)
+                for j, (p, y) in enumerate(zip(ins.phis, ins.yields)):
+                    if steps.get(p) is None:
+                        carried[j] = self._merge(live, env[y], carried[j]) \
+                            if ragged else env[y]
+        finally:
+            self.active, self.path = outer, outer_path
+        env.update(zip(ins.results, [
+            carried[j] if steps.get(p) is None else
+            _advance(init[j], trips * steps[p], self.device)
+            for j, p in enumerate(ins.phis)]))
+
+    def if_op(self, ins: IfOp, env):
+        cond = env[ins.cond_value]
+        if not isinstance(cond, torch.Tensor):
+            return super().if_op(ins, env)
+        c = _truth(cond)
+        outer = self.active
+        arms = []
+        try:
+            for block, ys, rows in ((ins.then, ins.then_yields, c),
+                                    (ins.els, ins.els_yields, ~c)):
+                self.active = rows if outer is None else outer & rows
+                inner = dict(env)
+                self.block(block, inner)
+                arms.append([inner[y] for y in ys])
+        finally:
+            self.active = outer
+        env.update(zip(ins.results, [self._merge(c, a, b)
+                                     for a, b in zip(*arms)]))
+
+    def _merge(self, c, a, b):
+        """Row ``r`` of the result is ``a``'s if ``c[r]`` else ``b``'s."""
+        if _is_ptr(a) or _is_ptr(b):
+            if not (_is_ptr(a) and _is_ptr(b)) or a[0] != b[0]:
+                raise CompileError(f"{self.fn.name}: rows would point "
+                                   f"into different buffers; the kernel "
+                                   f"does not batch", kernel=self.fn.name)
+            if _static(a[1], b[1]) and a[1] == b[1]:
+                return a
+            return (a[0], torch.where(c, _on(a[1], torch.int64, self.device),
+                                      _on(b[1], torch.int64, self.device)))
+        if isinstance(a, tuple):
+            return tuple(self._merge(c, x, y) for x, y in zip(a, b))
+        if _static(a, b) and a == b and type(a) is type(b):
+            return a
+        if isinstance(a, torch.Tensor) and a.dim() > 1:
+            return isa.where(c.reshape(-1, 1), a, b)
+        return _dwhere(c, a, b, self.device)
+
+    # -- intrinsics ---------------------------------------------------------
+    def intrin(self, ins: Instr, env):  # noqa: C901
+        kind = ins.attrs["kind"]
+        isa_op = ins.attrs["isa_op"]
+        rty = ins.result.type if ins.result is not None else None
+        if kind == "tuple_undef":
+            env[ins.result] = tuple(isa.full((self.rows, e.lanes), 0,
+                                             e.dtype, self.device)
+                                    for e in rty.elems)
+            return
+        if kind == "get_lane":
+            env[ins.result] = _scalar(isa.batched_index(
+                env[ins.args[0]], self.trip_operand(env[ins.args[1]])))
+            return
+        if kind in ("dup", "load_dup"):
+            if kind == "load_dup":
+                buf, off = env[ins.args[0]]
+                x = isa.batched_index(self.memory[buf], off)
+            else:
+                x = env[ins.args[0]]
+                x = isa.lane_scalar(numpy_dtype(rty.dtype).type(x).item(),
+                                    rty.dtype, self.device) \
+                    if _static(x) else isa.astype(x, rty.dtype)
+            low = self.lowering(ins, isa_op, [_row(x), (rty.lanes,)])
+            out = low.fn(x.reshape(-1, 1) if x.dim() else x,
+                         (self.rows, rty.lanes))
+            env[ins.result] = _typed(out, rty)
+            return
+        if kind not in _MEMORY:
+            return super().intrin(ins, env)
+        buf, off = env[ins.args[0]]
+        t = self.memory[buf]
+        masked = kind.endswith("masked")
+        # a masked op's count is its last operand
+        c = self.trip_operand(env[ins.args[-1]]) if masked else None
+        if kind.startswith("load"):
+            head = [ins.attrs["reps"], ins.attrs["groups"]] \
+                if kind.startswith("load_group") else [rty.lanes]
+            fill = ins.attrs.get("fill", 0)
+            tail, row_tail = ([c, fill], [_np_count(c), fill]) if masked \
+                else ([], [])
+        else:
+            v = env[ins.args[1]]
+            head = list(v) if kind.startswith("store2") else [v]
+            tail, row_tail = ([c], [_np_count(c)]) if masked else ([], [])
+        # selection sees row 0's operands as the unbatched walk passes them
+        low = self.lowering(ins, isa_op, [t[0], _np_count(off)] +
+                            [_row(a) for a in head] + row_tail)
+        rest = head + tail
+        fn = isa.BATCHED_MEMORY[(low.op, low.tier)]
+        if kind in _STORES:
+            self.memory[buf] = fn(t, off, *rest, active=self.active)
+        else:
+            env[ins.result] = _typed(fn(t, off, *rest), rty)
+
+
+_MEMORY = ("load", "load2", "load_masked", "load2_masked", "load_group",
+           "load_group_masked") + _STORES
+
+
+def _np_count(x):
+    """An offset or count as the unbatched walk hands it to selection (a
+    per-row one by a stand-in: no cost model reads its value)."""
+    return _as_np_index(0 if isinstance(x, torch.Tensor) else x)
+
+
+def _row(a):
+    """Row 0 of a batched operand (what selection sees)."""
+    if isinstance(a, torch.Tensor) and a.dim() > 0:
+        return a[0]
+    if isinstance(a, tuple) and a and isinstance(a[0], torch.Tensor):
+        return tuple(_row(x) for x in a)
+    return a
+
+
+def _typed(out, rty):
+    """NEON semantics fix the result register type statically."""
+    if isinstance(out, torch.Tensor) and out.dtype != rty.dtype:
+        return isa.astype(out, rty.dtype)
+    return out
+
+
+class _BatchPlan:
+    """One graph key: the envelope, the lowering of every site and, on
+    the card, the graph with its static inputs and outputs."""
+
+    def __init__(self, trips):
+        self.trips = trips
+        self.rows = 0
+        self.sites: dict = {}
+        self.issues = 0
+        self.graph = None
+        self.static_in: List[torch.Tensor] = []
+        self.static_out: List[torch.Tensor] = []
+
+
+class BatchedFn:
+    """``fn`` over a bucket of requests: ``(B, L)`` buffers, one padded row
+    a request, and a 1-D host array of ``B`` values a scalar param.  Row
+    ``r`` of each written buffer is what a direct call on row ``r`` gives.
+
+    On the card each graph key — the buffers' shapes and
+    dtypes and the value range of every scalar that steers a loop, the
+    strip counter's range reaching its bucket (``bounds``) — captures one
+    CUDA graph, and every later call with that key replays it whatever
+    its rows' values.  ``graphs`` counts the captures; ``last_call`` says
+    whether the latest call replayed one."""
+
+    def __init__(self, fn: TFunction, *, policy, target, device):
+        self.fn = fn
+        self.policy = policy
+        self.target = target
+        self.device = device
+        self.__name__ = f"batched_{fn.name}"
+        self._plans: "collections.OrderedDict" = collections.OrderedDict()
+        self._steering: set = set()
+        self._lock = threading.Lock()
+        self.graphs = 0
+        self.last_call: Dict[str, Any] = {}
+
+    @property
+    def _graphs(self) -> bool:
+        return self.device.type == "cuda"
+
+    def __call__(self, *cols, bounds: Optional[Dict[int, int]] = None):
+        inputs, domains, shape = self._inputs(cols, bounds or {})
+        with self._lock:
+            key = (shape, self._domain_key(domains))
+            plan = self._plans.get(key)
+            if plan is None:
+                plan = _BatchPlan(envelope(self.fn, domains, self._steering))
+                outs = self._first(plan, inputs)
+                self._plans[(shape, self._domain_key(domains))] = plan
+                while len(self._plans) > SIGNATURES:
+                    self._plans.popitem(last=False)
+            else:
+                self._plans.move_to_end(key)
+                outs = _replay(plan, inputs) if plan.graph is not None \
+                    else self._walk(plan, frozen=True).run(inputs)
+        self.last_call = {"captured": plan.graph is not None,
+                          "issues": plan.issues}
+        return outs
+
+    def _domain_key(self, domains):
+        return tuple((i, domains[i]) for i in sorted(self._steering)
+                     if i in domains)
+
+    def _inputs(self, cols, bounds):
+        params = self.fn.params
+        if len(cols) != len(params):
+            raise CompileError(f"{self.fn.name} takes {len(params)} "
+                               f"columns, got {len(cols)}",
+                               kernel=self.fn.name)
+        inputs, domains, shape, rows = [], {}, [], set()
+        for i, (p, c) in enumerate(zip(params, cols)):
+            if isinstance(p.type, PtrType):
+                t = c.to(self.device) if isinstance(c, torch.Tensor) else \
+                    torch.as_tensor(np.asarray(c), device=self.device)
+                if t.dim() != 2:
+                    raise CompileError(f"pointer param {p.hint!r} wants "
+                                       f"a (B, L) buffer",
+                                       kernel=self.fn.name)
+                inputs.append(t)
+                shape.append((tuple(t.shape), t.dtype))
+                rows.add(t.shape[0])
+                continue
+            v = np.asarray(c)
+            if v.ndim != 1:
+                raise CompileError(f"scalar param {p.hint!r} wants one "
+                                   f"value a row", kernel=self.fn.name)
+            rows.add(v.shape[0])
+            if v.dtype.kind in "iu":
+                if i in bounds:
+                    # every value up to the bound: one graph serves them
+                    lo = min(int(v.min(initial=0)), 0)
+                    domains[i] = range(lo, max(int(v.max(initial=0)),
+                                               int(bounds[i])) + 1)
+                else:
+                    domains[i] = tuple(sorted({int(x) for x in v}))
+                dt = torch.int64
+            elif v.dtype.kind == "b":
+                dt = torch.bool
+            else:
+                dt = torch.float64
+            inputs.append(torch.as_tensor(v, device=self.device).to(dt))
+            shape.append(dt)
+        if len(rows) > 1:
+            raise CompileError(f"{self.fn.name}: columns of {sorted(rows)} "
+                               f"rows", kernel=self.fn.name)
+        return inputs, domains, tuple(shape)
+
+    def _walk(self, plan: _BatchPlan, frozen: bool) -> _BatchWalk:
+        return _BatchWalk(self.fn, self.policy, self.target, self.device,
+                          plan.rows, plan.sites, plan.trips, frozen)
+
+    def _first(self, plan: _BatchPlan, inputs):
+        plan.rows = inputs[0].shape[0]
+        walk = self._walk(plan, frozen=False)
+        outs = _warm(self.device, lambda: walk.run(inputs)) \
+            if self._graphs else walk.run(inputs)
+        plan.issues = walk.issues
+        if self._graphs:
+            cap = self._walk(plan, frozen=True)
+            plan.static_in = [t.clone() for t in inputs]
+            plan.graph, plan.static_out = _capture(
+                self.device, lambda: cap.run(plan.static_in), self.fn.name,
+                self.target)
+            self.graphs += 1
+            outs = _replay(plan, inputs)
+        return outs
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +1165,69 @@ class _Walk:
 
 def _static(*xs) -> bool:
     return not any(isinstance(x, torch.Tensor) for x in xs)
+
+
+def _loop_trips(name: str, ins: Loop, env, operand, forms=None):
+    """``ins``'s trip count from the values in ``env`` (each read through
+    ``operand``); CompileError where the reference has no closed form.
+    ``forms`` caches each loop's condition and step by ``id``."""
+    form = None if forms is None else forms.get(id(ins))
+    if form is None:
+        cond = loop_condition(ins)
+        if cond is None:
+            raise CompileError(
+                f"{name}: loop condition is not of the affine form "
+                f"`phi + c <op> bound` — compile needs a counted loop (the "
+                f"interpreter still runs it)")
+        step = loop_affine(ins).get(cond[0])
+        if step is None or step == 0:
+            raise CompileError(
+                f"{name}: counter {cond[0].hint!r} has no constant integer "
+                f"step — cannot derive a trip count")
+        form = (*cond, step)
+        if forms is not None:
+            forms[id(ins)] = form
+    phi, phi_off, op, bound, step = form
+    v0 = operand(env[ins.init[ins.phis.index(phi)]]) + phi_off
+    if bound.root is None:
+        b = bound.off
+    else:
+        broot = env.get(bound.root)
+        if broot is None:
+            raise CompileError(f"loop bound {bound.root} is unbound")
+        b = operand(broot) + bound.off
+    trips = _closed_form(v0, op, b, step)
+    if trips is None:
+        raise CompileError(
+            f"{name}: loop `{phi.hint} {op} ...` with step {step} has no "
+            f"closed-form trip count")
+    return trips
+
+
+def _closed_form(v0, op: str, b, d: int):
+    """The reference's trip count of ``for (v = v0; v <op> b; v += d)``
+    over host integers or int64 tensors (per-row counts); None when the
+    form has none."""
+    if _static(v0, b):
+        def floor0(t):
+            return max(0, t)
+    else:
+        def floor0(t):
+            return torch.clamp(t, min=0)
+    if d < 0 and op in (">=", ">"):
+        lo = b if op == ">=" else b + 1
+        t = v0 - lo
+        q = (-1 if t < 0 else t // (-d)) if _static(t) else \
+            torch.where(t < 0, -1, t // (-d))
+        return floor0(q + 1)
+    if d < 0 and op == "!=":
+        return floor0((v0 - b) // (-d))
+    if d > 0 and op in ("<", "<="):
+        hi = b if op == "<" else b + 1
+        return floor0((hi - v0 + d - 1) // d)
+    if d > 0 and op == "!=":
+        return floor0((b - v0) // d)
+    return None
 
 
 def _is_ptr(x) -> bool:

@@ -22,10 +22,7 @@ The seams of the pipeline (see DESIGN.md §13):
     interp.run       interpreter failure (exercises full exhaustion)
     cache.entry      corrupted compiled-cache hit (value mutator)
     sim.mem          simulator memory fault on a vector access
-    engine.batch     batched-executable failure inside PortEngine
-
-Every seam but ``engine.batch`` is wired in the port; that one arrives
-with the port engine (ROADMAP A.12).
+    engine.batch     batched-program failure inside PortEngine
 
 Plus two cache-shaped helpers that need no seam: ``eviction_storm``
 (shrinks the compiled LRU so every lookup thrashes) and

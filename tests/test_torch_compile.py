@@ -387,11 +387,61 @@ def test_compile_seams_fire_in_the_port(corpora):
     ck(*args)
 
 
-def test_tuned_compile_waits_for_the_autotuner(corpora):
+@pytest.fixture
+def tuned_cache(tmp_path):
+    """A process-wide autotune cache in a file of its own, dropped after
+    the test with no calibration left installed."""
+    from repro_torch.port import autotune
+    autotune.uninstall()
+    yield autotune.set_cache_path(str(tmp_path / "autotune.json"))
+    autotune.reset_cache()
+    autotune.uninstall()
+
+
+def test_tuned_compile_applies_a_cached_decision(corpora, tuned_cache):
     _, tk = corpora
-    with pytest.raises(NotImplementedError, match="A.10d"):
-        tk["xnn_f32_vadd_ukernel"].compile(target="rvv-128", revec=True,
-                                           tuned=True, device="cpu")
+    case = CASES["xnn_f32_vadd_ukernel"]
+    k = tk[case.kernel]
+    d = tuned_cache.tune_or_get(k, case.make_args(
+        np.random.default_rng(0)), "rvv-128")
+    assert (d.lmul, d.tail) != (1, "auto")       # the tuner moved a knob
+    ck = k.compile(target="rvv-128", revec=True, tuned=True, device="cpu")
+    assert ck.target.lmul == d.lmul and ck.target.name == \
+        f"rvv-128-m{d.lmul}"
+    assert ck.tail == d.tail and ck.factor_cap == d.factor_cap
+    # an explicit knob overrides the cached one
+    assert k.compile(target="rvv-128", revec=True, tuned=True,
+                     tail="masked", device="cpu").tail == "masked"
+
+
+def test_tuned_compile_is_static_on_h100_and_without_revec(corpora,
+                                                           tuned_cache):
+    _, tk = corpora
+    case = CASES["xnn_f32_vadd_ukernel"]
+    k = tk[case.kernel]
+    tuned_cache.tune_or_get(k, case.make_args(np.random.default_rng(0)),
+                            "rvv-128")
+    for kw in ({"target": "h100", "revec": True},
+               {"target": "rvv-128", "revec": False}):
+        tuned = k.compile(tuned=True, device="cpu", **kw)
+        assert tuned is k.compile(tuned=False, device="cpu", **kw), kw
+    assert tuned_cache.stats()["hits"] == 0       # never looked up
+
+
+@pytest.mark.parametrize("name", ["xnn_f32_vadd_ukernel", "bitreverse_u8",
+                                  "qs8_vmlal_dot_ukernel",
+                                  "xnn_f32_vdot_ukernel"])
+def test_tuned_compile_gives_the_static_outputs(corpora, tuned_cache, name):
+    _, tk = corpora
+    case = CASES[name]
+    k = tk[name]
+    args = case.make_args(np.random.default_rng(0))
+    for target in ("rvv-128", "rvv-1024"):
+        tuned_cache.tune_or_get(k, args, target)
+        static = k.compile(target=target, revec=True, device="cpu")
+        tuned = k.compile(target=target, revec=True, tuned=True,
+                          device="cpu")
+        _gate(tuned(*args), static(*args), f"{name}/{target}")
 
 
 def test_compile_target_none_resolves_ambient(corpora):
