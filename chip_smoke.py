@@ -14,21 +14,33 @@ ibilinear also at C off their 16-byte vector, the pools in the generic
 window and with NaN, inf and ties on the vector path, both through an
 input off 16 bytes, each call one launch; the elementwise four at odd
 sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
-positions, with fast decays, and bitwise against itself).  Then it drives
-the port's two main paths:
+positions, at mamba2's n = 128, with fast decays, and bitwise against
+itself; flash and decode also at granite's GQA 16/8, D 64).  Then it
+drives the port's main paths:
 
   * the ten Figure-2 workloads of the paper through ``ops.* ->
     registry.dispatch -> traced costs -> customized tier -> CUDA kernel``
     under the rvv-128 cost model, checking the paper's Figure-2 selection
     properties;
-  * zamba2-1.2b serving at full width and depth (bf16, seeded random
-    weights) under the default target (h100) and policy:
+  * serving at full width and depth (bf16, seeded random weights) under
+    the default target (h100) and policy, for zamba2-1.2b, then
+    granite-moe-1b-a400m, each freed before the next:
     ``Engine.generate`` for 4 requests of 512-token prompts and 32 greedy
-    tokens, which must run the kernel tier of gemm, vtanh, flash
-    attention, flash decode and ssd, then a teacher-forced check of its
-    logits against the same model under the vector tier, in bf16 and
-    again with the model in float32, both runs on the kernel tier of all
-    five ops under the default target.
+    tokens, which must run the kernel tier of every op the arch's layers
+    reach (``serve_ops``: gemm; vtanh for zamba2's gelu, vsigmoid for
+    granite's experts' silu; flash attention and flash decode where a
+    layer attends; ssd where it is a Mamba2 layer) with exact launch
+    counts of the LM kernels (``serve_want``), then a teacher-forced
+    check of its logits against the same model under the vector tier
+    over the whole model, in bf16 and again with the model in float32,
+    both runs on the kernel tier of the same ops.  In bf16 a third run
+    starts each vector block from the kernel block's input
+    (``block_probe``) and holds every block's output to it
+    (``stream_gaps``).  granite's router is swapped for ``route_probe``
+    in both dtypes: the vector runs route by the kernel run's top-8
+    indices (``route_flips`` counts where its own would differ and fails
+    unless each such flip sits on a margin within the two runs'
+    router-probability gap).
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
@@ -83,13 +95,15 @@ NEON-migration frontend runs on the card:
 
 Finally
 it times every kernel beside its plain version, one PyTorch library call
-and the card's bound: the elementwise four also in bf16 and vtanh at the
-gelu's serving shapes, ssd also in float32, gemm also in bf16 and float32
-at the serving path's shapes (M = 4 and 2048 against zamba2's five weight
-shapes), and split-K against the kernel above it at M = 4, 8 and 16 (the
-small-M threshold); conv_hwc, dwconv, the pools and ibilinear also in
-bf16, beside the library call in bf16 where there is one; ibilinear's
-rows also carry ``corner_bytes`` (its bytes if no corner run is reused)
+and the card's bound: the elementwise four also in bf16, vtanh at the
+gelu's serving shapes and vsigmoid at granite's experts', ssd also in
+float32 and at mamba2's shape, flash and decode at granite's, gemm also
+in bf16 and float32 at the serving path's shapes (M = 4 and 2048 against
+zamba2's five weight shapes, and granite's two in bf16), and split-K
+against the kernel above it at M = 4, 8 and 16 (the small-M
+threshold); conv_hwc, dwconv, the pools and ibilinear also in bf16,
+beside the library call in bf16 where there is one; ibilinear's rows
+also carry ``corner_bytes`` (its bytes if no corner run is reused)
 and their share at the HBM rate.  The fp32 gemm's tile plan
 (``gemm.simt_plan``), conv_hwc's (``conv.conv_plan``), the launch shapes
 of dwconv (``conv.dwconv_plan``), the pools (``pooling.pool_plan``) and
@@ -107,10 +121,12 @@ elementwise four) at both sizes and in both dtypes; ``--src`` runs the
 commit, so that two commits can be timed in turns in one call.
 ``python3 chip_smoke.py --port`` runs only the ``port``,
 ``port_compiled`` and ``port_serve`` phases (no build) and prints no
-result line.
+result line.  ``tools/serve_gap_probe.py`` takes the readings behind
+the serving check (sound runs, planted faults).
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -180,6 +196,8 @@ DW_CASES = (((2, 10, 12, 8), (3, 3, 8)), ((1, 9, 11, 130), (3, 3, 130)),
 # a decode step multiplies M = 4 rows by them, a prefill M = 2048
 SERVE_GEMM = ((2048, 8512), (4096, 2048), (4096, 4096), (4096, 8192),
               (8192, 2048))
+# granite-moe-1b-a400m's: q and o (1024, 1024), k and v (1024, 512)
+GRANITE_GEMM = ((1024, 1024), (1024, 512))
 SERVE_M = (4, 2048)
 # gemm's kernels by variant, as the profiler names them
 # (split-K's reduce also finishes the SIMT kernel's K slices, which the
@@ -188,11 +206,24 @@ GEMM_KERNELS = {"small_m": ("small_m_kernel", "splitk_reduce"),
                 "mma": ("mma::mma_kernel",), "simt": ("simt_kernel",)}
 # decode_attention's two kernels (the splits, then their merge)
 DECODE_KERNELS = ("dec::split_kernel", "dec::combine_kernel")
-# The serving path: zamba2-1.2b at full width and depth, bf16
-SERVE = dict(arch="zamba2-1.2b", batch=4, prompt=512, gen=32)
+# The serving paths: each arch at full width and depth, bf16 and again
+# float32: 4 requests of 512-token prompts, 32 greedy tokens
+SERVE = dict(batch=4, prompt=512, gen=32)
+# (mamba2-1.3b's config and blocks are in the port, but get_config
+# refuses it: at full depth its bf16 logits cross E2E_TOL by rounding
+# alone; ROADMAP C.22)
+SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m")
+# the block kinds whose layers attend (each with an MLP after it), and
+# those that are Mamba2 layers
+ATTN_KINDS = ("mamba_shared", "moe")
+MAMBA_KINDS = ("mamba", "mamba_shared")
+# an MLP's activation -> the elementwise op it dispatches
+ACT_OP = {"gelu": "vtanh", "silu": "vsigmoid"}
 # LM kernels against their plain versions: the reference's kernel TOL
 # (fp32 2e-4; bf16 3e-2), relative and absolute.  The serving check:
-# logits within 3e-2 of the largest logit of the kernel run.
+# logits within 3e-2 of the largest logit of the kernel run; in bf16 also
+# each block's output, the vector block fed the kernel block's input,
+# within one rounding step of the output plus 3e-2 of the block's update.
 LM_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 E2E_TOL = 3e-2
 # The same check with the model in float32, where the two runs differ only
@@ -472,7 +503,8 @@ def conv_checks(op, rng, dev):
 
 def lm_cases(op, rng):
     """(label, args) of an LM kernel on the host, fp32, made with numpy:
-    zamba2's serving shapes first, then GQA with a window and softcap 50,
+    zamba2's serving shapes first, granite's (GQA 16/8, D 64) and
+    mamba2's (ssd at g 1, n 128) next, then GQA with a window and softcap 50,
     Sq < Sk with D 16 (attention), ragged lengths with a window (decode),
     s off the chunk, s < 8 and g < h (ssd)."""
     import torch
@@ -482,6 +514,7 @@ def lm_cases(op, rng):
             return (n(rng, (b, sq, h, d)), n(rng, (b, sk, hkv, d)),
                     n(rng, (b, sk, hkv, d)))
         return [("zamba2", qkv(4, 512, 512, 32, 32, 128) + (True, None, None)),
+                ("granite", qkv(4, 512, 512, 16, 8, 64) + (True, None, None)),
                 ("gqa_window_softcap",
                  qkv(2, 300, 300, 8, 4, 256) + (True, 64, 50.0)),
                 ("sq_lt_sk_d16", qkv(2, 50, 200, 4, 2, 16) + (True, None, None)),
@@ -493,6 +526,7 @@ def lm_cases(op, rng):
                     n(rng, (b, s, hkv, d)),
                     torch.tensor(lens, dtype=torch.int32))
         return [("zamba2", dec(4, 544, 32, 32, 128, (528,) * 4) + (None, None)),
+                ("granite", dec(4, 544, 16, 8, 64, (528,) * 4) + (None, None)),
                 ("ragged_window_gqa_softcap",
                  dec(4, 200, 8, 4, 256, (0, 1, 100, 200)) + (64, 50.0)),
                 ("ragged_d16", dec(3, 70, 4, 2, 16, (5, 69, 70)) + (None, None)),
@@ -521,6 +555,7 @@ def lm_cases(op, rng):
         args[2] = -torch.linspace(1.0, 60.0, h)
         return tuple(args)
     return [("zamba2", ssd_args(4, 512, 64, 64, 2, 64)),
+            ("mamba2", ssd_args(4, 512, 64, 64, 1, 128)),
             ("off_chunk", ssd_args(2, 300, 8, 16, 2, 32)),
             ("s_lt_8", ssd_args(2, 5, 4, 16, 4, 16)),
             ("g_lt_h", ssd_args(1, 130, 6, 32, 1, 8)),
@@ -538,45 +573,57 @@ def lm_keep(op):
     return (1, 2, 5) if op == "ssd" else ()
 
 
-def lm_time_args(op, gen, dev):
-    """The serving path's inputs of an LM kernel, bf16, made on the card:
+# The LM kernels' serving calls: arch -> attention's (heads, kv heads,
+# head dim) and the Mamba2 layers' (ssd groups, state)
+LM_SHAPES = {"zamba2": dict(attn=(32, 32, 128), ssd=(2, 64)),
+             "granite": dict(attn=(16, 8, 64)), "mamba2": dict(ssd=(1, 128))}
+
+
+def lm_time_args(op, gen, dev, arch="zamba2"):
+    """An arch's serving inputs of an LM kernel, bf16, made on the card:
     prefill attention and ssd at 4 x 512, decode against a 544-slot cache
     with 528 valid positions (the middle of the 32 decode steps)."""
     import torch
     bf = torch.bfloat16
+    shapes = LM_SHAPES[arch]
 
     def r(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
     if op == "flash_attention":
-        return (r(4, 512, 32, 128), r(4, 512, 32, 128), r(4, 512, 32, 128),
+        h, hkv, d = shapes["attn"]
+        return (r(4, 512, h, d), r(4, 512, hkv, d), r(4, 512, hkv, d),
                 True, None, None)
     if op == "decode_attention":
-        return (r(4, 1, 32, 128), r(4, 544, 32, 128), r(4, 544, 32, 128),
+        h, hkv, d = shapes["attn"]
+        return (r(4, 1, h, d), r(4, 544, hkv, d), r(4, 544, hkv, d),
                 torch.full((4,), 528, dtype=torch.int32, device=dev),
                 None, None)
+    g, n = shapes["ssd"]
     dt = torch.nn.functional.softplus(
         torch.randn((4, 512, 64), generator=gen, device=dev) - 1.0)
     A = -torch.arange(1, 65, dtype=torch.float32, device=dev)
-    return (r(4, 512, 64, 64), dt, A, r(4, 512, 2, 64, scale=0.5),
-            r(4, 512, 2, 64, scale=0.5), None)
+    return (r(4, 512, 64, 64), dt, A, r(4, 512, g, n, scale=0.5),
+            r(4, 512, g, n, scale=0.5), None)
 
 
 def lm_library_call(op, args):
     """scaled_dot_product_attention on the same inputs (heads moved to
-    dim 1 beforehand, as it wants them), a yardstick of time only; none
-    for ssd."""
+    dim 1 beforehand, as it wants them; GQA heads shared by it), a
+    yardstick of time only; none for ssd."""
     import torch
     import torch.nn.functional as F
     if op == "ssd":
         return None
     q, k, v = (t.transpose(1, 2).contiguous() for t in args[:3])
+    gqa = q.shape[1] != k.shape[1]
     if op == "flash_attention":
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=args[3])
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=args[3], enable_gqa=gqa)
     lens = args[3]
     mask = (torch.arange(k.shape[2], device=k.device)[None, :]
             < lens[:, None])[:, None, None, :]
-    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=gqa)
 
 
 def lm_work(op, args, out):
@@ -852,77 +899,235 @@ def profile_steps(run, steps):
                                                key=lambda kv: -kv[1])[:12])}
 
 
-def serve_zamba2(dev, modules):
-    """Drive zamba2-1.2b serving at full width and depth through the
-    port's Engine under the default target (h100) and policy, count the
-    kernel launches of that run, time prefill and decode, and hold its
-    logits against the vector tier's (teacher forced), in bf16 and in
-    float32.  Returns the phase's record."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core import trace, use_policy
-    from repro_torch.core.registry import REGISTRY
-    from repro_torch.kernels import gemm as gemm_mod
+def serve_ops(cfg):
+    """The ops an arch's serving path dispatches, from its layer kinds:
+    gemm always; where a block attends, both attentions and its MLP's
+    activation (gelu through vtanh, silu through vsigmoid); ssd where a
+    block is a Mamba2 layer."""
+    kinds = set(cfg.layer_pattern())
+    ops_ = ["gemm"]
+    if kinds & set(ATTN_KINDS):
+        ops_ += [ACT_OP[cfg.act], "attention", "decode_attention"]
+    if kinds & set(MAMBA_KINDS):
+        ops_.append("ssd")
+    return tuple(ops_)
+
+
+def serve_want(cfg, plen, steps):
+    """Exact launches of the LM kernels in one ``Engine.generate`` of
+    ``steps`` tokens after a ``plen``-token prompt: ssd's per Mamba2
+    layer of the prefill (decode runs the recurrence in closed form), one
+    flash launch per attending layer of the prefill and one decode launch
+    per attending layer and later step; 0 where the arch has none."""
     from repro_torch.kernels import ssd as ssd_mod
+    kinds = cfg.layer_pattern()
+    n_ssd = sum(k in MAMBA_KINDS for k in kinds)
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    return {"ssd": n_ssd * ssd_mod.launches(plen), "flash_attention": n_attn,
+            "decode_attention": n_attn * (steps - 1)}
+
+
+def route_probe(moe_mod, pinned=None):
+    """A stand-in for ``repro_torch.models.moe._route`` (swapped in from
+    here; nothing in the package changes) and the list it fills: each
+    call's router probabilities (float32) and its own top-k indices.
+    Given ``pinned`` (another run's list), call i routes by the indices of
+    pinned[i] instead, its gates renormalised from this run's own
+    probabilities, so that two runs compare their continuous arithmetic
+    alone."""
+    import torch
+    calls, route = [], moe_mod._route
+
+    def probe(params, xt, cfg):
+        gates, idx, aux = route(params, xt, cfg)
+        probs = torch.softmax(xt.to(torch.float32) @ params["router"], -1)
+        calls.append({"probs": probs, "idx": idx})
+        if pinned is not None:
+            idx = pinned[len(calls) - 1]["idx"]
+            picked = probs.gather(1, idx)
+            gates = picked / picked.sum(-1, keepdim=True)
+        return gates, idx, aux
+    return probe, calls
+
+
+def block_probe(blocks_mod, pinned=None):
+    """A stand-in for ``repro_torch.models.blocks.block_apply`` (swapped
+    in from here) and the list it fills: each block call's input and
+    output residual stream.  Given ``pinned`` (another run's list), call
+    i takes pinned[i]'s input in place of its own, so that each block of
+    this run starts from the other run's residual stream and the two
+    runs differ by one block's arithmetic, not by the rounding of every
+    block before it."""
+    calls, apply = [], blocks_mod.block_apply
+
+    def probe(kind, params, x, cache, ctx):
+        if pinned is not None:
+            x = pinned[len(calls)]["x"]
+        y, cache = apply(kind, params, x, cache, ctx)
+        calls.append({"x": x, "y": y})
+        return y, cache
+    return probe, calls
+
+
+def rounding_step(y):
+    """The spacing of y's dtype at each |y|: one rounding step of it."""
+    import torch
+    _, e = torch.frexp(y.float().abs())
+    eps = torch.full(y.shape, torch.finfo(y.dtype).eps, device=y.device)
+    return torch.ldexp(eps, e - 1)
+
+
+def stream_gaps(kern, plain, rel_tol, what):
+    """Each block's output, kernel against plain from the same input: by
+    how much their difference exceeds one rounding step of the output
+    (``rounding_step``, the larger of the two), over the kernel block's own
+    update max |y - x|; raises where one exceeds rel_tol.  The update, not
+    the output, is the scale: the residual stream it adds to would dilute
+    an error in it, and a block's output cannot resolve less than its own
+    rounding step."""
+    import torch
+    if len(kern) != len(plain):
+        raise AssertionError(f"serve/{what}: {len(kern)} block calls "
+                             f"against {len(plain)}")
+    tiny = np.finfo(np.float32).tiny
+    gaps = []
+    for a, b in zip(kern, plain):
+        ya, yb = a["y"].float(), b["y"].float()
+        step = torch.maximum(rounding_step(a["y"]), rounding_step(b["y"]))
+        over = ((ya - yb).abs() - step).clamp_min(0).max()
+        gaps.append(float(over / (ya - a["x"].float()).abs().max()
+                          .clamp_min(tiny)))
+    worst = max(range(len(gaps)), key=gaps.__getitem__)
+    if gaps[worst] > rel_tol:
+        raise AssertionError(f"serve/{what}: block call {worst}'s output "
+                             f"differs by {gaps[worst]} of its update's "
+                             f"max, against {rel_tol}")
+    return {"block_calls": len(gaps), "max_rel_block_err": gaps[worst],
+            "worst_block_call": worst}
+
+
+def route_flips(kern, plain, k, what):
+    """Tokens whose top-k expert set differs between two runs' router
+    calls.  Raises unless each flip falls where the smaller of the two
+    runs' k-th/(k+1)-th probability margins is at most the token's
+    router-probability gap between the runs: a flip trades an expert a
+    of one run's top k for an expert b of the other's, and the two
+    margins then sum to at most (p_a - p'_a) + (p'_b - p_b) <= 2 gap, so
+    a rounding-sized gap is all that can flip a clear margin's
+    order."""
+    import torch
+    if len(kern) != len(plain):
+        raise AssertionError(f"serve/{what}: {len(kern)} router calls "
+                             f"against {len(plain)}")
+    n_flip, n_tok, gap_max, margins, worst = 0, 0, 0.0, [], 0.0
+    for c, (a, b) in enumerate(zip(kern, plain)):
+        pa, pb = a["probs"].double(), b["probs"].double()
+        gap = (pa - pb).abs().amax(-1)
+        sets = [torch.zeros_like(pa, dtype=torch.bool).scatter_(
+            1, r["idx"].long(), True) for r in (a, b)]
+        flipped = (sets[0] != sets[1]).any(-1)
+
+        def margin(p):
+            top = p.topk(k + 1, dim=-1).values
+            return top[:, k - 1] - top[:, k]
+        m = torch.minimum(margin(pa), margin(pb))
+        if bool((flipped & (m > gap)).any()):
+            raise AssertionError(f"serve/{what}: router call {c} flips an "
+                                 "expert where the margin exceeds the "
+                                 "router-probability gap")
+        n_flip += int(flipped.sum())
+        n_tok += pa.shape[0]
+        gap_max = max(gap_max, float(gap.max()))
+        margins += m[flipped].tolist()
+        worst = max(worst, float((m[flipped] / gap[flipped]).max())
+                    if bool(flipped.any()) else 0.0)
+    return {"router_calls": len(kern), "tokens_routed": n_tok,
+            "flips": n_flip, "max_router_prob_gap": gap_max,
+            "flip_margins": sorted(margins)[:16],
+            "max_flip_margin_over_gap": worst}
+
+
+def teacher_logits(cfg, params, prompts, tokens, max_seq, dev, policy,
+                   route=None, block=None):
+    """The logits of one teacher-forced run under ``policy``: the prompts
+    prefilled, then ``tokens`` (b, steps) fed one a step, each step's
+    logits kept over the vocabulary (the padded rows hold -1e30 in every
+    run, which would be every step's max |logit|); (steps, b, vocab) in
+    float32.  An MoE's router calls go through ``route`` and the blocks
+    through ``block`` where one is given (``route_probe``,
+    ``block_probe``), swapped in for the run and restored after it."""
+    import torch
+    from repro_torch.core import use_policy
+    from repro_torch.models import blocks as blocks_mod
     from repro_torch.models import model as M
-    from repro_torch.serve.engine import (Engine, make_prefill_step,
-                                          make_serve_step)
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import make_prefill_step, make_serve_step
 
-    cfg = get_config(SERVE["arch"])
-    b, plen, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    max_seq = plen + steps
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = M.init(cfg, gen, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    prompts = np.random.default_rng(SEED).integers(2, cfg.vocab_size,
-                                                   (b, plen))
-    ops_ = ("gemm", "vtanh", "attention", "decode_attention", "ssd")
+    package = (moe_mod._route, blocks_mod.block_apply)
+    (b, plen), steps = prompts.shape, tokens.shape[1]
+    vocab = cfg.vocab_size
+    with use_policy(policy):
+        moe_mod._route = route or package[0]
+        blocks_mod.block_apply = block or package[1]
+        try:
+            prefill = make_prefill_step(cfg)
+            step = make_serve_step(cfg)
+            cache = M.init_cache(cfg, b, max_seq, dev)
+            lg, cache = prefill(params, cache, {
+                "tokens": torch.as_tensor(prompts, device=dev)})
+            out = [lg[:, :vocab].float()]
+            lens = torch.full((b,), plen, dtype=torch.int32, device=dev)
+            tok = torch.as_tensor(tokens, device=dev).long()
+            for i in range(steps - 1):
+                lg, cache = step(params, cache, tok[:, i:i + 1], lens)
+                lens = lens + 1
+                out.append(lg[:, :vocab].float())
+        finally:
+            moe_mod._route, blocks_mod.block_apply = package
+    return torch.stack(out)
 
-    def tiers(counted):
-        return {op: sorted({t for (o, t) in counted["per_op"] if o == op})
-                for op in ops_}
 
-    # the main path: counts set to 0, one Engine.generate, counts read
-    for m in modules:
-        m.reset_launches()
-    with trace.count() as counted:
-        eng = Engine(cfg, params, b, max_seq)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tokens = eng.generate(prompts, steps)
-        torch.cuda.synchronize()
-        generate_s = time.perf_counter() - t0
-    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
-    chosen = tiers(counted)
-    emit("serve_tiers", target="h100", policy=REGISTRY.policy,
-         dtype=cfg.dtype, chosen=chosen)
-    if any(chosen[op] != ["pallas"] for op in ops_):
-        raise AssertionError(f"serve: h100 picked {chosen}; every LM op "
-                             "must run its kernel tier")
-    want = {"ssd": cfg.n_layers * ssd_mod.launches(plen),
-            "flash_attention": cfg.n_layers //
-            cfg.shared_attn_every, "decode_attention": cfg.n_layers //
-            cfg.shared_attn_every * (steps - 1)}
-    for op, n in want.items():
-        if launches[op] != n:
-            raise AssertionError(f"serve: {launches[op]} {op} launches, "
-                                 f"expected {n}")
-    for op in ("gemm", "vtanh"):
-        if launches[op] == 0:
-            raise AssertionError(f"serve: {op} never launched")
-    if tokens.shape != (b, steps) or not ((tokens >= 0) &
-                                          (tokens < cfg.vocab_size)).all():
-        raise AssertionError(f"serve: tokens {tokens.shape} out of range")
+def held_logits(kern, plain, rel_tol, what):
+    """Per-step max |kernel - plain| logit, max |logit|, and the greedy
+    tokens' agreement; raises unless every step is within rel_tol of its
+    max |logit| and the tokens agree wherever the plain run's top-2 gap
+    exceeds that."""
+    if not bool(kern.isfinite().all()) or not bool(plain.isfinite().all()):
+        raise AssertionError(f"serve/{what}: non-finite logits")
+    err = (kern - plain).abs().amax(dim=(1, 2))
+    scale = kern.abs().amax(dim=(1, 2))
+    tol = rel_tol * scale
+    if bool((err > tol).any()):
+        raise AssertionError(f"serve/{what}: logits differ from the vector "
+                             f"tier's by {err.tolist()} against "
+                             f"{tol.tolist()}")
+    top2 = plain.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol[:, None]
+    agree = kern.argmax(-1) == plain.argmax(-1)
+    if bool((clear & ~agree).any()):
+        raise AssertionError(f"serve/{what}: greedy tokens differ where the "
+                             "plain run's top-2 gap exceeds the tolerance")
+    return {"max_logit_err": err.tolist(), "max_abs_logit": scale.tolist(),
+            "max_rel_logit_err": float((err / scale).max()),
+            "greedy_agree": float(agree.float().mean()),
+            "clear_steps": int(clear.sum())}
 
-    # warm: prefill and decode timed apart (selections cached), gemm's
-    # launches counted by variant in each
+
+def warm_run(cfg, params, prompts, max_seq, dev):
+    """A second Engine over the same prompts (its selections cached): a
+    prefill and ``SERVE["gen"] - 1`` decode steps timed apart on the host
+    clock, gemm's launches counted by variant in each, then a prefill and
+    two decode steps under the profiler (``profile_steps``).  Returns the
+    times, counts and profiles, and the tokens it generated."""
+    import torch
+    from repro_torch.kernels import gemm as gemm_mod
+    from repro_torch.serve.engine import Engine
+
     def gemm_counts():
         return {k: v for k, v in gemm_mod.LAUNCHES.items() if k != "gemm"}
 
-    eng = Engine(cfg, params, b, max_seq)
+    b, steps = prompts.shape[0], SERVE["gen"]
+    eng = Engine(cfg, params, b, max_seq, device=dev)
     torch.cuda.synchronize()
     gemm_mod.reset_launches()
     t0 = time.perf_counter()
@@ -936,75 +1141,143 @@ def serve_zamba2(dev, modules):
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     decode_gemm = gemm_counts()
+    eng.lengths = eng.lengths - 2           # rewrite the last two positions
+    eng.position -= 2
+    again = torch.as_tensor(rest[:, -3], device=dev)
+    return {"prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_step": decode_s / (steps - 1) * 1e3,
+            "tokens_per_s": b * steps / (prefill_s + decode_s),
+            "gemm_launches": {"prefill": prefill_gemm,
+                              "decode": decode_gemm},
+            "decode_profile": profile_steps(lambda: eng.decode(again, 2), 2),
+            "prefill_profile": profile_steps(lambda: eng.prefill(prompts),
+                                             1),
+            "tokens": np.concatenate([first.cpu().numpy()[:, None], rest],
+                                     axis=1)}
+
+
+def serve_arch(dev, modules, arch):
+    """Drive ``arch`` serving at full width and depth through the port's
+    Engine under the default target (h100) and policy, count the kernel
+    launches of that run, time prefill and decode, and hold its logits
+    against the vector tier's (teacher forced) over the whole model, in
+    bf16 and in float32 (an MoE's vector run routed by the kernel run's
+    indices, its flips counted); in bf16 also each block's output, the
+    vector block started from the kernel run's input.  Returns the
+    phase's record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace
+    from repro_torch.core.registry import REGISTRY
+    from repro_torch.models import blocks as blocks_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config(arch)
+    b, plen, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_seq = plen + steps
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(SEED).integers(2, cfg.vocab_size,
+                                                   (b, plen))
+    ops_ = serve_ops(cfg)
+    act = [op for op in ops_ if op in EW_OPS]
+    want = serve_want(cfg, plen, steps)
+
+    def tiers(counted):
+        return {op: sorted({t for (o, t) in counted["per_op"] if o == op})
+                for op in ops_}
+
+    def gated(launched, chosen, what):
+        if any(chosen[op] != ["pallas"] for op in ops_):
+            raise AssertionError(f"serve/{what}: h100 picked {chosen}; "
+                                 "every op of the path must run its kernel "
+                                 "tier")
+        for op, n in want.items():
+            if launched[op] != n:
+                raise AssertionError(f"serve/{what}: {launched[op]} {op} "
+                                     f"launches, expected {n}")
+        for op in ["gemm"] + act:
+            if launched[op] == 0:
+                raise AssertionError(f"serve/{what}: {op} never launched")
+
+    # the main path: counts set to 0, one Engine.generate, counts read
+    for m in modules:
+        m.reset_launches()
+    with trace.count() as counted:
+        eng = Engine(cfg, params, b, max_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = eng.generate(prompts, steps)
+        torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    chosen = tiers(counted)
+    emit("serve_tiers", arch=arch, target="h100", policy=REGISTRY.policy,
+         dtype=cfg.dtype, chosen=chosen)
+    gated(launches, chosen, cfg.dtype)
+    if tokens.shape != (b, steps) or not ((tokens >= 0) &
+                                          (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"serve: tokens {tokens.shape} out of range")
+
+    warm = warm_run(cfg, params, prompts, max_seq, dev)
+    prefill_gemm, decode_gemm = warm["gemm_launches"].values()
     if prefill_gemm["gemm_mma"] == 0 or decode_gemm["gemm_small_m"] == 0 \
             or decode_gemm["gemm_mma"] != 0:
         raise AssertionError(f"serve: gemm variants prefill {prefill_gemm}, "
                              f"decode {decode_gemm}; expected wgmma in "
                              "prefill and split-K alone in decode")
-    warm = np.concatenate([first.cpu().numpy()[:, None], rest], axis=1)
-    if not np.array_equal(warm, tokens):
+    if not np.array_equal(warm.pop("tokens"), tokens):
         raise AssertionError("serve: a second run gave other tokens")
-    # where a decode step's time goes: two steps under the profiler
-    eng.lengths = eng.lengths - 2           # rewrite the last two positions
-    eng.position -= 2
-    again = torch.as_tensor(rest[:, -3], device=dev)
-    decode_profile = profile_steps(lambda: eng.decode(again, 2), 2)
-    prefill_profile = profile_steps(lambda: eng.prefill(prompts), 1)
-    del eng
 
-    # teacher forced: the kernel run's tokens into both runs, logits kept
-    def logits_of(cfg_, params_, policy):
-        with use_policy(policy):
-            prefill = make_prefill_step(cfg_)
-            step = make_serve_step(cfg_)
-            cache = M.init_cache(cfg_, b, max_seq, dev)
-            lg, cache = prefill(params_, cache, {
-                "tokens": torch.as_tensor(prompts, device=dev)})
-            out = [lg.float()]
-            lens = torch.full((b,), plen, dtype=torch.int32, device=dev)
-            tok = torch.as_tensor(tokens, device=dev).long()
-            for i in range(steps - 1):
-                lg, cache = step(params_, cache, tok[:, i:i + 1], lens)
-                lens = lens + 1
-                out.append(lg.float())
-        return torch.stack(out)                      # (steps, b, vocab)
+    # teacher forced: the kernel run's tokens into both runs
+    def checked(cfg_, params_, rel_tol, what, blocks):
+        """The kernel run (its launches and tiers counted), then the
+        vector run held to it over the whole model (``held_logits``); an
+        MoE's vector run routes by the kernel run's indices, and
+        ``route_flips`` counts where its own router would differ.  With
+        ``blocks`` a third run starts each vector block from the kernel
+        run's input and holds every block's output (``stream_gaps``)."""
+        for m in modules:
+            m.reset_launches()
+        route = calls = block = kblocks = None
+        if cfg_.n_experts:
+            route, calls = route_probe(moe_mod)
+        if blocks:
+            block, kblocks = block_probe(blocks_mod)
+        run = functools.partial(teacher_logits, cfg_, params_, prompts,
+                                tokens, max_seq, dev)
+        with trace.count() as counted_:
+            kern = run("pallas", route, block)
+        launched = {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
-    def held(kern, plain, rel_tol, what):
-        """Per-step max |kernel - plain| logit, max |logit|, and the greedy
-        tokens' agreement; raises unless every step is within rel_tol of
-        its max |logit| and the tokens agree wherever the plain run's top-2
-        gap exceeds that."""
-        if not bool(kern.isfinite().all()) or \
-                not bool(plain.isfinite().all()):
-            raise AssertionError(f"serve/{what}: non-finite logits")
-        err = (kern - plain).abs().amax(dim=(1, 2))
-        scale = kern.abs().amax(dim=(1, 2))
-        tol = rel_tol * scale
-        if bool((err > tol).any()):
-            raise AssertionError(f"serve/{what}: logits differ from the "
-                                 f"vector tier's by {err.tolist()} against "
-                                 f"{tol.tolist()}")
-        top2 = plain.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > tol[:, None]
-        agree = kern.argmax(-1) == plain.argmax(-1)
-        if bool((clear & ~agree).any()):
-            raise AssertionError(f"serve/{what}: greedy tokens differ where "
-                                 "the plain run's top-2 gap exceeds the "
-                                 "tolerance")
-        return {"max_logit_err": err.tolist(), "max_abs_logit":
-                scale.tolist(), "max_rel_logit_err": float((err / scale)
-                                                           .max()),
-                "greedy_agree": float(agree.float().mean()),
-                "clear_steps": int(clear.sum())}
+        def pinned_route():
+            return route_probe(moe_mod, pinned=calls) if cfg_.n_experts \
+                else (None, None)
+        pin, pinned_calls = pinned_route()
+        out = held_logits(kern, run("vector", pin), rel_tol, what)
+        if cfg_.n_experts:
+            out["routing"] = {"pinned": True, **route_flips(
+                calls, pinned_calls, cfg_.top_k, what)}
+        if blocks:
+            pin_block, vblocks = block_probe(blocks_mod, pinned=kblocks)
+            run("vector", pinned_route()[0], pin_block)
+            out["blocks"] = stream_gaps(kblocks, vblocks, rel_tol, what)
+        return kern, launched, tiers(counted_), out
 
-    kern, plain = logits_of(cfg, params, "pallas"), \
-        logits_of(cfg, params, "vector")
+    kern, _, _, bf16_check = checked(cfg, params, E2E_TOL, cfg.dtype,
+                                     blocks=True)
     if not torch.equal(kern.argmax(-1).cpu(),
                        torch.as_tensor(tokens).long().T):
         raise AssertionError("serve: the teacher-forced kernel run does "
                              "not reproduce its own greedy tokens")
-    bf16_check = held(kern, plain, E2E_TOL, cfg.dtype)
-    del kern, plain
+    del kern
 
     # the same model in float32 (weights drawn anew from the seed), the
     # same prompts and tokens: the kernels against the vector tier with no
@@ -1014,43 +1287,34 @@ def serve_zamba2(dev, modules):
     cfg32 = cfg.replace(dtype="float32")
     gen.manual_seed(SEED)
     params32 = M.init(cfg32, gen, dev)
-    for m in modules:
-        m.reset_launches()
-    with trace.count() as counted32:
-        kern = logits_of(cfg32, params32, "pallas")
-    launches32 = {k: v for m in modules for k, v in m.LAUNCHES.items()}
-    chosen32 = tiers(counted32)
-    emit("serve_tiers", target="h100", policy="pallas", dtype="float32",
-         chosen=chosen32)
-    if any(chosen32[op] != ["pallas"] for op in ops_):
-        raise AssertionError(f"serve/float32: h100 picked {chosen32}; "
-                             "every LM op must run its kernel tier")
-    plain = logits_of(cfg32, params32, "vector")
-    f32_check = {"launches": launches32, "chosen": chosen32,
-                 **held(kern, plain, E2E_F32_TOL, cfg32.dtype)}
-    for op, n in want.items():
-        if launches32[op] != n:
-            raise AssertionError(f"serve/float32: {launches32[op]} {op} "
-                                 f"launches, expected {n}")
-    for op in ("gemm", "vtanh", "gemm_simt"):
-        if launches32[op] == 0:
-            raise AssertionError(f"serve/float32: {op} never launched")
-    del params32, kern, plain
+    kern, launches32, chosen32, f32_held = checked(
+        cfg32, params32, E2E_F32_TOL, "float32", blocks=False)
+    emit("serve_tiers", arch=arch, target="h100", policy="pallas",
+         dtype="float32", chosen=chosen32)
+    gated(launches32, chosen32, "float32")
+    if launches32["gemm_simt"] == 0:
+        raise AssertionError("serve/float32: gemm_simt never launched")
+    f32_check = {"launches": launches32, "chosen": chosen32, **f32_held}
+    del params32, kern
     record = {
         "arch": cfg.name, "params": M.count_params(params),
         "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": b, "prompt_len": plen, "generated": steps,
-        "target": "h100", "chosen": chosen,
-        "launches": launches, "gemm_launches": {"prefill": prefill_gemm,
-                                                "decode": decode_gemm},
-        "init_s": init_s, "generate_s": generate_s,
-        "prefill_ms": prefill_s * 1e3,
-        "decode_ms_per_step": decode_s / (steps - 1) * 1e3,
-        "tokens_per_s": b * steps / (prefill_s + decode_s),
+        "target": "h100", "chosen": chosen, "ops": list(ops_),
+        "launches": launches, "expected_launches": want,
+        "init_s": init_s, "generate_s": generate_s, **warm,
         **bf16_check, "float32": f32_check,
-        "decode_profile": decode_profile, "prefill_profile": prefill_profile,
         "first_tokens": tokens[0].tolist(),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.n_experts:
+        # a decode step reads every expert's weights (the dense (E, C, d)
+        # buffer): their bytes at the HBM rate
+        expert_bytes = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * \
+            cfg.d_expert * params["unit"][0][0]["ffn"]["we_g"].element_size()
+        record["expert_weight_floor_ms"] = \
+            expert_bytes / HBM_BYTES_PER_S * 1e3
+        record["moe_capacity"] = {"prefill": moe_mod.capacity(cfg, b * plen),
+                                  "decode": moe_mod.capacity(cfg, b)}
     emit("serve", **record)
     del params
     torch.cuda.empty_cache()
@@ -2334,9 +2598,8 @@ def main(argv=None) -> int:
          ops_call_ms=ops_ms, wrapper_call_ms=wrapper_ms,
          registry=REGISTRY.cache_info())
 
-    # 5. the serving path: zamba2-1.2b at full width and depth ------------
-    serve = serve_zamba2(dev, modules)
-    lm_launches = {op: serve["launches"][op] for op in LM_OPS}
+    # 5. the serving paths: each arch at full width and depth -----------
+    serve = {arch: serve_arch(dev, modules, arch) for arch in SERVE_ARCHS}
 
     # 6. the NEON frontend: every isa op, then the corpus through port ----
     isa_phase(dev)
@@ -2353,13 +2616,17 @@ def main(argv=None) -> int:
                "vsigmoid": ew.vsigmoid_math}
     times = {}
     # fp32 and bf16 at the Figure-2 and the large size; vtanh also at the
-    # shapes of zamba2's gelu in prefill and decode, in bf16
+    # shapes of zamba2's gelu in prefill and decode, vsigmoid at granite's
+    # experts' silu, in bf16
     ew_sizes = [(op, dt, size, shape)
                 for op in EW_OPS for dt in (torch.float32, torch.bfloat16)
                 for size, shape in (("figure2", (1 << 20,)),
                                     ("large", (1 << 26,)))]
     ew_sizes += [("vtanh", torch.bfloat16, "serve_prefill", (4, 512, 8192)),
-                 ("vtanh", torch.bfloat16, "serve_decode", (4, 1, 8192))]
+                 ("vtanh", torch.bfloat16, "serve_decode", (4, 1, 8192)),
+                 # granite's experts' silu: (E, capacity, d_expert)
+                 ("vsigmoid", torch.bfloat16, "moe_prefill", (32, 640, 512)),
+                 ("vsigmoid", torch.bfloat16, "moe_decode", (32, 8, 512))]
     for op, dt, size, shape in ew_sizes:
         x = workload(op, torch.randn(shape, generator=gen,
                                      device=dev)).to(dt)
@@ -2386,16 +2653,22 @@ def main(argv=None) -> int:
         del x
     times.update(time_figure2(NEW_OPS, module, args, gen, dev, flush,
                               plans=True))
-    lm_timed = [(op, lm_time_args(op, gen, dev)) for op in LM_OPS]
-    # ssd also in float32 (the float32 serving check's calls)
-    lm_timed.append(("ssd", on(lm_timed[-1][1], dev, torch.float32,
-                               keep=lm_keep("ssd"))))
-    for op, targs in lm_timed:
+    # zamba2's calls, then granite's attention and mamba2's ssd; ssd also in
+    # float32 (the float32 serving check's calls)
+    lm_timed = [(op, "serve", lm_time_args(op, gen, dev)) for op in LM_OPS]
+    lm_timed += [(op, f"serve_{arch}", lm_time_args(op, gen, dev, arch))
+                 for op, arch in (("flash_attention", "granite"),
+                                  ("decode_attention", "granite"),
+                                  ("ssd", "mamba2"))]
+    lm_timed += [("ssd", size + "_f32", on(args, dev, torch.float32,
+                                           keep=lm_keep("ssd")))
+                 for op, size, args in lm_timed if op == "ssd"]
+    for op, size, targs in lm_timed:
         mod = module[op]
         if op == "decode_attention":
             b, _, h, d = targs[0].shape
             splits, ks = fa.decode_plan(b, h, targs[1].shape[1], d)
-            emit("decode_plan", size="serve", shapes=[list(t.shape) for t in
+            emit("decode_plan", size=size, shapes=[list(t.shape) for t in
                                                      targs[:3]],
                  splits=splits, ks=ks, blocks=b * h * splits)
         out = mod.KERNELS[op](*targs)
@@ -2412,25 +2685,26 @@ def main(argv=None) -> int:
         # the bf16 tensor cores' rate where the kernel runs on them
         b_ms, b_by = (mma_bound_ms if bf16 or op == "ssd" else bound_ms)(
             nbytes, n_ops)
-        row = {"op": op, "size": "serve",
+        row = {"op": op, "size": size,
                "dtype": "bfloat16" if bf16 else "float32",
                "shapes": [list(a.shape) for a in targs
                           if isinstance(a, torch.Tensor)],
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "ops": n_ops, "bound_share": b_ms / k_ms}
-        times[(op, "serve" if bf16 else "serve_f32")] = row
+        times[(op, size)] = row
         emit("time", **row)
         del out, targs
     del lm_timed
-    # gemm where the serving path runs it: M = 4 and M = 2048 rows against
-    # zamba2's five weight shapes, in bf16 and in float32 (the float32
-    # serving check), each beside torch.matmul on the same operands (no
-    # bias and no clamp: addmm's function here); every output held to the
-    # plain version
+    # gemm where the serving paths run it: M = 4 and M = 2048 rows against
+    # zamba2's five weight shapes (mamba2's two among them), in bf16 and in
+    # float32 (the float32 serving check), and against granite's two in
+    # bf16, each beside torch.matmul on the same operands (no bias and no
+    # clamp: addmm's function here); every output held to the plain version
     bf, inf = torch.bfloat16, float("inf")
-    for dt in (bf, torch.float32):
-        for k, n in SERVE_GEMM:
+    for dt, shapes in ((bf, SERVE_GEMM + GRANITE_GEMM),
+                       (torch.float32, SERVE_GEMM)):
+        for k, n in shapes:
             w = (torch.randn((k, n), generator=gen, device=dev)
                  * k ** -0.5).to(dt)
             for m in SERVE_M:
@@ -2479,17 +2753,22 @@ def main(argv=None) -> int:
 
     # 8. kernels: at their main path's shapes (Figure-2; serving) ---------
     # gemm at the serving path's commonest call: M = 4, bf16, the Mamba
-    # input projection (38 of a decode step's launches)
+    # input projection (38 of a zamba2 decode step's launches); launches
+    # summed over the main paths, each counted from 0 (Figure-2, then each
+    # arch's generate)
     kernels = []
-    lm_launches["gemm"] = serve["launches"]["gemm"]
+    paths = {"figure2": launches,
+             **{arch: r["launches"] for arch, r in serve.items()}}
     at = {op: (op, "serve") for op in LM_OPS}
     at["gemm"] = ("gemm", "serve_m4_2048x8512")
     max_err["gemm"] = times[at["gemm"]]["max_abs_err"]
     for op in ALL_OPS + LM_OPS:
         t = times[at.get(op, (op, "figure2"))]
-        n_launch = lm_launches[op] if op in lm_launches else launches[op]
+        by_path = {p: n[op] for p, n in paths.items() if n[op]}
         kernels.append({"name": op, "route": "cuda", "source": SOURCE[op],
-                        "replaces": REPLACES[op], "launches": n_launch,
+                        "replaces": REPLACES[op],
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": max_err[op], "ms": t["kernel_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],

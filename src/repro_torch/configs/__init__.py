@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch``.
 
 The port's model stack has the Mamba2 block kinds (``mamba``,
-``mamba_shared``) and the GQA shared block; an arch whose layers need a
-block kind not ported yet is known by name but refused with the ROADMAP
-item that holds it.
+``mamba_shared``), the GQA shared block and the ``moe`` transformer
+block; an arch whose layers need a block kind not ported yet, or whose
+serving check on the card does not pass yet, is known by name but
+refused with the ROADMAP item that holds it.
 """
 from __future__ import annotations
 
@@ -14,12 +15,14 @@ from .base import SHAPES, ModelConfig, ShapeConfig
 # arch -> config module, for the archs whose block kinds are ported
 _PORTED = {
     "zamba2-1.2b": "zamba2_1p2b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
 }
 # arch -> what it still needs (ROADMAP A.9, in its order)
 _WAITING = {
-    "mamba2-1.3b": "a copy of its config (its block kinds are ported)",
-    "granite-moe-1b-a400m": "moe.py",
-    "deepseek-v2-lite-16b": "moe.py and MLA",
+    "mamba2-1.3b": "a bf16 serving limit that its full depth can pass "
+                   "(configs/mamba2_1p3b.py and its blocks are ported; "
+                   "ROADMAP C.22)",
+    "deepseek-v2-lite-16b": "MLA",
     "minicpm3-4b": "MLA",
     "gemma2-2b": "the attn/local transformer blocks",
     "gemma3-1b": "the attn/local transformer blocks",

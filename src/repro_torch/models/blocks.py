@@ -1,11 +1,13 @@
 """Layer blocks: one (init, cache_init, apply) triple per layer kind.
 
 Ported kinds: ``mamba`` and ``mamba_shared`` (a Mamba2 layer followed by
-zamba2's shared attention+MLP block).  Blocks are functions of
+zamba2's shared attention+MLP block) and ``moe`` (the transformer block:
+GQA attention, then an MoE FFN).  Blocks are functions of
 (params, x, cache, ctx), where ctx carries the mode, positions, lengths
 and the zamba2 shared-block closure.  Every other kind of the reference
-(attn, local, moe, moe_dense, enc, dec) raises NotImplementedError with
-the ROADMAP item that holds it.
+(attn, local, moe_dense, enc, dec) raises NotImplementedError with the
+ROADMAP item that holds it; so does MLA attention in a transformer
+block.
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ import torch
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
 # kind -> the ROADMAP A.9 entry that ports it
 _WAITING = {"attn": "the attn/local transformer blocks",
             "local": "the attn/local transformer blocks",
-            "moe": "moe.py", "moe_dense": "moe.py",
+            "moe_dense": "MLA (deepseek's dense layers)",
             "enc": "the enc/dec blocks", "dec": "the enc/dec blocks"}
 
 
@@ -42,6 +45,60 @@ class Ctx:
     emb0: Any = None               # zamba2: initial embedding stream
     shared: Any = None             # zamba2: shared block params
     target: Any = None             # explicit lowering target; None = ambient
+
+
+# ---------------------------------------------------------------------------
+# transformer block (attn/local x dense/moe ffn)
+# ---------------------------------------------------------------------------
+
+def _check_attn(cfg):
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError("MLA attention is not ported yet "
+                                  "(ROADMAP A.9)")
+
+
+def _tblock_init(gen, cfg, device, *, ffn: str, d_ff=None):
+    _check_attn(cfg)
+    p = {
+        "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+        "attn": A.gqa_init(gen, cfg, device),
+        "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+    }
+    if cfg.sandwich_norm:
+        p["ln1p"] = L.norm_init(cfg.d_model, cfg.norm, device)
+        p["ln2p"] = L.norm_init(cfg.d_model, cfg.norm, device)
+    if ffn == "moe":
+        p["ffn"] = M.moe_init(gen, cfg, device)
+    else:
+        p["ffn"] = L.mlp_init(gen, cfg, device, d_ff=d_ff or cfg.d_ff)
+    return p
+
+
+def _tblock_cache(cfg, batch, s_max, device, *, window=None):
+    _check_attn(cfg)
+    return A.gqa_cache_init(cfg, batch, s_max, device, window)
+
+
+def _tblock_apply(params, x, cache, ctx: Ctx, *, ffn: str, window=None):
+    """-> (x, cache); the MoE's load-balance loss is dropped (the port's
+    forward returns none)."""
+    cfg = ctx.cfg
+    _check_attn(cfg)
+    h = L.norm_apply(params["ln1"], x, cfg.norm)
+    h, cache = A.gqa_apply(params["attn"], h, cfg, positions=ctx.positions,
+                           mode=ctx.mode, cache=cache, lengths=ctx.lengths,
+                           window=window, target=ctx.target)
+    if cfg.sandwich_norm:
+        h = L.norm_apply(params["ln1p"], h, cfg.norm)
+    x = x + h
+    h = L.norm_apply(params["ln2"], x, cfg.norm)
+    if ffn == "moe":
+        h, _ = M.moe_apply(params["ffn"], h, cfg)
+    else:
+        h = L.mlp_apply(params["ffn"], h, cfg)
+    if cfg.sandwich_norm:
+        h = L.norm_apply(params["ln2p"], h, cfg.norm)
+    return x + h, cache
 
 
 # ---------------------------------------------------------------------------
@@ -100,12 +157,16 @@ def _mamba_shared_apply(params, x, cache, ctx: Ctx):
 # ---------------------------------------------------------------------------
 
 def block_init(kind, gen, cfg, device):
+    if kind == "moe":
+        return _tblock_init(gen, cfg, device, ffn="moe")
     if kind in ("mamba", "mamba_shared"):
         return _mamba_init(gen, cfg, device)
     raise _not_ported(kind)
 
 
 def block_cache_init(kind, cfg, batch, s_max, device):
+    if kind == "moe":
+        return _tblock_cache(cfg, batch, s_max, device)
     if kind == "mamba":
         return S.mamba_cache_init(cfg, batch, device)
     if kind == "mamba_shared":
@@ -116,6 +177,8 @@ def block_cache_init(kind, cfg, batch, s_max, device):
 
 def block_apply(kind, params, x, cache, ctx: Ctx):
     """-> (x, cache)."""
+    if kind == "moe":
+        return _tblock_apply(params, x, cache, ctx, ffn="moe")
     if kind == "mamba":
         return _mamba_apply(params, x, cache, ctx)
     if kind == "mamba_shared":

@@ -31,8 +31,9 @@ small-M threshold and the serving shapes; the SIMT kernel also on each
 of its tiles, with K cut into slices, and with B read element by element
 (N off 4, or B off 16 bytes); split-K and the SIMT kernel's K slices to
 themselves bitwise across runs.  flash_attention, decode_attention and ssd: rtol = atol =
-2e-4 in fp32 and 3e-2 in bf16 (the reference's kernel TOL), at zamba2's
-serving shapes and at GQA/window/softcap, Sq < Sk, ragged-length,
+2e-4 in fp32 and 3e-2 in bf16 (the reference's kernel TOL), at the
+serving shapes of zamba2, granite (GQA 16/8, D 64) and mamba2 (ssd at
+n 128, also bitwise across runs) and at GQA/window/softcap, Sq < Sk, ragged-length,
 off-chunk, s < 8 and single-group shapes; decode also over a long cache
 of many splits, with splits wholly outside a row's valid range, at D 20
 (rows read element by element), through strided views of one cache
@@ -535,6 +536,7 @@ def _lm_close(got, want, dtype):
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, softcap)
 FLASH_CASES = [(4, 512, 512, 32, 32, 128, True, None, None),   # zamba2
+               (4, 512, 512, 16, 8, 64, True, None, None),     # granite
                (2, 300, 300, 8, 4, 256, True, 64, 50.0),       # gemma2-like
                (2, 50, 200, 4, 2, 16, True, None, None),       # Sq < Sk
                (1, 37, 45, 6, 3, 24, False, None, 5.0),
@@ -560,6 +562,8 @@ def test_flash_attention_matches_plain_on_card(cuda, case, dtype):
 
 # (B, S, H, Hkv, D, lengths, window, softcap)
 DECODE_CASES = [(4, 544, 32, 32, 128, (512, 520, 530, 544), None, None),
+                # granite: GQA 16/8 at D 64
+                (4, 544, 16, 8, 64, (512, 520, 530, 544), None, None),
                 (4, 200, 8, 4, 256, (0, 1, 100, 200), 64, 50.0),
                 (3, 70, 4, 2, 16, (5, 69, 70), None, None),
                 # a long cache over 17 splits, ragged
@@ -598,9 +602,11 @@ def _ssd_args(rng, b, s, h, p, g, n, dev, dtype):
     return x, dt, A, B, C, D
 
 
-# (b, s, h, p, g, n): zamba2's prefill; s off the chunk; s < 8; g = 1;
-# one position; 16 chunks in the state chain; p 128; p and n off 8
-SSD_CASES = [(4, 512, 64, 64, 2, 64), (2, 300, 8, 16, 2, 32),
+# (b, s, h, p, g, n): zamba2's prefill; mamba2's (n 128: 211,968 bytes of
+# shared memory a block in fp32); s off the chunk; s < 8; g = 1; one
+# position; 16 chunks in the state chain; p 128; p and n off 8
+SSD_CASES = [(4, 512, 64, 64, 2, 64), (4, 512, 64, 64, 1, 128),
+             (2, 300, 8, 16, 2, 32),
              (2, 5, 4, 16, 4, 16), (1, 130, 6, 32, 1, 8),
              (2, 1, 4, 64, 2, 64), (1, 2048, 8, 64, 2, 64),
              (1, 300, 4, 128, 2, 64), (2, 260, 4, 20, 2, 12)]
@@ -633,6 +639,18 @@ def test_ssd_is_deterministic_and_masks_fast_decays(cuda, dtype):
     for _ in range(3):
         assert torch.equal(ssd.ssd(*args), first)
     _lm_close(first, ssd.ssd_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ssd_at_mamba2_shape_is_deterministic(cuda, dtype):
+    """mamba2-1.3b's prefill call (n 128, g 1, with D): four chunks
+    chained, 32 accumulator tiles a state block; two runs agree
+    bitwise."""
+    from repro_torch.kernels import ssd
+    args = _ssd_args(np.random.default_rng(128), 4, 512, 64, 64, 1, 128,
+                     cuda, dtype)
+    first = ssd.ssd(*args)
+    assert torch.equal(ssd.ssd(*args), first)
 
 
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off_16"])

@@ -3,7 +3,8 @@ kernel tier wherever it is valid, and every other target keeps the
 reference's instruction counts and its cheapest-wins ranking.
 
 The calls are those of PERF.md §6 (each row's op, shapes and dtypes) and
-zamba2-1.2b's serving calls in bf16 and float32.  The torch side runs on
+the serving calls of zamba2-1.2b, mamba2-1.3b and granite-moe-1b-a400m
+in bf16 and float32.  The torch side runs on
 meta tensors: selection reads no device data.  The tpu/rvv costs are held
 to the JAX package's registry on the same shapes.
 """
@@ -30,19 +31,20 @@ def _gemm(m, k, n, dtype, bias=False, lo=-INF, hi=INF):
             _m(n, dtype=dtype) if bias else None, lo, hi)
 
 
-def _ssd(dtype, D=False):
+def _ssd(dtype, D=False, g=2, n=64):
     return (_m(4, 512, 64, 64, dtype=dtype), _m(4, 512, 64, dtype=F32),
-            _m(64, dtype=F32), _m(4, 512, 2, 64, dtype=dtype),
-            _m(4, 512, 2, 64, dtype=dtype), _m(64, dtype=F32) if D else None)
+            _m(64, dtype=F32), _m(4, 512, g, n, dtype=dtype),
+            _m(4, 512, g, n, dtype=dtype), _m(64, dtype=F32) if D else None)
 
 
-def _attn(dtype):
-    return (_m(4, 512, 32, 128, dtype=dtype),) * 3 + (True, None, None, None)
+def _attn(dtype, h=32, hkv=32, d=128):
+    return (_m(4, 512, h, d, dtype=dtype), _m(4, 512, hkv, d, dtype=dtype),
+            _m(4, 512, hkv, d, dtype=dtype), True, None, None, None)
 
 
-def _decode(dtype):
-    return (_m(4, 1, 32, 128, dtype=dtype), _m(4, 544, 32, 128, dtype=dtype),
-            _m(4, 544, 32, 128, dtype=dtype), _m(4, dtype=I32), None, None,
+def _decode(dtype, h=32, hkv=32, d=128):
+    return (_m(4, 1, h, d, dtype=dtype), _m(4, 544, hkv, d, dtype=dtype),
+            _m(4, 544, hkv, d, dtype=dtype), _m(4, dtype=I32), None, None,
             None)
 
 
@@ -104,6 +106,30 @@ SERVE = [(f"{str(dt)[6:]}-{name}", op, args)
              ("ssd", "ssd", _ssd(dt, D=True)))]
 
 
+# mamba2-1.3b's (configs/mamba2_1p3b.py: zamba2's two Mamba projections,
+# ssd at g 1, n 128) and granite-moe-1b-a400m's (configs/
+# granite_moe_1b_a400m.py: q/o (1024, 1024) and k/v (1024, 512)
+# projections, the experts' silu at capacity 640 in a prefill and 8 in a
+# decode step, GQA 16/8 at head_dim 64) serving calls, bf16 and float32
+SERVE_ARCHS = [(f"{str(dt)[6:]}-{name}", op, args)
+               for dt in (BF, F32)
+               for name, op, args in (
+                   *[(f"mamba2-gemm_m{m}_{k}x{n}", "gemm", _gemm(m, k, n, dt))
+                     for m in (4, 2048) for k, n in SERVE_GEMM[:2]],
+                   ("mamba2-ssd", "ssd", _ssd(dt, D=True, g=1, n=128)),
+                   *[(f"granite-gemm_m{m}_{k}x{n}", "gemm",
+                      _gemm(m, k, n, dt))
+                     for m in (4, 2048) for k, n in ((1024, 1024),
+                                                     (1024, 512))],
+                   ("granite-vsigmoid_prefill", "vsigmoid",
+                    (_m(32, 640, 512, dtype=dt),)),
+                   ("granite-vsigmoid_decode", "vsigmoid",
+                    (_m(32, 8, 512, dtype=dt),)),
+                   ("granite-attention", "attention", _attn(dt, 16, 8, 64)),
+                   ("granite-decode", "decode_attention",
+                    _decode(dt, 16, 8, 64)))]
+
+
 def _row_id(row):
     label, op, args = row
     shapes = "x".join(str(tuple(a.shape)) for a in args
@@ -132,6 +158,16 @@ def test_h100_serves_zamba2_through_the_kernels(row):
     assert _chosen(op, args) == "pallas"
     # the default target is h100, and selection under it is the same
     assert targets.current_target().name == "h100"
+    assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
+
+
+@pytest.mark.parametrize("row", SERVE_ARCHS, ids=lambda r: r[0])
+def test_h100_serves_mamba2_and_granite_through_the_kernels(row):
+    """Each serving call of the two archs takes the kernel tier under the
+    default target, ssd at n = 128 in float32 too (its shared memory
+    fits a block: 211,968 of 232,448 bytes)."""
+    _, op, args = row
+    assert _chosen(op, args) == "pallas"
     assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
 
 
@@ -194,7 +230,7 @@ def _shared_tiers(op):
 
 @pytest.mark.parametrize("target", ["tpu-v5e", "tpu-v6", "rvv-128",
                                     "rvv-512-m2", "rvv-1024"])
-@pytest.mark.parametrize("row", SERVE, ids=lambda r: r[0])
+@pytest.mark.parametrize("row", SERVE + SERVE_ARCHS, ids=lambda r: r[0])
 def test_tpu_and_rvv_costs_are_unchanged(row, target):
     """The costs on the reference's machines are the JAX registry's, on
     the same shapes and dtypes (the trailing None options dropped: the

@@ -1,5 +1,6 @@
-"""The port stands alone: no module under src/repro_torch, and not
-chip_smoke.py, imports jax or the JAX package ``repro`` — shown by
+"""The port stands alone: no module under src/repro_torch, and neither
+chip_smoke.py nor the scripts under tools/, imports jax or the JAX
+package ``repro`` — shown by
 reading every import statement and by importing the port in a fresh
 interpreter and listing what it loaded."""
 import ast
@@ -14,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+    sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

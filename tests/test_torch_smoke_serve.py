@@ -1,0 +1,204 @@
+"""``chip_smoke.py``'s serving-phase helpers, on the CPU.
+
+The card runs ``serve_arch`` for zamba2-1.2b and granite-moe-1b-a400m
+(and ``tools/serve_gap_probe.py`` also for mamba2-1.3b); what it gates
+on is made here from the configs alone: the ops each arch's layers reach
+(``serve_ops``) and the exact launches of the LM kernels in one
+``Engine.generate`` of 32 tokens after 512-token prompts
+(``serve_want``).  The router probe that pins granite's vector run to
+the kernel run's routing (``route_probe``), the flip count beside it
+(``route_flips``), and the block probe that starts each block of a bf16
+vector run from the kernel run's input (``block_probe``, with the
+per-block measure ``stream_gaps``) run here on the reduced models.
+"""
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+from repro_torch.configs import get_config, mamba2_1p3b  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import moe as MoE  # noqa: E402
+
+# arch -> (ops, {ssd, flash, decode launches}) at 4 x 512 + 32 tokens
+WANT = {"zamba2-1.2b": (("gemm", "vtanh", "attention", "decode_attention",
+                         "ssd"), (76, 6, 186)),
+        "mamba2-1.3b": (("gemm", "ssd"), (96, 0, 0)),
+        "granite-moe-1b-a400m": (("gemm", "vsigmoid", "attention",
+                                  "decode_attention"), (0, 24, 744))}
+
+
+def _config(arch):
+    """mamba2-1.3b's config from its module (``get_config`` refuses it)."""
+    if arch == mamba2_1p3b.CONFIG.name:
+        return mamba2_1p3b.CONFIG
+    return get_config(arch)
+
+
+@pytest.mark.parametrize("arch", sorted(WANT))
+def test_serve_ops_and_launch_counts(arch):
+    cfg = _config(arch)
+    ops_, (ssd, flash, decode) = WANT[arch]
+    assert cs.SERVE == dict(batch=4, prompt=512, gen=32)
+    assert cs.serve_ops(cfg) == ops_
+    assert cs.serve_want(cfg, cs.SERVE["prompt"], cs.SERVE["gen"]) == {
+        "ssd": ssd, "flash_attention": flash, "decode_attention": decode}
+    assert (arch in cs.SERVE_ARCHS) == (arch != "mamba2-1.3b")
+
+
+def _granite(seed=0):
+    cfg = get_config("granite-moe-1b-a400m").reduced().replace(
+        dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return cfg, params
+
+
+def test_route_probe_records_and_pins():
+    cfg, params = _granite()
+    p = params["unit"][0][0]["ffn"]
+    xt = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (24, cfg.d_model)).astype(np.float32))
+    probe, calls = cs.route_probe(MoE)
+    gates, idx, aux = probe(p, xt, cfg)
+    want = MoE._route(p, xt, cfg)
+    for got, w in zip((gates, idx, aux), want):
+        assert torch.equal(got, w)
+    assert len(calls) == 1 and torch.equal(calls[0]["idx"], idx)
+    probs = calls[0]["probs"]
+    torch.testing.assert_close(probs.sum(-1), torch.ones(24))
+    # pinned: another router routes by the recorded indices, with gates
+    # from its own probabilities
+    other = dict(p, router=p["router"].flip(-1))
+    pin, pinned_calls = cs.route_probe(MoE, pinned=calls)
+    g2, idx2, _ = pin(other, xt, cfg)
+    assert torch.equal(idx2, idx)
+    own = pinned_calls[0]["probs"].gather(1, idx)
+    torch.testing.assert_close(g2, own / own.sum(-1, keepdim=True))
+    assert not torch.equal(pinned_calls[0]["idx"], idx)  # its own top-k
+
+
+def test_pinned_forward_reproduces_the_recorded_run():
+    """A whole prefill through the probe, then again pinned to itself:
+    the same logits, 0 flips and a 0 probability gap, one router call a
+    layer."""
+    cfg, params = _granite(1)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        2, cfg.vocab_size, (2, 10)))
+    route = MoE._route
+    runs = []
+    try:
+        for pinned in (None, "first"):
+            probe, calls = cs.route_probe(
+                MoE, pinned=runs[0][1] if pinned else None)
+            MoE._route = probe
+            logits, _ = M.forward(params, cfg, {"tokens": tokens},
+                                  mode="train")
+            MoE._route = route
+            runs.append((logits, calls))
+    finally:
+        MoE._route = route
+    assert torch.equal(runs[0][0], runs[1][0])
+    got = cs.route_flips(runs[0][1], runs[1][1], cfg.top_k, "self")
+    assert got["router_calls"] == cfg.n_layers
+    assert got["tokens_routed"] == cfg.n_layers * 20
+    assert got["flips"] == 0 and got["max_router_prob_gap"] == 0.0
+
+
+def _call(probs, idx):
+    return {"probs": torch.tensor(probs, dtype=torch.float32),
+            "idx": torch.tensor(idx)}
+
+
+def test_route_flips_accepts_a_near_tie_and_refuses_a_clear_margin():
+    near = [_call([[0.40001, 0.39999, 0.2]], [[0]])], \
+        [_call([[0.39999, 0.40001, 0.2]], [[1]])]
+    got = cs.route_flips(*near, 1, "near")
+    assert got["flips"] == 1 and got["max_flip_margin_over_gap"] <= 1.0
+    # a flip across a clear margin with the same probabilities is no
+    # rounding: the routing does not follow the router
+    clear = [_call([[0.5, 0.3, 0.2]], [[0]])], \
+        [_call([[0.5, 0.3, 0.2]], [[1]])]
+    with pytest.raises(AssertionError, match="margin exceeds"):
+        cs.route_flips(*clear, 1, "clear")
+    with pytest.raises(AssertionError, match="router calls"):
+        cs.route_flips(near[0] * 2, near[1], 1, "count")
+
+
+def test_block_probe_pins_each_block_to_the_recorded_stream():
+    """mamba2 reduced: a run records every block's input and output; a
+    second run with one block's output projection scaled by 1.01, its
+    blocks fed the first run's stream, differs at that block alone, and
+    ``stream_gaps`` names it, reads the fault's 1% of the block's update
+    (and raises below it)."""
+    from repro_torch.models import blocks as B
+    cfg = _config("mamba2-1.3b").reduced().replace(dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(3), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        2, cfg.vocab_size, (2, 12)))
+    apply = B.block_apply
+    probe, calls = cs.block_probe(B)
+    pin, pinned = cs.block_probe(B, pinned=calls)
+    other = {**params, "unit": [list(u) for u in params["unit"]]}
+    mamba = dict(other["unit"][0][2]["mamba"])
+    mamba["w_out"] = mamba["w_out"] * 1.01
+    other["unit"][0][2] = {**other["unit"][0][2], "mamba": mamba}
+    try:
+        B.block_apply = probe
+        M.forward(params, cfg, {"tokens": tokens}, mode="train")
+        B.block_apply = pin
+        M.forward(other, cfg, {"tokens": tokens}, mode="train")
+    finally:
+        B.block_apply = apply
+    assert len(calls) == len(pinned) == cfg.n_layers
+    for i, (a, b) in enumerate(zip(calls, pinned)):
+        assert b["x"] is a["x"]
+        assert torch.equal(a["y"], b["y"]) == (i != 2)
+    got = cs.stream_gaps(calls, pinned, 3e-2, "w_out")
+    assert got["block_calls"] == cfg.n_layers
+    assert got["worst_block_call"] == 2
+    assert got["max_rel_block_err"] == pytest.approx(0.01, rel=1e-3)
+    with pytest.raises(AssertionError, match="block call 2"):
+        cs.stream_gaps(calls, pinned, got["max_rel_block_err"] / 2, "tight")
+
+
+def test_stream_gaps_allows_one_rounding_step_of_the_output():
+    """A block whose output sits on a residual 32 times its update: a
+    bf16 output one rounding step (0.5 at 64) away from the other run's is
+    no gap; two steps are one step over, a quarter of the update's max of
+    2; float32's step there is 2^-16 of bf16's."""
+    x = torch.full((2, 4), 64.0, dtype=torch.bfloat16)
+    y = x + torch.tensor([[1.0, 2.0, 0.5, 0.0]] * 2, dtype=torch.bfloat16)
+    step = cs.rounding_step(y)
+    assert torch.equal(step, torch.full((2, 4), 0.5))
+    assert torch.equal(cs.rounding_step(y.float()),
+                       torch.full((2, 4), 2.0 ** -17))
+    for n, want in ((1, 0.0), (2, 0.25)):
+        other = [{"x": x, "y": y + n * step.to(torch.bfloat16)}]
+        got = cs.stream_gaps([{"x": x, "y": y}], other, 1.0, "steps")
+        assert got["max_rel_block_err"] == want
+    with pytest.raises(AssertionError, match="update's max"):
+        cs.stream_gaps([{"x": x, "y": y}], other, 0.2, "steps")
+
+
+def test_teacher_logits_reproduce_the_engines_greedy_tokens():
+    """granite reduced: the teacher-forced run over an Engine's own greedy
+    tokens gives those tokens back as its argmax, over the vocabulary,
+    calls the swapped-in router once a layer and step, and puts the
+    package's functions back."""
+    from repro_torch.models import blocks as B
+    from repro_torch.serve.engine import Engine
+    cfg, params = _granite(2)
+    prompts = np.random.default_rng(2).integers(2, cfg.vocab_size, (2, 8))
+    tokens = Engine(cfg, params, 2, 13, device="cpu").generate(prompts, 5)
+    route, apply = MoE._route, B.block_apply
+    probe, calls = cs.route_probe(MoE)
+    got = cs.teacher_logits(cfg, params, prompts, tokens, 13,
+                            torch.device("cpu"), "vector", route=probe)
+    assert got.shape == (5, 2, cfg.vocab_size) and got.dtype == torch.float32
+    assert torch.equal(got.argmax(-1).T, torch.from_numpy(tokens).long())
+    assert len(calls) == cfg.n_layers * 5
+    assert MoE._route is route and B.block_apply is apply
