@@ -15,7 +15,8 @@ window and with NaN, inf and ties on the vector path, both through an
 input off 16 bytes, each call one launch; the elementwise four at odd
 sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
 positions, at mamba2's n = 128, with fast decays, and bitwise against
-itself; flash and decode also at granite's GQA 16/8, D 64).  Then it
+itself; flash and decode also at granite's GQA 16/8, D 64; vsigmoid also
+at the silu's shapes of deepseek-v2-lite-16b and minicpm3-4b).  Then it
 drives the port's main paths:
 
   * the ten Figure-2 workloads of the paper through ``ops.* ->
@@ -23,24 +24,30 @@ drives the port's main paths:
     under the rvv-128 cost model, checking the paper's Figure-2 selection
     properties;
   * serving at full width and depth (bf16, seeded random weights) under
-    the default target (h100) and policy, for zamba2-1.2b, then
-    granite-moe-1b-a400m, each freed before the next:
+    the default target (h100) and policy, for zamba2-1.2b,
+    granite-moe-1b-a400m, deepseek-v2-lite-16b and minicpm3-4b, each
+    freed before the next (and each bf16 model before its float32 one):
     ``Engine.generate`` for 4 requests of 512-token prompts and 32 greedy
     tokens, which must run the kernel tier of every op the arch's layers
-    reach (``serve_ops``: gemm; vtanh for zamba2's gelu, vsigmoid for
-    granite's experts' silu; flash attention and flash decode where a
-    layer attends; ssd where it is a Mamba2 layer) with exact launch
+    reach (``serve_ops``: gemm; vtanh for zamba2's gelu, vsigmoid for the
+    silu of the others' MLPs and experts; flash attention and flash
+    decode where a layer attends with GQA; ssd where it is a Mamba2
+    layer), but MLA's prefill attention, whose split head dims keep it on
+    the vector tier by the reference's rule, and whose absorbed decode
+    dispatches no attention op (``serve_tier``), with exact launch
     counts of the LM kernels (``serve_want``), then a teacher-forced
     check of its logits against the same model under the vector tier
     over the whole model, in bf16 and again with the model in float32,
     both runs on the kernel tier of the same ops.  In bf16 a third run
     starts each vector block from the kernel block's input
     (``block_probe``) and holds every block's output to it
-    (``stream_gaps``).  granite's router is swapped for ``route_probe``
-    in both dtypes: the vector runs route by the kernel run's top-8
-    indices (``route_flips`` counts where its own would differ and fails
-    unless each such flip sits on a margin within the two runs'
-    router-probability gap).
+    (``stream_gaps``).  An MoE's router (granite's, deepseek's) is
+    swapped for ``route_probe`` in both dtypes: the vector runs route by
+    the kernel run's top-k indices (``route_flips`` counts where its own
+    would differ and fails unless each such flip sits on a margin within
+    the two runs' router-probability gap).  The profiled prefill and
+    decode steps also read the device ms of prefill attention and of
+    MLA's absorbed decode (``SPANS``).
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
@@ -99,7 +106,9 @@ and the card's bound: the elementwise four also in bf16, vtanh at the
 gelu's serving shapes and vsigmoid at granite's experts', ssd also in
 float32 and at mamba2's shape, flash and decode at granite's, gemm also
 in bf16 and float32 at the serving path's shapes (M = 4 and 2048 against
-zamba2's five weight shapes, and granite's two in bf16), and split-K
+zamba2's five weight shapes, granite's two in bf16, deepseek's and
+minicpm3's in both dtypes), vsigmoid at their silu's shapes in both
+dtypes, and split-K
 against the kernel above it at M = 4, 8 and 16 (the small-M
 threshold); conv_hwc, dwconv, the pools and ibilinear also in bf16,
 beside the library call in bf16 where there is one; ibilinear's rows
@@ -198,7 +207,31 @@ SERVE_GEMM = ((2048, 8512), (4096, 2048), (4096, 4096), (4096, 8192),
               (8192, 2048))
 # granite-moe-1b-a400m's: q and o (1024, 1024), k and v (1024, 512)
 GRANITE_GEMM = ((1024, 1024), (1024, 512))
+# deepseek-v2-lite-16b's: q (2048, 3072), the kv down projection (2048,
+# 576), o (2048, 2048), the dense first layer's up/gate and down, the two
+# shared experts' up/gate and down, the head; minicpm3-4b's: the q-lora
+# down and up, kv down (2560, 288), o, the MLP's up/gate and down (its
+# tied head is a plain matmul).  Each at M = 4 and 2048; W_uk and W_uv
+# (MLA_PREFILL_GEMM) at M = 2048 alone, as the absorbed decode multiplies
+# them outside any linear
+DEEPSEEK_GEMM = ((2048, 3072), (2048, 576), (2048, 2048), (2048, 10944),
+                 (10944, 2048), (2048, 2816), (2816, 2048), (2048, 102400))
+MINICPM_GEMM = ((2560, 768), (768, 3840), (2560, 288), (2560, 2560),
+                (2560, 6400), (6400, 2560))
+MLA_PREFILL_GEMM = {"deepseek": (512, 2048), "minicpm3": (256, 2560)}
+MLA_GEMM = {"deepseek": DEEPSEEK_GEMM, "minicpm3": MINICPM_GEMM}
 SERVE_M = (4, 2048)
+# the silu (vsigmoid) of the new archs' MLPs: deepseek's experts at
+# capacity 240 (prefill) and 8 (decode), its shared experts and dense
+# first layer, minicpm3's MLP, each in a prefill and a decode step
+SILU_SHAPES = (("deepseek_experts_prefill", (64, 240, 1408)),
+               ("deepseek_experts_decode", (64, 8, 1408)),
+               ("deepseek_shared_prefill", (4, 512, 2816)),
+               ("deepseek_shared_decode", (4, 1, 2816)),
+               ("deepseek_dense_prefill", (4, 512, 10944)),
+               ("deepseek_dense_decode", (4, 1, 10944)),
+               ("minicpm3_prefill", (4, 512, 6400)),
+               ("minicpm3_decode", (4, 1, 6400)))
 # gemm's kernels by variant, as the profiler names them
 # (split-K's reduce also finishes the SIMT kernel's K slices, which the
 # bf16 serving path never cuts)
@@ -206,16 +239,23 @@ GEMM_KERNELS = {"small_m": ("small_m_kernel", "splitk_reduce"),
                 "mma": ("mma::mma_kernel",), "simt": ("simt_kernel",)}
 # decode_attention's two kernels (the splits, then their merge)
 DECODE_KERNELS = ("dec::split_kernel", "dec::combine_kernel")
+# The serving profiles' spans: (name, module, function) whose kernels'
+# device ms are read (a record_function range swapped in around it):
+# MLA's prefill attention on the vector tier (its split dims) and its
+# absorbed decode, which the reference runs in plain products
+SPANS = (("attention", "repro_torch.kernels.ops", "attention"),
+         ("mla_absorbed", "repro_torch.models.attention", "_mla_absorbed"))
 # The serving paths: each arch at full width and depth, bf16 and again
 # float32: 4 requests of 512-token prompts, 32 greedy tokens
 SERVE = dict(batch=4, prompt=512, gen=32)
 # (mamba2-1.3b's config and blocks are in the port, but get_config
 # refuses it: at full depth its bf16 logits cross E2E_TOL by rounding
 # alone; ROADMAP C.22)
-SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m")
+SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+               "minicpm3-4b")
 # the block kinds whose layers attend (each with an MLP after it), and
 # those that are Mamba2 layers
-ATTN_KINDS = ("mamba_shared", "moe")
+ATTN_KINDS = ("mamba_shared", "moe", "moe_dense", "attn")
 MAMBA_KINDS = ("mamba", "mamba_shared")
 # an MLP's activation -> the elementwise op it dispatches
 ACT_OP = {"gelu": "vtanh", "silu": "vsigmoid"}
@@ -860,24 +900,62 @@ def time_ms(fn, flush, reps=25):
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def spans_swapped():
+    """Swap a ``record_function`` range named after each of ``SPANS``'s
+    functions around it (nothing in the package changes); returns what
+    to restore."""
+    import importlib
+    from torch.profiler import record_function
+    saved = []
+    for span, mod, attr in SPANS:
+        m = importlib.import_module(mod)
+        fn = getattr(m, attr)
+
+        def ranged(*a, _fn=fn, _span=span, **k):
+            with record_function(_span):
+                return _fn(*a, **k)
+        saved.append((m, attr, fn))
+        setattr(m, attr, ranged)
+    return saved
+
+
 def profile_steps(run, steps):
     """Device time by kernel over ``run()`` under torch.profiler, per
     step: the kernels' names with their ms, the device-busy ms and the
-    host-clock ms of a step (idle share = 1 - busy / wall).  Device times
-    are None where the profiler saw no device activity."""
+    host-clock ms of a step (idle share = 1 - busy / wall), and the
+    device ms of the kernels launched inside each of ``SPANS``.  Device
+    times are None where the profiler saw no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    saved = spans_swapped()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
     by_kernel = {}
     gemm_ms = dict.fromkeys(GEMM_KERNELS, 0.0)
     decode_ms = 0.0
+    spans = {span: None for span, _, _ in SPANS}
     for ev in prof.key_averages():
+        if ev.key in spans:
+            # the host range: the device time of the kernels launched in
+            # it (its device-side annotation is no kernel).  The profiler
+            # links torch's kernels to the range, not the port's own
+            # (launched through ctypes): a span over flash reads nothing,
+            # and stays None
+            if not str(ev.device_type).endswith("CUDA"):
+                us = getattr(ev, "device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "cuda_time_total", 0)
+                spans[ev.key] = (us / 1e3 / steps) or None
+            continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
@@ -895,22 +973,38 @@ def profile_steps(run, steps):
             "idle_share": (1.0 - busy / wall_ms) if busy else None,
             "gemm_ms_per_step": {**gemm_ms, "all": sum(gemm_ms.values())},
             "decode_attention_ms_per_step": decode_ms,
+            "spans_ms_per_step": spans,
             "kernels_ms_per_step": dict(sorted(by_kernel.items(),
                                                key=lambda kv: -kv[1])[:12])}
 
 
 def serve_ops(cfg):
     """The ops an arch's serving path dispatches, from its layer kinds:
-    gemm always; where a block attends, both attentions and its MLP's
-    activation (gelu through vtanh, silu through vsigmoid); ssd where a
-    block is a Mamba2 layer."""
+    gemm always; where a block attends, its MLP's activation (gelu
+    through vtanh, silu through vsigmoid) and prefill attention, and
+    decode attention unless the attention is MLA (its absorbed decode is
+    plain products, as the reference's); ssd where a block is a Mamba2
+    layer."""
     kinds = set(cfg.layer_pattern())
     ops_ = ["gemm"]
     if kinds & set(ATTN_KINDS):
-        ops_ += [ACT_OP[cfg.act], "attention", "decode_attention"]
+        ops_ += [ACT_OP[cfg.act], "attention"]
+        if cfg.attn_kind != "mla":
+            ops_.append("decode_attention")
     if kinds & set(MAMBA_KINDS):
         ops_.append("ssd")
     return tuple(ops_)
+
+
+def serve_tier(cfg, op):
+    """The tier ``op`` must run on the arch's serving path under h100:
+    its kernel, but MLA's attention, whose q/k head dim is not v's: the
+    fused kernel does not take split dims, so it runs on the vector tier
+    by the reference's own rule (``_attn_supports``,
+    src/repro/kernels/ops.py:282-287; the port's kernels/ops.py mirrors
+    it)."""
+    return "vector" if op == "attention" and cfg.attn_kind == "mla" \
+        else "pallas"
 
 
 def serve_want(cfg, plen, steps):
@@ -918,11 +1012,13 @@ def serve_want(cfg, plen, steps):
     ``steps`` tokens after a ``plen``-token prompt: ssd's per Mamba2
     layer of the prefill (decode runs the recurrence in closed form), one
     flash launch per attending layer of the prefill and one decode launch
-    per attending layer and later step; 0 where the arch has none."""
+    per attending layer and later step; 0 where the arch has none, and
+    both 0 for MLA (its attention runs no kernel, ``serve_tier``)."""
     from repro_torch.kernels import ssd as ssd_mod
     kinds = cfg.layer_pattern()
     n_ssd = sum(k in MAMBA_KINDS for k in kinds)
-    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    n_attn = 0 if cfg.attn_kind == "mla" else \
+        sum(k in ATTN_KINDS for k in kinds)
     return {"ssd": n_ssd * ssd_mod.launches(plen), "flash_attention": n_attn,
             "decode_attention": n_attn * (steps - 1)}
 
@@ -1195,10 +1291,13 @@ def serve_arch(dev, modules, arch):
                 for op in ops_}
 
     def gated(launched, chosen, what):
-        if any(chosen[op] != ["pallas"] for op in ops_):
+        want_tiers = {op: [serve_tier(cfg, op)] for op in ops_}
+        if chosen != want_tiers:
             raise AssertionError(f"serve/{what}: h100 picked {chosen}; "
                                  "every op of the path must run its kernel "
-                                 "tier")
+                                 "tier, but MLA's split-dim attention, "
+                                 "which the reference's rule leaves to the "
+                                 f"vector tier: {want_tiers}")
         for op, n in want.items():
             if launched[op] != n:
                 raise AssertionError(f"serve/{what}: {launched[op]} {op} "
@@ -1277,7 +1376,30 @@ def serve_arch(dev, modules, arch):
                        torch.as_tensor(tokens).long().T):
         raise AssertionError("serve: the teacher-forced kernel run does "
                              "not reproduce its own greedy tokens")
-    del kern
+    record = {
+        "arch": cfg.name, "params": M.count_params(params),
+        "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "batch": b, "prompt_len": plen, "generated": steps,
+        "target": "h100", "chosen": chosen, "ops": list(ops_),
+        "launches": launches, "expected_launches": want,
+        "init_s": init_s, "generate_s": generate_s, **warm,
+        **bf16_check, "first_tokens": tokens[0].tolist(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.n_experts:
+        # a decode step reads every routed expert's weights (the dense
+        # (E, C, d) buffer) in each MoE layer: their bytes at the HBM rate
+        n_moe = sum(k == "moe" for k in cfg.layer_pattern())
+        expert_bytes = n_moe * 3 * cfg.n_experts * cfg.d_model * \
+            cfg.d_expert * params["unit"][0][0]["ffn"]["we_g"].element_size()
+        record["expert_weight_floor_ms"] = \
+            expert_bytes / HBM_BYTES_PER_S * 1e3
+        record["moe_capacity"] = {"prefill": moe_mod.capacity(cfg, b * plen),
+                                  "decode": moe_mod.capacity(cfg, b)}
+    # the bf16 model leaves the card before the float32 one is drawn
+    # (deepseek's float32 weights alone take ~63 GB)
+    del kern, eng, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
     # the same model in float32 (weights drawn anew from the seed), the
     # same prompts and tokens: the kernels against the vector tier with no
@@ -1294,29 +1416,11 @@ def serve_arch(dev, modules, arch):
     gated(launches32, chosen32, "float32")
     if launches32["gemm_simt"] == 0:
         raise AssertionError("serve/float32: gemm_simt never launched")
-    f32_check = {"launches": launches32, "chosen": chosen32, **f32_held}
+    record["float32"] = {"launches": launches32, "chosen": chosen32,
+                         **f32_held,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params32, kern
-    record = {
-        "arch": cfg.name, "params": M.count_params(params),
-        "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
-        "batch": b, "prompt_len": plen, "generated": steps,
-        "target": "h100", "chosen": chosen, "ops": list(ops_),
-        "launches": launches, "expected_launches": want,
-        "init_s": init_s, "generate_s": generate_s, **warm,
-        **bf16_check, "float32": f32_check,
-        "first_tokens": tokens[0].tolist(),
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    if cfg.n_experts:
-        # a decode step reads every expert's weights (the dense (E, C, d)
-        # buffer): their bytes at the HBM rate
-        expert_bytes = cfg.n_layers * 3 * cfg.n_experts * cfg.d_model * \
-            cfg.d_expert * params["unit"][0][0]["ffn"]["we_g"].element_size()
-        record["expert_weight_floor_ms"] = \
-            expert_bytes / HBM_BYTES_PER_S * 1e3
-        record["moe_capacity"] = {"prefill": moe_mod.capacity(cfg, b * plen),
-                                  "decode": moe_mod.capacity(cfg, b)}
     emit("serve", **record)
-    del params
     torch.cuda.empty_cache()
     return record
 
@@ -2397,10 +2501,14 @@ def main(argv=None) -> int:
                                (8193,), (3, 5, 7), (4, 1, 8192),
                                (4, 512, 8192), (1 << 26,))
              for dt in (torch.float32, torch.bfloat16)]
+    # vsigmoid also at the silu's shapes in deepseek's and minicpm3's
+    # serving (SILU_SHAPES)
+    silu_cases = [(shape, dt) for _, shape in SILU_SHAPES
+                  for dt in (torch.float32, torch.bfloat16)]
     max_err = {}
     for op in EW_OPS:
         errs = []
-        for shape, dt in cases:
+        for shape, dt in cases + (silu_cases if op == "vsigmoid" else []):
             x = workload(op, torch.randn(shape, generator=gen,
                                          device=dev)).to(dt)
             err = compare(op, ew.KERNELS[op](x, *extra_args(op)),
@@ -2627,6 +2735,9 @@ def main(argv=None) -> int:
                  # granite's experts' silu: (E, capacity, d_expert)
                  ("vsigmoid", torch.bfloat16, "moe_prefill", (32, 640, 512)),
                  ("vsigmoid", torch.bfloat16, "moe_decode", (32, 8, 512))]
+    # deepseek's and minicpm3's silu, in both dtypes (the float32 check's)
+    ew_sizes += [("vsigmoid", dt, size, shape) for size, shape in SILU_SHAPES
+                 for dt in (torch.bfloat16, torch.float32)]
     for op, dt, size, shape in ew_sizes:
         x = workload(op, torch.randn(shape, generator=gen,
                                      device=dev)).to(dt)
@@ -2698,42 +2809,50 @@ def main(argv=None) -> int:
     del lm_timed
     # gemm where the serving paths run it: M = 4 and M = 2048 rows against
     # zamba2's five weight shapes (mamba2's two among them), in bf16 and in
-    # float32 (the float32 serving check), and against granite's two in
-    # bf16, each beside torch.matmul on the same operands (no bias and no
-    # clamp: addmm's function here); every output held to the plain version
+    # float32 (the float32 serving check), against granite's two in bf16,
+    # and against deepseek's and minicpm3's in both dtypes (W_uk / W_uv at
+    # M = 2048 alone), each beside torch.matmul on the same operands (no
+    # bias and no clamp: addmm's function here); every output held to the
+    # plain version within the reference's TOL (MM_TOL)
     bf, inf = torch.bfloat16, float("inf")
-    for dt, shapes in ((bf, SERVE_GEMM + GRANITE_GEMM),
-                       (torch.float32, SERVE_GEMM)):
-        for k, n in shapes:
-            w = (torch.randn((k, n), generator=gen, device=dev)
-                 * k ** -0.5).to(dt)
-            for m in SERVE_M:
-                x = torch.randn((m, k), generator=gen, device=dev).to(dt)
-                tag = f"serve_m{m}_{k}x{n}" + ("" if dt == bf else "_f32")
-                if gemm.variant(dt, m) == "simt":
-                    emit_simt_plan(tag, m, n, k)
-                out = gemm.gemm(x, w)
-                err = compare("gemm", out, gemm.gemm_plain(x, w))
-                k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
-                p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
-                l_ms = time_ms(lambda: torch.matmul(x, w), flush)
-                nbytes = x.element_size() * (x.numel() + w.numel()
-                                             + out.numel())
-                b_ms, b_by = (mma_bound_ms if dt == bf else bound_ms)(
-                    nbytes, 2 * m * n * k)
-                row = {"op": "gemm", "size": tag,
-                       "dtype": str(dt).replace("torch.", ""),
-                       "shapes": [[m, k], [k, n]],
-                       "variant": gemm.variant(dt, m), "max_abs_err": err,
-                       "kernel_ms": k_ms, "plain_ms": p_ms,
-                       "library_ms": l_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "bytes": nbytes,
-                       "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
-                       "library_ratio": k_ms / l_ms}
-                times[("gemm", row["size"])] = row
-                emit("time", **row)
-                del out, x
-            del w
+    f32 = torch.float32
+    gemm_rows = [(dt, "", k, n, SERVE_M)
+                 for dt, shapes in ((bf, SERVE_GEMM + GRANITE_GEMM),
+                                    (f32, SERVE_GEMM)) for k, n in shapes]
+    gemm_rows += [(dt, f"{arch}_", k, n, SERVE_M) for dt in (bf, f32)
+                  for arch, shapes in MLA_GEMM.items() for k, n in shapes]
+    gemm_rows += [(dt, f"{arch}_", k, n, SERVE_M[1:]) for dt in (bf, f32)
+                  for arch, (k, n) in MLA_PREFILL_GEMM.items()]
+    for dt, arch, k, n, ms in gemm_rows:
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dt)
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device=dev).to(dt)
+            tag = f"serve_{arch}m{m}_{k}x{n}" + ("" if dt == bf else "_f32")
+            if gemm.variant(dt, m) == "simt":
+                emit_simt_plan(tag, m, n, k)
+            out = gemm.gemm(x, w)
+            err = compare("gemm", out, gemm.gemm_plain(x, w))
+            k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
+            p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
+            l_ms = time_ms(lambda: torch.matmul(x, w), flush)
+            nbytes = x.element_size() * (x.numel() + w.numel()
+                                         + out.numel())
+            b_ms, b_by = (mma_bound_ms if dt == bf else bound_ms)(
+                nbytes, 2 * m * n * k)
+            row = {"op": "gemm", "size": tag,
+                   "dtype": str(dt).replace("torch.", ""),
+                   "shapes": [[m, k], [k, n]],
+                   "variant": gemm.variant(dt, m), "max_abs_err": err,
+                   "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": l_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": nbytes,
+                   "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
+                   "library_ratio": k_ms / l_ms}
+            times[("gemm", row["size"])] = row
+            emit("time", **row)
+            del out, x
+        del w
     # the small-M threshold: split-K against the kernel that takes the rows
     # above it, at M = 4, 8 and 16, in both dtypes
     for k, n in ((2048, 8512), (8192, 2048)):

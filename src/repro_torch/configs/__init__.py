@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch``.
 
 The port's model stack has the Mamba2 block kinds (``mamba``,
-``mamba_shared``), the GQA shared block and the ``moe`` transformer
-block; an arch whose layers need a block kind not ported yet, or whose
-serving check on the card does not pass yet, is known by name but
-refused with the ROADMAP item that holds it.
+``mamba_shared``), the GQA shared block and the ``attn``, ``moe`` and
+``moe_dense`` transformer blocks with GQA or MLA attention; an arch whose
+layers need a block kind not ported yet, or whose serving check on the
+card does not pass yet, is known by name but refused with the ROADMAP
+item that holds it.
 """
 from __future__ import annotations
 
@@ -16,17 +17,18 @@ from .base import SHAPES, ModelConfig, ShapeConfig
 _PORTED = {
     "zamba2-1.2b": "zamba2_1p2b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "minicpm3-4b": "minicpm3_4b",
 }
 # arch -> what it still needs (ROADMAP A.9, in its order)
 _WAITING = {
     "mamba2-1.3b": "a bf16 serving limit that its full depth can pass "
                    "(configs/mamba2_1p3b.py and its blocks are ported; "
                    "ROADMAP C.22)",
-    "deepseek-v2-lite-16b": "MLA",
-    "minicpm3-4b": "MLA",
-    "gemma2-2b": "the attn/local transformer blocks",
-    "gemma3-1b": "the attn/local transformer blocks",
-    "mistral-large-123b": "the attn/local transformer blocks",
+    "gemma2-2b": "the local transformer block, with its softcaps",
+    "gemma3-1b": "the local transformer block, with qk-norm",
+    "mistral-large-123b": "models/sharding.py (its ~246 GB of bf16 "
+                          "weights do not fit one card)",
     "whisper-tiny": "the enc/dec blocks",
     "pixtral-12b": "the vlm patch inputs",
 }

@@ -1,18 +1,26 @@
-"""GQA attention (+ sliding window / softcap / qk-norm) with train,
-prefill and decode cache handling.
+"""Attention blocks: GQA (+ sliding window / softcap / qk-norm) and MLA,
+with train, prefill and decode cache handling.
 
-Cache layout (static shapes; ``lengths`` tracks the valid prefix):
-  global : k, v (B, S_max, Hkv, hd)
-  local  : ring buffer of ``window`` slots (slot = pos % window); softmax
-           is permutation-invariant over kv, so slot order is irrelevant
-           once keys carry RoPE.
+Cache layouts (static shapes; ``lengths`` tracks the valid prefix):
+  gqa global : k, v (B, S_max, Hkv, hd)
+  gqa local  : ring buffer of ``window`` slots (slot = pos % window);
+               softmax is permutation-invariant over kv, so slot order is
+               irrelevant once keys carry RoPE.
+  mla        : c_kv (B, S_max, kv_lora), k_rope (B, S_max, rope_dim) —
+               decode uses the *absorbed* form (q into W_uk, out through
+               W_uv) so the compressed cache is attended directly.
 
 The reference returns a new cache; here prefill and decode write the
 caller's cache tensors in place (no copy of the cache per step) and
-return the same dictionary.  MLA and the cross-attention branch wait for
-later slices (ROADMAP A.9).
+return the same dictionary.  MLA's prefill attention has split head dims
+(q/k wider than v), which the fused kernel does not take: it runs on the
+vector tier by the reference's own rule (``ops._attn_supports``), and its
+absorbed decode is plain products, as the reference's is.  The
+cross-attention branch waits for a later slice (ROADMAP A.9).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -90,3 +98,118 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     out = ops.decode_attention(q, cache["k"], cache["v"], valid,
                                softcap=cfg.softcap, target=target)
     return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, device, d_in=None):
+    d = d_in or cfg.d_model
+    dt = L.dtype_of(cfg)
+    h = cfg.n_heads
+    r, nd, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    p = {
+        "w_dkv": L.dense_init(gen, d, cfg.kv_lora_rank + r, dt, device),
+        "kv_norm": L.norm_init(cfg.kv_lora_rank, "rmsnorm", device),
+        "w_uk": L.dense_init(gen, cfg.kv_lora_rank, h * nd, dt, device),
+        "w_uv": L.dense_init(gen, cfg.kv_lora_rank, h * vd, dt, device),
+        "wo": L.dense_init(gen, h * vd, cfg.d_model, dt, device),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = L.dense_init(gen, d, cfg.q_lora_rank, dt, device)
+        p["q_norm"] = L.norm_init(cfg.q_lora_rank, "rmsnorm", device)
+        p["w_uq"] = L.dense_init(gen, cfg.q_lora_rank, h * (nd + r), dt,
+                                 device)
+    else:
+        p["wq"] = L.dense_init(gen, d, h * (nd + r), dt, device)
+    return p
+
+
+def mla_cache_init(cfg, batch, s_max, device, dtype=None):
+    dt = dtype or L.dtype_of(cfg)
+    return {"c_kv": torch.zeros((batch, s_max, cfg.kv_lora_rank), dtype=dt,
+                                device=device),
+            "k_rope": torch.zeros((batch, s_max, cfg.qk_rope_dim), dtype=dt,
+                                  device=device)}
+
+
+def _mla_q(params, x, cfg, positions):
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, nd = cfg.qk_rope_dim, cfg.qk_nope_dim
+    if cfg.q_lora_rank:
+        cq = L.norm_apply(params["q_norm"], L.linear(params["w_dq"], x))
+        q = L.linear(params["w_uq"], cq)
+    else:
+        q = L.linear(params["wq"], x)
+    q = q.reshape(b, s, h, nd + r)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = L.rope_apply(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(params, x, cfg, positions):
+    dkv = L.linear(params["w_dkv"], x)
+    c_kv = L.norm_apply(params["kv_norm"], dkv[..., :cfg.kv_lora_rank])
+    k_rope = L.rope_apply(dkv[..., cfg.kv_lora_rank:][:, :, None, :],
+                          positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
+              target=None):
+    """x:(B,S,d).  mode in train|prefill|decode.  MLA takes no window (the
+    reference ignores one; no MLA config has one)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    r, nd, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    scale = 1.0 / math.sqrt(nd + r)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions)
+
+    if mode in ("train", "prefill"):
+        c_kv, k_rope = _mla_ckv(params, x, cfg, positions)
+        k_nope = L.linear(params["w_uk"], c_kv).reshape(b, s, h, nd)
+        v = L.linear(params["w_uv"], c_kv).reshape(b, s, h, vd)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, r)],
+                      dim=-1)
+        out = ops.attention(q, k, v, causal=True, scale=scale,
+                            target=target)
+        if mode == "prefill":
+            cache["c_kv"][:, :s] = c_kv
+            cache["k_rope"][:, :s] = k_rope
+        return L.linear_rp(params["wo"], out.reshape(b, s, h * vd), cfg), \
+            cache
+
+    # decode: absorbed attention over the compressed cache
+    c_kv_new, k_rope_new = _mla_ckv(params, x, cfg, positions)
+    bidx = torch.arange(b, device=x.device)
+    cache["c_kv"][bidx, lengths] = c_kv_new[:, 0]
+    cache["k_rope"][bidx, lengths] = k_rope_new[:, 0]
+    out = _mla_absorbed(params, q_nope, q_rope, cache, lengths, cfg, scale)
+    out = out.to(x.dtype).reshape(b, s, h * vd)
+    return L.linear_rp(params["wo"], out, cfg), cache
+
+
+def _mla_absorbed(params, q_nope, q_rope, cache, lengths, cfg, scale):
+    """The absorbed decode attention, in float32: q into W_uk, the
+    compressed cache attended up to each row's ``lengths`` (inclusive),
+    out through W_uv -> (B, 1, H, v_head_dim)."""
+    h, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    c_kv = cache["c_kv"].to(torch.float32)
+    k_rope = cache["k_rope"].to(torch.float32)
+    w_uk = params["w_uk"].reshape(cfg.kv_lora_rank, h, nd)
+    # absorb: q_eff[h] = q_nope[h] @ W_uk[:, h, :].T  -> kv_lora dims
+    q_eff = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
+                         w_uk.to(torch.float32))
+    logits = (torch.einsum("bqhr,bkr->bhqk", q_eff, c_kv) +
+              torch.einsum("bqhr,bkr->bhqk", q_rope.to(torch.float32),
+                           k_rope)) * scale
+    kpos = torch.arange(c_kv.shape[1], device=c_kv.device)
+    logits = torch.where(kpos[None, None, None, :]
+                         <= lengths[:, None, None, None], logits, -1e30)
+    p_attn = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", p_attn, c_kv)
+    w_uv = params["w_uv"].reshape(cfg.kv_lora_rank, h, vd)
+    return torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.to(torch.float32))

@@ -1,13 +1,14 @@
 """Layer blocks: one (init, cache_init, apply) triple per layer kind.
 
 Ported kinds: ``mamba`` and ``mamba_shared`` (a Mamba2 layer followed by
-zamba2's shared attention+MLP block) and ``moe`` (the transformer block:
-GQA attention, then an MoE FFN).  Blocks are functions of
+zamba2's shared attention+MLP block) and the transformer blocks ``attn``
+(a dense FFN), ``moe`` (an MoE FFN) and ``moe_dense`` (deepseek's first
+layers: a dense FFN of width ``d_ff_dense``), each with GQA or MLA
+attention as the config's ``attn_kind`` says.  Blocks are functions of
 (params, x, cache, ctx), where ctx carries the mode, positions, lengths
-and the zamba2 shared-block closure.  Every other kind of the reference
-(attn, local, moe_dense, enc, dec) raises NotImplementedError with the
-ROADMAP item that holds it; so does MLA attention in a transformer
-block.
+and the zamba2 shared-block closure.  The other kinds of the reference
+(local, enc, dec) raise NotImplementedError with the ROADMAP item that
+holds them.
 """
 from __future__ import annotations
 
@@ -22,9 +23,7 @@ from . import moe as M
 from . import ssm as S
 
 # kind -> the ROADMAP A.9 entry that ports it
-_WAITING = {"attn": "the attn/local transformer blocks",
-            "local": "the attn/local transformer blocks",
-            "moe_dense": "MLA (deepseek's dense layers)",
+_WAITING = {"local": "the local transformer block",
             "enc": "the enc/dec blocks", "dec": "the enc/dec blocks"}
 
 
@@ -51,17 +50,11 @@ class Ctx:
 # transformer block (attn/local x dense/moe ffn)
 # ---------------------------------------------------------------------------
 
-def _check_attn(cfg):
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError("MLA attention is not ported yet "
-                                  "(ROADMAP A.9)")
-
-
 def _tblock_init(gen, cfg, device, *, ffn: str, d_ff=None):
-    _check_attn(cfg)
+    attn_init = A.mla_init if cfg.attn_kind == "mla" else A.gqa_init
     p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
-        "attn": A.gqa_init(gen, cfg, device),
+        "attn": attn_init(gen, cfg, device),
         "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
     }
     if cfg.sandwich_norm:
@@ -75,7 +68,8 @@ def _tblock_init(gen, cfg, device, *, ffn: str, d_ff=None):
 
 
 def _tblock_cache(cfg, batch, s_max, device, *, window=None):
-    _check_attn(cfg)
+    if cfg.attn_kind == "mla":
+        return A.mla_cache_init(cfg, batch, s_max, device)
     return A.gqa_cache_init(cfg, batch, s_max, device, window)
 
 
@@ -83,11 +77,13 @@ def _tblock_apply(params, x, cache, ctx: Ctx, *, ffn: str, window=None):
     """-> (x, cache); the MoE's load-balance loss is dropped (the port's
     forward returns none)."""
     cfg = ctx.cfg
-    _check_attn(cfg)
     h = L.norm_apply(params["ln1"], x, cfg.norm)
-    h, cache = A.gqa_apply(params["attn"], h, cfg, positions=ctx.positions,
-                           mode=ctx.mode, cache=cache, lengths=ctx.lengths,
-                           window=window, target=ctx.target)
+    attn = dict(positions=ctx.positions, mode=ctx.mode, cache=cache,
+                lengths=ctx.lengths, target=ctx.target)
+    if cfg.attn_kind == "mla":
+        h, cache = A.mla_apply(params["attn"], h, cfg, **attn)
+    else:
+        h, cache = A.gqa_apply(params["attn"], h, cfg, window=window, **attn)
     if cfg.sandwich_norm:
         h = L.norm_apply(params["ln1p"], h, cfg.norm)
     x = x + h
@@ -157,15 +153,20 @@ def _mamba_shared_apply(params, x, cache, ctx: Ctx):
 # ---------------------------------------------------------------------------
 
 def block_init(kind, gen, cfg, device):
+    if kind == "attn":
+        return _tblock_init(gen, cfg, device, ffn="dense")
     if kind == "moe":
         return _tblock_init(gen, cfg, device, ffn="moe")
+    if kind == "moe_dense":
+        return _tblock_init(gen, cfg, device, ffn="dense",
+                            d_ff=cfg.d_ff_dense or cfg.d_ff)
     if kind in ("mamba", "mamba_shared"):
         return _mamba_init(gen, cfg, device)
     raise _not_ported(kind)
 
 
 def block_cache_init(kind, cfg, batch, s_max, device):
-    if kind == "moe":
+    if kind in ("attn", "moe", "moe_dense"):
         return _tblock_cache(cfg, batch, s_max, device)
     if kind == "mamba":
         return S.mamba_cache_init(cfg, batch, device)
@@ -177,6 +178,8 @@ def block_cache_init(kind, cfg, batch, s_max, device):
 
 def block_apply(kind, params, x, cache, ctx: Ctx):
     """-> (x, cache)."""
+    if kind in ("attn", "moe_dense"):
+        return _tblock_apply(params, x, cache, ctx, ffn="dense")
     if kind == "moe":
         return _tblock_apply(params, x, cache, ctx, ffn="moe")
     if kind == "mamba":

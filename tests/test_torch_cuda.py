@@ -27,7 +27,9 @@ bitwise across runs under a sliced plan; dwconv also at C 8 and 130, 5x5
 and 1x1 windows, runs of 8, 4 and 2 columns a thread with a ragged last
 one, and an x off 16 bytes.  Each gemm variant (split-K small M, wgmma bf16,
 SIMT fp32) is held to the same tolerance at M, N and K around the
-small-M threshold and the serving shapes; the SIMT kernel also on each
+small-M threshold and the serving shapes (deepseek-v2-lite-16b's and
+minicpm3-4b's too, with vsigmoid at their silu's shapes); the SIMT
+kernel also on each
 of its tiles, with K cut into slices, and with B read element by element
 (N off 4, or B off 16 bytes); split-K and the SIMT kernel's K slices to
 themselves bitwise across runs.  flash_attention, decode_attention and ssd: rtol = atol =
@@ -383,6 +385,57 @@ def test_gemm_split_k_is_deterministic(cuda, dtype):
     first = gemm.gemm(a, b)
     for _ in range(3):
         assert torch.equal(gemm.gemm(a, b), first)
+
+
+# deepseek-v2-lite-16b's and minicpm3-4b's serving products (m, k, n): a
+# decode step's M = 4 and a prefill's M = 2048 against each weight (the
+# head (2048, 102400) among deepseek's), and W_uk / W_uv, which only a
+# prefill multiplies by a linear
+MLA_GEMM = [(m, k, n) for k, n in (
+    (2048, 3072), (2048, 576), (2048, 2048), (2048, 10944), (10944, 2048),
+    (2048, 2816), (2816, 2048), (2048, 102400),
+    (2560, 768), (768, 3840), (2560, 288), (2560, 2560), (2560, 6400),
+    (6400, 2560)) for m in (4, 2048)] + [(2048, 512, 2048), (2048, 256, 2560)]
+
+
+@pytest.mark.parametrize("shape", MLA_GEMM, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_gemm_at_the_mla_serving_shapes_matches_plain_on_card(cuda, dtype,
+                                                              shape):
+    """One launch of the variant ``gemm.variant`` names, within the
+    reference's TOL of the plain version; inputs made on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n = shape
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = (torch.randn((k, n), generator=gen, device=cuda)
+         * k ** -0.5).to(dtype)
+    kind = gemm.variant(dtype, m)
+    before = dict(gemm.LAUNCHES)
+    got = gemm.gemm(a, b)
+    assert gemm.LAUNCHES[f"gemm_{kind}"] == before[f"gemm_{kind}"] + 1
+    _same("gemm", got, gemm.gemm_plain(a, b), dtype)
+
+
+# the silu's inputs in those archs' serving: deepseek's experts at capacity
+# 240 (prefill) and 8 (decode), its shared experts and dense first layer,
+# minicpm3's MLP
+SILU_SHAPES = [(64, 240, 1408), (64, 8, 1408), (4, 512, 2816), (4, 1, 2816),
+               (4, 512, 10944), (4, 1, 10944), (4, 512, 6400), (4, 1, 6400)]
+
+
+@pytest.mark.parametrize("shape", SILU_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_vsigmoid_at_the_mla_serving_shapes_matches_plain_on_card(cuda,
+                                                                  dtype,
+                                                                  shape):
+    x = torch.from_numpy(_input("vsigmoid", shape, seed=7)).to(cuda, dtype)
+    before = ew.LAUNCHES["vsigmoid"]
+    got = ew.vsigmoid(x)
+    assert ew.LAUNCHES["vsigmoid"] == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    _check("vsigmoid", got, ew.PLAIN["vsigmoid"](x))
 
 
 # (m, n, k) and the plan each takes: the Figure-2 product and a thin one

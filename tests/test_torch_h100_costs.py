@@ -3,8 +3,10 @@ kernel tier wherever it is valid, and every other target keeps the
 reference's instruction counts and its cheapest-wins ranking.
 
 The calls are those of PERF.md §6 (each row's op, shapes and dtypes) and
-the serving calls of zamba2-1.2b, mamba2-1.3b and granite-moe-1b-a400m
-in bf16 and float32.  The torch side runs on
+the serving calls of zamba2-1.2b, mamba2-1.3b, granite-moe-1b-a400m,
+deepseek-v2-lite-16b and minicpm3-4b in bf16 and float32.  MLA's
+split-dim attention takes the vector tier on h100, as the reference's
+rule has it everywhere.  The torch side runs on
 meta tensors: selection reads no device data.  The tpu/rvv costs are held
 to the JAX package's registry on the same shapes.
 """
@@ -130,6 +132,53 @@ SERVE_ARCHS = [(f"{str(dt)[6:]}-{name}", op, args)
                     _decode(dt, 16, 8, 64)))]
 
 
+def _mla_attn(dtype, h, qk, v):
+    """MLA's prefill attention: q and k at nope + rope, v narrower, the
+    scale 1/sqrt(nope + rope)."""
+    return (_m(4, 512, h, qk, dtype=dtype), _m(4, 512, h, qk, dtype=dtype),
+            _m(4, 512, h, v, dtype=dtype), True, None, None, qk ** -0.5)
+
+
+# deepseek-v2-lite-16b's (configs/deepseek_v2_lite_16b.py: q (2048, 3072),
+# the kv down projection (2048, 576), o (2048, 2048), the dense first
+# layer (2048, 10944) and (10944, 2048), the shared experts (2048, 2816)
+# and (2816, 2048) and the head (2048, 102400) at M = 4 and 2048; W_uk and
+# W_uv (512, 2048) in prefill only (decode absorbs them); the silu of the
+# experts at capacity 240 and 8, of the shared experts and of the dense
+# layer) and minicpm3-4b's (configs/minicpm3_4b.py: the q-lora (2560,
+# 768) and (768, 3840), kv (2560, 288), o (2560, 2560), the MLP (2560,
+# 6400) and (6400, 2560); (256, 2560) in prefill; its tied head is a
+# plain matmul) serving calls, bf16 and float32
+DEEPSEEK_GEMM = ((2048, 3072), (2048, 576), (2048, 2048), (2048, 10944),
+                 (10944, 2048), (2048, 2816), (2816, 2048), (2048, 102400))
+MINICPM_GEMM = ((2560, 768), (768, 3840), (2560, 288), (2560, 2560),
+                (2560, 6400), (6400, 2560))
+SERVE_MLA = [(f"{str(dt)[6:]}-{name}", op, args)
+             for dt in (BF, F32)
+             for name, op, args in (
+                 *[(f"{arch}-gemm_m{m}_{k}x{n}", "gemm", _gemm(m, k, n, dt))
+                   for arch, shapes, prefill in (
+                       ("deepseek", DEEPSEEK_GEMM, (512, 2048)),
+                       ("minicpm3", MINICPM_GEMM, (256, 2560)))
+                   for m in (4, 2048)
+                   for k, n in shapes + ((prefill,) if m == 2048 else ())],
+                 *[(f"{label}", "vsigmoid", (_m(*shape, dtype=dt),))
+                   for label, shape in (
+                       ("deepseek-vsigmoid_experts_prefill", (64, 240, 1408)),
+                       ("deepseek-vsigmoid_experts_decode", (64, 8, 1408)),
+                       ("deepseek-vsigmoid_shared_prefill", (4, 512, 2816)),
+                       ("deepseek-vsigmoid_shared_decode", (4, 1, 2816)),
+                       ("deepseek-vsigmoid_dense_prefill", (4, 512, 10944)),
+                       ("deepseek-vsigmoid_dense_decode", (4, 1, 10944)),
+                       ("minicpm3-vsigmoid_prefill", (4, 512, 6400)),
+                       ("minicpm3-vsigmoid_decode", (4, 1, 6400)))])]
+MLA_ATTN = [(f"{str(dt)[6:]}-{arch}-attention", "attention",
+             _mla_attn(dt, h, qk, v))
+            for dt in (BF, F32)
+            for arch, h, qk, v in (("deepseek", 16, 192, 128),
+                                   ("minicpm3", 40, 96, 64))]
+
+
 def _row_id(row):
     label, op, args = row
     shapes = "x".join(str(tuple(a.shape)) for a in args
@@ -171,6 +220,32 @@ def test_h100_serves_mamba2_and_granite_through_the_kernels(row):
     assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
 
 
+@pytest.mark.parametrize("row", SERVE_MLA, ids=lambda r: r[0])
+def test_h100_serves_deepseek_and_minicpm3_through_the_kernels(row):
+    """Each gemm and vsigmoid call of the two MLA archs takes the kernel
+    tier under the default target."""
+    _, op, args = row
+    assert _chosen(op, args) == "pallas"
+    assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
+
+
+@pytest.mark.parametrize("row", MLA_ATTN, ids=lambda r: r[0])
+def test_h100_leaves_split_dim_attention_to_the_vector_tier(row):
+    """MLA's prefill attention: the kernel tier is invalid (q's head dim
+    is not v's, the reference's ``_attn_supports``), so h100 runs the
+    vector tier, as the reference does on every target; the same q/k/v at
+    one head dim would take the kernel."""
+    _, op, args = row
+    rep = REGISTRY.explain(op, *args, policy="pallas", target="h100")
+    cands = {c["tier"]: c for c in rep["candidates"]}
+    assert not cands["pallas"]["valid"] and cands["vector"]["valid"]
+    assert rep["chosen"] == "vector"
+    assert REGISTRY.select(op, *args, policy="pallas").tier == "vector"
+    q, k, v = args[:3]
+    same = (q, k, _m(*v.shape[:-1], q.shape[-1], dtype=v.dtype)) + args[3:]
+    assert _chosen(op, same) == "pallas"
+
+
 def test_h100_leaves_an_invalid_kernel_to_the_costs():
     """Where the kernel tier is invalid (int32 pooling; the policy capped
     at vector) h100 ranks the lower tiers by their declared counts."""
@@ -197,7 +272,7 @@ def test_other_targets_rank_by_the_declared_models(target):
     §6 call and serving call: each valid candidate's cost is its declared
     model's count, and the cheapest wins (a tie to the higher tier; none
     where the target's registers are too narrow for every tier)."""
-    for _, op, args in TIMED + SERVE:
+    for _, op, args in TIMED + SERVE + SERVE_MLA + MLA_ATTN:
         row = REGISTRY.explain(op, *args, policy="pallas", target=target)
         costed = []
         with targets.use_target(target):
@@ -230,7 +305,8 @@ def _shared_tiers(op):
 
 @pytest.mark.parametrize("target", ["tpu-v5e", "tpu-v6", "rvv-128",
                                     "rvv-512-m2", "rvv-1024"])
-@pytest.mark.parametrize("row", SERVE + SERVE_ARCHS, ids=lambda r: r[0])
+@pytest.mark.parametrize("row", SERVE + SERVE_ARCHS + SERVE_MLA,
+                         ids=lambda r: r[0])
 def test_tpu_and_rvv_costs_are_unchanged(row, target):
     """The costs on the reference's machines are the JAX registry's, on
     the same shapes and dtypes (the trailing None options dropped: the
@@ -244,3 +320,25 @@ def test_tpu_and_rvv_costs_are_unchanged(row, target):
               if c["tier"] in _shared_tiers(op)} for r in (mine, ref)]
     assert costs[0] == costs[1]
     assert costs[0]["pallas"] is not None
+
+
+@pytest.mark.parametrize("target", ["tpu-v5e", "tpu-v6", "rvv-128",
+                                    "rvv-512-m2", "rvv-1024"])
+@pytest.mark.parametrize("row", MLA_ATTN, ids=lambda r: r[0])
+def test_split_dim_attention_costs_and_choice_match_reference(row, target):
+    """MLA's attention on the reference's machines: the kernel tier
+    invalid in both registries (so uncosted there), and both choose the
+    same tier."""
+    _, op, args = row
+    while args[-1] is None:
+        args = args[:-1]
+    mine = REGISTRY.explain(op, *args, policy="pallas", target=target)
+    ref = JREG.explain(op, *_jax(args), policy="pallas", target=target)
+    for rep in (mine, ref):
+        assert not {c["tier"]: c for c in rep["candidates"]}["pallas"][
+            "valid"]
+    costs = [{c["tier"]: c["cost"] for c in r["candidates"]
+              if c["tier"] in ("generic", "pallas")} for r in (mine, ref)]
+    assert costs[0] == costs[1]
+    assert costs[0] == {"pallas": None}
+    assert mine["chosen"] == ref["chosen"]

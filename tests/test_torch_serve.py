@@ -3,7 +3,10 @@ reference, on the CPU.
 
 Each ported arch ``reduced()`` in float32 (zamba2-1.2b: 4 layers, GQA
 4/2 heads, ssm chunk 32; mamba2-1.3b: 4 Mamba2 layers, g 1, ssm chunk 32;
-granite-moe-1b-a400m: 4 ``moe`` layers, GQA 4/2 heads, 8 experts top-2):
+granite-moe-1b-a400m: 4 ``moe`` layers, GQA 4/2 heads, 8 experts top-2;
+deepseek-v2-lite-16b: a ``moe_dense`` layer then 3 ``moe`` layers, MLA
+with no q-lora, 8 experts top-2 and 2 shared; minicpm3-4b: 4 ``attn``
+layers, MLA with q-lora 32, tied and scaled embeddings):
 the reference's params, carried across by ``models/convert.py``, go
 through the reference's Engine and the port's.  Prefill logits and every
 teacher-forced decode step's logits agree within the reference's fp32
@@ -11,7 +14,9 @@ kernel TOL of 2e-4, and the greedy tokens are equal over 8 steps.  The
 port runs its vector tier and its kernel tiers (their plain versions
 here): under the rvv-128 cost target, where ssd keeps the vector tier by
 the reference's counts, and under h100, where every op of the arch's
-path takes its kernel tier.
+path takes its kernel tier but MLA's attention, whose split head dims
+the fused kernel does not take (the reference's rule), and which keeps
+the vector tier under every target.
 
 The full-width parameter tree of each ported arch equals the
 reference's in every shape and dtype.  mamba2-1.3b's config and blocks
@@ -82,7 +87,11 @@ ARCH_OPS = {"zamba2-1.2b": {"gemm", "vtanh", "attention",
                             "decode_attention", "ssd"},
             "mamba2-1.3b": {"gemm", "ssd"},
             "granite-moe-1b-a400m": {"gemm", "vsigmoid", "attention",
-                                     "decode_attention"}}
+                                     "decode_attention"},
+            # MLA: split-dim attention in prefill, the absorbed decode
+            # in plain products (no decode_attention)
+            "deepseek-v2-lite-16b": {"gemm", "vsigmoid", "attention"},
+            "minicpm3-4b": {"gemm", "vsigmoid", "attention"}}
 # tier -> (policy, target)
 TIERS = {"vector": ("vector", None), "pallas": ("pallas", "rvv-128"),
          "h100": ("pallas", "h100")}
@@ -128,14 +137,18 @@ def test_engine_matches_reference(reference, tier):
     ran = {op for op, _ in c["per_op"]}
     kernel = {op for op, t in c["per_op"] if t == "pallas"}
     assert ran == ARCH_OPS[name]
+    # MLA's attention has split head dims: the vector tier under every
+    # target, by the reference's rule
+    split = {"attention"} if cfg.attn_kind == "mla" else set()
     if tier == "vector":
         assert kernel == set()
     elif tier == "pallas":
         # under the RVV model ssd keeps its vector tier; the kernel tiers
         # carry the rest
-        assert kernel == ARCH_OPS[name] - {"ssd"}
+        assert kernel == ARCH_OPS[name] - {"ssd"} - split
     else:
-        assert c["per_op"].keys() == {(op, "pallas") for op in ran}
+        assert c["per_op"].keys() == {(op, "vector" if op in split
+                                       else "pallas") for op in ran}
 
 
 def test_decode_past_max_seq_is_refused_where_the_reference_drops_it():
@@ -172,15 +185,45 @@ def test_decode_past_max_seq_is_refused_where_the_reference_drops_it():
     assert eng.position == 16
 
 
+def test_decode_past_max_seq_is_refused_for_an_mla_cache():
+    """C.11 with MLA's compressed cache (deepseek reduced): the refusal
+    comes before any decode step and the cache is left as the prefill
+    wrote it; within max_seq the tokens are the reference's."""
+    jcfg, cfg = _cfgs("deepseek-v2-lite-16b")
+    jparams = JM.init(jcfg, jax.random.PRNGKey(0))
+    params = convert.from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
+    prompts = np.random.default_rng(1).integers(
+        2, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    eng = E.Engine(cfg, params, max_batch=2, max_seq=16, device="cpu")
+    first = eng.prefill(prompts)
+    before = {k: v.clone() for k, v in eng.cache["prefix"][0].items()}
+    assert set(before) == {"c_kv", "k_rope"}
+    with pytest.raises(ValueError, match="max_seq 16"):
+        eng.decode(first, 5)
+    assert eng.position == 12
+    for k, v in eng.cache["prefix"][0].items():
+        assert torch.equal(v, before[k])
+    want = np.asarray(JE.Engine(jcfg, jparams, max_batch=2, max_seq=16)
+                      .generate(jnp.asarray(prompts), 5))
+    eng = E.Engine(cfg, params, max_batch=2, max_seq=16, device="cpu")
+    np.testing.assert_array_equal(eng.generate(prompts, 5), want)
+    assert eng.position == 16
+
+
 def _uncounted(cfg):
     """Elements of the parameter tree that ``param_counts()`` (the
-    reference's estimate, copied as it is) leaves out: the norms, the conv
-    biases, the padded vocabulary rows and, in zamba2's shared block, the
-    down projection of the gated MLP (ROADMAP C.10)."""
+    reference's estimate, copied as it is) leaves out: the norms (MLA's
+    kv and q norms too), the conv biases, the padded vocabulary rows and,
+    in zamba2's shared block, the down projection of the gated MLP
+    (ROADMAP C.10)."""
     d = cfg.d_model
     conv_b = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    tblock = 2 * d                                      # ln1, ln2
+    if cfg.attn_kind == "mla":
+        tblock += cfg.kv_lora_rank + cfg.q_lora_rank    # kv_norm, q_norm
     per_kind = {"mamba": d + cfg.d_inner + conv_b,      # ln, gn, conv_b
-                "moe": 2 * d}                           # ln1, ln2
+                "moe": tblock, "moe_dense": tblock, "attn": tblock}
     per_kind["mamba_shared"] = per_kind["mamba"]
     out = sum(per_kind[k] for k in cfg.layer_pattern()) + d
     out += (-(-cfg.vocab_size // 256) * 256 - cfg.vocab_size) * d
@@ -201,7 +244,9 @@ def _leaves(tree, path=""):
 
 # the reference's eval_shape counts of each full-width tree
 FULL_WIDTH = {"zamba2-1.2b": 1_190_425_216, "mamba2-1.3b": 1_344_052_224,
-              "granite-moe-1b-a400m": 1_334_887_424}
+              "granite-moe-1b-a400m": 1_334_887_424,
+              "deepseek-v2-lite-16b": 15_706_484_224,
+              "minicpm3-4b": 4_073_937_408}
 
 
 @pytest.mark.parametrize("name", sorted(FULL_WIDTH))
@@ -272,23 +317,40 @@ def test_unported_archs_and_kinds_name_their_roadmap_item():
     # its blocks are ported; its bf16 serving limit is not settled
     with pytest.raises(NotImplementedError, match="ROADMAP C.22"):
         get_config("mamba2-1.3b")
-    for name in ("gemma2-2b", "whisper-tiny", "deepseek-v2-lite-16b",
-                 "minicpm3-4b"):
+    for name in ("gemma2-2b", "whisper-tiny", "gemma3-1b",
+                 "mistral-large-123b", "pixtral-12b"):
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             get_config(name)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        get_config("deepseek-v2-lite-16b")
+    # gemma2 waits for the local block, whisper for enc/dec, mistral for
+    # sharding (its bf16 weights do not fit one card)
+    with pytest.raises(NotImplementedError, match="local transformer"):
+        get_config("gemma2-2b")
+    with pytest.raises(NotImplementedError, match="enc/dec"):
+        get_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="sharding"):
+        get_config("mistral-large-123b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config("zamba2-1.2b").reduced()
-    for kind in ("attn", "local", "moe_dense", "dec"):
+    for kind in ("local", "enc", "dec"):
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             blocks.block_init(kind, None, cfg, torch.device("meta"))
-    # a transformer block with MLA attention waits for A.9.2
+    with pytest.raises(NotImplementedError, match="local transformer"):
+        blocks.block_cache_init("local", cfg, 1, 8, torch.device("meta"))
+    with pytest.raises(NotImplementedError, match="enc/dec"):
+        blocks.block_apply("dec", None, None, None, None)
+    with pytest.raises(ValueError):
+        blocks.block_init("no-such-kind", None, cfg, torch.device("meta"))
+    # the attn and moe_dense kinds, and a transformer block with MLA
+    # attention, are ported
+    for kind in ("attn", "moe_dense"):
+        assert "attn" in blocks.block_init(kind, None, cfg,
+                                           torch.device("meta"))
     mla = get_config("granite-moe-1b-a400m").reduced().replace(
-        attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        blocks.block_init("moe", None, mla, torch.device("meta"))
+        attn_kind="mla", kv_lora_rank=32, qk_rope_dim=8, qk_nope_dim=16,
+        v_head_dim=16)
+    assert "w_dkv" in blocks.block_init("moe", None, mla,
+                                        torch.device("meta"))["attn"]
 
 
 def test_engine_defaults_to_the_card():
@@ -312,7 +374,8 @@ def test_temperature_sampling_is_seeded_by_lengths():
     assert ((runs[0] >= 0) & (runs[0] < cfg.vocab_size)).all()
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b"])
 def test_launcher_serves_reduced_on_cpu(capsys, arch):
     out = launch_serve.main(["--arch", arch, "--reduced",
                              "--device", "cpu", "--batch", "2",

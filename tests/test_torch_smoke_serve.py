@@ -1,16 +1,20 @@
 """``chip_smoke.py``'s serving-phase helpers, on the CPU.
 
-The card runs ``serve_arch`` for zamba2-1.2b and granite-moe-1b-a400m
-(and ``tools/serve_gap_probe.py`` also for mamba2-1.3b); what it gates
-on is made here from the configs alone: the ops each arch's layers reach
-(``serve_ops``) and the exact launches of the LM kernels in one
-``Engine.generate`` of 32 tokens after 512-token prompts
-(``serve_want``).  The router probe that pins granite's vector run to
+The card runs ``serve_arch`` for zamba2-1.2b, granite-moe-1b-a400m,
+deepseek-v2-lite-16b and minicpm3-4b (and ``tools/serve_gap_probe.py``
+also for mamba2-1.3b); what it gates on is made here from the configs
+alone: the ops each arch's layers reach (``serve_ops``), the tier each
+must run (``serve_tier``: MLA's split-dim attention on the vector tier)
+and the exact launches of the LM kernels in one ``Engine.generate`` of
+32 tokens after 512-token prompts (``serve_want``).  The router probe that pins granite's vector run to
 the kernel run's routing (``route_probe``), the flip count beside it
 (``route_flips``), and the block probe that starts each block of a bf16
 vector run from the kernel run's input (``block_probe``, with the
-per-block measure ``stream_gaps``) run here on the reduced models.
+per-block measure ``stream_gaps``) run here on the reduced models, MLA's
+``moe_dense``, ``moe`` and ``attn`` blocks among them, as does the
+profiler span swap (``spans_swapped``).
 """
+import functools
 import sys
 from pathlib import Path
 
@@ -29,7 +33,12 @@ WANT = {"zamba2-1.2b": (("gemm", "vtanh", "attention", "decode_attention",
                          "ssd"), (76, 6, 186)),
         "mamba2-1.3b": (("gemm", "ssd"), (96, 0, 0)),
         "granite-moe-1b-a400m": (("gemm", "vsigmoid", "attention",
-                                  "decode_attention"), (0, 24, 744))}
+                                  "decode_attention"), (0, 24, 744)),
+        # MLA: no flash (split head dims) and no decode launch (the
+        # absorbed decode dispatches no attention op)
+        "deepseek-v2-lite-16b": (("gemm", "vsigmoid", "attention"),
+                                 (0, 0, 0)),
+        "minicpm3-4b": (("gemm", "vsigmoid", "attention"), (0, 0, 0))}
 
 
 def _config(arch):
@@ -48,6 +57,16 @@ def test_serve_ops_and_launch_counts(arch):
     assert cs.serve_want(cfg, cs.SERVE["prompt"], cs.SERVE["gen"]) == {
         "ssd": ssd, "flash_attention": flash, "decode_attention": decode}
     assert (arch in cs.SERVE_ARCHS) == (arch != "mamba2-1.3b")
+
+
+@pytest.mark.parametrize("arch", sorted(WANT))
+def test_serve_tier_leaves_split_dim_attention_to_the_vector_tier(arch):
+    cfg = _config(arch)
+    tiers = {op: cs.serve_tier(cfg, op) for op in cs.serve_ops(cfg)}
+    mla = cfg.attn_kind == "mla"
+    assert tiers == {op: "vector" if mla and op == "attention" else "pallas"
+                     for op in WANT[arch][0]}
+    assert mla == (arch in ("deepseek-v2-lite-16b", "minicpm3-4b"))
 
 
 def _granite(seed=0):
@@ -202,3 +221,83 @@ def test_teacher_logits_reproduce_the_engines_greedy_tokens():
     assert torch.equal(got.argmax(-1).T, torch.from_numpy(tokens).long())
     assert len(calls) == cfg.n_layers * 5
     assert MoE._route is route and B.block_apply is apply
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_mla_teacher_runs_probe_every_block_and_router(arch):
+    """The serving check's runs on an MLA arch, reduced, in float32: the
+    kernel tiers' plain versions against the vector tier, the vector run
+    routed by the kernel run's indices (deepseek) and each vector block
+    fed the kernel block's input: every block call recorded (deepseek's
+    ``moe_dense`` layer and its ``moe`` layers, minicpm3's ``attn``
+    layers), every router call pinned, and the gaps within the gates."""
+    from repro_torch.models import blocks as B
+    from repro_torch.serve.engine import Engine
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(4), "cpu")
+    prompts = np.random.default_rng(4).integers(2, cfg.vocab_size, (2, 8))
+    tokens = Engine(cfg, params, 2, 13, device="cpu").generate(prompts, 5)
+    kinds = []
+    apply = B.block_apply
+
+    def seen(kind, *a):
+        kinds.append(kind)
+        return apply(kind, *a)
+    moe = bool(cfg.n_experts)
+    route, calls = cs.route_probe(MoE) if moe else (None, None)
+    B.block_apply = seen            # the probe calls what it finds
+    try:
+        block, kblocks = cs.block_probe(B)
+    finally:
+        B.block_apply = apply
+    run = functools.partial(cs.teacher_logits, cfg, params, prompts, tokens,
+                            13, torch.device("cpu"))
+    kern = run("pallas", route, block)
+    assert kinds == cfg.layer_pattern() * 5
+    assert ("moe_dense" in kinds) == moe and ("attn" in kinds) != moe
+    pin = cs.route_probe(MoE, pinned=calls) if moe else (None, None)
+    plain = run("vector", pin[0])
+    held = cs.held_logits(kern, plain, cs.E2E_F32_TOL, "float32")
+    assert held["greedy_agree"] == 1.0
+    pin_block, vblocks = cs.block_probe(B, pinned=kblocks)
+    run("vector", cs.route_probe(MoE, pinned=calls)[0] if moe else None,
+        pin_block)
+    gaps = cs.stream_gaps(kblocks, vblocks, cs.E2E_TOL, "float32")
+    assert gaps["block_calls"] == cfg.n_layers * 5
+    if moe:
+        assert len(calls) == len(pin[1]) == (cfg.n_layers - 1) * 5
+        flips = cs.route_flips(calls, pin[1], cfg.top_k, "float32")
+        assert flips["router_calls"] == len(calls)
+
+
+def test_spans_swapped_ranges_the_mla_functions_and_restores_them():
+    """The profiler spans wrap prefill attention and MLA's absorbed decode
+    in a range named after each (the CPU profiler sees them), and put the
+    package's functions back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    cfg = get_config("minicpm3-4b").reduced().replace(dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(5), "cpu")
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        2, cfg.vocab_size, (2, 6)))
+    originals = (ops.attention, A._mla_absorbed)
+    saved = cs.spans_swapped()
+    try:
+        assert (ops.attention, A._mla_absorbed) != originals
+        assert [(m.__name__, a) for m, a, _ in saved] == [
+            (mod, attr) for _, mod, attr in cs.SPANS]
+        cache = M.init_cache(cfg, 2, 8, "cpu")
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            _, cache = M.forward(params, cfg, {"tokens": prompts},
+                                 mode="prefill", cache=cache)
+            M.forward(params, cfg, {"tokens": prompts[:, :1]},
+                      mode="decode", cache=cache,
+                      lengths=torch.full((2,), 6, dtype=torch.int32))
+    finally:
+        for m, attr, fn in saved:
+            setattr(m, attr, fn)
+    assert (ops.attention, A._mla_absorbed) == originals
+    counts = {ev.key: ev.count for ev in prof.key_averages()}
+    assert counts["attention"] == counts["mla_absorbed"] == cfg.n_layers

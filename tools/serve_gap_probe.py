@@ -29,7 +29,9 @@ with:
     statistic: the vector tier with ssd's fp32 sums chunked at 64 and 32
     rows, the vector tier with cuBLAS's bf16 split-K reductions
     disallowed, the kernel run with one op at a time on its vector tier,
-    and the kernel run against the vector run without bf16 reductions;
+    and the kernel run against the vector run without bf16 reductions
+    (an op already on its vector tier, as MLA's attention is, reads as
+    the kernel run);
   * ``unpinned`` (an MoE): the vector run on its own routing, its flips
     and its gap;
   * ``controls``: the kernel run with a fault planted in one block (the
@@ -60,7 +62,9 @@ import chip_smoke as cs  # noqa: E402
 
 # arch -> its config module under repro_torch.configs
 ARCHS = {"zamba2-1.2b": "zamba2_1p2b", "mamba2-1.3b": "mamba2_1p3b",
-         "granite-moe-1b-a400m": "granite_moe_1b_a400m"}
+         "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+         "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+         "minicpm3-4b": "minicpm3_4b"}
 FAULT_SCALE = 1.05
 FAULT_MANTISSA = 4        # bits kept of float32's 23
 
