@@ -15,9 +15,13 @@ window and with NaN, inf and ties on the vector path, both through an
 input off 16 bytes, each call one launch; the elementwise four at odd
 sizes and zamba2's gelu shapes in both dtypes; ssd from 1 to 2048
 positions, at mamba2's n = 128, with fast decays, and bitwise against
-itself; flash and decode also at granite's GQA 16/8, D 64; vsigmoid also
-at the silu's shapes of deepseek-v2-lite-16b and minicpm3-4b).  Then it
-drives the port's main paths:
+itself; flash and decode also at granite's GQA 16/8, D 64 and at every
+attention call of gemma2-2b, gemma3-1b, whisper-tiny and pixtral-12b
+(``LM_NEW``: D 256 with window and softcap, MQA, whisper's non-causal
+1500-frame encoder and its one-row cross-attention); vsigmoid also at the
+silu's shapes of deepseek-v2-lite-16b, minicpm3-4b and pixtral, vtanh at
+the gelu's of the gemmas and whisper and at gemma2's final softcap).
+Then it drives the port's main paths:
 
   * the ten Figure-2 workloads of the paper through ``ops.* ->
     registry.dispatch -> traced costs -> customized tier -> CUDA kernel``
@@ -25,17 +29,23 @@ drives the port's main paths:
     properties;
   * serving at full width and depth (bf16, seeded random weights) under
     the default target (h100) and policy, for zamba2-1.2b,
-    granite-moe-1b-a400m, deepseek-v2-lite-16b and minicpm3-4b, each
-    freed before the next (and each bf16 model before its float32 one):
-    ``Engine.generate`` for 4 requests of 512-token prompts and 32 greedy
-    tokens, which must run the kernel tier of every op the arch's layers
-    reach (``serve_ops``: gemm; vtanh for zamba2's gelu, vsigmoid for the
-    silu of the others' MLPs and experts; flash attention and flash
-    decode where a layer attends with GQA; ssd where it is a Mamba2
-    layer), but MLA's prefill attention, whose split head dims keep it on
-    the vector tier by the reference's rule, and whose absorbed decode
-    dispatches no attention op (``serve_tier``), with exact launch
-    counts of the LM kernels (``serve_want``), then a teacher-forced
+    granite-moe-1b-a400m, deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b,
+    gemma3-1b and whisper-tiny, each freed before the next (and each
+    bf16 model before its float32 one): ``Engine.generate`` for 4
+    requests of 512-token prompts and 32 greedy tokens (whisper's with
+    1500 stub frames each: ``data.pipeline.extra_inputs``; pixtral-12b
+    is held, ROADMAP C.23, and served by ``tools/serve_gap_probe.py``
+    with its stub patches), which must run the kernel
+    tier of every op the arch's layers reach (``serve_ops``: gemm; vtanh
+    for the gelu of zamba2, the gemmas and whisper and for gemma2's final
+    softcap, vsigmoid for the silu of the others' MLPs and experts; flash
+    attention and flash decode where a layer attends with GQA; ssd where
+    it is a Mamba2 layer), but MLA's prefill attention, whose split head
+    dims keep it on the vector tier by the reference's rule, and whose
+    absorbed decode dispatches no attention op (``serve_tier``), with
+    exact launch counts of the LM kernels (``serve_want``: whisper's
+    encoder and its cross-attention, at prefill and at every decode
+    step, are flash launches), then a teacher-forced
     check of its logits against the same model under the vector tier
     over the whole model, in bf16 and again with the model in float32,
     both runs on the kernel tier of the same ops.  In bf16 a third run
@@ -45,9 +55,15 @@ drives the port's main paths:
     swapped for ``route_probe`` in both dtypes: the vector runs route by
     the kernel run's top-k indices (``route_flips`` counts where its own
     would differ and fails unless each such flip sits on a margin within
-    the two runs' router-probability gap).  The profiled prefill and
-    decode steps also read the device ms of prefill attention and of
-    MLA's absorbed decode (``SPANS``).
+    the two runs' router-probability gap).  whisper's ``dec`` blocks in
+    the pinned run also read the kernel run's encoder output.  The
+    profiled prefill and decode steps also read the device ms of prefill
+    attention and of MLA's absorbed decode (``SPANS``);
+  * ``serve_window``: the same gates for gemma3-1b at 4 requests of
+    1024-token prompts (32 tokens) and gemma2-2b at one request of 4160
+    tokens (8 tokens), prompts longer than their windows (512, 4096):
+    the local layers' ring is written in prefill, the window masks
+    flash, gemma3's decode wraps its ring (``SERVE_WINDOW``).
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
@@ -107,8 +123,11 @@ gelu's serving shapes and vsigmoid at granite's experts', ssd also in
 float32 and at mamba2's shape, flash and decode at granite's, gemm also
 in bf16 and float32 at the serving path's shapes (M = 4 and 2048 against
 zamba2's five weight shapes, granite's two in bf16, deepseek's and
-minicpm3's in both dtypes), vsigmoid at their silu's shapes in both
-dtypes, and split-K
+minicpm3's in both dtypes; gemma2's, gemma3's, whisper's and pixtral's,
+pixtral's head among them, in bf16), vsigmoid at their silu's shapes in
+both dtypes, the new archs' gelu and silu in bf16 and gemma2's final
+softcap in float32, flash and decode at every ``LM_NEW`` call in bf16
+(sdpa as the library call but where there is a softcap), and split-K
 against the kernel above it at M = 4, 8 and 16 (the small-M
 threshold); conv_hwc, dwconv, the pools and ibilinear also in bf16,
 beside the library call in bf16 where there is one; ibilinear's rows
@@ -221,6 +240,31 @@ MINICPM_GEMM = ((2560, 768), (768, 3840), (2560, 288), (2560, 2560),
 MLA_PREFILL_GEMM = {"deepseek": (512, 2048), "minicpm3": (256, 2560)}
 MLA_GEMM = {"deepseek": DEEPSEEK_GEMM, "minicpm3": MINICPM_GEMM}
 SERVE_M = (4, 2048)
+# gemma2-2b's, gemma3-1b's, whisper-tiny's and pixtral-12b's as (K, N):
+# q, k/v, o, the MLP's up (and gate) and down; pixtral's untied head too
+# (the tied heads are plain matmuls).  (K, N) -> the M of a decode step
+# and of a prefill: 4 x 512 tokens, pixtral's 4 x (256 + 512) positions,
+# whisper's 4 x 1500 frames through the encoder and the cross k/v
+NEW_GEMM = {
+    "gemma2": (((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+                (9216, 2304)), (4, 2048)),
+    "gemma3": (((1152, 1024), (1152, 256), (1024, 1152), (1152, 6912),
+                (6912, 1152)), (4, 2048)),
+    "whisper": (((384, 384), (384, 1536), (1536, 384)), (4, 2048, 6000)),
+    "pixtral": (((5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336),
+                 (14336, 5120), (5120, 131072)), (4, 3072))}
+# the gelu (vtanh) and silu (vsigmoid) of their MLPs in a prefill and a
+# decode step, and gemma2's final logit softcap (vtanh on the float32
+# logits of every prompt position, then of one a step)
+NEW_EW_SHAPES = (("vtanh", "gemma2_gelu_prefill", (4, 512, 9216)),
+                 ("vtanh", "gemma2_gelu_decode", (4, 1, 9216)),
+                 ("vtanh", "gemma3_gelu_prefill", (4, 512, 6912)),
+                 ("vtanh", "whisper_gelu_prefill", (4, 512, 1536)),
+                 ("vtanh", "whisper_enc_gelu", (4, 1500, 1536)),
+                 ("vsigmoid", "pixtral_silu_prefill", (4, 768, 14336)),
+                 ("vsigmoid", "pixtral_silu_decode", (4, 1, 14336)))
+SOFTCAP_SHAPES = (("gemma2_softcap_prefill", (4, 512, 256000)),
+                  ("gemma2_softcap_decode", (4, 1, 256000)))
 # the silu (vsigmoid) of the new archs' MLPs: deepseek's experts at
 # capacity 240 (prefill) and 8 (decode), its shared experts and dense
 # first layer, minicpm3's MLP, each in a prefill and a decode step
@@ -246,16 +290,26 @@ DECODE_KERNELS = ("dec::split_kernel", "dec::combine_kernel")
 SPANS = (("attention", "repro_torch.kernels.ops", "attention"),
          ("mla_absorbed", "repro_torch.models.attention", "_mla_absorbed"))
 # The serving paths: each arch at full width and depth, bf16 and again
-# float32: 4 requests of 512-token prompts, 32 greedy tokens
+# float32: 4 requests of 512-token prompts, 32 greedy tokens (whisper's
+# requests each with 1500 stub frames)
 SERVE = dict(batch=4, prompt=512, gen=32)
-# (mamba2-1.3b's config and blocks are in the port, but get_config
-# refuses it: at full depth its bf16 logits cross E2E_TOL by rounding
-# alone; ROADMAP C.22)
+# (mamba2-1.3b's and pixtral-12b's configs and blocks are in the port,
+# but get_config refuses them: at full depth their bf16 logits cross
+# E2E_TOL by rounding alone; ROADMAP C.22, C.23.  Their kernels' calls
+# are checked and timed here all the same, and tools/serve_gap_probe.py
+# serves them)
 SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-               "minicpm3-4b")
+               "minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny")
+# The sliding-window traffic (``serve_window``): prompts longer than each
+# gemma's window, so that the local layers' ring is written in prefill,
+# the window masks flash and (gemma3) decode wraps the ring; gemma2's
+# vector tier takes its chunked attention there (Sq x Sk > 2048^2)
+SERVE_WINDOW = (("gemma3-1b", dict(batch=4, prompt=1024, gen=32)),
+                ("gemma2-2b", dict(batch=1, prompt=4160, gen=8)))
 # the block kinds whose layers attend (each with an MLP after it), and
 # those that are Mamba2 layers
-ATTN_KINDS = ("mamba_shared", "moe", "moe_dense", "attn")
+ATTN_KINDS = ("mamba_shared", "moe", "moe_dense", "attn", "local", "enc",
+              "dec")
 MAMBA_KINDS = ("mamba", "mamba_shared")
 # an MLP's activation -> the elementwise op it dispatches
 ACT_OP = {"gelu": "vtanh", "silu": "vsigmoid"}
@@ -541,20 +595,68 @@ def conv_checks(op, rng, dev):
     return out
 
 
+# The attention calls of gemma2, gemma3, whisper and pixtral, as (batch,
+# query rows, keys, heads, kv heads, head dim, causal, window, softcap)
+# for flash and (batch, cache slots, heads, kv heads, head dim, valid
+# length, window, softcap) for decode: gemma2's (window 4096, softcap 50)
+# and gemma3's (MQA, window 512) local layers at the standard traffic and
+# at the window traffic (``SERVE_WINDOW``); whisper's encoder (non-causal,
+# 1500 frames), decoder self-attention and cross-attention at prefill and
+# at a decode step (one query row); pixtral's 256 patches + 512 tokens;
+# each decode against its cache in the middle of the 32 steps (gemma3's
+# ring full: 512 of 512 slots; gemma2's window traffic 4096 of 4096).
+# The global layers of the gemmas run the same calls without the window.
+LM_NEW = {
+    "flash_attention": {
+        "gemma2": (4, 512, 512, 8, 4, 256, True, 4096, 50.0),
+        "gemma2_window": (1, 4160, 4160, 8, 4, 256, True, 4096, 50.0),
+        "gemma3": (4, 512, 512, 4, 1, 256, True, 512, None),
+        "gemma3_window": (4, 1024, 1024, 4, 1, 256, True, 512, None),
+        "whisper_enc": (4, 1500, 1500, 6, 6, 64, False, None, None),
+        "whisper_self": (4, 512, 512, 6, 6, 64, True, None, None),
+        "whisper_cross": (4, 512, 1500, 6, 6, 64, False, None, None),
+        "whisper_cross_decode": (4, 1, 1500, 6, 6, 64, False, None, None),
+        "pixtral": (4, 768, 768, 32, 8, 128, True, None, None)},
+    "decode_attention": {
+        "gemma2": (4, 544, 8, 4, 256, 528, None, 50.0),
+        "gemma2_window": (1, 4096, 8, 4, 256, 4096, None, 50.0),
+        "gemma3": (4, 512, 4, 1, 256, 512, None, None),
+        "whisper": (4, 544, 6, 6, 64, 528, None, None),
+        "pixtral": (4, 800, 32, 8, 128, 784, None, None)}}
+
+
+def lm_new_args(op, spec, draw, lengths):
+    """An ``LM_NEW`` call's arguments: ``draw(shape)`` makes each tensor,
+    ``lengths(b, n)`` decode's valid lengths."""
+    if op == "flash_attention":
+        b, sq, sk, h, hkv, d, causal, window, softcap = spec
+        return (draw((b, sq, h, d)), draw((b, sk, hkv, d)),
+                draw((b, sk, hkv, d)), causal, window, softcap)
+    b, s, h, hkv, d, n, window, softcap = spec
+    return (draw((b, 1, h, d)), draw((b, s, hkv, d)), draw((b, s, hkv, d)),
+            lengths(b, n), window, softcap)
+
+
 def lm_cases(op, rng):
     """(label, args) of an LM kernel on the host, fp32, made with numpy:
     zamba2's serving shapes first, granite's (GQA 16/8, D 64) and
-    mamba2's (ssd at g 1, n 128) next, then GQA with a window and softcap 50,
+    mamba2's (ssd at g 1, n 128) next, then the calls of gemma2, gemma3,
+    whisper and pixtral (``LM_NEW``), GQA with a window and softcap 50,
     Sq < Sk with D 16 (attention), ragged lengths with a window (decode),
     s off the chunk, s < 8 and g < h (ssd)."""
     import torch
     n = _normal
+    new = [(label, lm_new_args(
+        op, spec, lambda shape: n(rng, shape),
+        lambda b, v: torch.full((b,), v, dtype=torch.int32)))
+        for label, spec in LM_NEW.get(op, {}).items()]
     if op == "flash_attention":
         def qkv(b, sq, sk, h, hkv, d):
             return (n(rng, (b, sq, h, d)), n(rng, (b, sk, hkv, d)),
                     n(rng, (b, sk, hkv, d)))
         return [("zamba2", qkv(4, 512, 512, 32, 32, 128) + (True, None, None)),
                 ("granite", qkv(4, 512, 512, 16, 8, 64) + (True, None, None)),
+                *new,
                 ("gqa_window_softcap",
                  qkv(2, 300, 300, 8, 4, 256) + (True, 64, 50.0)),
                 ("sq_lt_sk_d16", qkv(2, 50, 200, 4, 2, 16) + (True, None, None)),
@@ -567,6 +669,7 @@ def lm_cases(op, rng):
                     torch.tensor(lens, dtype=torch.int32))
         return [("zamba2", dec(4, 544, 32, 32, 128, (528,) * 4) + (None, None)),
                 ("granite", dec(4, 544, 16, 8, 64, (528,) * 4) + (None, None)),
+                *new,
                 ("ragged_window_gqa_softcap",
                  dec(4, 200, 8, 4, 256, (0, 1, 100, 200)) + (64, 50.0)),
                 ("ragged_d16", dec(3, 70, 4, 2, 16, (5, 69, 70)) + (None, None)),
@@ -648,17 +751,27 @@ def lm_time_args(op, gen, dev, arch="zamba2"):
 
 def lm_library_call(op, args):
     """scaled_dot_product_attention on the same inputs (heads moved to
-    dim 1 beforehand, as it wants them; GQA heads shared by it), a
-    yardstick of time only; none for ssd."""
+    dim 1 beforehand, as it wants them; GQA heads shared by it; a window
+    as a boolean mask made beforehand), a yardstick of time only; none
+    for ssd, and none where the call has a softcap, which sdpa does not
+    apply."""
     import torch
     import torch.nn.functional as F
-    if op == "ssd":
+    if op == "ssd" or args[5] is not None:
         return None
     q, k, v = (t.transpose(1, 2).contiguous() for t in args[:3])
     gqa = q.shape[1] != k.shape[1]
     if op == "flash_attention":
+        causal, window = args[3], args[4]
+        if window is None:
+            return lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=gqa)
+        sq, sk = q.shape[2], k.shape[2]
+        i = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        j = torch.arange(sk, device=q.device)[None, :]
+        mask = (i - j < window) & ((i >= j) if causal else True)
         return lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=args[3], enable_gqa=gqa)
+            q, k, v, attn_mask=mask, enable_gqa=gqa)
     lens = args[3]
     mask = (torch.arange(k.shape[2], device=k.device)[None, :]
             < lens[:, None])[:, None, None, :]
@@ -1013,13 +1126,19 @@ def serve_want(cfg, plen, steps):
     layer of the prefill (decode runs the recurrence in closed form), one
     flash launch per attending layer of the prefill and one decode launch
     per attending layer and later step; 0 where the arch has none, and
-    both 0 for MLA (its attention runs no kernel, ``serve_tier``)."""
+    both 0 for MLA (its attention runs no kernel, ``serve_tier``).  An
+    encoder's layers add a flash launch each to the prefill, and a
+    ``dec`` layer's cross-attention one flash launch to the prefill and
+    to every later step (one query row against the frames: the
+    reference runs it through ``ops.attention`` in every mode)."""
     from repro_torch.kernels import ssd as ssd_mod
     kinds = cfg.layer_pattern()
     n_ssd = sum(k in MAMBA_KINDS for k in kinds)
     n_attn = 0 if cfg.attn_kind == "mla" else \
         sum(k in ATTN_KINDS for k in kinds)
-    return {"ssd": n_ssd * ssd_mod.launches(plen), "flash_attention": n_attn,
+    n_cross = sum(k == "dec" for k in kinds)
+    return {"ssd": n_ssd * ssd_mod.launches(plen),
+            "flash_attention": n_attn + cfg.n_enc_layers + n_cross * steps,
             "decode_attention": n_attn * (steps - 1)}
 
 
@@ -1046,21 +1165,44 @@ def route_probe(moe_mod, pinned=None):
     return probe, calls
 
 
+def layer_labels():
+    """A function of a block call's (kind, ctx) that names its layer: the
+    kind and the call's index among the calls made with the same ctx (one
+    forward's decoder stack, or its encoder), e.g. ``mamba_shared.5`` or
+    ``enc.2``."""
+    seen = {"ctx": None, "j": 0}
+
+    def label(kind, ctx):
+        if ctx is not seen["ctx"]:
+            seen["ctx"], seen["j"] = ctx, 0
+        seen["j"] += 1
+        return f"{kind}.{seen['j'] - 1}"
+    return label
+
+
 def block_probe(blocks_mod, pinned=None):
     """A stand-in for ``repro_torch.models.blocks.block_apply`` (swapped
     in from here) and the list it fills: each block call's input and
-    output residual stream.  Given ``pinned`` (another run's list), call
-    i takes pinned[i]'s input in place of its own, so that each block of
-    this run starts from the other run's residual stream and the two
-    runs differ by one block's arithmetic, not by the rounding of every
-    block before it."""
-    calls, apply = [], blocks_mod.block_apply
+    output residual stream, its layer (``layer_labels``) and, for a
+    ``dec`` block in prefill, the encoder output it reads.  Given
+    ``pinned`` (another run's list), call i takes pinned[i]'s input, and
+    its encoder output, in place of its own, so that each block of this
+    run starts from the other run's residual stream and memory and the
+    two runs differ by one block's arithmetic, not by the rounding of
+    every block (or encoder) before it."""
+    import dataclasses
+    calls, apply, label = [], blocks_mod.block_apply, layer_labels()
 
     def probe(kind, params, x, cache, ctx):
+        layer = label(kind, ctx)
         if pinned is not None:
             x = pinned[len(calls)]["x"]
+            if pinned[len(calls)]["memory"] is not None:
+                ctx = dataclasses.replace(
+                    ctx, memory=pinned[len(calls)]["memory"])
         y, cache = apply(kind, params, x, cache, ctx)
-        calls.append({"x": x, "y": y})
+        calls.append({"x": x, "y": y, "layer": layer,
+                      "memory": ctx.memory if kind == "dec" else None})
         return y, cache
     return probe, calls
 
@@ -1144,14 +1286,15 @@ def route_flips(kern, plain, k, what):
 
 
 def teacher_logits(cfg, params, prompts, tokens, max_seq, dev, policy,
-                   route=None, block=None):
+                   route=None, block=None, extra=None):
     """The logits of one teacher-forced run under ``policy``: the prompts
-    prefilled, then ``tokens`` (b, steps) fed one a step, each step's
-    logits kept over the vocabulary (the padded rows hold -1e30 in every
-    run, which would be every step's max |logit|); (steps, b, vocab) in
-    float32.  An MoE's router calls go through ``route`` and the blocks
-    through ``block`` where one is given (``route_probe``,
-    ``block_probe``), swapped in for the run and restored after it."""
+    prefilled (with ``extra``, the frames or patches), then ``tokens``
+    (b, steps) fed one a step, each step's logits kept over the
+    vocabulary (the padded rows hold -1e30 in every run, which would be
+    every step's max |logit|); (steps, b, vocab) in float32.  An MoE's
+    router calls go through ``route`` and the blocks through ``block``
+    where one is given (``route_probe``, ``block_probe``), swapped in for
+    the run and restored after it."""
     import torch
     from repro_torch.core import use_policy
     from repro_torch.models import blocks as blocks_mod
@@ -1168,11 +1311,14 @@ def teacher_logits(cfg, params, prompts, tokens, max_seq, dev, policy,
         try:
             prefill = make_prefill_step(cfg)
             step = make_serve_step(cfg)
-            cache = M.init_cache(cfg, b, max_seq, dev)
+            p_off = cfg.n_patches if cfg.family == "vlm" else 0
+            cache = M.init_cache(cfg, b, max_seq + p_off, dev)
             lg, cache = prefill(params, cache, {
-                "tokens": torch.as_tensor(prompts, device=dev)})
+                "tokens": torch.as_tensor(prompts, device=dev),
+                **(extra or {})})
             out = [lg[:, :vocab].float()]
-            lens = torch.full((b,), plen, dtype=torch.int32, device=dev)
+            lens = torch.full((b,), plen + p_off, dtype=torch.int32,
+                              device=dev)
             tok = torch.as_tensor(tokens, device=dev).long()
             for i in range(steps - 1):
                 lg, cache = step(params, cache, tok[:, i:i + 1], lens)
@@ -1209,12 +1355,14 @@ def held_logits(kern, plain, rel_tol, what):
             "clear_steps": int(clear.sum())}
 
 
-def warm_run(cfg, params, prompts, max_seq, dev):
-    """A second Engine over the same prompts (its selections cached): a
-    prefill and ``SERVE["gen"] - 1`` decode steps timed apart on the host
-    clock, gemm's launches counted by variant in each, then a prefill and
-    two decode steps under the profiler (``profile_steps``).  Returns the
-    times, counts and profiles, and the tokens it generated."""
+def warm_run(cfg, params, prompts, max_seq, dev, steps=SERVE["gen"],
+             extra=None):
+    """A second Engine over the same prompts (and ``extra``; its
+    selections cached): a prefill and ``steps`` - 1 decode steps timed
+    apart on the host clock, gemm's launches counted by variant in each,
+    then a prefill and two decode steps under the profiler
+    (``profile_steps``).  Returns the times, counts and profiles, and the
+    tokens it generated."""
     import torch
     from repro_torch.kernels import gemm as gemm_mod
     from repro_torch.serve.engine import Engine
@@ -1222,12 +1370,12 @@ def warm_run(cfg, params, prompts, max_seq, dev):
     def gemm_counts():
         return {k: v for k, v in gemm_mod.LAUNCHES.items() if k != "gemm"}
 
-    b, steps = prompts.shape[0], SERVE["gen"]
+    b = prompts.shape[0]
     eng = Engine(cfg, params, b, max_seq, device=dev)
     torch.cuda.synchronize()
     gemm_mod.reset_launches()
     t0 = time.perf_counter()
-    first = eng.prefill(prompts)
+    first = eng.prefill(prompts, extra)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_gemm = gemm_counts()
@@ -1246,32 +1394,35 @@ def warm_run(cfg, params, prompts, max_seq, dev):
             "gemm_launches": {"prefill": prefill_gemm,
                               "decode": decode_gemm},
             "decode_profile": profile_steps(lambda: eng.decode(again, 2), 2),
-            "prefill_profile": profile_steps(lambda: eng.prefill(prompts),
-                                             1),
+            "prefill_profile": profile_steps(
+            lambda: eng.prefill(prompts, extra), 1),
             "tokens": np.concatenate([first.cpu().numpy()[:, None], rest],
                                      axis=1)}
 
 
-def serve_arch(dev, modules, arch):
+def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     """Drive ``arch`` serving at full width and depth through the port's
-    Engine under the default target (h100) and policy, count the kernel
-    launches of that run, time prefill and decode, and hold its logits
-    against the vector tier's (teacher forced) over the whole model, in
-    bf16 and in float32 (an MoE's vector run routed by the kernel run's
-    indices, its flips counted); in bf16 also each block's output, the
-    vector block started from the kernel run's input.  Returns the
-    phase's record."""
+    Engine under the default target (h100) and policy, ``traffic``'s
+    requests (whisper's with stub frames, pixtral's with stub patches:
+    ``extra_inputs``), count the kernel launches of that run, time
+    prefill and decode, and hold its logits against the vector tier's
+    (teacher forced) over the whole model, in bf16 and in float32 (an
+    MoE's vector run routed by the kernel run's indices, its flips
+    counted); in bf16 also each block's output, the vector block started
+    from the kernel run's input.  Emits and returns the ``phase``
+    record."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import trace
     from repro_torch.core.registry import REGISTRY
+    from repro_torch.data.pipeline import extra_inputs
     from repro_torch.models import blocks as blocks_mod
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import Engine
 
     cfg = get_config(arch)
-    b, plen, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    b, plen, steps = traffic["batch"], traffic["prompt"], traffic["gen"]
     max_seq = plen + steps
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
@@ -1282,6 +1433,7 @@ def serve_arch(dev, modules, arch):
     init_s = time.perf_counter() - t0
     prompts = np.random.default_rng(SEED).integers(2, cfg.vocab_size,
                                                    (b, plen))
+    extra = extra_inputs(cfg, b, SEED, dev)
     ops_ = serve_ops(cfg)
     act = [op for op in ops_ if op in EW_OPS]
     want = serve_want(cfg, plen, steps)
@@ -1313,19 +1465,19 @@ def serve_arch(dev, modules, arch):
         eng = Engine(cfg, params, b, max_seq)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tokens = eng.generate(prompts, steps)
+        tokens = eng.generate(prompts, steps, extra)
         torch.cuda.synchronize()
         generate_s = time.perf_counter() - t0
     launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
     chosen = tiers(counted)
-    emit("serve_tiers", arch=arch, target="h100", policy=REGISTRY.policy,
-         dtype=cfg.dtype, chosen=chosen)
+    emit("serve_tiers", arch=arch, traffic=phase, target="h100",
+         policy=REGISTRY.policy, dtype=cfg.dtype, chosen=chosen)
     gated(launches, chosen, cfg.dtype)
     if tokens.shape != (b, steps) or not ((tokens >= 0) &
                                           (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"serve: tokens {tokens.shape} out of range")
 
-    warm = warm_run(cfg, params, prompts, max_seq, dev)
+    warm = warm_run(cfg, params, prompts, max_seq, dev, steps, extra)
     prefill_gemm, decode_gemm = warm["gemm_launches"].values()
     if prefill_gemm["gemm_mma"] == 0 or decode_gemm["gemm_small_m"] == 0 \
             or decode_gemm["gemm_mma"] != 0:
@@ -1351,7 +1503,7 @@ def serve_arch(dev, modules, arch):
         if blocks:
             block, kblocks = block_probe(blocks_mod)
         run = functools.partial(teacher_logits, cfg_, params_, prompts,
-                                tokens, max_seq, dev)
+                                tokens, max_seq, dev, extra=extra)
         with trace.count() as counted_:
             kern = run("pallas", route, block)
         launched = {k: v for m in modules for k, v in m.LAUNCHES.items()}
@@ -1377,7 +1529,7 @@ def serve_arch(dev, modules, arch):
         raise AssertionError("serve: the teacher-forced kernel run does "
                              "not reproduce its own greedy tokens")
     record = {
-        "arch": cfg.name, "params": M.count_params(params),
+        "arch": cfg.name, "traffic": phase, "params": M.count_params(params),
         "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "batch": b, "prompt_len": plen, "generated": steps,
         "target": "h100", "chosen": chosen, "ops": list(ops_),
@@ -1411,8 +1563,8 @@ def serve_arch(dev, modules, arch):
     params32 = M.init(cfg32, gen, dev)
     kern, launches32, chosen32, f32_held = checked(
         cfg32, params32, E2E_F32_TOL, "float32", blocks=False)
-    emit("serve_tiers", arch=arch, target="h100", policy="pallas",
-         dtype="float32", chosen=chosen32)
+    emit("serve_tiers", arch=arch, traffic=phase, target="h100",
+         policy="pallas", dtype="float32", chosen=chosen32)
     gated(launches32, chosen32, "float32")
     if launches32["gemm_simt"] == 0:
         raise AssertionError("serve/float32: gemm_simt never launched")
@@ -1420,7 +1572,7 @@ def serve_arch(dev, modules, arch):
                          **f32_held,
                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     del params32, kern
-    emit("serve", **record)
+    emit(phase, **record)
     torch.cuda.empty_cache()
     return record
 
@@ -2505,10 +2657,19 @@ def main(argv=None) -> int:
     # serving (SILU_SHAPES)
     silu_cases = [(shape, dt) for _, shape in SILU_SHAPES
                   for dt in (torch.float32, torch.bfloat16)]
+    # and both at the gelu's and silu's shapes of gemma2, gemma3, whisper
+    # and pixtral (NEW_EW_SHAPES), vtanh at gemma2's final softcap, whose
+    # logits are float32 in either model dtype
+    new_cases = {op: [(shape, dt) for o, _, shape in NEW_EW_SHAPES
+                      if o == op for dt in (torch.float32, torch.bfloat16)]
+                 for op in EW_OPS}
+    new_cases["vtanh"] += [(shape, torch.float32)
+                           for _, shape in SOFTCAP_SHAPES]
     max_err = {}
     for op in EW_OPS:
         errs = []
-        for shape, dt in cases + (silu_cases if op == "vsigmoid" else []):
+        for shape, dt in cases + new_cases[op] + \
+                (silu_cases if op == "vsigmoid" else []):
             x = workload(op, torch.randn(shape, generator=gen,
                                          device=dev)).to(dt)
             err = compare(op, ew.KERNELS[op](x, *extra_args(op)),
@@ -2706,8 +2867,12 @@ def main(argv=None) -> int:
          ops_call_ms=ops_ms, wrapper_call_ms=wrapper_ms,
          registry=REGISTRY.cache_info())
 
-    # 5. the serving paths: each arch at full width and depth -----------
+    # 5. the serving paths: each arch at full width and depth, then the
+    # gemmas at prompts longer than their windows ----------------------
     serve = {arch: serve_arch(dev, modules, arch) for arch in SERVE_ARCHS}
+    serve.update({f"{arch}/window": serve_arch(dev, modules, arch, traffic,
+                                               "serve_window")
+                  for arch, traffic in SERVE_WINDOW})
 
     # 6. the NEON frontend: every isa op, then the corpus through port ----
     isa_phase(dev)
@@ -2738,6 +2903,12 @@ def main(argv=None) -> int:
     # deepseek's and minicpm3's silu, in both dtypes (the float32 check's)
     ew_sizes += [("vsigmoid", dt, size, shape) for size, shape in SILU_SHAPES
                  for dt in (torch.bfloat16, torch.float32)]
+    # gemma2's, gemma3's and whisper's gelu and pixtral's silu in bf16;
+    # gemma2's final softcap on its float32 logits
+    ew_sizes += [(op, torch.bfloat16, size, shape)
+                 for op, size, shape in NEW_EW_SHAPES]
+    ew_sizes += [("vtanh", torch.float32, size, shape)
+                 for size, shape in SOFTCAP_SHAPES]
     for op, dt, size, shape in ew_sizes:
         x = workload(op, torch.randn(shape, generator=gen,
                                      device=dev)).to(dt)
@@ -2774,6 +2945,13 @@ def main(argv=None) -> int:
     lm_timed += [("ssd", size + "_f32", on(args, dev, torch.float32,
                                            keep=lm_keep("ssd")))
                  for op, size, args in lm_timed if op == "ssd"]
+    # the attention calls of gemma2, gemma3, whisper and pixtral, bf16
+    lm_timed += [(op, f"serve_{label}", lm_new_args(
+        op, spec,
+        lambda shape: torch.randn(shape, generator=gen, device=dev)
+        .to(torch.bfloat16),
+        lambda b, v: torch.full((b,), v, dtype=torch.int32, device=dev)))
+        for op, specs in LM_NEW.items() for label, spec in specs.items()]
     for op, size, targs in lm_timed:
         mod = module[op]
         if op == "decode_attention":
@@ -2823,6 +3001,11 @@ def main(argv=None) -> int:
                   for arch, shapes in MLA_GEMM.items() for k, n in shapes]
     gemm_rows += [(dt, f"{arch}_", k, n, SERVE_M[1:]) for dt in (bf, f32)
                   for arch, (k, n) in MLA_PREFILL_GEMM.items()]
+    # gemma2's, gemma3's, whisper's and pixtral's (pixtral's head among
+    # them) at their decode and prefill M, in bf16
+    gemm_rows += [(bf, f"{arch}_", k, n, ms)
+                  for arch, (shapes, ms) in NEW_GEMM.items()
+                  for k, n in shapes]
     for dt, arch, k, n, ms in gemm_rows:
         w = (torch.randn((k, n), generator=gen, device=dev)
              * k ** -0.5).to(dt)
@@ -2874,7 +3057,7 @@ def main(argv=None) -> int:
     # gemm at the serving path's commonest call: M = 4, bf16, the Mamba
     # input projection (38 of a zamba2 decode step's launches); launches
     # summed over the main paths, each counted from 0 (Figure-2, then each
-    # arch's generate)
+    # arch's generate, then each window traffic's)
     kernels = []
     paths = {"figure2": launches,
              **{arch: r["launches"] for arch, r in serve.items()}}

@@ -1,11 +1,14 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch``.
 
-The port's model stack has the Mamba2 block kinds (``mamba``,
-``mamba_shared``), the GQA shared block and the ``attn``, ``moe`` and
-``moe_dense`` transformer blocks with GQA or MLA attention; an arch whose
-layers need a block kind not ported yet, or whose serving check on the
-card does not pass yet, is known by name but refused with the ROADMAP
-item that holds it.
+The port's model stack has every block kind of the reference: the Mamba2
+kinds (``mamba``, ``mamba_shared``), the GQA shared block, the ``attn``,
+``local`` (sliding window), ``moe`` and ``moe_dense`` transformer blocks
+with GQA or MLA attention, and whisper's ``enc`` and ``dec`` blocks (with
+cross-attention); vlm patch inputs are prepended to the tokens.  An arch
+that needs a module not ported yet, or whose serving check on the card
+does not pass yet (mamba2-1.3b, pixtral-12b: their config modules are
+here), is known by name but refused with the ROADMAP item that holds
+it.
 """
 from __future__ import annotations
 
@@ -19,18 +22,20 @@ _PORTED = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "minicpm3-4b": "minicpm3_4b",
+    "gemma2-2b": "gemma2_2b",
+    "gemma3-1b": "gemma3_1b",
+    "whisper-tiny": "whisper_tiny",
 }
 # arch -> what it still needs (ROADMAP A.9, in its order)
 _WAITING = {
     "mamba2-1.3b": "a bf16 serving limit that its full depth can pass "
                    "(configs/mamba2_1p3b.py and its blocks are ported; "
                    "ROADMAP C.22)",
-    "gemma2-2b": "the local transformer block, with its softcaps",
-    "gemma3-1b": "the local transformer block, with qk-norm",
+    "pixtral-12b": "a bf16 serving limit that its full depth can pass "
+                   "(configs/pixtral_12b.py, its patch inputs and the "
+                   "Engine's offset are ported; ROADMAP C.23)",
     "mistral-large-123b": "models/sharding.py (its ~246 GB of bf16 "
                           "weights do not fit one card)",
-    "whisper-tiny": "the enc/dec blocks",
-    "pixtral-12b": "the vlm patch inputs",
 }
 
 ARCH_NAMES = tuple(_PORTED)

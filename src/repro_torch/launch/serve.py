@@ -4,7 +4,8 @@
       --reduced --device cpu --batch 4 --prompt-len 16 --gen 32
 
 Without ``--device`` it runs on the card.  Weights come from a seeded
-``torch.Generator`` on the device, the prompts from numpy.
+``torch.Generator`` on the device, the prompts from numpy, and whisper's
+frames and pixtral's patches from ``data.pipeline.extra_inputs``.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ def main(argv=None):
 
     from ..configs import get_config
     from ..core.targets import resolve_device
+    from ..data.pipeline import extra_inputs
     from ..models import model as M
     from ..serve.engine import Engine
 
@@ -46,8 +48,9 @@ def main(argv=None):
                  temperature=args.temperature, device=dev)
     prompts = np.random.default_rng(args.seed).integers(
         2, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int64)
+    extra = extra_inputs(cfg, args.batch, args.seed, dev)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, args.gen)
+    out = eng.generate(prompts, args.gen, extra)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -1,5 +1,5 @@
-"""Attention blocks: GQA (+ sliding window / softcap / qk-norm) and MLA,
-with train, prefill and decode cache handling.
+"""Attention blocks: GQA (+ sliding window / softcap / qk-norm), MLA and
+cross-attention, with train, prefill and decode cache handling.
 
 Cache layouts (static shapes; ``lengths`` tracks the valid prefix):
   gqa global : k, v (B, S_max, Hkv, hd)
@@ -15,8 +15,9 @@ caller's cache tensors in place (no copy of the cache per step) and
 return the same dictionary.  MLA's prefill attention has split head dims
 (q/k wider than v), which the fused kernel does not take: it runs on the
 vector tier by the reference's own rule (``ops._attn_supports``), and its
-absorbed decode is plain products, as the reference's is.  The
-cross-attention branch waits for a later slice (ROADMAP A.9).
+absorbed decode is plain products, as the reference's is.
+Cross-attention (``memory``: whisper's decoder) attends the encoder's k
+and v, non-causal and without rope, in every mode; its caller keeps them.
 """
 from __future__ import annotations
 
@@ -53,20 +54,32 @@ def gqa_cache_init(cfg, batch, s_max, device, window=None, dtype=None):
 
 
 def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
-              window=None, causal=True, target=None):
-    """x:(B,S,d).  mode in train|prefill|decode.  ``target`` pins the
-    attention lowering selection to an explicit machine model."""
+              window=None, memory=None, causal=True, target=None):
+    """x:(B,S,d).  mode in train|prefill|decode.  ``memory``: the (k, v)
+    of a cross-attention, each (B, F, Hkv, hd); the cache is then returned
+    as it came.  ``target`` pins the attention lowering selection to an
+    explicit machine model."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.linear(params["wq"], x).reshape(b, s, h, hd)
-    k = L.linear(params["wk"], x).reshape(b, s, hkv, hd)
-    v = L.linear(params["wv"], x).reshape(b, s, hkv, hd)
+    if memory is None:
+        k = L.linear(params["wk"], x).reshape(b, s, hkv, hd)
+        v = L.linear(params["wv"], x).reshape(b, s, hkv, hd)
+    else:
+        k, v = memory
     if cfg.qk_norm:
         q = L.norm_apply(params["qn"], q)
-        k = L.norm_apply(params["kn"], k)
-    if cfg.rope_theta:
+        if memory is None:
+            k = L.norm_apply(params["kn"], k)
+    if cfg.rope_theta and memory is None:
         q = L.rope_apply(q, positions, cfg.rope_theta)
         k = L.rope_apply(k, positions, cfg.rope_theta)
+
+    if memory is not None:
+        out = ops.attention(q, k, v, causal=False, softcap=cfg.softcap,
+                            target=target)
+        return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), \
+            cache
 
     if mode == "train":
         out = ops.attention(q, k, v, causal=causal, window=window,

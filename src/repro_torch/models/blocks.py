@@ -1,14 +1,17 @@
 """Layer blocks: one (init, cache_init, apply) triple per layer kind.
 
-Ported kinds: ``mamba`` and ``mamba_shared`` (a Mamba2 layer followed by
-zamba2's shared attention+MLP block) and the transformer blocks ``attn``
-(a dense FFN), ``moe`` (an MoE FFN) and ``moe_dense`` (deepseek's first
-layers: a dense FFN of width ``d_ff_dense``), each with GQA or MLA
-attention as the config's ``attn_kind`` says.  Blocks are functions of
-(params, x, cache, ctx), where ctx carries the mode, positions, lengths
-and the zamba2 shared-block closure.  The other kinds of the reference
-(local, enc, dec) raise NotImplementedError with the ROADMAP item that
-holds them.
+Kinds, all of the reference's: ``mamba`` and ``mamba_shared`` (a Mamba2
+layer followed by zamba2's shared attention+MLP block); the transformer
+blocks ``attn`` (a dense FFN), ``local`` (the same over a sliding window
+of ``cfg.window`` positions, its cache a ring of that many slots),
+``moe`` (an MoE FFN) and ``moe_dense`` (deepseek's first layers: a dense
+FFN of width ``d_ff_dense``), each with GQA or MLA attention as the
+config's ``attn_kind`` says; whisper's ``enc`` (non-causal self-attention,
+no cache) and ``dec`` (causal self-attention, then cross-attention over
+the encoder's output, whose k and v the cache keeps from the prefill).
+Blocks are functions of (params, x, cache, ctx), where ctx carries the
+mode, positions, lengths, the encoder's output and the zamba2
+shared-block closure.
 """
 from __future__ import annotations
 
@@ -22,18 +25,6 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 
-# kind -> the ROADMAP A.9 entry that ports it
-_WAITING = {"local": "the local transformer block",
-            "enc": "the enc/dec blocks", "dec": "the enc/dec blocks"}
-
-
-def _not_ported(kind):
-    what = _WAITING.get(kind)
-    if what is None:
-        return ValueError(kind)
-    return NotImplementedError(f"block kind {kind!r} needs {what}, not "
-                               f"ported yet (ROADMAP A.9)")
-
 
 @dataclasses.dataclass
 class Ctx:
@@ -41,6 +32,7 @@ class Ctx:
     mode: str                      # train | prefill | decode
     positions: torch.Tensor        # (B, S)
     lengths: Optional[torch.Tensor] = None   # (B,) decode valid lengths
+    memory: Any = None             # whisper: encoder output (B, F, d)
     emb0: Any = None               # zamba2: initial embedding stream
     shared: Any = None             # zamba2: shared block params
     target: Any = None             # explicit lowering target; None = ambient
@@ -149,11 +141,81 @@ def _mamba_shared_apply(params, x, cache, ctx: Ctx):
 
 
 # ---------------------------------------------------------------------------
+# whisper encoder / decoder blocks
+# ---------------------------------------------------------------------------
+
+def _enc_init(gen, cfg, device):
+    return {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+            "attn": A.gqa_init(gen, cfg, device),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+            "mlp": L.mlp_init(gen, cfg, device)}
+
+
+def _enc_apply(params, x, cache, ctx: Ctx):
+    cfg = ctx.cfg
+    h = L.norm_apply(params["ln1"], x, cfg.norm)
+    h, _ = A.gqa_apply(params["attn"], h, cfg, positions=ctx.positions,
+                       mode="train", causal=False, target=ctx.target)
+    x = x + h
+    h = L.norm_apply(params["ln2"], x, cfg.norm)
+    return x + L.mlp_apply(params["mlp"], h, cfg), cache
+
+
+def _dec_init(gen, cfg, device):
+    return {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+            "attn": A.gqa_init(gen, cfg, device),
+            "lnx": L.norm_init(cfg.d_model, cfg.norm, device),
+            "xattn": A.gqa_init(gen, cfg, device),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+            "mlp": L.mlp_init(gen, cfg, device)}
+
+
+def _dec_cache(cfg, batch, s_max, device):
+    shape = (batch, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+    dt = L.dtype_of(cfg)
+    return {"self": A.gqa_cache_init(cfg, batch, s_max, device),
+            "xk": torch.zeros(shape, dtype=dt, device=device),
+            "xv": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _dec_apply(params, x, cache, ctx: Ctx):
+    """Self-attention, cross-attention over the encoder's output, MLP.  A
+    prefill writes the cross k and v into the cache, a decode step reads
+    them from it (``ctx.memory`` is None there)."""
+    cfg = ctx.cfg
+    b = x.shape[0]
+    h = L.norm_apply(params["ln1"], x, cfg.norm)
+    h, _ = A.gqa_apply(params["attn"], h, cfg, positions=ctx.positions,
+                       mode=ctx.mode,
+                       cache=None if cache is None else cache["self"],
+                       lengths=ctx.lengths, target=ctx.target)
+    x = x + h
+    h = L.norm_apply(params["lnx"], x, cfg.norm)
+    if ctx.mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+    else:
+        mem = ctx.memory
+        f = mem.shape[1]
+        xk = L.linear(params["xattn"]["wk"], mem).reshape(
+            b, f, cfg.n_kv_heads, cfg.head_dim)
+        xv = L.linear(params["xattn"]["wv"], mem).reshape(
+            b, f, cfg.n_kv_heads, cfg.head_dim)
+        if cache is not None:
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    h, _ = A.gqa_apply(params["xattn"], h, cfg, positions=ctx.positions,
+                       mode="train", memory=(xk, xv), target=ctx.target)
+    x = x + h
+    h = L.norm_apply(params["ln2"], x, cfg.norm)
+    return x + L.mlp_apply(params["mlp"], h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
 # kind registry
 # ---------------------------------------------------------------------------
 
 def block_init(kind, gen, cfg, device):
-    if kind == "attn":
+    if kind in ("attn", "local"):
         return _tblock_init(gen, cfg, device, ffn="dense")
     if kind == "moe":
         return _tblock_init(gen, cfg, device, ffn="moe")
@@ -162,10 +224,16 @@ def block_init(kind, gen, cfg, device):
                             d_ff=cfg.d_ff_dense or cfg.d_ff)
     if kind in ("mamba", "mamba_shared"):
         return _mamba_init(gen, cfg, device)
-    raise _not_ported(kind)
+    if kind == "enc":
+        return _enc_init(gen, cfg, device)
+    if kind == "dec":
+        return _dec_init(gen, cfg, device)
+    raise ValueError(kind)
 
 
 def block_cache_init(kind, cfg, batch, s_max, device):
+    if kind == "local":
+        return _tblock_cache(cfg, batch, s_max, device, window=cfg.window)
     if kind in ("attn", "moe", "moe_dense"):
         return _tblock_cache(cfg, batch, s_max, device)
     if kind == "mamba":
@@ -173,17 +241,28 @@ def block_cache_init(kind, cfg, batch, s_max, device):
     if kind == "mamba_shared":
         return {"mamba": S.mamba_cache_init(cfg, batch, device),
                 "attn": A.gqa_cache_init(cfg, batch, s_max, device)}
-    raise _not_ported(kind)
+    if kind == "dec":
+        return _dec_cache(cfg, batch, s_max, device)
+    if kind == "enc":
+        return None
+    raise ValueError(kind)
 
 
 def block_apply(kind, params, x, cache, ctx: Ctx):
     """-> (x, cache)."""
     if kind in ("attn", "moe_dense"):
         return _tblock_apply(params, x, cache, ctx, ffn="dense")
+    if kind == "local":
+        return _tblock_apply(params, x, cache, ctx, ffn="dense",
+                             window=ctx.cfg.window)
     if kind == "moe":
         return _tblock_apply(params, x, cache, ctx, ffn="moe")
     if kind == "mamba":
         return _mamba_apply(params, x, cache, ctx)
     if kind == "mamba_shared":
         return _mamba_shared_apply(params, x, cache, ctx)
-    raise _not_ported(kind)
+    if kind == "enc":
+        return _enc_apply(params, x, cache, ctx)
+    if kind == "dec":
+        return _dec_apply(params, x, cache, ctx)
+    raise ValueError(kind)

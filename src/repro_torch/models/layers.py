@@ -110,6 +110,18 @@ def rope_apply(x, positions, theta):
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(positions, d):
+    """Whisper-style absolute sinusoidal embeddings, float32.
+    positions:(B, S) -> (B, S, d)."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(1, half - 1))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated or plain)
 # ---------------------------------------------------------------------------

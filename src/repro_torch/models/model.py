@@ -4,7 +4,11 @@ Layers are grouped by the config's periodic pattern into (prefix,
 unit x repeats, remainder).  The reference stacks the repeated unit and
 runs it under ``lax.scan``; here ``params["unit"][j]`` is a list of the
 ``repeats`` parameter dictionaries of unit position j, and forward loops
-over the repeats.
+over the repeats.  An encoder-decoder (whisper) also has ``params["enc"]``,
+a list of its ``n_enc_layers`` encoder blocks, run over the batch's
+``frames`` in every mode but decode; a vlm (pixtral) prepends the batch's
+``patches`` to the token embeddings outside decode and keeps the logits
+of the token positions.
 
 API (functions of a parameter dictionary):
   init(cfg, gen, device)                        -> params
@@ -40,6 +44,10 @@ def init(cfg, gen: Optional[torch.Generator], device=None) -> Dict[str, Any]:
     params["rem"] = [B.block_init(k, gen, cfg, device) for k in rem]
     if cfg.shared_attn_every:
         params["shared"] = B.shared_block_init(gen, cfg, device)
+    if cfg.family == "encdec":
+        params["enc"] = [B.block_init("enc", gen, cfg, device)
+                         for _ in range(cfg.n_enc_layers)]
+        params["enc_norm"] = L.norm_init(cfg.d_model, cfg.norm, device)
     return params
 
 
@@ -56,23 +64,54 @@ def init_cache(cfg, batch: int, s_max: int, device=None):
     }
 
 
-def forward(params, cfg, batch, *, mode: str, cache=None,
-            lengths: Optional[torch.Tensor] = None, target=None):
-    """Returns (logits, new_cache).
+def _with_positions(x, positions, cfg):
+    """x + whisper's sinusoidal position embeddings, summed in float32."""
+    pos_emb = L.sinusoidal_positions(positions, cfg.d_model)
+    return (x.to(torch.float32) + pos_emb).to(x.dtype)
 
-    ``target`` pins every attention/ssd lowering selection in this
-    forward to an explicit machine model.
-    """
-    prefix, unit, reps, rem = cfg.pattern_unit()
-    tokens = batch["tokens"]
-    x = L.embed_apply(params["embed"], tokens, cfg)
+
+def _embed_inputs(params, cfg, batch, mode, lengths):
+    """-> (x, positions): the tokens' embeddings (a vlm's patches before
+    them outside decode), whisper's positions added."""
+    x = L.embed_apply(params["embed"], batch["tokens"], cfg)
+    if cfg.family == "vlm" and mode != "decode":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     if mode == "decode":
         positions = lengths[:, None]
     else:
         positions = torch.arange(x.shape[1], device=x.device) \
             .expand(x.shape[:2])
+    if cfg.name.startswith("whisper"):
+        x = _with_positions(x, positions, cfg)
+    return x, positions
+
+
+def _encode(params, cfg, frames, target=None):
+    """The whisper encoder over stub frame embeddings (B, F, d)."""
+    x = frames.to(L.dtype_of(cfg))
+    pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    x = _with_positions(x, pos, cfg)
+    ctx = B.Ctx(cfg=cfg, mode="train", positions=pos, target=target)
+    for p in params["enc"]:
+        x, _ = B.block_apply("enc", p, x, None, ctx)
+    return L.norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def forward(params, cfg, batch, *, mode: str, cache=None,
+            lengths: Optional[torch.Tensor] = None, target=None):
+    """Returns (logits, new_cache).
+
+    ``batch`` holds ``tokens``, and ``frames`` (encdec) or ``patches``
+    (vlm) outside decode.  ``target`` pins every attention/ssd lowering
+    selection in this forward to an explicit machine model.
+    """
+    prefix, unit, reps, rem = cfg.pattern_unit()
+    x, positions = _embed_inputs(params, cfg, batch, mode, lengths)
+    memory = None
+    if cfg.family == "encdec" and mode != "decode":
+        memory = _encode(params, cfg, batch["frames"], target=target)
     ctx = B.Ctx(cfg=cfg, mode=mode, positions=positions, lengths=lengths,
-                emb0=x if cfg.shared_attn_every else None,
+                memory=memory, emb0=x if cfg.shared_attn_every else None,
                 shared=params.get("shared"), target=target)
     new_cache = {"prefix": [], "unit": [[] for _ in unit], "rem": []}
 
@@ -99,6 +138,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
         new_cache["rem"].append(c)
 
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    if cfg.family == "vlm" and mode != "decode":
+        x = x[:, -batch["tokens"].shape[1]:]     # the token positions
     logits = L.head_apply(params["embed"], x, cfg)
     return logits, (new_cache if cache is not None else None)
 

@@ -6,12 +6,18 @@ caches, decode advances every row one token per step (one
 so the steps are the forward functions themselves (the reference jits
 them); the caches are written in place.
 
-The cache holds positions 0 .. ``max_seq`` - 1.  ``decode`` refuses, before
-its first step, to run past them (ValueError), where the reference drops
-the cache writes and goes on (ROADMAP C.11): on the card such a write is
-an out-of-range index, a device-side assert that leaves the CUDA context
-unusable.  The check reads the engine's host copy of the position, never
-device data.
+``prefill`` and ``generate`` take the reference's ``extra``: the stub
+frame (encdec) or patch (vlm) embeddings of ``data.pipeline.extra_inputs``.
+A vlm's ``n_patches`` patches sit before the tokens, so its cache holds
+``max_seq`` + ``n_patches`` positions and its rows start decoding at the
+prompt's length plus ``n_patches``.
+
+The cache holds positions 0 .. ``max_seq`` + that offset - 1.  ``decode``
+refuses, before its first step, to run past them (ValueError), where the
+reference drops the cache writes and goes on (ROADMAP C.11): on the card
+such a write is an out-of-range index, a device-side assert that leaves
+the CUDA context unusable.  The check reads the engine's host copy of the
+position, never device data.
 """
 from __future__ import annotations
 
@@ -63,32 +69,38 @@ class Engine:
     def __post_init__(self):
         self.device = resolve_device("cuda" if self.device is None
                                      else self.device)
-        self.cache = M.init_cache(self.cfg, self.max_batch, self.max_seq,
-                                  self.device)
+        # the positions a vlm's patches take before the tokens
+        self.p_off = self.cfg.n_patches if self.cfg.family == "vlm" else 0
+        self.cache = M.init_cache(self.cfg, self.max_batch,
+                                  self.max_seq + self.p_off, self.device)
         self.lengths = torch.zeros((self.max_batch,), dtype=torch.int32,
                                    device=self.device)
         self._prefill = make_prefill_step(self.cfg, self.target)
         self._step = make_serve_step(self.cfg, self.target)
 
-    def prefill(self, prompts):
-        """prompts:(B, S_prompt) — fills the cache, returns first tokens."""
+    def prefill(self, prompts, extra: Optional[dict] = None):
+        """prompts:(B, S_prompt), ``extra`` the frames or patches —
+        fills the cache, returns first tokens."""
         prompts = torch.as_tensor(np.asarray(prompts), device=self.device)
+        batch = {"tokens": prompts, **(extra or {})}
         last_logits, self.cache = self._prefill(self.params, self.cache,
-                                                {"tokens": prompts})
-        self.lengths = torch.full((prompts.shape[0],), prompts.shape[1],
+                                                batch)
+        self.position = prompts.shape[1] + self.p_off
+        self.lengths = torch.full((prompts.shape[0],), self.position,
                                   dtype=torch.int32, device=self.device)
-        self.position = prompts.shape[1]
         return self._sample(last_logits)
 
     def decode(self, tokens: torch.Tensor, steps: int) -> np.ndarray:
         """Advance ``steps`` tokens for the whole batch; returns (B, steps).
         Raises ValueError, before any step, where a step would write at or
-        past ``max_seq``."""
-        if self.position + steps > self.max_seq:
+        past the cache's ``max_seq`` + ``p_off`` positions."""
+        slots = self.max_seq + self.p_off
+        if self.position + steps > slots:
             raise ValueError(
                 f"decode: {steps} steps from position {self.position} would "
                 f"write cache positions up to {self.position + steps - 1}, "
-                f"past max_seq {self.max_seq}")
+                f"past max_seq {self.max_seq}"
+                + (f" + {self.p_off} patches" if self.p_off else ""))
         out = []
         cur = tokens
         for _ in range(steps):
@@ -114,7 +126,8 @@ class Engine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0] \
             .to(torch.int32)
 
-    def generate(self, prompts, steps: int) -> np.ndarray:
-        first = self.prefill(prompts)
+    def generate(self, prompts, steps: int,
+                 extra: Optional[dict] = None) -> np.ndarray:
+        first = self.prefill(prompts, extra)
         rest = self.decode(first, steps - 1)
         return np.concatenate([first.cpu().numpy()[:, None], rest], axis=1)

@@ -595,7 +595,16 @@ FLASH_CASES = [(4, 512, 512, 32, 32, 128, True, None, None),   # zamba2
                (1, 37, 45, 6, 3, 24, False, None, 5.0),
                (2, 64, 64, 4, 2, 64, True, None, None),        # D 64
                (2, 200, 230, 4, 4, 64, True, 100, None),       # Sq > 64, ragged
-               (1, 150, 150, 2, 1, 40, False, None, None)]     # D off 16
+               (1, 150, 150, 2, 1, 40, False, None, None),     # D off 16
+               # gemma2 (window, softcap), gemma3 (MQA, window), whisper's
+               # encoder, cross-attention and its one-row cross at a
+               # decode step, pixtral (256 patches + 512 tokens)
+               (4, 512, 512, 8, 4, 256, True, 4096, 50.0),
+               (4, 1024, 1024, 4, 1, 256, True, 512, None),
+               (4, 1500, 1500, 6, 6, 64, False, None, None),
+               (4, 512, 1500, 6, 6, 64, False, None, None),
+               (4, 1, 1500, 6, 6, 64, False, None, None),
+               (4, 768, 768, 32, 8, 128, True, None, None)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -624,7 +633,13 @@ DECODE_CASES = [(4, 544, 32, 32, 128, (512, 520, 530, 544), None, None),
                 # splits wholly past a row's length or before its window
                 (4, 1024, 4, 4, 64, (0, 10, 300, 1024), 100, None),
                 # D 20: rows read element by element
-                (2, 300, 4, 2, 20, (300, 150), 100, 30.0)]
+                (2, 300, 4, 2, 20, (300, 150), 100, 30.0),
+                # gemma2 (softcap), gemma3's MQA over a full 512-slot
+                # ring, whisper, pixtral (ragged)
+                (4, 544, 8, 4, 256, (512, 520, 530, 544), None, 50.0),
+                (4, 512, 4, 1, 256, (512, 512, 512, 512), None, None),
+                (4, 544, 6, 6, 64, (512, 520, 530, 544), None, None),
+                (4, 800, 32, 8, 128, (784, 790, 795, 800), None, None)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)

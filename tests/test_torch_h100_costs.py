@@ -4,7 +4,8 @@ reference's instruction counts and its cheapest-wins ranking.
 
 The calls are those of PERF.md §6 (each row's op, shapes and dtypes) and
 the serving calls of zamba2-1.2b, mamba2-1.3b, granite-moe-1b-a400m,
-deepseek-v2-lite-16b and minicpm3-4b in bf16 and float32.  MLA's
+deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b, gemma3-1b, whisper-tiny and
+pixtral-12b in bf16 and float32.  MLA's
 split-dim attention takes the vector tier on h100, as the reference's
 rule has it everywhere.  The torch side runs on
 meta tensors: selection reads no device data.  The tpu/rvv costs are held
@@ -179,6 +180,94 @@ MLA_ATTN = [(f"{str(dt)[6:]}-{arch}-attention", "attention",
                                    ("minicpm3", 40, 96, 64))]
 
 
+def _attn_at(dtype, b, sq, sk, h, hkv, d, causal=True, window=None,
+             softcap=None):
+    return (_m(b, sq, h, d, dtype=dtype), _m(b, sk, hkv, d, dtype=dtype),
+            _m(b, sk, hkv, d, dtype=dtype), causal, window, softcap, None)
+
+
+def _decode_at(dtype, s, h, hkv, d, softcap=None):
+    return (_m(4, 1, h, d, dtype=dtype), _m(4, s, hkv, d, dtype=dtype),
+            _m(4, s, hkv, d, dtype=dtype), _m(4, dtype=I32), None, softcap,
+            None)
+
+
+# gemma2-2b's, gemma3-1b's, whisper-tiny's and pixtral-12b's serving calls
+# (configs/gemma2_2b.py, gemma3_1b.py, whisper_tiny.py, pixtral_12b.py),
+# bf16 and float32: gemm at a decode step's and a prefill's M against
+# each weight (q, k/v, o, MLP up and down; pixtral's head; whisper's
+# encoder and cross k/v at 4 x 1500 frames, pixtral's prefill at 4 x
+# (256 + 512) positions); the gelu (vtanh) and silu (vsigmoid); gemma2's
+# final softcap (vtanh on the float32 logits); flash at each attention
+# configuration (the local layers' windows, gemma2's softcap 50, whisper's
+# non-causal encoder and its cross-attention at prefill and at a decode
+# step); decode against each cache (gemma3's 512-slot ring)
+NEW_ARCHS = {
+    "gemma2": ((2304, 2048), (2304, 1024), (2048, 2304), (2304, 9216),
+               (9216, 2304)),
+    "gemma3": ((1152, 1024), (1152, 256), (1024, 1152), (1152, 6912),
+               (6912, 1152)),
+    "whisper": ((384, 384), (384, 1536), (1536, 384)),
+    "pixtral": ((5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336),
+                (14336, 5120), (5120, 131072))}
+NEW_M = {"gemma2": (4, 2048), "gemma3": (4, 2048),
+         "whisper": (4, 2048, 6000), "pixtral": (4, 3072)}
+SERVE_NEW = [(f"{str(dt)[6:]}-{name}", op, args)
+             for dt in (BF, F32)
+             for name, op, args in (
+                 *[(f"{arch}-gemm_m{m}_{k}x{n}", "gemm", _gemm(m, k, n, dt))
+                   for arch, shapes in NEW_ARCHS.items()
+                   for m in NEW_M[arch] for k, n in shapes],
+                 *[(label, op, (_m(*shape, dtype=dtype or dt),))
+                   for label, op, shape, dtype in (
+                       ("gemma2-gelu_prefill", "vtanh", (4, 512, 9216), None),
+                       ("gemma2-gelu_decode", "vtanh", (4, 1, 9216), None),
+                       ("gemma2-softcap_prefill", "vtanh", (4, 512, 256000),
+                        F32),
+                       ("gemma2-softcap_decode", "vtanh", (4, 1, 256000),
+                        F32),
+                       ("gemma3-gelu_prefill", "vtanh", (4, 512, 6912), None),
+                       ("gemma3-gelu_decode", "vtanh", (4, 1, 6912), None),
+                       ("whisper-gelu_prefill", "vtanh", (4, 512, 1536),
+                        None),
+                       ("whisper-gelu_decode", "vtanh", (4, 1, 1536), None),
+                       ("whisper-gelu_enc", "vtanh", (4, 1500, 1536), None),
+                       ("pixtral-silu_prefill", "vsigmoid", (4, 768, 14336),
+                        None),
+                       ("pixtral-silu_decode", "vsigmoid", (4, 1, 14336),
+                        None))],
+                 ("gemma2-attention_local", "attention",
+                  _attn_at(dt, 4, 512, 512, 8, 4, 256, True, 4096, 50.0)),
+                 ("gemma2-attention", "attention",
+                  _attn_at(dt, 4, 512, 512, 8, 4, 256, True, None, 50.0)),
+                 ("gemma2-attention_window", "attention",
+                  _attn_at(dt, 1, 4160, 4160, 8, 4, 256, True, 4096, 50.0)),
+                 ("gemma3-attention_local", "attention",
+                  _attn_at(dt, 4, 512, 512, 4, 1, 256, True, 512)),
+                 ("gemma3-attention", "attention",
+                  _attn_at(dt, 4, 512, 512, 4, 1, 256)),
+                 ("whisper-attention_enc", "attention",
+                  _attn_at(dt, 4, 1500, 1500, 6, 6, 64, False)),
+                 ("whisper-attention_self", "attention",
+                  _attn_at(dt, 4, 512, 512, 6, 6, 64)),
+                 ("whisper-attention_cross", "attention",
+                  _attn_at(dt, 4, 512, 1500, 6, 6, 64, False)),
+                 ("whisper-attention_cross_decode", "attention",
+                  _attn_at(dt, 4, 1, 1500, 6, 6, 64, False)),
+                 ("pixtral-attention", "attention",
+                  _attn_at(dt, 4, 768, 768, 32, 8, 128)),
+                 ("gemma2-decode", "decode_attention",
+                  _decode_at(dt, 544, 8, 4, 256, 50.0)),
+                 ("gemma3-decode_ring", "decode_attention",
+                  _decode_at(dt, 512, 4, 1, 256)),
+                 ("gemma3-decode", "decode_attention",
+                  _decode_at(dt, 544, 4, 1, 256)),
+                 ("whisper-decode", "decode_attention",
+                  _decode_at(dt, 544, 6, 6, 64)),
+                 ("pixtral-decode", "decode_attention",
+                  _decode_at(dt, 800, 32, 8, 128)))]
+
+
 def _row_id(row):
     label, op, args = row
     shapes = "x".join(str(tuple(a.shape)) for a in args
@@ -224,6 +313,17 @@ def test_h100_serves_mamba2_and_granite_through_the_kernels(row):
 def test_h100_serves_deepseek_and_minicpm3_through_the_kernels(row):
     """Each gemm and vsigmoid call of the two MLA archs takes the kernel
     tier under the default target."""
+    _, op, args = row
+    assert _chosen(op, args) == "pallas"
+    assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
+
+
+@pytest.mark.parametrize("row", SERVE_NEW, ids=lambda r: r[0])
+def test_h100_serves_gemma_whisper_and_pixtral_through_the_kernels(row):
+    """Each serving call of gemma2, gemma3, whisper and pixtral takes the
+    kernel tier under the default target: D 256 with a window and a
+    softcap, MQA, the one-row cross-attention of a whisper decode step,
+    the 1500-frame encoder, pixtral's head among them."""
     _, op, args = row
     assert _chosen(op, args) == "pallas"
     assert REGISTRY.select(op, *args, policy="pallas").tier == "pallas"
@@ -305,13 +405,16 @@ def _shared_tiers(op):
 
 @pytest.mark.parametrize("target", ["tpu-v5e", "tpu-v6", "rvv-128",
                                     "rvv-512-m2", "rvv-1024"])
-@pytest.mark.parametrize("row", SERVE + SERVE_ARCHS + SERVE_MLA,
+@pytest.mark.parametrize("row", SERVE + SERVE_ARCHS + SERVE_MLA + SERVE_NEW,
                          ids=lambda r: r[0])
 def test_tpu_and_rvv_costs_are_unchanged(row, target):
     """The costs on the reference's machines are the JAX registry's, on
-    the same shapes and dtypes (the trailing None options dropped: the
-    reference's attention models take no positional window)."""
+    the same shapes and dtypes (the attention ops' options after causal
+    or lengths dropped: the reference's attention models take no
+    positional window or softcap, and count none)."""
     _, op, args = row
+    if op in ("attention", "decode_attention"):
+        args = args[:4]
     while args[-1] is None:
         args = args[:-1]
     mine = REGISTRY.explain(op, *args, policy="pallas", target=target)

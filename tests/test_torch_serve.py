@@ -6,7 +6,11 @@ Each ported arch ``reduced()`` in float32 (zamba2-1.2b: 4 layers, GQA
 granite-moe-1b-a400m: 4 ``moe`` layers, GQA 4/2 heads, 8 experts top-2;
 deepseek-v2-lite-16b: a ``moe_dense`` layer then 3 ``moe`` layers, MLA
 with no q-lora, 8 experts top-2 and 2 shared; minicpm3-4b: 4 ``attn``
-layers, MLA with q-lora 32, tied and scaled embeddings):
+layers, MLA with q-lora 32, tied and scaled embeddings; gemma2-2b and
+gemma3-1b: ``local`` and ``attn`` layers, window 16, softcaps or qk-norm,
+sandwich norms; whisper-tiny: 4 ``dec`` layers and a 2-layer encoder over
+8 stub frames; pixtral-12b: 4 ``attn`` layers after 4 stub patches), the
+frames and patches from each package's ``extra_inputs``:
 the reference's params, carried across by ``models/convert.py``, go
 through the reference's Engine and the port's.  Prefill logits and every
 teacher-forced decode step's logits agree within the reference's fp32
@@ -19,10 +23,10 @@ the fused kernel does not take (the reference's rule), and which keeps
 the vector tier under every target.
 
 The full-width parameter tree of each ported arch equals the
-reference's in every shape and dtype.  mamba2-1.3b's config and blocks
-are in the port and held here like the others, though ``get_config``
-refuses it until its bf16 serving check on the card has a limit its full
-depth passes (ROADMAP C.22).
+reference's in every shape and dtype.  mamba2-1.3b's and pixtral-12b's
+configs and blocks are in the port and held here like the others, though
+``get_config`` refuses them until their bf16 serving check on the card
+has a limit their full depth passes (ROADMAP C.22, C.23).
 """
 import jax
 import jax.numpy as jnp
@@ -31,10 +35,13 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget_config
+from repro.data import pipeline as JP
 from repro.models import model as JM
 from repro.serve import engine as JE
-from repro_torch.configs import ARCH_NAMES, get_config, mamba2_1p3b
+from repro_torch.configs import ARCH_NAMES, get_config, mamba2_1p3b, \
+    pixtral_12b
 from repro_torch.core import trace, use_policy
+from repro_torch.data import pipeline as P
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import blocks, convert
 from repro_torch.models import model as M
@@ -44,17 +51,25 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 BATCH, PROMPT, STEPS, MAX_SEQ = 2, 12, 8, 24
 
 
+# the archs whose config and blocks are ported but which get_config
+# refuses until their bf16 serving check has a limit (ROADMAP C.22, C.23)
+HELD = {m.CONFIG.name: m.CONFIG for m in (mamba2_1p3b, pixtral_12b)}
+
+
 def _port_config(name):
-    """The port's config of ``name``; mamba2-1.3b's from its module, which
+    """The port's config of ``name``; a held arch's from its module, which
     ``get_config`` refuses."""
-    if name == mamba2_1p3b.CONFIG.name:
-        return mamba2_1p3b.CONFIG
-    return get_config(name)
+    return HELD[name] if name in HELD else get_config(name)
 
 
 def _cfgs(name):
     return (jget_config(name).reduced().replace(dtype="float32"),
             _port_config(name).reduced().replace(dtype="float32"))
+
+
+def _p_off(cfg):
+    """The positions a vlm's patches take before the tokens."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
 
 
 def _reference_run(name):
@@ -64,14 +79,18 @@ def _reference_run(name):
     jparams = JM.init(jcfg, jax.random.PRNGKey(0))
     prompts = np.random.default_rng(0).integers(
         2, jcfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)
+    extra = JP.extra_inputs(jcfg, BATCH, 0)
     tokens = JE.Engine(jcfg, jparams, max_batch=BATCH,
-                       max_seq=MAX_SEQ).generate(jnp.asarray(prompts), STEPS)
+                       max_seq=MAX_SEQ).generate(jnp.asarray(prompts), STEPS,
+                                                 extra)
     prefill = jax.jit(JE.make_prefill_step(jcfg))
     step = jax.jit(JE.make_serve_step(jcfg))
-    cache = JM.init_cache(jcfg, BATCH, MAX_SEQ)
-    logits, cache = prefill(jparams, cache, {"tokens": jnp.asarray(prompts)})
+    p_off = _p_off(jcfg)
+    cache = JM.init_cache(jcfg, BATCH, MAX_SEQ + p_off)
+    logits, cache = prefill(jparams, cache, {"tokens": jnp.asarray(prompts),
+                                             **extra})
     out = [np.asarray(logits)]
-    lens = jnp.full((BATCH,), PROMPT, jnp.int32)
+    lens = jnp.full((BATCH,), PROMPT + p_off, jnp.int32)
     for i in range(STEPS - 1):
         logits, cache = step(jparams, cache, jnp.asarray(tokens[:, i:i + 1]),
                              lens)
@@ -91,7 +110,15 @@ ARCH_OPS = {"zamba2-1.2b": {"gemm", "vtanh", "attention",
             # MLA: split-dim attention in prefill, the absorbed decode
             # in plain products (no decode_attention)
             "deepseek-v2-lite-16b": {"gemm", "vsigmoid", "attention"},
-            "minicpm3-4b": {"gemm", "vsigmoid", "attention"}}
+            "minicpm3-4b": {"gemm", "vsigmoid", "attention"},
+            # gelu through vtanh (gemma2's final softcap too); whisper's
+            # cross-attention is an attention call in every mode
+            "gemma2-2b": {"gemm", "vtanh", "attention", "decode_attention"},
+            "gemma3-1b": {"gemm", "vtanh", "attention", "decode_attention"},
+            "whisper-tiny": {"gemm", "vtanh", "attention",
+                             "decode_attention"},
+            "pixtral-12b": {"gemm", "vsigmoid", "attention",
+                            "decode_attention"}}
 # tier -> (policy, target)
 TIERS = {"vector": ("vector", None), "pallas": ("pallas", "rvv-128"),
          "h100": ("pallas", "h100")}
@@ -105,11 +132,13 @@ def reference(request):
 def _port_logits(cfg, params, prompts, tokens, target=None):
     prefill = E.make_prefill_step(cfg, target)
     step = E.make_serve_step(cfg, target)
-    cache = M.init_cache(cfg, BATCH, MAX_SEQ, "cpu")
+    p_off = _p_off(cfg)
+    cache = M.init_cache(cfg, BATCH, MAX_SEQ + p_off, "cpu")
     logits, cache = prefill(params, cache,
-                            {"tokens": torch.from_numpy(prompts).long()})
+                            {"tokens": torch.from_numpy(prompts).long(),
+                             **P.extra_inputs(cfg, BATCH, 0, "cpu")})
     out = [logits.numpy()]
-    lens = torch.full((BATCH,), PROMPT, dtype=torch.int32)
+    lens = torch.full((BATCH,), PROMPT + p_off, dtype=torch.int32)
     for i in range(STEPS - 1):
         logits, cache = step(params, cache,
                              torch.from_numpy(tokens[:, i:i + 1]).long(),
@@ -127,10 +156,12 @@ def test_engine_matches_reference(reference, tier):
         got = _port_logits(cfg, params, prompts, want_tokens, target)
         eng = E.Engine(cfg, params, max_batch=BATCH, max_seq=MAX_SEQ,
                        target=target, device="cpu")
-        tokens = eng.generate(prompts, STEPS)
+        tokens = eng.generate(prompts, STEPS,
+                              P.extra_inputs(cfg, BATCH, 0, "cpu"))
     assert len(got) == len(want_logits) == STEPS
+    vocab = -(-cfg.vocab_size // 256) * 256
     for g, w in zip(got, want_logits):
-        assert g.shape == w.shape == (BATCH, 256) and np.isfinite(g).all()
+        assert g.shape == w.shape == (BATCH, vocab) and np.isfinite(g).all()
         np.testing.assert_allclose(g, w, **TOL)
     np.testing.assert_array_equal(tokens, want_tokens)
     assert tokens.dtype == np.int32 and tokens.shape == (BATCH, STEPS)
@@ -213,22 +244,36 @@ def test_decode_past_max_seq_is_refused_for_an_mla_cache():
 
 def _uncounted(cfg):
     """Elements of the parameter tree that ``param_counts()`` (the
-    reference's estimate, copied as it is) leaves out: the norms (MLA's
-    kv and q norms too), the conv biases, the padded vocabulary rows and,
-    in zamba2's shared block, the down projection of the gated MLP
-    (ROADMAP C.10)."""
+    reference's estimate, copied as it is) leaves out: the norms (a
+    layernorm's bias, gemma's sandwich norms, the q/k norms, MLA's kv and
+    q norms too), the conv biases, the padded vocabulary rows (of the
+    untied head too), whisper's whole encoder and, in zamba2's shared
+    block, the down projection of the gated MLP (ROADMAP C.10)."""
     d = cfg.d_model
+    norm = 2 * d if cfg.norm == "layernorm" else d
     conv_b = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
-    tblock = 2 * d                                      # ln1, ln2
+    tblock = 2 * norm                                   # ln1, ln2
+    if cfg.sandwich_norm:
+        tblock += 2 * norm                              # ln1p, ln2p
+    if cfg.qk_norm:
+        tblock += 2 * cfg.head_dim                      # qn, kn
     if cfg.attn_kind == "mla":
         tblock += cfg.kv_lora_rank + cfg.q_lora_rank    # kv_norm, q_norm
     per_kind = {"mamba": d + cfg.d_inner + conv_b,      # ln, gn, conv_b
-                "moe": tblock, "moe_dense": tblock, "attn": tblock}
+                "moe": tblock, "moe_dense": tblock, "attn": tblock,
+                "local": tblock, "dec": 3 * norm}       # ln1, lnx, ln2
     per_kind["mamba_shared"] = per_kind["mamba"]
-    out = sum(per_kind[k] for k in cfg.layer_pattern()) + d
-    out += (-(-cfg.vocab_size // 256) * 256 - cfg.vocab_size) * d
+    out = sum(per_kind[k] for k in cfg.layer_pattern()) + norm
+    heads = 1 if cfg.tie_embeddings else 2
+    out += (-(-cfg.vocab_size // 256) * 256 - cfg.vocab_size) * d * heads
     if cfg.shared_attn_every:
         out += 2 * (2 * d) + cfg.d_ff * d
+    if cfg.n_enc_layers:
+        hd = cfg.head_dim
+        attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + \
+            cfg.n_heads * hd * d
+        mlp = d * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+        out += cfg.n_enc_layers * (attn + mlp + 2 * norm) + norm
     return out
 
 
@@ -246,7 +291,9 @@ def _leaves(tree, path=""):
 FULL_WIDTH = {"zamba2-1.2b": 1_190_425_216, "mamba2-1.3b": 1_344_052_224,
               "granite-moe-1b-a400m": 1_334_887_424,
               "deepseek-v2-lite-16b": 15_706_484_224,
-              "minicpm3-4b": 4_073_937_408}
+              "minicpm3-4b": 4_073_937_408,
+              "gemma2-2b": 2_614_341_888, "gemma3-1b": 999_885_952,
+              "whisper-tiny": 36_487_680, "pixtral-12b": 12_247_782_400}
 
 
 @pytest.mark.parametrize("name", sorted(FULL_WIDTH))
@@ -263,6 +310,10 @@ def test_full_width_parameter_tree_equals_reference(name):
             for r in range(reps):
                 want[f"/unit/{j}/{r}/{rest}"] = (tuple(leaf.shape[1:]),
                                                  dtype)
+        elif path.startswith("/enc/"):        # stacked: one per layer
+            for r in range(cfg.n_enc_layers):
+                want[f"/enc/{r}/{path[len('/enc/'):]}"] = (
+                    tuple(leaf.shape[1:]), dtype)
         else:
             want[path] = (tuple(leaf.shape), dtype)
     got = {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
@@ -311,36 +362,37 @@ def test_convert_defaults_to_the_card():
 
 
 def test_unported_archs_and_kinds_name_their_roadmap_item():
-    assert set(ARCH_NAMES) == set(ARCH_OPS) - {"mamba2-1.3b"}
+    assert set(ARCH_NAMES) == set(ARCH_OPS) - set(HELD)
     for name in ARCH_NAMES:
         assert get_config(name).name == name
-    # its blocks are ported; its bf16 serving limit is not settled
+    # their blocks are ported; their bf16 serving limits are not settled
     with pytest.raises(NotImplementedError, match="ROADMAP C.22"):
         get_config("mamba2-1.3b")
-    for name in ("gemma2-2b", "whisper-tiny", "gemma3-1b",
-                 "mistral-large-123b", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            get_config(name)
-    # gemma2 waits for the local block, whisper for enc/dec, mistral for
-    # sharding (its bf16 weights do not fit one card)
-    with pytest.raises(NotImplementedError, match="local transformer"):
-        get_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="enc/dec"):
-        get_config("whisper-tiny")
+    with pytest.raises(NotImplementedError, match="ROADMAP C.23"):
+        get_config("pixtral-12b")
+    # mistral waits for sharding (its bf16 weights do not fit one card)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        get_config("mistral-large-123b")
     with pytest.raises(NotImplementedError, match="sharding"):
         get_config("mistral-large-123b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    # every block kind of the reference is ported: local, enc and dec too
+    for name, kind in (("gemma2-2b", "local"), ("gemma3-1b", "local"),
+                       ("whisper-tiny", "enc"), ("whisper-tiny", "dec")):
+        cfg = get_config(name).reduced()
+        assert kind in cfg.layer_pattern() or kind == "enc"
+        assert "attn" in blocks.block_init(kind, None, cfg,
+                                           torch.device("meta"))
     cfg = get_config("zamba2-1.2b").reduced()
-    for kind in ("local", "enc", "dec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            blocks.block_init(kind, None, cfg, torch.device("meta"))
-    with pytest.raises(NotImplementedError, match="local transformer"):
-        blocks.block_cache_init("local", cfg, 1, 8, torch.device("meta"))
-    with pytest.raises(NotImplementedError, match="enc/dec"):
-        blocks.block_apply("dec", None, None, None, None)
-    with pytest.raises(ValueError):
-        blocks.block_init("no-such-kind", None, cfg, torch.device("meta"))
+    for fn in (lambda: blocks.block_init("no-such-kind", None, cfg,
+                                         torch.device("meta")),
+               lambda: blocks.block_cache_init("no-such-kind", cfg, 1, 8,
+                                               torch.device("meta")),
+               lambda: blocks.block_apply("no-such-kind", None, None, None,
+                                          None)):
+        with pytest.raises(ValueError):
+            fn()
     # the attn and moe_dense kinds, and a transformer block with MLA
     # attention, are ported
     for kind in ("attn", "moe_dense"):
@@ -375,7 +427,9 @@ def test_temperature_sampling_is_seeded_by_lengths():
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "granite-moe-1b-a400m",
-                                  "deepseek-v2-lite-16b", "minicpm3-4b"])
+                                  "deepseek-v2-lite-16b", "minicpm3-4b",
+                                  "gemma2-2b", "gemma3-1b",
+                                  "whisper-tiny"])
 def test_launcher_serves_reduced_on_cpu(capsys, arch):
     out = launch_serve.main(["--arch", arch, "--reduced",
                              "--device", "cpu", "--batch", "2",

@@ -1,12 +1,16 @@
 """``chip_smoke.py``'s serving-phase helpers, on the CPU.
 
 The card runs ``serve_arch`` for zamba2-1.2b, granite-moe-1b-a400m,
-deepseek-v2-lite-16b and minicpm3-4b (and ``tools/serve_gap_probe.py``
-also for mamba2-1.3b); what it gates on is made here from the configs
-alone: the ops each arch's layers reach (``serve_ops``), the tier each
-must run (``serve_tier``: MLA's split-dim attention on the vector tier)
-and the exact launches of the LM kernels in one ``Engine.generate`` of
-32 tokens after 512-token prompts (``serve_want``).  The router probe that pins granite's vector run to
+deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b, gemma3-1b and whisper-tiny,
+and again for the gemmas at prompts longer than their windows
+(``SERVE_WINDOW``; ``tools/serve_gap_probe.py`` also for the held
+mamba2-1.3b and pixtral-12b); what it gates on is made here from the configs alone: the
+ops each arch's layers reach (``serve_ops``: the ``local``, ``enc`` and
+``dec`` kinds attend), the tier each must run (``serve_tier``: MLA's
+split-dim attention on the vector tier) and the exact launches of the LM
+kernels in one ``Engine.generate`` of 32 tokens after 512-token prompts
+(``serve_want``: whisper's encoder and cross-attention as flash launches,
+at prefill and at every decode step).  The router probe that pins granite's vector run to
 the kernel run's routing (``route_probe``), the flip count beside it
 (``route_flips``), and the block probe that starts each block of a bf16
 vector run from the kernel run's input (``block_probe``, with the
@@ -24,7 +28,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import get_config, mamba2_1p3b  # noqa: E402
+from repro_torch.configs import get_config, mamba2_1p3b, \
+    pixtral_12b  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MoE  # noqa: E402
 
@@ -38,14 +43,27 @@ WANT = {"zamba2-1.2b": (("gemm", "vtanh", "attention", "decode_attention",
         # absorbed decode dispatches no attention op)
         "deepseek-v2-lite-16b": (("gemm", "vsigmoid", "attention"),
                                  (0, 0, 0)),
-        "minicpm3-4b": (("gemm", "vsigmoid", "attention"), (0, 0, 0))}
+        "minicpm3-4b": (("gemm", "vsigmoid", "attention"), (0, 0, 0)),
+        "gemma2-2b": (("gemm", "vtanh", "attention", "decode_attention"),
+                      (0, 26, 806)),
+        "gemma3-1b": (("gemm", "vtanh", "attention", "decode_attention"),
+                      (0, 26, 806)),
+        # 4 encoder + 4 self + 4 cross launches in the prefill, then 4
+        # cross launches (flash) and 4 self (decode) a step
+        "whisper-tiny": (("gemm", "vtanh", "attention", "decode_attention"),
+                         (0, 136, 124)),
+        "pixtral-12b": (("gemm", "vsigmoid", "attention",
+                         "decode_attention"), (0, 40, 1240))}
+
+
+# held: get_config refuses them (ROADMAP C.22, C.23); the gap probe
+# serves them on the card
+HELD = {m.CONFIG.name: m.CONFIG for m in (mamba2_1p3b, pixtral_12b)}
 
 
 def _config(arch):
-    """mamba2-1.3b's config from its module (``get_config`` refuses it)."""
-    if arch == mamba2_1p3b.CONFIG.name:
-        return mamba2_1p3b.CONFIG
-    return get_config(arch)
+    """A held arch's config from its module, else ``get_config``'s."""
+    return HELD[arch] if arch in HELD else get_config(arch)
 
 
 @pytest.mark.parametrize("arch", sorted(WANT))
@@ -56,7 +74,7 @@ def test_serve_ops_and_launch_counts(arch):
     assert cs.serve_ops(cfg) == ops_
     assert cs.serve_want(cfg, cs.SERVE["prompt"], cs.SERVE["gen"]) == {
         "ssd": ssd, "flash_attention": flash, "decode_attention": decode}
-    assert (arch in cs.SERVE_ARCHS) == (arch != "mamba2-1.3b")
+    assert (arch in cs.SERVE_ARCHS) == (arch not in HELD)
 
 
 @pytest.mark.parametrize("arch", sorted(WANT))
@@ -301,3 +319,111 @@ def test_spans_swapped_ranges_the_mla_functions_and_restores_them():
     assert (ops.attention, A._mla_absorbed) == originals
     counts = {ev.key: ev.count for ev in prof.key_averages()}
     assert counts["attention"] == counts["mla_absorbed"] == cfg.n_layers
+
+
+def test_window_traffic_outruns_the_windows_and_its_launch_counts():
+    """``serve_window``: gemma3's 1024-token prompts are twice its 512
+    window, gemma2's 4160 tokens pass its 4096 (and its vector tier's
+    chunked attention, Sq x Sk > 2048^2); every layer attends, so one
+    flash launch a layer and one decode launch a layer and later step."""
+    got = {}
+    for arch, traffic in cs.SERVE_WINDOW:
+        cfg = get_config(arch)
+        assert traffic["prompt"] > cfg.window
+        got[arch] = cs.serve_want(cfg, traffic["prompt"], traffic["gen"])
+    assert got == {"gemma3-1b": {"ssd": 0, "flash_attention": 26,
+                                 "decode_attention": 26 * 31},
+                   "gemma2-2b": {"ssd": 0, "flash_attention": 26,
+                                 "decode_attention": 26 * 7}}
+    assert dict(cs.SERVE_WINDOW)["gemma2-2b"]["prompt"] ** 2 > 2048 ** 2
+
+
+def test_layer_labels_count_within_each_ctx():
+    """A label per block call: its kind and its index among the calls made
+    with one ctx, so that whisper's encoder and decoder stacks, and each
+    forward, count from 0."""
+    label = cs.layer_labels()
+    enc, dec, step = object(), object(), object()
+    got = [label(k, c) for k, c in (("enc", enc), ("enc", enc),
+                                    ("dec", dec), ("dec", dec),
+                                    ("dec", step), ("dec", step))]
+    assert got == ["enc.0", "enc.1", "dec.0", "dec.1", "dec.0", "dec.1"]
+
+
+def test_whisper_teacher_runs_pin_the_encoder_memory():
+    """whisper reduced in float32 with its stub frames: the kernel tiers'
+    plain versions against the vector tier, teacher forced.  Every block
+    call is recorded (2 encoder blocks and 4 decoder blocks in the
+    prefill, 4 decoder blocks a step), each ``dec`` call of the prefill
+    with the encoder output it read; the pinned vector run reads the
+    kernel run's encoder output there (the same tensor), and its gaps
+    are within the gates."""
+    from repro_torch.data.pipeline import extra_inputs
+    from repro_torch.models import blocks as B
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("whisper-tiny").reduced().replace(dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(6), "cpu")
+    prompts = np.random.default_rng(6).integers(2, cfg.vocab_size, (2, 8))
+    extra = extra_inputs(cfg, 2, 0, "cpu")
+    tokens = Engine(cfg, params, 2, 13, device="cpu").generate(prompts, 5,
+                                                                 extra)
+    run = functools.partial(cs.teacher_logits, cfg, params, prompts, tokens,
+                            13, torch.device("cpu"), extra=extra)
+    block, kblocks = cs.block_probe(B)
+    kern = run("pallas", None, block)
+    assert torch.equal(kern.argmax(-1).T, torch.from_numpy(tokens).long())
+    layers = [c["layer"] for c in kblocks]
+    assert layers == ["enc.0", "enc.1", "dec.0", "dec.1", "dec.2",
+                      "dec.3"] + ["dec.0", "dec.1", "dec.2", "dec.3"] * 4
+    mems = [c["memory"] for c in kblocks]
+    assert all(m is not None and m.shape == (2, 8, cfg.d_model)
+               for m in mems[2:6])
+    assert all(m is mems[2] for m in mems[2:6])
+    assert all(m is None for m in mems[:2] + mems[6:])
+    plain = run("vector")
+    held = cs.held_logits(kern, plain, cs.E2E_F32_TOL, "float32")
+    assert held["greedy_agree"] == 1.0
+    pin_block, vblocks = cs.block_probe(B, pinned=kblocks)
+    run("vector", None, pin_block)
+    assert [c["layer"] for c in vblocks] == layers
+    for k, v in zip(kblocks, vblocks):
+        assert v["x"] is k["x"] and v["memory"] is k["memory"]
+    gaps = cs.stream_gaps(kblocks, vblocks, cs.E2E_TOL, "float32")
+    assert gaps["block_calls"] == 6 + 4 * 4
+
+
+def test_gap_probe_plants_its_fault_in_the_labelled_decoder_layer():
+    """``tools/serve_gap_probe.py``'s control on whisper reduced (float32,
+    both runs on the vector tier, so every correct block agrees exactly):
+    the update of decoder layer 2 scaled by 1.05 at every step, found by
+    its per-layer reading (0.05 / 1.05 of the faulted update) and by no
+    other layer, the encoder's included."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import serve_gap_probe as gp
+    from repro_torch.data.pipeline import extra_inputs
+    from repro_torch.models import blocks as B
+    from repro_torch.serve.engine import Engine
+    cfg = get_config("whisper-tiny").reduced().replace(dtype="float32")
+    params = M.init(cfg, torch.Generator().manual_seed(7), "cpu")
+    prompts = np.random.default_rng(7).integers(2, cfg.vocab_size, (2, 8))
+    extra = extra_inputs(cfg, 2, 0, "cpu")
+    tokens = Engine(cfg, params, 2, 13, device="cpu").generate(prompts, 4,
+                                                                 extra)
+    run = functools.partial(cs.teacher_logits, cfg, params, prompts, tokens,
+                            13, torch.device("cpu"), extra=extra)
+    apply = B.block_apply
+    B.block_apply = gp.faulty(apply, "dec.2", "scale")
+    try:
+        cblock, cblocks = cs.block_probe(B)
+    finally:
+        B.block_apply = apply
+    run("vector", None, cblock)
+    pin, vblocks = cs.block_probe(B, pinned=cblocks)
+    run("vector", None, pin)
+    stats = gp.block_stats(cblocks, vblocks)
+    assert stats["worst_layer"] == "dec.2"
+    by_layer = stats["update_by_layer"]
+    assert set(by_layer) == {"enc.0", "enc.1", "dec.0", "dec.1", "dec.2",
+                             "dec.3"}
+    assert by_layer["dec.2"] == pytest.approx(0.05 / 1.05, rel=1e-3)
+    assert all(v == 0.0 for k, v in by_layer.items() if k != "dec.2")

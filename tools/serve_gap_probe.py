@@ -9,7 +9,8 @@ For each arch (default: ``ARCHS``, the served ones and mamba2-1.3b,
 whose config ``get_config`` refuses until its bf16 check has a limit its
 full depth passes) in bf16 at the
 smoke's full width, depth and traffic (4 prompts of 512 tokens, 32
-tokens), it generates the kernel run's greedy tokens and then, teacher
+tokens; whisper's with its stub frames, pixtral's with its stub
+patches), it generates the kernel run's greedy tokens and then, teacher
 forced on them as ``chip_smoke.serve_arch`` is, prints one JSON line
 with:
 
@@ -20,11 +21,13 @@ with:
   * ``gate``: the smoke's whole-model reading, the kernel run against the
     vector run (max |logit difference| over max |logit|, each step, and
     its largest), an MoE's vector run routed by the kernel run's indices;
-  * ``blocks``: each block of a vector run fed the kernel run's input:
-    the largest output gap over the block's own update max |y - x|, over
-    its output max |y|, and over its update after one rounding step of
-    the output is allowed each element (``chip_smoke.stream_gaps``'s
-    measure); the first measure's largest by layer;
+  * ``blocks``: each block of a vector run fed the kernel run's input
+    (a whisper ``dec`` block also its encoder output): the largest output
+    gap over the block's own update max |y - x|, over its output max |y|,
+    and over its update after one rounding step of the output is allowed
+    each element (``chip_smoke.stream_gaps``'s measure); the first
+    measure's largest by layer (``chip_smoke.layer_labels``: whisper's
+    encoder layers apart from its decoder's);
   * ``sound``: other correct runs held to the same vector run by the same
     statistic: the vector tier with ssd's fp32 sums chunked at 64 and 32
     rows, the vector tier with cuBLAS's bf16 split-K reductions
@@ -35,9 +38,14 @@ with:
   * ``unpinned`` (an MoE): the vector run on its own routing, its flips
     and its gap;
   * ``controls``: the kernel run with a fault planted in one block (the
-    middle layer, at every step): its update scaled by 1.05, or its
-    update cut to 4 bits of mantissa; each held to the vector run by the
-    whole-model statistic and, block by block, by the update measure.
+    middle layer of the decoder stack, at every step): its update scaled
+    by 1.05, or its update cut to 4 bits of mantissa; each held to the
+    vector run by the whole-model statistic and, block by block, by the
+    update measure;
+  * ``float32_gate``: the whole-model statistic with the model in
+    float32 (weights drawn anew from the seed once the bf16 model is
+    freed), teacher forced on the same tokens, an MoE's vector run
+    routed by the kernel run's indices.
 
 It also checks whether the flag ``allow_bf16_reduced_precision_reduction``
 changes a bf16 ``torch.matmul`` at the serving gemm shapes.  The last
@@ -64,7 +72,9 @@ import chip_smoke as cs  # noqa: E402
 ARCHS = {"zamba2-1.2b": "zamba2_1p2b", "mamba2-1.3b": "mamba2_1p3b",
          "granite-moe-1b-a400m": "granite_moe_1b_a400m",
          "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-         "minicpm3-4b": "minicpm3_4b"}
+         "minicpm3-4b": "minicpm3_4b", "gemma2-2b": "gemma2_2b",
+         "gemma3-1b": "gemma3_1b", "whisper-tiny": "whisper_tiny",
+         "pixtral-12b": "pixtral_12b"}
 FAULT_SCALE = 1.05
 FAULT_MANTISSA = 4        # bits kept of float32's 23
 
@@ -76,7 +86,7 @@ def rel_gap(kern, plain):
     return {"max": max(steps), "steps": [round(v, 6) for v in steps]}
 
 
-def block_stats(kern, plain, per_fwd):
+def block_stats(kern, plain):
     """The three block measures of the module docstring."""
     import torch
     upd, out, ulp = [], [], []
@@ -90,23 +100,25 @@ def block_stats(kern, plain, per_fwd):
         step = torch.maximum(cs.rounding_step(a["y"]),
                              cs.rounding_step(b["y"]))
         ulp.append(float((d - step).clamp_min(0).max() / u))
-    by_layer = [max(upd[i::per_fwd]) for i in range(per_fwd)]
+    by_layer = {}
+    for a, u in zip(kern, upd):
+        by_layer[a["layer"]] = max(by_layer.get(a["layer"], 0.0), u)
     worst = max(range(len(upd)), key=upd.__getitem__)
     return {"calls": len(upd), "update": max(upd), "worst_call": worst,
-            "worst_layer": worst % per_fwd, "output": max(out),
+            "worst_layer": kern[worst]["layer"], "output": max(out),
             "update_one_step_allowed": max(ulp),
-            "update_by_layer": [round(v, 6) for v in by_layer]}
+            "update_by_layer": {k: round(v, 6) for k, v in by_layer.items()}}
 
 
-def faulty(apply, per_fwd, layer, how):
-    """block_apply with a fault in ``layer`` of every forward."""
+def faulty(apply, layer, how):
+    """block_apply with a fault in ``layer`` (a ``chip_smoke.layer_labels``
+    label) of every forward."""
     import torch
-    seen = [0]
+    label = cs.layer_labels()
 
     def run(kind, params, x, cache, ctx):
         y, cache = apply(kind, params, x, cache, ctx)
-        i, seen[0] = seen[0], seen[0] + 1
-        if i % per_fwd != layer:
+        if label(kind, ctx) != layer:
             return y, cache
         h = (y - x).float()
         if how == "scale":
@@ -144,6 +156,7 @@ def matmul_flag(dev):
 def probe(dev, arch):
     import torch
     from repro_torch.core import use_policy
+    from repro_torch.data.pipeline import extra_inputs
     from repro_torch.kernels import ops as ops_mod
     from repro_torch.kernels import ref as ref_mod
     from repro_torch.models import blocks as blocks_mod
@@ -160,21 +173,24 @@ def probe(dev, arch):
     params = M.init(cfg, gen, dev)
     prompts = np.random.default_rng(cs.SEED).integers(2, cfg.vocab_size,
                                                       (b, plen))
-    tokens = Engine(cfg, params, b, max_seq, device=dev).generate(prompts,
-                                                                  steps)
+    extra = extra_inputs(cfg, b, cs.SEED, dev)
+    tokens = Engine(cfg, params, b, max_seq, device=dev).generate(
+        prompts, steps, extra)
     run = functools.partial(cs.teacher_logits, cfg, params, prompts, tokens,
-                            max_seq, dev)
+                            max_seq, dev, extra=extra)
     moe = bool(cfg.n_experts)
     record = {"arch": arch}
     if dev.type == "cuda":
-        record["serving"] = cs.warm_run(cfg, params, prompts, max_seq, dev)
+        record["serving"] = cs.warm_run(cfg, params, prompts, max_seq, dev,
+                                        steps, extra)
         record["serving"]["tokens_repeat"] = bool(np.array_equal(
             record["serving"].pop("tokens"), tokens))
 
     route, kcalls = cs.route_probe(moe_mod) if moe else (None, None)
     block, kblocks = cs.block_probe(blocks_mod)
     kern = run("pallas", route, block)
-    per_fwd = len(kblocks) // steps
+    kinds = cfg.layer_pattern()
+    middle = f"{kinds[len(kinds) // 2]}.{len(kinds) // 2}"
 
     def pinned():
         return cs.route_probe(moe_mod, pinned=kcalls)[0] if moe else None
@@ -183,7 +199,7 @@ def probe(dev, arch):
     record["gate"] = rel_gap(kern, plain)
     pin_block, vblocks = cs.block_probe(blocks_mod, pinned=kblocks)
     run("vector", pinned(), pin_block)
-    record["blocks"] = block_stats(kblocks, vblocks, per_fwd)
+    record["blocks"] = block_stats(kblocks, vblocks)
     del vblocks
 
     def swapped(name, fn, policy):
@@ -234,7 +250,7 @@ def probe(dev, arch):
     controls = {}
     for how in ("scale", "mantissa"):
         apply = blocks_mod.block_apply
-        blocks_mod.block_apply = faulty(apply, per_fwd, per_fwd // 2, how)
+        blocks_mod.block_apply = faulty(apply, middle, how)
         try:
             cblock, cblocks = cs.block_probe(blocks_mod)
         finally:
@@ -243,8 +259,8 @@ def probe(dev, arch):
         ctrl = run("pallas", route_c, cblock)
         pin_block, vblocks = cs.block_probe(blocks_mod, pinned=cblocks)
         run("vector", pinned(), pin_block)
-        stats = block_stats(cblocks, vblocks, per_fwd)
-        controls[how] = {"layer": per_fwd // 2,
+        stats = block_stats(cblocks, vblocks)
+        controls[how] = {"layer": middle,
                          "gate": rel_gap(ctrl, plain)["max"],
                          "blocks_update": stats["update"],
                          "blocks_worst_layer": stats["worst_layer"],
@@ -252,8 +268,22 @@ def probe(dev, arch):
                          stats["update_one_step_allowed"]}
         del ctrl, cblocks, vblocks
     record["controls"] = controls
-    print(json.dumps(record), flush=True)
     del params, kern, plain, kblocks
+    torch.cuda.empty_cache()
+
+    # the same model in float32 (weights drawn anew from the seed, once
+    # the bf16 model is freed), teacher forced on the same tokens
+    cfg32 = cfg.replace(dtype="float32")
+    gen.manual_seed(cs.SEED)
+    params = M.init(cfg32, gen, dev)
+    run32 = functools.partial(cs.teacher_logits, cfg32, params, prompts,
+                              tokens, max_seq, dev, extra=extra)
+    route32, calls32 = cs.route_probe(moe_mod) if moe else (None, None)
+    kern = run32("pallas", route32)
+    pinned32 = cs.route_probe(moe_mod, pinned=calls32)[0] if moe else None
+    record["float32_gate"] = rel_gap(kern, run32("vector", pinned32))["max"]
+    print(json.dumps(record), flush=True)
+    del params, kern
     torch.cuda.empty_cache()
 
 
