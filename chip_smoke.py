@@ -67,7 +67,42 @@ Then it drives the port's main paths:
 
 Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
-NEON-migration frontend runs on the card:
+training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
+
+  * ``train``: zamba2-1.2b at full width and depth, bf16, seeded, under
+    the default target and policy: 8 steps of ``SyntheticLM``'s 8 rows x
+    4096 tokens at accum 2 (``TRAIN``), warmup 1; every step's exact
+    launches (``train_want``: forward, remat's recompute and gemm's two
+    backward products), each of gemm, vtanh, attention and ssd on its
+    kernel tier with its autograd Function in the graph, finite losses
+    with step 7's below step 0's, every param leaf moved, and step 0's
+    gradient against the vector tier's from the same state: the loss
+    and the global norm within 3e-2, the median leaf within 3e-2 of its
+    max, the worst within 0.3 (``step0_gate``); host-clock ms and
+    tokens/s a step, the peak memory, and step 1 under torch.profiler
+    with a marker kernel at the edges of each span (device ms by kernel,
+    the idle share, the device ms of the kernels inside each span: the
+    forward, remat's recompute, the update, gemm's backward with its
+    transposed copies, flash's and ssd's vector-tier recompute), the
+    bf16-peak share of 6 N tokens;
+  * ``train_grad``: zamba2 float32 at full depth, 2 x 1024 tokens, one
+    backward on the kernel tier and one on the vector tier: the loss
+    within 2e-4 and each leaf's gradient within 2e-4 of its max, but
+    Mamba2's A_log leaves, held to a float64 run of the vector tier: no
+    further from it than the vector tier is, by more than 2e-4 of its
+    max (``grad_gate``); bf16 printed, not gated per leaf;
+  * ``train_archs``: the other six served archs at full width, cut to
+    one pattern unit, float32, 2 x 512 tokens, the same per-leaf gate
+    (raw), MoE routing pinned (``route_probe``), each op's kernel tier
+    and Function;
+  * ``train_resume``: zamba2 cut to one pattern unit, 6 steps, a
+    checkpoint every 2, a failure injected at step 4: one restart, the
+    last step saved, the params restored bitwise and the losses equal to
+    an uninterrupted run's; each save's bytes and seconds;
+  * ``guard``: each of the thirteen kernel entries refuses an input that
+    requires grad (grad mode on) and launches nothing.
+
+Then the NEON-migration frontend runs on the card:
 
   * ``isa``: every op of ``repro_torch.core.isa`` in each of its tiers on
     CUDA tensors and again on the CPU, on the same numpy-made inputs
@@ -126,7 +161,9 @@ zamba2's five weight shapes, granite's two in bf16, deepseek's and
 minicpm3's in both dtypes; gemma2's, gemma3's, whisper's and pixtral's,
 pixtral's head among them, in bf16), vsigmoid at their silu's shapes in
 both dtypes, the new archs' gelu and silu in bf16 and gemma2's final
-softcap in float32, flash and decode at every ``LM_NEW`` call in bf16
+softcap in float32, the train path's calls at its shapes (gemm's
+forward and backward products at 16384 rows, the gelu, flash and ssd at
+4 x 4096; ``time_train``), flash and decode at every ``LM_NEW`` call in bf16
 (sdpa as the library call but where there is a softcap), and split-K
 against the kernel above it at M = 4, 8 and 16 (the small-M
 threshold); conv_hwc, dwconv, the pools and ibilinear also in bf16,
@@ -147,6 +184,8 @@ DIR]`` only builds and times the named Figure-2 kernels (not the
 elementwise four) at both sizes and in both dtypes; ``--src`` runs the
 ``repro_torch`` under another ``src/``, such as an unpacked parent
 commit, so that two commits can be timed in turns in one call.
+``tools/train_grad_probe.py`` takes the readings behind the gradient
+gates (sound runs on two seeds, planted faults).
 ``python3 chip_smoke.py --port`` runs only the ``port``,
 ``port_compiled`` and ``port_serve`` phases (no build) and prints no
 result line.  ``tools/serve_gap_probe.py`` takes the readings behind
@@ -156,6 +195,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -166,6 +206,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 SEED = 0
 SPIN_CYCLES = 200_000          # ~0.1 ms of the card's clock (time_ms)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -336,6 +377,47 @@ EXACT = ("vrelu", "dwconv", "maxpool", "argmaxpool", "ibilinear")
 # (gemm's bf16 rows are at the serving path's shapes)
 NEW_DTYPES = {op: ("float32", "bfloat16") for op in NEW_OPS}
 NEW_DTYPES["gemm"] = ("float32",)
+# The train path (``train``): zamba2-1.2b at full width and depth, bf16,
+# 8 rows of 4096 tokens a step (train_4k's sequence, src/repro/configs/
+# base.py:255; the pod's 256 rows cut to 8 for one card), accum 2, 8
+# steps; step 0's loss and grad_norm within TRAIN_TOL (bf16's E2E_TOL) of
+# the vector tier's, and its gradient leaf by leaf: the median leaf's max
+# |g_k - g_v| / max |g_v| within TRAIN_TOL, the worst leaf's within
+# TRAIN_LEAF_TOL (bf16 rounding alone reads up to 0.137 on a Mamba2 A_log
+# at 2 x 1024; a gradient missing or 1.5x too large reads 0.5 or more:
+# tools/train_grad_probe.py).  ``train_grad``: the gradient gate at 2 x
+# 1024 tokens; ``train_archs``: the other served archs cut to one pattern
+# unit at 2 x 512; ``train_resume``: zamba2 cut to one pattern unit,
+# checkpoint and restart
+TRAIN = dict(arch="zamba2-1.2b", batch=8, seq=4096, accum=2, steps=8)
+TRAIN_TOL = 3e-2
+TRAIN_LEAF_TOL = 0.3
+TRAIN_GRAD = dict(batch=2, seq=1024)
+TRAIN_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b", "minicpm3-4b",
+               "gemma2-2b", "gemma3-1b", "whisper-tiny")
+TRAIN_ARCH_TRAFFIC = dict(batch=2, seq=512)
+TRAIN_RESUME = dict(batch=4, seq=1024, steps=6, ckpt_every=2, fail_at=4)
+# a microbatch's rows in ``train``: 4 x 4096
+TRAIN_M = TRAIN["batch"] // TRAIN["accum"] * TRAIN["seq"]
+# The profiled train step's spans (name, module, function), a marker
+# kernel launched as each enters and leaves (``marks_swapped``): each
+# microbatch's forward, each block (in the forward, part of it; in the
+# backward, remat's recompute), the optimizer update, and the backward
+# of gemm's, flash's and ssd's Functions
+TRAIN_SPANS = (("forward", "repro_torch.train.loop", "loss_fn"),
+               ("block", "repro_torch.models.blocks", "block_apply"),
+               ("update", "repro_torch.optim.adamw", "update"),
+               ("gemm_backward", "repro_torch.kernels.gemm",
+                "GemmFn.backward"),
+               ("flash_backward", "repro_torch.kernels.flash_attention",
+                "FlashAttentionFn.backward"),
+               ("ssd_backward", "repro_torch.kernels.ssd", "SsdFn.backward"))
+# The modules that name float32 on the vector tier's train path: the
+# float64 witness of ``train_grad`` reads their float32 as float64
+TWIN_MODULES = ("repro_torch.kernels.ref", "repro_torch.models.layers",
+                "repro_torch.models.ssm", "repro_torch.models.attention",
+                "repro_torch.models.blocks", "repro_torch.models.model",
+                "repro_torch.models.moe", "repro_torch.train.loop")
 # the main path's outputs against the torch oracles: the reference's TOL
 ORACLE_TOL = 2e-4
 # The Figure-2 clamp bounds of vrelu (benchmarks/xnnpack_suite.py)
@@ -345,7 +427,9 @@ EDGE = [0.0, -0.0, float("inf"), float("-inf"), float("nan"), 1e-40,
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, with the seconds since the script started (``t``)."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": time.perf_counter() - T0}), flush=True)
 
 
 def extra_args(op):
@@ -1200,10 +1284,10 @@ def block_probe(blocks_mod, pinned=None):
             if pinned[len(calls)]["memory"] is not None:
                 ctx = dataclasses.replace(
                     ctx, memory=pinned[len(calls)]["memory"])
-        y, cache = apply(kind, params, x, cache, ctx)
+        y, cache, aux = apply(kind, params, x, cache, ctx)
         calls.append({"x": x, "y": y, "layer": layer,
                       "memory": ctx.memory if kind == "dec" else None})
-        return y, cache
+        return y, cache, aux
     return probe, calls
 
 
@@ -2545,6 +2629,895 @@ def port_serve_phase(dev, modules):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training: zamba2-1.2b at full width and depth, the gradient gates, the
+# other archs' train steps, checkpoint and restart, the no-detach guard
+# ---------------------------------------------------------------------------
+
+def train_want(cfg, seq, accum):
+    """Exact kernel launches of one train step of a hybrid (zamba2) model,
+    ``accum`` microbatches of ``seq`` positions a row: every block runs
+    under remat, so its kernels launch twice (the forward, and the
+    recompute in the backward); each gemm launches twice more in the
+    backward (dA = dY B^T, dB = A^T dY); vtanh's, flash's and ssd's
+    backward are torch ops.  Per microbatch: a Mamba2 layer's two
+    projections and two ssd launches (``ssd.launches``), the shared
+    block's q, k, v, o and its MLP's products, its gelu and one flash; a
+    tied head is a plain matmul."""
+    from repro_torch.kernels import ssd as ssd_mod
+    kinds = cfg.layer_pattern()
+    n_mamba = sum(k in MAMBA_KINDS for k in kinds)
+    n_shared = sum(k == "mamba_shared" for k in kinds)
+    blocks = 2 * n_mamba + n_shared * (4 + (3 if cfg.gated_mlp else 2))
+    return {"gemm": accum * 4 * blocks,
+            "vtanh": accum * 2 * n_shared * (cfg.act == "gelu"),
+            "flash_attention": accum * 2 * n_shared,
+            "ssd": accum * 2 * n_mamba * ssd_mod.launches(seq),
+            "vsigmoid": 0, "decode_attention": 0}
+
+
+def graph_functions(root):
+    """The class names of every node of the autograd graph under
+    ``root`` (a loss's grad_fn)."""
+    seen, stack, names = set(), [root], set()
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        names.add(type(fn).__name__)
+        stack.extend(f for f, _ in fn.next_functions)
+    return names
+
+
+def one_unit(cfg):
+    """``cfg`` cut to its prefix and one pattern unit (the encoder kept)."""
+    prefix, unit, _, _ = cfg.pattern_unit()
+    return cfg.replace(n_layers=len(prefix) + len(unit))
+
+
+def leaf_names(params):
+    from repro_torch import tree
+    return ["::".join(map(str, p)) for p, _ in tree.paths(params)]
+
+
+def grads_of(cfg, params, batch, policy):
+    """(loss, gradients of every param leaf) of one loss_fn + backward
+    under ``policy``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import use_policy
+    from repro_torch.train import loop
+    with use_policy(policy), torch.enable_grad():
+        loss, (xent, aux) = loop.loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, tree.leaves(params))
+    return float(loss.detach()), float(aux.detach()), grads
+
+
+def held_grads(kern, plain, names, rel_tol, what, gate=True, exempt=()):
+    """Each leaf's max |g_kernel - g_vector| over the vector gradient's
+    max |g|; raises where a gradient is missing or not finite, and (with
+    ``gate``) where one is zero where the vector one exceeds rel_tol of
+    that max (a dropped gradient; an entry within it may round to 0 on
+    one tier alone: ROADMAP C.29) or, outside the leaves named in
+    ``exempt``, differs by more than rel_tol of it."""
+    worst = {}
+    for name, g, w in zip(names, kern, plain):
+        if g is None or w is None or g.shape != w.shape:
+            raise AssertionError(f"{what}: {name} has no gradient")
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{what}: {name}'s gradient is not finite")
+        scale = float(w.float().abs().max())
+        if gate and bool(((w.float().abs() > rel_tol * scale) &
+                          (g == 0)).any()):
+            raise AssertionError(f"{what}: {name}'s gradient is zero where "
+                                 "the vector tier's is not")
+        err = float((g.float() - w.float()).abs().max())
+        worst[name] = err / scale if scale else (0.0 if err == 0 else
+                                                  float("inf"))
+    gated = [k for k in worst if k not in exempt]
+    top = max(gated, key=worst.get) if gated else None
+    if gate and top is not None and worst[top] > rel_tol:
+        raise AssertionError(f"{what}: {top}'s gradient differs from the "
+                             f"vector tier's by {worst[top]} of its max, "
+                             f"against {rel_tol}")
+    return worst
+
+
+def mean_grads(cfg, params, batch, parts, policy):
+    """(mean loss, fp32 mean gradient of every leaf) of ``batch`` cut into
+    ``parts`` contiguous blocks of rows, one loss.backward() each under
+    ``policy``: a train step's gradient, before its update."""
+    import torch
+    n = next(iter(batch.values())).shape[0] // parts
+    loss, total = 0.0, None
+    for i in range(parts):
+        lo, _, grads = grads_of(cfg, params, {k: v[i * n:(i + 1) * n]
+                                              for k, v in batch.items()},
+                                policy)
+        loss += lo / parts
+        if total is None:
+            total = [torch.zeros(g.shape, dtype=torch.float32,
+                                 device=g.device) for g in grads]
+        for t, g in zip(total, grads):
+            t.add_(g.float() / parts)
+        del grads
+    return loss, total
+
+
+class _Float64Torch:
+    """``torch`` with its float32 read as float64."""
+
+    def __init__(self, torch):
+        self._torch = torch
+        self.float32 = torch.float64
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+
+def float64_grads(cfg, params, batch, want):
+    """The gradients of the leaves named in ``want`` from one
+    loss.backward() of the vector tier in float64: the params cast to it,
+    and each of ``TWIN_MODULES`` given a ``torch`` whose float32 is
+    float64 for the call, so that no cast on the path rounds to float32
+    (nothing in the package changes).  The witness the float32 gate holds
+    Mamba2's A_log gradients to (ROADMAP C.29)."""
+    import importlib
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import use_policy
+    from repro_torch.train import loop
+    names = leaf_names(params)
+    p64 = tree.map(lambda p: p.detach().to(torch.float64)
+                   .requires_grad_(True), params)
+    picked = [(n, p) for n, p in zip(names, tree.leaves(p64)) if n in want]
+    saved = []
+    try:
+        for name in TWIN_MODULES:
+            m = importlib.import_module(name)
+            saved.append((m, m.torch))
+            m.torch = _Float64Torch(torch)
+        with use_policy("vector"), torch.enable_grad():
+            loss, _ = loop.loss_fn(p64, cfg.replace(dtype="float64"), batch)
+            grads = torch.autograd.grad(loss, [p for _, p in picked])
+    finally:
+        for m, t in saved:
+            m.torch = t
+    return {n: g for (n, _), g in zip(picked, grads)}
+
+
+def witnessed(kern, plain, exact, rel_tol, what):
+    """Each leaf of ``exact`` (name -> its float64 gradient): the kernel
+    tier's max |g_k - g64| and the vector tier's max |g_v - g64|, each over
+    max |g64|; with the failure, where the kernel tier sits further from
+    the float64 gradient than the vector tier does by more than rel_tol
+    (``kern`` and ``plain``: name -> gradient)."""
+    rows, failures = {}, []
+    for name, g64 in exact.items():
+        scale = float(g64.abs().max())
+        k, v = (float((g[name].double() - g64).abs().max()) / scale
+                for g in (kern, plain))
+        rows[name] = {"kernel": k, "vector": v}
+        if k > v + rel_tol:
+            failures.append(f"{what}: {name}'s gradient is {k} of its max "
+                            f"from the float64 one, the vector tier's {v}, "
+                            f"against {rel_tol} beyond it")
+    return rows, failures
+
+
+def a_log_leaves(names):
+    return [n for n in names if n.endswith("A_log")]
+
+
+def grad_gate(kernel, vector, exact, names, what):
+    """The float32 gradient gate on ``kernel`` and ``vector``, each (loss,
+    every leaf's gradient) of one loss.backward() on its tier from the
+    same params: the loss within LM_TOL's float32 2e-4, every leaf's max
+    |g_k - g_v| over max |g_v| within it too, and non-zero wherever the
+    vector tier's is, but for Mamba2's A_log leaves, whose gradient sums
+    over every position and reads up to 2.3e-4 from float32 reordering
+    alone (ROADMAP C.29): those are held to ``exact``, their float64
+    gradient (``float64_grads``), by ``witnessed``.  -> (record, the
+    gate's failures)."""
+    tol = LM_TOL["float32"]
+    (kl, kern), (vl, plain) = kernel, vector
+    a_log = a_log_leaves(names)
+    failures = []
+    if abs(kl - vl) > tol * abs(vl):
+        failures.append(f"{what}: loss {kl} against the vector tier's {vl}")
+    worst = held_grads(kern, plain, names, tol, what, gate=False)
+    try:
+        held_grads(kern, plain, names, tol, what, exempt=a_log)
+    except AssertionError as e:
+        failures.append(str(e))
+    wit, bad = witnessed(dict(zip(names, kern)), dict(zip(names, plain)),
+                         exact, tol, what)
+    failures += bad
+    order = sorted(worst, key=lambda k: -worst[k])
+    gated = [k for k in order if k not in a_log]
+    record = {"loss": kl, "vector_loss": vl, "leaves": len(worst),
+              "tolerance": tol, "max_rel_leaf_err": worst[order[0]],
+              "worst_leaf": order[0], "max_gated": worst[gated[0]],
+              "worst_gated": gated[0],
+              "a_log_witness": {k: {"kernel": float(f"{r['kernel']:.3g}"),
+                                    "vector": float(f"{r['vector']:.3g}")}
+                                for k, r in wit.items()},
+              "worst_8": {k: float(f"{worst[k]:.3g}") for k in order[:8]},
+              "failures": failures}
+    return record, failures
+
+
+def step0_gate(kernel, vector, names, what, reported=None):
+    """The bf16 step-0 gate on ``kernel`` and ``vector``, each (mean loss,
+    fp32 mean gradient of every leaf) of a train step's batch on its tier
+    from the same state (``mean_grads``): the loss and the gradient's
+    global norm within TRAIN_TOL (relative), those the step itself
+    ``reported`` too where given, and each leaf's max |g_k - g_v| over
+    max |g_v| (``held_grads``): the median leaf's within TRAIN_TOL, the
+    worst leaf's within TRAIN_LEAF_TOL.  -> (record, the gate's
+    failures)."""
+    (kl, kern), (vl, plain) = kernel, vector
+    norm = [math.sqrt(sum(float(g.square().sum()) for g in gs))
+            for gs in (kern, plain)]
+    gaps = {"loss": abs(kl - vl) / abs(vl),
+            "grad_norm": abs(norm[0] - norm[1]) / norm[1]}
+    if reported is not None:
+        gaps["step_loss"] = abs(reported["loss"] - vl) / abs(vl)
+        gaps["step_grad_norm"] = abs(reported["grad_norm"] - norm[1]) / \
+            norm[1]
+    worst = held_grads(kern, plain, names, TRAIN_TOL, what, gate=False)
+    order = sorted(worst, key=lambda k: -worst[k])
+    median = statistics.median(worst.values())
+    failures = [f"{what}: step 0's {k} {gaps[k]} from the vector tier's, "
+                f"against {TRAIN_TOL}" for k in gaps if gaps[k] > TRAIN_TOL]
+    if median > TRAIN_TOL:
+        failures.append(f"{what}: the median leaf's gradient is {median} "
+                        f"of its max from the vector tier's, against "
+                        f"{TRAIN_TOL}")
+    if worst[order[0]] > TRAIN_LEAF_TOL:
+        failures.append(f"{what}: {order[0]}'s gradient is "
+                        f"{worst[order[0]]} of its max from the vector "
+                        f"tier's, against {TRAIN_LEAF_TOL}")
+    record = {"loss": kl, "vector_loss": vl, "grad_norm": norm[0],
+              "vector_grad_norm": norm[1], "rel_gap": gaps,
+              "leaves": len(worst), "median_rel_leaf_err": median,
+              "max_rel_leaf_err": worst[order[0]], "worst_leaf": order[0],
+              "worst_8": {k: float(f"{worst[k]:.3g}") for k in order[:8]},
+              "failures": failures}
+    return record, failures
+
+
+def train_batch(cfg, data, step, extra, dev):
+    return {**data.batch(step, device=dev), **extra}
+
+
+def train_phase(dev, modules):
+    """zamba2-1.2b at full width and depth, bf16: ``TRAIN``'s steps of
+    SyntheticLM traffic through ``train.loop.make_train_step`` under the
+    default target (h100) and policy.  Gates: every step's exact kernel
+    launches (``train_want``), the kernel tier and the Function of each
+    of gemm, vtanh, attention and ssd, finite losses with the last below
+    the first, every param leaf moved, and step 0's gradient against the
+    vector tier's from the same state (``step0_gate``).  Prints each step's
+    host-clock ms and tokens/s, the peak memory, and from step 1 under
+    torch.profiler (``profile_train_step``) the device ms by kernel and
+    by span (the forward, remat's recompute, the update, gemm's backward
+    with its transposed copies, flash's and ssd's vector-tier recompute,
+    the rest of the backward), the idle share against the median
+    unprofiled step; and the bf16-peak share of 6 N tokens."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace
+    from repro_torch.core.registry import REGISTRY
+    from repro_torch.data.pipeline import SyntheticLM, extra_inputs
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+
+    cfg = get_config(TRAIN["arch"])
+    b, seq, accum, steps = (TRAIN[k] for k in ("batch", "seq", "accum",
+                                               "steps"))
+    tcfg = loop.TrainConfig(accum=accum, optim=adamw.AdamWConfig(
+        warmup_steps=1, total_steps=steps))
+    data = SyntheticLM(cfg.vocab_size, seq, b, seed=SEED)
+    extra = extra_inputs(cfg, b, SEED, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = loop.trainable(M.init(cfg, gen, dev))
+        return params, adamw.init(params)
+
+    params, opt = fresh()
+    n_params = M.count_params(params)
+    # the Functions in the graph of one microbatch's loss (no backward)
+    micro = {k: v[:b // accum] for k, v in
+             train_batch(cfg, data, 0, extra, dev).items()}
+    with torch.enable_grad():
+        loss, _ = loop.loss_fn(params, cfg, micro)
+    functions = sorted(n for n in graph_functions(loss.grad_fn)
+                       if n.endswith("FnBackward"))
+    del loss, micro
+    want_fns = ["FlashAttentionFnBackward", "GemmFnBackward",
+                "SsdFnBackward", "VtanhFnBackward"]
+    if functions != want_fns:
+        raise AssertionError(f"train: Functions in the graph {functions}, "
+                             f"expected {want_fns}")
+    want = train_want(cfg, seq, accum)
+    step_fn = loop.make_train_step(cfg, tcfg)
+    history, step_ms = [], []
+    launches_all = {k: 0 for m in modules for k in m.LAUNCHES}
+    profiled = None
+    for s in range(steps):
+        for m in modules:
+            m.reset_launches()
+        batch = train_batch(cfg, data, s, extra, dev)
+
+        def run():
+            p, o, _, met = step_fn(params, opt, None, batch)
+            return p, o, {k: float(v) for k, v in met.items()}
+        with trace.count() as counted:
+            if s == 1:
+                profiled, out = profile_train_step(run)
+                wall = profiled["wall_ms"]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        params, opt, met = out
+        step_ms.append(wall)
+        launched = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+        for k, v in launched.items():
+            launches_all[k] += v
+        for op, n in want.items():
+            if launched[op] != n:
+                raise AssertionError(f"train: step {s}: {launched[op]} {op} "
+                                     f"launches, expected {n}")
+        chosen = {op: sorted({t for (o, t) in counted["per_op"] if o == op})
+                  for op in ("gemm", "vtanh", "attention", "ssd")}
+        if any(t != ["pallas"] for t in chosen.values()):
+            raise AssertionError(f"train: step {s} ran {chosen}; each op "
+                                 "must run its kernel tier")
+        if not np.isfinite(met["loss"]):
+            raise AssertionError(f"train: step {s}'s loss is {met['loss']}")
+        history.append({"step": s, **met, "ms": wall,
+                        "gemm_variants": {k: launched[k] for k in
+                                          ("gemm_mma", "gemm_simt",
+                                           "gemm_small_m")}})
+        emit("train_step", **history[-1])
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"train: the loss went from "
+                             f"{history[0]['loss']} to {history[-1]['loss']}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    final = [p.detach().clone() for p in tree.leaves(params)]
+    del params, opt
+    torch.cuda.empty_cache()
+    params, opt = fresh()
+    del opt
+    still = [n for n, a, b_ in zip(leaf_names(params), final,
+                                    tree.leaves(params)) if torch.equal(a, b_)]
+    del final
+    if still:
+        raise AssertionError(f"train: {len(still)} param leaves never "
+                             f"moved, e.g. {still[:4]}")
+    # step 0 on both tiers from the same state: the kernel tier in the
+    # step's own microbatches, the vector tier two rows at a time (the same
+    # mean, its sums in another order: the vector tier's attention
+    # backward at four rows of 4096 would not fit beside the state)
+    batch = train_batch(cfg, data, 0, extra, dev)
+    t0 = time.perf_counter()
+    kernel = mean_grads(cfg, params, batch, accum, "pallas")
+    vector = mean_grads(cfg, params, batch, b // 2, "vector")
+    step0, failures = step0_gate(kernel, vector, leaf_names(params), "train",
+                                 reported=history[0])
+    step0["seconds"] = time.perf_counter() - t0
+    del params, kernel, vector
+    if failures:
+        raise AssertionError("; ".join(failures))
+    torch.cuda.empty_cache()
+    tokens = b * seq
+    # the unprofiled steps after the first
+    ms = statistics.median(step_ms[2:])
+    busy = profiled.pop("device_busy_ms")
+    record = {
+        "arch": cfg.name, "params": n_params, "dtype": cfg.dtype,
+        "layers": cfg.n_layers, "batch": b, "seq": seq, "accum": accum,
+        "steps": steps, "target": "h100", "policy": REGISTRY.policy,
+        "functions": functions, "launches_per_step": want,
+        "losses": [h["loss"] for h in history],
+        "grad_norms": [h["grad_norm"] for h in history],
+        "step_ms": step_ms, "step_ms_median_2_on": ms,
+        "tokens_per_s": tokens / ms * 1e3, "peak_gb": peak_gb,
+        "bf16_peak_share": 6 * n_params * tokens / (ms / 1e3)
+        / BF16_MMA_PER_S, "step0_vs_vector": step0,
+        "profiled_step": {**profiled, "device_busy_ms": busy,
+                          "idle_share": 1.0 - busy / ms}}
+    emit("train", **record)
+    return {"launches": launches_all, **record}
+
+
+# the kernel ``torch.cuda._sleep`` launches: the spans' markers
+MARK_KERNEL = "spin_kernel"
+
+
+def marks_swapped(marks):
+    """Swap a marker around each of ``TRAIN_SPANS``'s functions (a
+    module's, or a class's ``Class.method``): a ``MARK_KERNEL`` launched
+    as it enters and as it leaves, each noted in ``marks`` as (name,
+    entering), in the order of their launches on the one stream (nothing
+    in the package changes); returns what to restore: (owner, attribute,
+    what it held)."""
+    import importlib
+    import torch
+    saved = []
+    for span, mod, attr in TRAIN_SPANS:
+        owner = importlib.import_module(mod)
+        if "." in attr:
+            cls, attr = attr.split(".")
+            owner = getattr(owner, cls)
+        fn = getattr(owner, attr)
+
+        def marked(*a, _fn=fn, _span=span, **k):
+            marks.append((_span, True))
+            torch.cuda._sleep(1)
+            try:
+                return _fn(*a, **k)
+            finally:
+                marks.append((_span, False))
+                torch.cuda._sleep(1)
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, staticmethod(marked)
+                if isinstance(owner, type) else marked)
+    return saved
+
+
+def span_kernel_ms(events, marks):
+    """Device ms of a profile's kernels by span: each kernel read under
+    the innermost span open at it on the device, the ``MARK_KERNEL``s
+    matched in order to ``marks`` (a ``block`` in the ``forward`` is the
+    forward's; elsewhere it is ``recompute``; outside every span
+    ``other``), split into the port's kernels (``PORT_KERNELS``) and
+    torch's.  Raises unless the profile holds one marker a mark."""
+    ours = [p for parts in PORT_KERNELS.values() for p in parts]
+    out = {n: {"port": 0.0, "torch": 0.0}
+           for n in [n for n, _, _ in TRAIN_SPANS if n != "block"] +
+           ["recompute", "other"]}
+    device = sorted((ev for ev in events
+                     if str(ev.device_type).endswith("CUDA")),
+                    key=lambda ev: ev.time_range.start)
+    n_marks = sum(MARK_KERNEL in ev.name for ev in device)
+    if n_marks != len(marks):
+        raise AssertionError(f"profile: {n_marks} marker kernels for "
+                             f"{len(marks)} span marks")
+    pending, stack = iter(marks), []
+    for ev in device:
+        if MARK_KERNEL in ev.name:
+            name, entering = next(pending)
+            if not entering:
+                stack.pop()
+            elif name == "block":
+                stack.append("forward" if stack[-1:] == ["forward"]
+                             else "recompute")
+            else:
+                stack.append(name)
+            continue
+        kind = "port" if any(p in ev.name for p in ours) else "torch"
+        out[stack[-1] if stack else "other"][kind] += \
+            ev.time_range.elapsed_us() / 1e3
+    return out
+
+
+def profile_train_step(run):
+    """(reading, result) of ``run()`` under torch.profiler with CUDA
+    activity alone (the host's op records cost more than the step), with
+    ``TRAIN_SPANS``'s markers swapped in: its host-clock ms, the device
+    ms by kernel name and in all, the port's kernels' ms by op, and each
+    span's device ms (``span_kernel_ms``): gemm's backward's torch
+    kernels are its transposed copies, flash's and ssd's their
+    vector-tier recompute."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    marks = []
+    torch.cuda.synchronize()
+    saved = marks_swapped(marks)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, held in saved:
+            setattr(owner, attr, held)
+    events = prof.events()
+    by_kernel = {}
+    for ev in events:
+        if str(ev.device_type).endswith("CUDA") and \
+                MARK_KERNEL not in ev.name:
+            key = ev.name[:80]
+            by_kernel[key] = by_kernel.get(key, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3
+    spans = span_kernel_ms(events, marks)
+    return {"wall_ms": wall, "device_busy_ms": sum(by_kernel.values()),
+            "kernels_ms": dict(sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1])[:16]),
+            "port_kernels_ms": port_kernel_ms(by_kernel),
+            "spans_ms": spans, "marks": len(marks),
+            "transposed_copies_ms": spans["gemm_backward"]["torch"]}, out
+
+
+# the port's kernels as the profiler names them (csrc/*.cu)
+PORT_KERNELS = {"gemm": ("mma::mma_kernel", "simt_kernel", "small_m_kernel",
+                         "splitk_reduce"),
+                "vtanh": ("vtanh",), "vsigmoid": ("vsigmoid",),
+                "flash_attention": ("fa::", "flash"),
+                "ssd": ("ssd_state", "ssd_out", "state_kernel",
+                        "out_kernel")}
+
+
+def port_kernel_ms(by_kernel):
+    """Device ms of the port's own kernels in a profile, by op."""
+    out = {op: 0.0 for op in PORT_KERNELS}
+    for name, ms in by_kernel.items():
+        for op, parts in PORT_KERNELS.items():
+            if any(p in name for p in parts):
+                out[op] += ms
+                break
+    return out
+
+
+def train_grad_phase(dev):
+    """The gradient gate: zamba2-1.2b at full width and depth, float32,
+    ``TRAIN_GRAD``'s tokens, held by ``grad_gate``.  The same in bf16,
+    each leaf's reading printed, the loss held within LM_TOL's 3e-2 and
+    nothing gated per leaf (bf16 rounding alone crosses such limits:
+    ROADMAP C.22)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train import loop
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(TRAIN["arch"]).replace(dtype=dtype)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = loop.trainable(M.init(cfg, gen, dev))
+        batch = SyntheticLM(cfg.vocab_size, TRAIN_GRAD["seq"],
+                            TRAIN_GRAD["batch"], seed=SEED).batch(
+                                0, device=dev)
+        what = f"train_grad/{dtype}"
+        if dtype == "float32":
+            names = leaf_names(params)
+            kernel = grads_of(cfg, params, batch, "pallas")[::2]
+            vector = grads_of(cfg, params, batch, "vector")[::2]
+            exact = float64_grads(cfg, params, batch, a_log_leaves(names))
+            out[dtype], failures = grad_gate(kernel, vector, exact, names,
+                                             what)
+            del kernel, vector, exact
+            emit("train_grad_reading", dtype=dtype, **out[dtype])
+            if failures:
+                raise AssertionError("; ".join(failures))
+        else:
+            tol = LM_TOL[dtype]
+            kl, _, kern = grads_of(cfg, params, batch, "pallas")
+            vl, _, plain = grads_of(cfg, params, batch, "vector")
+            worst = held_grads(kern, plain, leaf_names(params), tol, what,
+                               gate=False)
+            order = sorted(worst, key=lambda k: -worst[k])
+            out[dtype] = {"loss": kl, "vector_loss": vl,
+                          "leaves": len(worst), "tolerance": tol,
+                          "max_rel_leaf_err": worst[order[0]],
+                          "worst_leaf": order[0],
+                          "median_rel_leaf_err": statistics.median(
+                              worst.values()),
+                          "worst_8": {k: float(f"{worst[k]:.3g}")
+                                      for k in order[:8]}}
+            emit("train_grad_reading", dtype=dtype, **out[dtype])
+            if abs(kl - vl) > tol * abs(vl):
+                raise AssertionError(f"{what}: loss {kl} against the "
+                                     f"vector tier's {vl}")
+            del kern, plain
+        del params
+        torch.cuda.empty_cache()
+    emit("train_grad", arch=TRAIN["arch"], **TRAIN_GRAD, **out)
+    return out
+
+
+def train_archs_phase(dev):
+    """The other served archs' train step, full width and depth cut to
+    their prefix and one pattern unit (``one_unit``; whisper's encoder
+    kept), float32, ``TRAIN_ARCH_TRAFFIC``: one loss.backward() on the
+    kernel tier and one on the vector tier from the same params, an
+    MoE's vector run routed by the kernel run's indices (``route_probe``;
+    remat's recompute routes again, in the same order in both runs),
+    held to the same per-leaf gate as train_grad; the kernel tier and
+    the Function of each op the arch's blocks reach (vsigmoid's for the
+    silu archs), the aux loss non-zero for an MoE."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import trace
+    from repro_torch.data.pipeline import SyntheticLM, extra_inputs
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.train import loop
+    fn_of = {"gemm": "GemmFnBackward", "vtanh": "VtanhFnBackward",
+             "vsigmoid": "VsigmoidFnBackward",
+             "attention": "FlashAttentionFnBackward",
+             "ssd": "SsdFnBackward"}
+    rows = {}
+    for arch in TRAIN_ARCHS:
+        full = get_config(arch)
+        cfg = one_unit(full).replace(dtype="float32")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = loop.trainable(M.init(cfg, gen, dev))
+        b, seq = TRAIN_ARCH_TRAFFIC["batch"], TRAIN_ARCH_TRAFFIC["seq"]
+        batch = {**SyntheticLM(cfg.vocab_size, seq, b, seed=SEED).batch(
+            0, device=dev), **extra_inputs(cfg, b, SEED, dev)}
+        ops_ = [op for op in serve_ops(cfg) if op != "decode_attention"]
+        kernel_ops = [op for op in ops_ if serve_tier(cfg, op) == "pallas"]
+        route = calls = pin = None
+        saved = moe_mod._route
+        try:
+            if cfg.n_experts:
+                route, calls = route_probe(moe_mod)
+                moe_mod._route = route
+            with trace.count() as counted, torch.enable_grad():
+                loss, (_, aux) = loop.loss_fn(params, cfg, batch)
+                functions = sorted(n for n in graph_functions(loss.grad_fn)
+                                   if n.endswith("FnBackward"))
+                kern = torch.autograd.grad(loss, tree.leaves(params))
+            kl, aux = float(loss.detach()), float(aux.detach())
+            del loss
+            if cfg.n_experts:
+                moe_mod._route = saved
+                pin, _ = route_probe(moe_mod, pinned=calls)
+                moe_mod._route = pin
+            vl, _, plain = grads_of(cfg, params, batch, "vector")
+        finally:
+            moe_mod._route = saved
+        chosen = {op: sorted({t for (o, t) in counted["per_op"] if o == op})
+                  for op in ops_}
+        want_tiers = {op: [serve_tier(cfg, op)] for op in ops_}
+        if chosen != want_tiers:
+            raise AssertionError(f"train_archs/{arch}: ran {chosen}, "
+                                 f"expected {want_tiers}")
+        want_fns = sorted(fn_of[op] for op in kernel_ops)
+        if functions != want_fns:
+            raise AssertionError(f"train_archs/{arch}: Functions "
+                                 f"{functions}, expected {want_fns}")
+        if bool(cfg.n_experts) != (aux > 0):
+            raise AssertionError(f"train_archs/{arch}: aux {aux}")
+        if abs(kl - vl) > LM_TOL["float32"] * abs(vl):
+            raise AssertionError(f"train_archs/{arch}: loss {kl} against "
+                                 f"the vector tier's {vl}")
+        worst = held_grads(kern, plain, leaf_names(params),
+                           LM_TOL["float32"], f"train_archs/{arch}")
+        top = max(worst, key=worst.get)
+        rows[arch] = {"layers": cfg.n_layers, "full_layers": full.n_layers,
+                      "enc_layers": cfg.n_enc_layers,
+                      "params": M.count_params(params), "loss": kl,
+                      "vector_loss": vl, "aux": aux, "functions": functions,
+                      "chosen": chosen, "leaves": len(worst),
+                      "max_rel_leaf_err": worst[top], "worst_leaf": top,
+                      "router_calls": len(calls) if calls else 0}
+        del params, kern, plain, calls
+        torch.cuda.empty_cache()
+    emit("train_archs", dtype="float32", **TRAIN_ARCH_TRAFFIC,
+         tolerance=LM_TOL["float32"], archs=rows)
+    return rows
+
+
+def train_resume_phase(dev):
+    """Checkpoint and restart on the card: zamba2-1.2b at full width cut
+    to one pattern unit (6 Mamba2 layers and the shared block), bf16,
+    ``TRAIN_RESUME``'s steps through ``train.loop.train`` with an
+    AsyncCheckpointer every ``ckpt_every`` steps and a failure injected
+    at ``fail_at``, in a directory under build/ removed at the end.
+    Gates: one restart, the latest step the last, the params restored
+    from it bitwise equal to the trained ones, and the losses equal to an
+    uninterrupted run's within 1e-6 (relative); whether they are bitwise
+    is printed, with the bytes and seconds of each save."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.train import loop
+    cfg = one_unit(get_config(TRAIN["arch"]))
+    r = TRAIN_RESUME
+    tcfg = loop.TrainConfig(optim=adamw.AdamWConfig(
+        warmup_steps=1, total_steps=r["steps"]))
+    kw = dict(steps=r["steps"], batch_size=r["batch"], seq_len=r["seq"],
+              tcfg=tcfg, seed=SEED, log_every=1000, device=dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train_resume_", dir=ROOT / "build")
+    saves, write = [], ckpt._write
+
+    def timed_write(path, step, host):
+        t0 = time.perf_counter()
+        final = write(path, step, host)
+        saves.append({"step": step, "seconds": time.perf_counter() - t0,
+                      "bytes": sum(f.stat().st_size
+                                   for f in Path(final).iterdir())})
+        return final
+    try:
+        ckpt._write = timed_write
+        t0 = time.perf_counter()
+        res = loop.train(cfg, ckpt_dir=d, ckpt_every=r["ckpt_every"],
+                         injector=FailureInjector(fail_at=[r["fail_at"]]),
+                         **kw)
+        run_s = time.perf_counter() - t0
+        ckpt._write = write
+        latest = ckpt.latest_step(d)
+        restored = ckpt.restore(d, latest, {"params": res["params"]})
+        same = all(torch.equal(a, b.detach()) for a, b in zip(
+            tree.leaves(restored["params"]), tree.leaves(res["params"])))
+        steps_seen = [h["step"] for h in res["history"]]
+        del restored, res["params"]
+        torch.cuda.empty_cache()
+        plain = loop.train(cfg, **kw)
+        del plain["params"]
+    finally:
+        ckpt._write = write
+        shutil.rmtree(d, ignore_errors=True)
+    if res["restarts"] != 1 or latest != r["steps"] - 1 or not same:
+        raise AssertionError(f"train_resume: restarts {res['restarts']}, "
+                             f"latest step {latest}, restored params "
+                             f"bitwise {same}")
+    # every step run, the one re-run after the restart too, against the
+    # uninterrupted run's same step
+    got = [(h["step"], h["loss"]) for h in res["history"]]
+    want = {h["step"]: h["loss"] for h in plain["history"]}
+    rel = max(abs(x - want[s]) / abs(want[s]) for s, x in got)
+    if {s for s, _ in got} != set(want) or rel > 1e-6:
+        raise AssertionError(f"train_resume: losses {got} against an "
+                             f"uninterrupted run's {want}")
+    record = {"arch": cfg.name, "layers": cfg.n_layers, **r,
+              "restarts": res["restarts"], "steps_seen": steps_seen,
+              "latest_step": latest, "params_restored_bitwise": same,
+              "losses": got, "uninterrupted_losses": want,
+              "max_rel_loss_gap": rel,
+              "losses_bitwise": all(x == want[s] for s, x in got),
+              "saves": saves, "run_s": run_s}
+    emit("train_resume", **record)
+    return record
+
+
+def guard_phase(dev, module):
+    """Every one of the thirteen kernel entries, called on a CUDA input
+    that requires grad with grad mode on, raises RuntimeError naming its
+    op and launches nothing."""
+    import torch
+    rng = np.random.default_rng(SEED + 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    refused = {}
+    for op in ALL_OPS + LM_OPS:
+        args = on(figure2_args(op, rng), dev) if op in ALL_OPS else \
+            lm_time_args(op, gen, dev)
+        args = (args[0].detach().requires_grad_(True),) + tuple(args[1:])
+        mod = module[op]
+        before = dict(mod.LAUNCHES)
+        try:
+            mod.KERNELS[op](*args)
+        except RuntimeError as e:
+            if op not in str(e):
+                raise AssertionError(f"guard: {op} raised {e!r}") from e
+            refused[op] = str(e)[:60]
+        else:
+            raise AssertionError(f"guard: {op} launched on an input that "
+                                 "requires grad")
+        if mod.LAUNCHES != before:
+            raise AssertionError(f"guard: {op} launched before it raised")
+    emit("guard", refused=sorted(refused))
+    return refused
+
+
+def time_train(gen, dev, flush):
+    """The ``time`` rows of the train path's kernel calls at zamba2's train
+    shapes (``TRAIN_M`` rows a microbatch), bf16, each output held to its
+    plain version's on the same inputs (``compare``: MM_TOL, TOL and
+    LM_TOL's bf16), and timed beside it, the library call and the card's
+    bound."""
+    import torch
+    from repro_torch.core import trace, use_target
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm, ssd
+    bf = torch.bfloat16
+    rows = {}
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
+    for k, n in SERVE_GEMM:
+        x, w, g = r(TRAIN_M, k), r(k, n, scale=k ** -0.5), r(TRAIN_M, n)
+        for part, (a, b) in (("fwd", (x, w)), ("da", (g, w.t().contiguous())),
+                             ("db", (x.t().contiguous(), g))):
+            m_, k_ = a.shape
+            n_ = b.shape[1]
+            size = f"train_{part}_{k}x{n}"
+            err = compare(f"gemm/{size}", gemm.gemm(a, b),
+                          gemm.gemm_plain(a, b))
+            k_ms = time_ms(lambda: gemm.gemm(a, b), flush)
+            p_ms = time_ms(lambda: gemm.gemm_plain(a, b), flush)
+            l_ms = time_ms(lambda: torch.matmul(a, b), flush)
+            nbytes = 2 * (a.numel() + b.numel() + m_ * n_)
+            b_ms, b_by = mma_bound_ms(nbytes, 2 * m_ * n_ * k_)
+            row = {"op": "gemm", "size": size, "dtype": "bfloat16",
+                   "shapes": [[m_, k_], [k_, n_]],
+                   "variant": gemm.variant(bf, m_), "max_abs_err": err,
+                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                   "ops": 2 * m_ * n_ * k_, "bound_share": b_ms / k_ms,
+                   "library_ratio": k_ms / l_ms}
+            rows[("gemm", row["size"])] = row
+            emit("time", **row)
+        del x, w, g
+    s, b_ = TRAIN["seq"], TRAIN["batch"] // TRAIN["accum"]
+    x = 2.0 * r(b_, s, 8192)
+    err = compare("vtanh", ew.vtanh(x), ew.vtanh_plain(x))
+    k_ms = time_ms(lambda: ew.vtanh(x), flush)
+    p_ms = time_ms(lambda: ew.vtanh_plain(x), flush)
+    l_ms = time_ms(lambda: torch.tanh(x), flush)
+    with use_target("h100"):
+        f32 = torch.empty(x.shape, device="meta")
+        n_ops = trace.fx_vector_instrs(ew.vtanh_math, f32) * \
+            trace.vreg_for(f32.dtype)
+    b_ms, b_by = bound_ms(2 * x.numel() * 2, n_ops)
+    row = {"op": "vtanh", "size": "train_gelu", "dtype": "bfloat16",
+           "shape": list(x.shape), "max_abs_err": err, "kernel_ms": k_ms,
+           "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": 4 * x.numel(), "ops": n_ops,
+           "bound_share": b_ms / k_ms}
+    rows[("vtanh", "train_gelu")] = row
+    emit("time", **row)
+    del x
+    h, hkv, d = LM_SHAPES["zamba2"]["attn"]
+    g_, n_ = LM_SHAPES["zamba2"]["ssd"]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b_, s, 64), generator=gen, device=dev) - 1.0)
+    lm = {"flash_attention": (r(b_, s, h, d), r(b_, s, hkv, d),
+                              r(b_, s, hkv, d), True, None, None),
+          "ssd": (r(b_, s, 64, 64), dt,
+                  -torch.arange(1, 65, dtype=torch.float32, device=dev),
+                  r(b_, s, g_, n_, scale=0.5), r(b_, s, g_, n_, scale=0.5),
+                  torch.ones(64, device=dev))}
+    for op, targs in lm.items():
+        mod = fa if op == "flash_attention" else ssd
+        out = mod.KERNELS[op](*targs)
+        if not bool(out.isfinite().all()):
+            raise AssertionError(f"{op}/train: non-finite output")
+        err = compare(op, out, mod.PLAIN[op](*targs))
+        k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+        p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+        lib = lm_library_call(op, targs)
+        l_ms = None if lib is None else time_ms(lib, flush)
+        nbytes, n_ops = lm_work(op, targs, out)
+        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
+        row = {"op": op, "size": "train", "dtype": "bfloat16",
+               "shapes": [list(a.shape) for a in targs
+                          if isinstance(a, torch.Tensor)],
+               "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "ops": n_ops, "bound_share": b_ms / k_ms}
+        rows[(op, "train")] = row
+        emit("time", **row)
+        del out
+    return rows
+
+
 def time_only(ops, dev):
     """``--times``: build and time only ``ops``, on inputs made as main()
     makes them, with no launch plans printed.  With ``--src`` this times
@@ -2874,6 +3847,14 @@ def main(argv=None) -> int:
                                                "serve_window")
                   for arch, traffic in SERVE_WINDOW})
 
+    # 5b. training: zamba2 at full width and depth, the gradient gates,
+    # the other archs, checkpoint and restart, the no-detach guard --------
+    train = train_phase(dev, modules)
+    train_grad_phase(dev)
+    train_archs_phase(dev)
+    train_resume_phase(dev)
+    guard_phase(dev, module)
+
     # 6. the NEON frontend: every isa op, then the corpus through port ----
     isa_phase(dev)
     port_compiled_phase(dev, modules, port_phase(dev, modules))
@@ -3036,6 +4017,12 @@ def main(argv=None) -> int:
             emit("time", **row)
             del out, x
         del w
+    # the train path's calls (``train``: a microbatch of 4 x 4096 = 16384
+    # rows of zamba2), bf16: gemm's forward and its backward products dA =
+    # dY B^T and dB = A^T dY (on the transposed copies the backward makes)
+    # against the five weight shapes, then the gelu, causal flash and ssd
+    # with its skip term at S 4096
+    times.update(time_train(gen, dev, flush))
     # the small-M threshold: split-K against the kernel that takes the rows
     # above it, at M = 4, 8 and 16, in both dtypes
     for k, n in ((2048, 8512), (8192, 2048)):
@@ -3060,7 +4047,8 @@ def main(argv=None) -> int:
     # arch's generate, then each window traffic's)
     kernels = []
     paths = {"figure2": launches,
-             **{arch: r["launches"] for arch, r in serve.items()}}
+             **{arch: r["launches"] for arch, r in serve.items()},
+             "train": train["launches"]}
     at = {op: (op, "serve") for op in LM_OPS}
     at["gemm"] = ("gemm", "serve_m4_2048x8512")
     max_err["gemm"] = times[at["gemm"]]["max_abs_err"]

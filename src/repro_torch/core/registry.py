@@ -412,3 +412,20 @@ dispatch = REGISTRY.dispatch
 select = REGISTRY.select
 explain = REGISTRY.explain
 use_policy = REGISTRY.use_policy
+
+
+def current_scope():
+    """The calling thread's (policy, target): what its dispatches select
+    under.  Both are thread-local, and autograd runs a CUDA op's backward
+    (and ``torch.utils.checkpoint``'s recompute) on a thread of its own,
+    so code that runs there re-enters the scope of the forward with
+    :func:`use_scope`."""
+    return REGISTRY.policy, _targets.current_target()
+
+
+@contextlib.contextmanager
+def use_scope(scope):
+    """Run under a (policy, target) that :func:`current_scope` took."""
+    policy, target = scope
+    with REGISTRY.use_policy(policy), _targets.use_target(target):
+        yield

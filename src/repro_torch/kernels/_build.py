@@ -134,10 +134,22 @@ def check(rc: int, what: str) -> None:
 
 def route(op: str, *tensors) -> str:
     """'cuda' launches the kernel, 'cpu' runs the plain version; tensors
-    on any other device, or spread over two devices, are refused."""
+    on any other device, or spread over two devices, are refused.  So is
+    a CUDA call that autograd would need to see through (grad mode on and
+    an input that requires grad): the kernel writes into an output with
+    no ``grad_fn``, so the gradient of everything upstream would be
+    dropped without a word.  Such a call goes through the op's autograd
+    Function (``ops.<op>`` picks it), whose forward runs with grad mode
+    off."""
     devices = {t.device for t in tensors if t is not None}
     if len(devices) == 1:
         (dev,) = devices
+        if dev.type == "cuda" and torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in tensors):
+            raise RuntimeError(
+                f"{op}: an input requires grad, and the kernel's output "
+                f"would have no grad_fn; call it through ops (its autograd "
+                f"Function) or under torch.no_grad()")
         if dev.type in ("cuda", "cpu"):
             return dev.type
     raise ValueError(f"{op}: kernels take CUDA or CPU tensors, all on one "

@@ -20,7 +20,9 @@ Each op has three parts here:
     hand-written kernel of ``csrc/elementwise.cu`` and counts the launch
     in ``LAUNCHES``; for a CPU tensor it runs the plain math (the
     analogue of Pallas ``interpret=True``); anything else raises;
-  * the declared cost model the registry ranks it by.
+  * the declared cost model the registry ranks it by;
+  * for vtanh and vsigmoid, the autograd Function a train step calls the
+    kernel through (``VtanhFn``, ``VsigmoidFn``).
 """
 from __future__ import annotations
 
@@ -202,6 +204,40 @@ def vrelu(x, clamp_min=0.0, clamp_max=float("inf")):
     if _build.route("vrelu", x) == "cpu":
         return vrelu_plain(x, clamp_min, clamp_max)
     return _launch("vrelu", x, clamp_min, clamp_max)
+
+
+class VtanhFn(torch.autograd.Function):
+    """vtanh through the kernel; its gradient g (1 - y^2) from the saved
+    output, in fp32, one fused elementwise pass of torch ops."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = vtanh(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yf = y.to(torch.float32)
+        return (g.to(torch.float32) * (1.0 - yf * yf)).to(y.dtype)
+
+
+class VsigmoidFn(torch.autograd.Function):
+    """vsigmoid through the kernel; its gradient g y (1 - y) from the
+    saved output, in fp32."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = vsigmoid(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yf = y.to(torch.float32)
+        return (g.to(torch.float32) * yf * (1.0 - yf)).to(y.dtype)
 
 
 KERNELS = {"vtanh": vtanh, "vsigmoid": vsigmoid, "vsqrt": vsqrt,

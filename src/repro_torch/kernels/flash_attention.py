@@ -42,7 +42,9 @@ are masked by bounds, nothing is padded.
     tensor runs the plain version, anything else raises;
   * ``cost`` / ``supports`` — the reference's cost model and validity
     rule, verbatim, in the reference kernel's (B, H, S, D) layout;
-    ``supports`` adds the kernels' own limits.
+    ``supports`` adds the kernels' own limits;
+  * ``FlashAttentionFn`` — the autograd Function a train step calls
+    flash through.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ import math
 import torch
 
 from ..core.targets import current_target
-from . import _build, ref
+from . import _autograd, _build, ref
 
 LAUNCHES = {"flash_attention": 0, "decode_attention": 0}
 MAX_D = 256
@@ -195,6 +197,37 @@ def decode_attention(q, k, v, lengths, window=None, softcap=None,
                   what="decode_attention kernel")
     LAUNCHES["decode_attention"] += 1
     return out
+
+
+# Batch rows the backward recomputes at a time: the vector tier's chunked
+# attention keeps each q chunk's fp32 (B, H, 512, Sk) logits and
+# probabilities for autograd, about 8 GB a row at zamba2's 32 heads and
+# 4096 positions
+GRAD_ROWS = 1
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention through the kernel, with the gradient of the op's
+    vector tier (``ops._attn_vector``: ``ref.attention``, chunked past
+    2048 x 2048) recomputed from the saved q, k, v: the gradient the
+    reference computes, which differentiates its vector tier.  The rows
+    of the batch are recomputed ``GRAD_ROWS`` at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out = flash_attention(q, k, v, causal, window, softcap, scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, softcap, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from .ops import _attn_vector
+        grads = _autograd.vjp(
+            lambda q, k, v: _attn_vector(q, k, v, *ctx.args),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:3],
+            (True, True, True), GRAD_ROWS)
+        return (*grads, None, None, None, None)
 
 
 KERNELS = {"flash_attention": flash_attention,

@@ -41,7 +41,8 @@ padded or copied.  Layouts are the reference's: a (M, K), b (K, N), bias
     any other device raises, and so does a dtype the kernel does not
     take;
   * ``cost`` / ``supports`` -- what the registry ranks and validates it
-    by (the reference's cost model, verbatim).
+    by (the reference's cost model, verbatim);
+  * ``GemmFn`` -- the autograd Function a train step calls it through.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ import math
 
 import torch
 
-from ..core import trace
+from ..core import registry, trace
 from . import _build, ref
 
 LAUNCHES = {"gemm": 0, "gemm_small_m": 0, "gemm_mma": 0, "gemm_simt": 0}
@@ -188,6 +189,42 @@ def launch(kind, a, b, bias, clamp_min, clamp_max):
     LAUNCHES["gemm"] += 1
     LAUNCHES[f"gemm_{kind}"] += 1
     return out
+
+
+class GemmFn(torch.autograd.Function):
+    """clamp(A @ B + bias) through the kernel, with its gradient: dA =
+    dY Bᵀ and dB = Aᵀ dY as two more ``ops.gemm`` calls (the kernel
+    wherever the registry picks it, under the forward's policy and
+    target), each on a transposed contiguous copy, and dbias = Σ dY in
+    fp32.  dY is zeroed where the output sits on a finite clamp bound,
+    where clamp is flat."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, clamp_min, clamp_max):
+        y = gemm(a, b, bias, clamp_min, clamp_max)
+        clamped = clamp_min > float("-inf") or clamp_max < float("inf")
+        ctx.save_for_backward(a, b, y if clamped else None)
+        ctx.bounds = (clamp_min, clamp_max)
+        ctx.scope = registry.current_scope()
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import ops
+        a, b, y = ctx.saved_tensors
+        if y is not None:
+            lo, hi = ctx.bounds
+            g = g.masked_fill((y <= lo) | (y >= hi), 0)
+        da = db = dbias = None
+        with torch.no_grad(), registry.use_scope(ctx.scope):
+            if ctx.needs_input_grad[0]:
+                da = ops.gemm(g, b.t().contiguous())
+            if ctx.needs_input_grad[1]:
+                db = ops.gemm(a.t().contiguous(), g)
+        if ctx.needs_input_grad[2]:
+            dbias = g.sum(0, dtype=torch.float32).to(ctx.bias_dtype)
+        return da, db, dbias, None, None
 
 
 KERNELS = {"gemm": gemm}

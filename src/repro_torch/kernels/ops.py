@@ -13,6 +13,12 @@ use_policy`` overrides per scope.  All thirteen functions with a
 customized kernel are registered here: the ten Figure-2 functions of
 the paper and the three LM ops (attention, decode_attention, ssd) that
 the serving path of ``repro_torch.models`` calls.
+
+The kernel tier of the five ops a train step reaches (gemm, vtanh,
+vsigmoid, attention, ssd) calls its kernel's autograd Function where
+autograd must see through the call (grad mode on and an input that
+requires grad), and the bare kernel elsewhere; the other kernels refuse
+such a call (``_build.route``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from ..core import registry, trace
 from ..core.registry import dispatch, register
+from . import _autograd as _ag
 from . import conv as _conv
 from . import elementwise as _ew
 from . import flash_attention as _fa
@@ -63,6 +70,8 @@ register("gemm", "vector", cost=trace.traced_cost(ref.gemm),
           doc="register-tiled fused bias+clamp GEMM")
 def _gemm_pallas(a, b, bias=None, clamp_min=float("-inf"),
                  clamp_max=float("inf")):
+    if _ag.wants_grad(a, b, bias):
+        return _gemm.GemmFn.apply(a, b, bias, clamp_min, clamp_max)
     return _gemm.gemm(a, b, bias, clamp_min, clamp_max)
 
 
@@ -208,6 +217,8 @@ register("vtanh", "vector",
 @register("vtanh", "pallas", cost=_ew.cost_vtanh, supports=_ew.supports,
           doc="exp2 range-reduction rational tanh")
 def _vtanh_pallas(x):
+    if _ag.wants_grad(x):
+        return _ew.VtanhFn.apply(x)
     return _ew.vtanh(x)
 
 
@@ -226,6 +237,8 @@ register("vsigmoid", "vector",
 @register("vsigmoid", "pallas", cost=_ew.cost_vsigmoid, supports=_ew.supports,
           doc="exp2 reduction + reciprocal Newton sigmoid")
 def _vsigmoid_pallas(x):
+    if _ag.wants_grad(x):
+        return _ew.VsigmoidFn.apply(x)
     return _ew.vsigmoid(x)
 
 
@@ -297,6 +310,9 @@ def _attn_cost(q, k, v, causal=True, *_, **__):
 @register("attention", "pallas", supports=_attn_supports, cost=_attn_cost,
           doc="online-softmax flash attention, register-resident stats")
 def _attn_pallas(q, k, v, causal=True, window=None, softcap=None, scale=None):
+    if _ag.wants_grad(q, k, v):
+        return _fa.FlashAttentionFn.apply(q, k, v, causal, window, softcap,
+                                          scale)
     return _fa.flash_attention(q, k, v, causal, window, softcap, scale)
 
 
@@ -359,6 +375,8 @@ register("ssd", "vector", cost=trace.traced_cost(_ssd_vector),
 @register("ssd", "pallas", cost=_ssd.cost, supports=_ssd.supports,
           doc="chunk-parallel SSD, start states chained in chunk order")
 def _ssd_pallas(x, dt, A, B, C, D=None, *, chunk=128):
+    if _ag.wants_grad(x, dt, A, B, C, D):
+        return _ssd.SsdFn.apply(x, dt, A, B, C, D, chunk)
     return _ssd.ssd(x, dt, A, B, C, D, chunk)
 
 

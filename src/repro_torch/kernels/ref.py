@@ -233,13 +233,13 @@ def attention_chunked(q, k, v, *, causal=True, window=None, softcap=None,
     qc = min(q_chunk, sq)
     pad = (-sq) % qc
     qp = F.pad(q, (0, 0, 0, 0, 0, pad)) if pad else q
-    nq = qp.shape[1] // qc
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     kpos = torch.arange(sk, device=q.device)[None, :]
     outs = []
-    for ci in range(nq):
-        qf = qp[:, ci * qc:(ci + 1) * qc].to(torch.float32) \
-            .reshape(b, qc, hkv, group, d)
+    # split, not slices: autograd then joins the chunks' gradients once,
+    # where a slice's backward fills a whole zero tensor for each chunk
+    for ci, qchunk in enumerate(qp.split(qc, dim=1)):
+        qf = qchunk.to(torch.float32).reshape(b, qc, hkv, group, d)
         logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
@@ -337,8 +337,10 @@ def ssd_chunked(x, dt, A, B, C, D=None, *, chunk=128):
                                    device=x.device))
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
-    for c in range(nch):
-        xc, dtc, Bc, Cc = xs[c], dts[c], Bs[c], Cs[c]     # (b,h,L,*)
+    # unbind, not indexing, for the backward's sake (as in
+    # attention_chunked)
+    for xc, dtc, Bc, Cc in zip(xs.unbind(0), dts.unbind(0), Bs.unbind(0),
+                               Cs.unbind(0)):               # (b,h,L,*)
         la = torch.cumsum(dtc * A[None, :, None], dim=-1)  # (b,h,L)
         y_inter = torch.exp(la)[..., None] * torch.einsum(
             "bhln,bhpn->bhlp", Cc, state)
@@ -354,3 +356,14 @@ def ssd_chunked(x, dt, A, B, C, D=None, *, chunk=128):
     if D is not None:
         y = y + D[None, None, :, None] * x.to(torch.float32)
     return y.to(x.dtype)
+
+
+def softmax_xent(logits, labels):
+    """Cross-entropy over the vocab axis, fp32: logsumexp of the logits
+    minus the label's logit.  It runs over every column given, the padded
+    vocab's too (``head_apply`` fills those with -1e30, which add nothing
+    to the sum)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return lse - ll

@@ -33,7 +33,8 @@ reference, and the plain version, add it outside.
     tensor runs the plain version;
   * ``cost`` / ``supports`` — the reference's cost, verbatim;
     ``supports`` adds the kernels' dtypes, p <= 128 and their shared
-    memory.
+    memory;
+  * ``SsdFn`` — the autograd Function a train step calls it through.
 """
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ import torch
 
 from ..core.targets import compile_target, current_target
 from ..core.vtypes import round_up
-from . import _build, ref
+from . import _autograd, _build, ref
 
 LAUNCHES = {"ssd": 0}
 SUBLANE_F32 = 8            # the reference's chunk rounding (fp32 sublane)
@@ -186,6 +187,28 @@ def ssd(x, dt, A, B, C, D=None, chunk=128):
                   what="ssd output kernel")
     LAUNCHES["ssd"] += 1
     return y
+
+
+class SsdFn(torch.autograd.Function):
+    """The SSD scan through the kernels, with the gradient of the op's
+    vector tier (``ops._ssd_vector``: ``ref.ssd_chunked`` past 256
+    positions, the sequential scan below) recomputed from the saved
+    inputs: the gradient the reference computes.  A's and D's gradients
+    sum over the batch."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, chunk):
+        y = ssd(x, dt, A, B, C, D, chunk)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        from .ops import _ssd_vector
+        grads = _autograd.vjp(_ssd_vector, ctx.saved_tensors, g,
+                              ctx.needs_input_grad[:6],
+                              (True, True, False, True, True, False))
+        return (*grads, None)
 
 
 KERNELS = {"ssd": ssd}

@@ -11,7 +11,7 @@ no cache) and ``dec`` (causal self-attention, then cross-attention over
 the encoder's output, whose k and v the cache keeps from the prefill).
 Blocks are functions of (params, x, cache, ctx), where ctx carries the
 mode, positions, lengths, the encoder's output and the zamba2
-shared-block closure.
+shared-block closure, and return (x, cache, aux) as the reference's do.
 """
 from __future__ import annotations
 
@@ -66,8 +66,8 @@ def _tblock_cache(cfg, batch, s_max, device, *, window=None):
 
 
 def _tblock_apply(params, x, cache, ctx: Ctx, *, ffn: str, window=None):
-    """-> (x, cache); the MoE's load-balance loss is dropped (the port's
-    forward returns none)."""
+    """-> (x, cache, aux): aux is the MoE's load-balance loss, 0.0 for a
+    dense FFN."""
     cfg = ctx.cfg
     h = L.norm_apply(params["ln1"], x, cfg.norm)
     attn = dict(positions=ctx.positions, mode=ctx.mode, cache=cache,
@@ -80,13 +80,14 @@ def _tblock_apply(params, x, cache, ctx: Ctx, *, ffn: str, window=None):
         h = L.norm_apply(params["ln1p"], h, cfg.norm)
     x = x + h
     h = L.norm_apply(params["ln2"], x, cfg.norm)
+    aux = 0.0
     if ffn == "moe":
-        h, _ = M.moe_apply(params["ffn"], h, cfg)
+        h, aux = M.moe_apply(params["ffn"], h, cfg)
     else:
         h = L.mlp_apply(params["ffn"], h, cfg)
     if cfg.sandwich_norm:
         h = L.norm_apply(params["ln2p"], h, cfg.norm)
-    return x + h, cache
+    return x + h, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +103,7 @@ def _mamba_apply(params, x, cache, ctx: Ctx):
     h = L.norm_apply(params["ln"], x, ctx.cfg.norm)
     h, cache = S.mamba_apply(params["mamba"], h, ctx.cfg, mode=ctx.mode,
                              cache=cache, target=ctx.target)
-    return x + h, cache
+    return x + h, cache, 0.0
 
 
 def shared_block_init(gen, cfg, device):
@@ -133,11 +134,11 @@ def _shared_apply(shared, x, cache, ctx: Ctx):
 def _mamba_shared_apply(params, x, cache, ctx: Ctx):
     mc = None if cache is None else cache["mamba"]
     ac = None if cache is None else cache["attn"]
-    x, mcache = _mamba_apply(params, x, mc, ctx)
+    x, mcache, _ = _mamba_apply(params, x, mc, ctx)
     x, acache = _shared_apply(ctx.shared, x, ac, ctx)
     if cache is None:
-        return x, None
-    return x, {"mamba": mcache, "attn": acache}
+        return x, None, 0.0
+    return x, {"mamba": mcache, "attn": acache}, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +159,7 @@ def _enc_apply(params, x, cache, ctx: Ctx):
                        mode="train", causal=False, target=ctx.target)
     x = x + h
     h = L.norm_apply(params["ln2"], x, cfg.norm)
-    return x + L.mlp_apply(params["mlp"], h, cfg), cache
+    return x + L.mlp_apply(params["mlp"], h, cfg), cache, 0.0
 
 
 def _dec_init(gen, cfg, device):
@@ -207,7 +208,7 @@ def _dec_apply(params, x, cache, ctx: Ctx):
                        mode="train", memory=(xk, xv), target=ctx.target)
     x = x + h
     h = L.norm_apply(params["ln2"], x, cfg.norm)
-    return x + L.mlp_apply(params["mlp"], h, cfg), cache
+    return x + L.mlp_apply(params["mlp"], h, cfg), cache, 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +250,8 @@ def block_cache_init(kind, cfg, batch, s_max, device):
 
 
 def block_apply(kind, params, x, cache, ctx: Ctx):
-    """-> (x, cache)."""
+    """-> (x, cache, aux): aux is an MoE block's load-balance loss (a
+    float32 scalar), 0.0 for every other block."""
     if kind in ("attn", "moe_dense"):
         return _tblock_apply(params, x, cache, ctx, ffn="dense")
     if kind == "local":

@@ -7,13 +7,16 @@ whose encoder (whisper's ``enc``) is stacked on one of ``n_enc_layers``.
 ``jax.tree.map(np.asarray, M.init(cfg, key))``, unstacks both axes
 and returns the port's parameter dictionary on ``device``: the card
 unless told otherwise, as every entry point of the port (the parity tests
-pass ``device="cpu"``).  It needs no JAX.
+pass ``device="cpu"``).  It carries the reference's optimizer state
+across the same way, so that both packages can start a train step from
+the same state.  It needs no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import tree as T
 from ..core.targets import resolve_device
 
 
@@ -29,24 +32,12 @@ def tensor(a, device=None) -> torch.Tensor:
 
 
 def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
+    return T.map(fn, tree)
 
 
 def _unstack(stacked, n, what, device):
     """The list of the ``n`` trees stacked on ``stacked``'s leading axis."""
-    for leaf in _leaves(stacked):
+    for leaf in T.leaves(stacked):
         if leaf.shape[0] != n:
             raise ValueError(f"{what}: leading axis {leaf.shape[0]} is not "
                              f"its {n} layers")
@@ -54,10 +45,19 @@ def _unstack(stacked, n, what, device):
             for r in range(n)]
 
 
+OPT_KEYS = {"m", "v", "master", "step"}
+
+
 def from_jax(tree, cfg, device=None):
     """The port's params from the reference's (numpy leaves), on
-    ``device`` (default: the card)."""
+    ``device`` (default: the card).  Given the reference's ``adamw.init``
+    state instead (its ``m``, ``v`` and ``master`` in the params' tree,
+    ``step`` a scalar), the port's optimizer state."""
     device = resolve_device("cuda" if device is None else device)
+    if set(tree) == OPT_KEYS:
+        return {**{k: from_jax(tree[k], cfg, device)
+                   for k in ("m", "v", "master")},
+                "step": tensor(tree["step"], device)}
     _, unit, reps, _ = cfg.pattern_unit()
     out = {k: _map(v, lambda a: tensor(a, device))
            for k, v in tree.items() if k not in ("unit", "enc")}

@@ -13,14 +13,22 @@ of the token positions.
 API (functions of a parameter dictionary):
   init(cfg, gen, device)                        -> params
   init_cache(cfg, batch, s_max, device)         -> cache
-  forward(params, cfg, batch, mode, ...)        -> (logits, cache)
+  forward(params, cfg, batch, mode, ...)        -> (logits, cache, aux)
+
+In train mode with ``cfg.remat`` and grad mode on, each block runs under
+``torch.utils.checkpoint`` (non-reentrant, recomputed whole in the
+backward), the counterpart of the reference's ``jax.checkpoint`` of its
+scanned unit and encoder layer; ``aux`` sums the MoE blocks'
+load-balance losses, as the reference's forward does.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint as tc
 
+from ..core import registry
 from ..core.targets import resolve_device
 from . import blocks as B
 from . import layers as L
@@ -86,20 +94,43 @@ def _embed_inputs(params, cfg, batch, mode, lengths):
     return x, positions
 
 
+def _blocks(cfg, mode):
+    """``B.block_apply``, under ``torch.utils.checkpoint`` where the
+    forward is remat'd: train mode, ``cfg.remat`` and grad mode on.  The
+    recompute runs on autograd's thread, so it re-enters this thread's
+    policy and target; early stopping is off, so it reruns the whole block
+    and each kernel launches exactly twice a step."""
+    if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
+        return B.block_apply
+    scope = registry.current_scope()
+
+    def run(*a):
+        with registry.use_scope(scope):
+            return B.block_apply(*a)
+
+    def apply(*a):
+        with tc.set_checkpoint_early_stop(False):
+            return tc.checkpoint(run, *a, use_reentrant=False,
+                                 preserve_rng_state=False)
+    return apply
+
+
 def _encode(params, cfg, frames, target=None):
     """The whisper encoder over stub frame embeddings (B, F, d)."""
     x = frames.to(L.dtype_of(cfg))
     pos = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     x = _with_positions(x, pos, cfg)
     ctx = B.Ctx(cfg=cfg, mode="train", positions=pos, target=target)
+    block = _blocks(cfg, "train")
     for p in params["enc"]:
-        x, _ = B.block_apply("enc", p, x, None, ctx)
+        x, _, _ = block("enc", p, x, None, ctx)
     return L.norm_apply(params["enc_norm"], x, cfg.norm)
 
 
 def forward(params, cfg, batch, *, mode: str, cache=None,
             lengths: Optional[torch.Tensor] = None, target=None):
-    """Returns (logits, new_cache).
+    """Returns (logits, new_cache, aux): aux the MoE blocks' summed
+    load-balance loss, a float32 scalar (0 where there is none).
 
     ``batch`` holds ``tokens``, and ``frames`` (encdec) or ``patches``
     (vlm) outside decode.  ``target`` pins every attention/ssd lowering
@@ -114,6 +145,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
                 memory=memory, emb0=x if cfg.shared_attn_every else None,
                 shared=params.get("shared"), target=target)
     new_cache = {"prefix": [], "unit": [[] for _ in unit], "rem": []}
+    block = _blocks(cfg, mode)
+    aux = 0.0
 
     def cached(part, *idx):
         if cache is None:
@@ -124,24 +157,28 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
         return c
 
     for i, kind in enumerate(prefix):
-        x, c = B.block_apply(kind, params["prefix"][i], x,
-                             cached("prefix", i), ctx)
+        x, c, a = block(kind, params["prefix"][i], x, cached("prefix", i),
+                        ctx)
         new_cache["prefix"].append(c)
+        aux = aux + a
     for r in range(reps):
         for j, kind in enumerate(unit):
-            x, c = B.block_apply(kind, params["unit"][j][r], x,
-                                 cached("unit", j, r), ctx)
+            x, c, a = block(kind, params["unit"][j][r], x,
+                            cached("unit", j, r), ctx)
             new_cache["unit"][j].append(c)
+            aux = aux + a
     for i, kind in enumerate(rem):
-        x, c = B.block_apply(kind, params["rem"][i], x, cached("rem", i),
-                             ctx)
+        x, c, a = block(kind, params["rem"][i], x, cached("rem", i), ctx)
         new_cache["rem"].append(c)
+        aux = aux + a
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     if cfg.family == "vlm" and mode != "decode":
         x = x[:, -batch["tokens"].shape[1]:]     # the token positions
     logits = L.head_apply(params["embed"], x, cfg)
-    return logits, (new_cache if cache is not None else None)
+    return logits, (new_cache if cache is not None else None), aux
 
 
 def count_params(params) -> int:

@@ -33,8 +33,8 @@ from ..models import model as M
 
 def make_prefill_step(cfg, target=None):
     def prefill(params, cache, batch):
-        logits, cache = M.forward(params, cfg, batch, mode="prefill",
-                                  cache=cache, target=target)
+        logits, cache, _ = M.forward(params, cfg, batch, mode="prefill",
+                                     cache=cache, target=target)
         return logits[:, -1], cache
     return prefill
 
@@ -46,9 +46,9 @@ def make_serve_step(cfg, target=None):
     explicit machine model.
     """
     def serve_step(params, cache, tokens, lengths):
-        logits, cache = M.forward(params, cfg, {"tokens": tokens},
-                                  mode="decode", cache=cache,
-                                  lengths=lengths, target=target)
+        logits, cache, _ = M.forward(params, cfg, {"tokens": tokens},
+                                     mode="decode", cache=cache,
+                                     lengths=lengths, target=target)
         return logits[:, 0], cache
     return serve_step
 

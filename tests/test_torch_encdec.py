@@ -144,7 +144,7 @@ def test_enc_block_matches_reference(dtype):
     for mode in ("train", "prefill"):
         jy, _, _ = JB.block_apply("enc", jp, jx, None,
                                   JB.Ctx(cfg=jcfg, mode=mode, positions=jpos))
-        y, cache = B.block_apply("enc", p, x, None,
+        y, cache, _ = B.block_apply("enc", p, x, None,
                                  B.Ctx(cfg=cfg, mode=mode, positions=pos))
         assert cache is None
         _close(y, jy, dtype)
@@ -180,7 +180,7 @@ def test_dec_block_matches_reference(dtype):
     jpos, pos = _pos(PROMPT)
     jy, jcache, _ = JB.block_apply("dec", jp, jx, jcache, JB.Ctx(
         cfg=jcfg, mode="prefill", positions=jpos, memory=jmem))
-    y, got = B.block_apply("dec", p, x, cache, B.Ctx(
+    y, got, _ = B.block_apply("dec", p, x, cache, B.Ctx(
         cfg=cfg, mode="prefill", positions=pos, memory=mem))
     assert got is cache
     _close(y, jy, dtype)
@@ -191,7 +191,7 @@ def test_dec_block_matches_reference(dtype):
             cfg=jcfg, mode="decode", positions=jnp.asarray(ln[:, None]),
             lengths=jnp.asarray(ln)))
         with trace.count() as counted:
-            y, cache = B.block_apply("dec", p, x, cache, B.Ctx(
+            y, cache, _ = B.block_apply("dec", p, x, cache, B.Ctx(
                 cfg=cfg, mode="decode", positions=torch.from_numpy(
                     ln[:, None]), lengths=torch.from_numpy(ln)))
         # the cross-attention at decode is one attention call (q of one

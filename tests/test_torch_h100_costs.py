@@ -5,7 +5,9 @@ reference's instruction counts and its cheapest-wins ranking.
 The calls are those of PERF.md §6 (each row's op, shapes and dtypes) and
 the serving calls of zamba2-1.2b, mamba2-1.3b, granite-moe-1b-a400m,
 deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b, gemma3-1b, whisper-tiny and
-pixtral-12b in bf16 and float32.  MLA's
+pixtral-12b in bf16 and float32, and zamba2's train step (its
+gemm forward and backward products at M = 16384, with and without
+requires_grad).  MLA's
 split-dim attention takes the vector tier on h100, as the reference's
 rule has it everywhere.  The torch side runs on
 meta tensors: selection reads no device data.  The tpu/rvv costs are held
@@ -266,6 +268,56 @@ SERVE_NEW = [(f"{str(dt)[6:]}-{name}", op, args)
                   _decode_at(dt, 544, 6, 6, 64)),
                  ("pixtral-decode", "decode_attention",
                   _decode_at(dt, 800, 32, 8, 128)))]
+
+
+# zamba2-1.2b's train step (SyntheticLM's 8 x 4096 tokens at accum 2: a
+# microbatch of 4 x 4096 = 16384 rows), bf16 and float32: gemm forward
+# against the five weight shapes and its two backward products (dA = dY
+# B^T, dB = A^T dY), the gelu, causal flash at S 4096 and ssd at S 4096
+TRAIN_M = 16384
+
+
+def _train_rows(dt):
+    rows = []
+    for k, n in SERVE_GEMM:
+        rows += [(f"gemm_fwd_{k}x{n}", "gemm", _gemm(TRAIN_M, k, n, dt)),
+                 (f"gemm_da_{k}x{n}", "gemm", _gemm(TRAIN_M, n, k, dt)),
+                 (f"gemm_db_{k}x{n}", "gemm", _gemm(k, TRAIN_M, n, dt))]
+    s = 4096
+    return rows + [
+        ("vtanh", "vtanh", (_m(4, s, 8192, dtype=dt),)),
+        ("attention", "attention",
+         (_m(4, s, 32, 128, dtype=dt), _m(4, s, 32, 128, dtype=dt),
+          _m(4, s, 32, 128, dtype=dt), True, None, None, None)),
+        ("ssd", "ssd", (_m(4, s, 64, 64, dtype=dt), _m(4, s, 64, dtype=F32),
+                        _m(64, dtype=F32), _m(4, s, 2, 64, dtype=dt),
+                        _m(4, s, 2, 64, dtype=dt), _m(64, dtype=F32)))]
+
+
+TRAIN = [(f"{str(dt)[6:]}-train-{name}", op, args)
+         for dt in (BF, F32) for name, op, args in _train_rows(dt)]
+
+
+def _grad(args):
+    """The same arguments, the floating tensors requiring grad."""
+    return tuple(a.detach().requires_grad_(True)
+                 if isinstance(a, torch.Tensor) and a.is_floating_point()
+                 else a for a in args)
+
+
+@pytest.mark.parametrize("row", TRAIN, ids=lambda r: r[0])
+def test_h100_trains_zamba2_through_the_kernels(row):
+    """Every kernel call of zamba2's train step takes the kernel tier on
+    h100, at the same tier and cost whether its inputs require grad or
+    not: the registry keys on shapes and dtypes alone."""
+    _, op, args = row
+    plain = REGISTRY.explain(op, *args, policy="pallas", target="h100")
+    grad = REGISTRY.explain(op, *_grad(args), policy="pallas",
+                            target="h100")
+    assert plain["chosen"] == grad["chosen"] == "pallas"
+    assert plain["chosen_cost"] == grad["chosen_cost"]
+    assert [(c["tier"], c["valid"], c["cost"]) for c in plain["candidates"]] \
+        == [(c["tier"], c["valid"], c["cost"]) for c in grad["candidates"]]
 
 
 def _row_id(row):

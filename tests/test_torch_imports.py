@@ -88,3 +88,13 @@ def test_the_serving_slice_is_covered():
             "models/layers.py", "models/attention.py", "models/ssm.py",
             "models/blocks.py", "models/model.py", "models/convert.py",
             "serve/engine.py", "launch/serve.py"} <= names
+
+
+def test_the_training_slice_is_covered():
+    """The modules of the training slice are among those read and imported
+    above."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"tree.py", "optim/adamw.py", "optim/compression.py",
+            "runtime/fault_tolerance.py", "checkpoint/checkpointer.py",
+            "train/loop.py", "launch/train.py", "data/pipeline.py",
+            "kernels/_autograd.py", "kernels/ref.py"} <= names

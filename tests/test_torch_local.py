@@ -184,7 +184,7 @@ def test_local_block_matches_reference(arch, dtype, prompt):
     jy, jcache, _ = JB.block_apply("local", jp, jx, jcache,
                                    JB.Ctx(cfg=jcfg, mode="prefill",
                                           positions=jpos))
-    y, cache = B.block_apply("local", p, x, cache,
+    y, cache, _ = B.block_apply("local", p, x, cache,
                              B.Ctx(cfg=cfg, mode="prefill", positions=pos))
     _close(y, jy, dtype)
     for step, lens in enumerate(_decode_lens(prompt)):
@@ -192,7 +192,7 @@ def test_local_block_matches_reference(arch, dtype, prompt):
         jkw, kw = _kw(lens)
         jy, jcache, _ = JB.block_apply("local", jp, jx, jcache,
                                        JB.Ctx(cfg=jcfg, mode="decode", **jkw))
-        y, cache = B.block_apply("local", p, x, cache,
+        y, cache, _ = B.block_apply("local", p, x, cache,
                                  B.Ctx(cfg=cfg, mode="decode", **kw))
         _close(y, jy, dtype)
     for name in ("k", "v"):
@@ -218,7 +218,7 @@ def test_local_block_in_train_mode_matches_reference(arch):
     jpos, pos = _prefill_pos(S_MAX)
     jy, _, _ = JB.block_apply("local", jp, jx, None,
                               JB.Ctx(cfg=jcfg, mode="train", positions=jpos))
-    y, cache = B.block_apply("local", _params(jp), x, None,
+    y, cache, _ = B.block_apply("local", _params(jp), x, None,
                              B.Ctx(cfg=cfg, mode="train", positions=pos))
     assert cache is None
     _close(y, jy, "float32")

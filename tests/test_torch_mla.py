@@ -182,7 +182,7 @@ def test_block_matches_reference(label, arch, kind, dtype):
     jctx = JB.Ctx(cfg=jcfg, mode="prefill", positions=jnp.asarray(pos))
     ctx = B.Ctx(cfg=cfg, mode="prefill", positions=torch.from_numpy(pos))
     jy, jcache, _ = JB.block_apply(kind, jp, jx, jcache, jctx)
-    y, cache = B.block_apply(kind, p, x, cache, ctx)
+    y, cache, _ = B.block_apply(kind, p, x, cache, ctx)
     _close(y, jy, dtype)
     for step, lens in enumerate(DECODE_LENS):
         jx, x = _x(jcfg, 1, 20 + step)
@@ -190,7 +190,7 @@ def test_block_matches_reference(label, arch, kind, dtype):
         jctx = JB.Ctx(cfg=jcfg, mode="decode", **jkw)
         ctx = B.Ctx(cfg=cfg, mode="decode", **kw)
         jy, jcache, _ = JB.block_apply(kind, jp, jx, jcache, jctx)
-        y, cache = B.block_apply(kind, p, x, cache, ctx)
+        y, cache, _ = B.block_apply(kind, p, x, cache, ctx)
         _close(y, jy, dtype)
     for name in cache:
         _close(cache[name], jcache[name], dtype)

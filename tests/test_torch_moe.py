@@ -20,6 +20,7 @@ import torch
 from repro.configs import get_config as jget_config
 from repro.models import blocks as JB
 from repro.models import moe as JMoE
+from repro_torch import tree
 from repro_torch.configs import get_config
 from repro_torch.models import blocks as B
 from repro_torch.models import convert
@@ -92,7 +93,7 @@ def test_init_tree_matches_reference():
                               jax.random.PRNGKey(0))
         got = MoE.moe_init(None, cfg, torch.device("meta"))
         flat = jax.tree_util.tree_flatten_with_path(want)[0]
-        assert len(flat) == len(convert._leaves(got))
+        assert len(flat) == len(tree.leaves(got))
         for path, leaf in flat:
             t = got
             for key in path:
@@ -233,10 +234,12 @@ def test_tblock_matches_reference(label, ffn, kw, window, dtype):
     pos = np.tile(np.arange(s), (b, 1))
     jctx = JB.Ctx(cfg=jcfg, mode="prefill", positions=jnp.asarray(pos))
     ctx = B.Ctx(cfg=cfg, mode="prefill", positions=torch.from_numpy(pos))
-    jy, jcache, _ = JB._tblock_apply(jp, jx, jcache, jctx, ffn=ffn,
-                                     window=window)
-    y, cache = B._tblock_apply(p, x, cache, ctx, ffn=ffn, window=window)
+    jy, jcache, jaux = JB._tblock_apply(jp, jx, jcache, jctx, ffn=ffn,
+                                        window=window)
+    y, cache, aux = B._tblock_apply(p, x, cache, ctx, ffn=ffn, window=window)
     _close(y, jy, dtype)
+    # the load-balance loss comes back, the reference's (0 for a dense FFN)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
     for step in range(3):
         jx, x = _x(jcfg, b, 1, seed=4 + step)
         lens = np.full((b,), s + step, np.int32)
@@ -248,7 +251,8 @@ def test_tblock_matches_reference(label, ffn, kw, window, dtype):
                     lengths=torch.from_numpy(lens))
         jy, jcache, _ = JB._tblock_apply(jp, jx, jcache, jctx, ffn=ffn,
                                          window=window)
-        y, cache = B._tblock_apply(p, x, cache, ctx, ffn=ffn, window=window)
+        y, cache, _ = B._tblock_apply(p, x, cache, ctx, ffn=ffn,
+                                      window=window)
         _close(y, jy, dtype)
     for name in ("k", "v"):
         _close(cache[name], jcache[name], dtype)

@@ -132,7 +132,7 @@ def test_pinned_forward_reproduces_the_recorded_run():
             probe, calls = cs.route_probe(
                 MoE, pinned=runs[0][1] if pinned else None)
             MoE._route = probe
-            logits, _ = M.forward(params, cfg, {"tokens": tokens},
+            logits, _, _ = M.forward(params, cfg, {"tokens": tokens},
                                   mode="train")
             MoE._route = route
             runs.append((logits, calls))
@@ -308,8 +308,8 @@ def test_spans_swapped_ranges_the_mla_functions_and_restores_them():
             (mod, attr) for _, mod, attr in cs.SPANS]
         cache = M.init_cache(cfg, 2, 8, "cpu")
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            _, cache = M.forward(params, cfg, {"tokens": prompts},
-                                 mode="prefill", cache=cache)
+            _, cache, _ = M.forward(params, cfg, {"tokens": prompts},
+                                    mode="prefill", cache=cache)
             M.forward(params, cfg, {"tokens": prompts[:, :1]},
                       mode="decode", cache=cache,
                       lengths=torch.full((2,), 6, dtype=torch.int32))

@@ -80,8 +80,8 @@ def test_vlm_prefill_offsets_the_cache_by_the_patches():
     assert eng.position == 16 and eng.lengths.tolist() == [16, 16]
     assert bool(k[:, :16].abs().sum(-1).gt(0).all())
     assert not bool(k[:, 16:].any())
-    logits, _ = M.forward(params, cfg, {"tokens": torch.from_numpy(prompts)
-                                        .long(), **extra}, mode="train")
+    logits, _, _ = M.forward(params, cfg, {
+        "tokens": torch.from_numpy(prompts).long(), **extra}, mode="train")
     want, _, _ = JM.forward(jparams, jcfg, {
         "tokens": jnp.asarray(prompts),
         **JP.extra_inputs(jcfg, 2, 0)}, mode="train")

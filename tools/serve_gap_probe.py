@@ -117,16 +117,16 @@ def faulty(apply, layer, how):
     label = cs.layer_labels()
 
     def run(kind, params, x, cache, ctx):
-        y, cache = apply(kind, params, x, cache, ctx)
+        y, cache, aux = apply(kind, params, x, cache, ctx)
         if label(kind, ctx) != layer:
-            return y, cache
+            return y, cache, aux
         h = (y - x).float()
         if how == "scale":
             h = h * FAULT_SCALE
         else:
             keep = ~((1 << (23 - FAULT_MANTISSA)) - 1)
             h = (h.view(torch.int32) & keep).view(torch.float32)
-        return (x.float() + h).to(y.dtype), cache
+        return (x.float() + h).to(y.dtype), cache, aux
     return run
 
 
