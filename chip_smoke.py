@@ -27,11 +27,12 @@ Then it drives the port's main paths:
     registry.dispatch -> traced costs -> customized tier -> CUDA kernel``
     under the rvv-128 cost model, checking the paper's Figure-2 selection
     properties;
-  * serving at full width and depth (bf16, seeded random weights) under
-    the default target (h100) and policy, for zamba2-1.2b,
-    granite-moe-1b-a400m, deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b,
-    gemma3-1b and whisper-tiny, each freed before the next (and each
-    bf16 model before its float32 one): ``Engine.generate`` for 4
+  * serving at full width (bf16, seeded random weights) under the
+    default target (h100) and policy, for zamba2-1.2b,
+    granite-moe-1b-a400m, gemma2-2b, gemma3-1b and whisper-tiny at full
+    depth, deepseek-v2-lite-16b, minicpm3-4b and mistral-large-123b cut
+    to 6, 8 and 8 layers (``SERVE_DEPTH``), each freed before the next
+    (and each bf16 model before its float32 one): ``Engine.generate`` for 4
     requests of 512-token prompts and 32 greedy tokens (whisper's with
     1500 stub frames each: ``data.pipeline.extra_inputs``; pixtral-12b
     is held, ROADMAP C.23, and served by ``tools/serve_gap_probe.py``
@@ -99,6 +100,13 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     checkpoint every 2, a failure injected at step 4: one restart, the
     last step saved, the params restored bitwise and the losses equal to
     an uninterrupted run's; each save's bytes and seconds;
+  * ``sharded``: ``train.loop.make_sharded_train_step`` on two gloo ranks
+    that share the card (``launch.mesh.run_ranks``): mistral-large-123b
+    at full width and 1 of 88 layers on a (2, 1) mesh (FSDP, data
+    parallelism), granite-moe-1b-a400m at full width and depth on (1, 2)
+    (TP, expert parallelism), gemma3-1b at full width, 6 of 26 layers, on
+    (2, 1) (data parallelism, ZeRO-1), bf16, 4 x 512 tokens, 2 steps,
+    each held to its single-rank step (``sharded_phase``, ``SHARDED``);
   * ``guard``: each of the thirteen kernel entries refuses an input that
     requires grad (grad mode on) and launches nothing.
 
@@ -153,7 +161,8 @@ Then the NEON-migration frontend runs on the card:
 
 Finally
 it times every kernel beside its plain version, one PyTorch library call
-and the card's bound: the elementwise four also in bf16, vtanh at the
+and the card's bound: the sharded path's calls at its local shapes
+(``time_sharded``), the elementwise four also in bf16, vtanh at the
 gelu's serving shapes and vsigmoid at granite's experts', ssd also in
 float32 and at mamba2's shape, flash and decode at granite's, gemm also
 in bf16 and float32 at the serving path's shapes (M = 4 and 2048 against
@@ -340,7 +349,16 @@ SERVE = dict(batch=4, prompt=512, gen=32)
 # are checked and timed here all the same, and tools/serve_gap_probe.py
 # serves them)
 SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-               "minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny")
+               "minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny",
+               "mistral-large-123b")
+# archs served at full width and cut depth: mistral's 88 layers take ~246
+# GB in bf16; 8 of them (~24 GB, ~47 GB for the float32 check) fit the
+# card.  The MLA archs, whose attention runs the vector tier, are cut so
+# that the whole run stays within its time (their layers past the first
+# few repeat the same block; deepseek keeps its dense first layer): at
+# full depth deepseek's serving took 46 s more and the run 979 s
+SERVE_DEPTH = {"mistral-large-123b": 8, "deepseek-v2-lite-16b": 6,
+               "minicpm3-4b": 8}
 # The sliding-window traffic (``serve_window``): prompts longer than each
 # gemma's window, so that the local layers' ring is written in prefill,
 # the window masks flash and (gemma3) decode wraps the ring; gemma2's
@@ -1506,6 +1524,8 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     from repro_torch.serve.engine import Engine
 
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     b, plen, steps = traffic["batch"], traffic["prompt"], traffic["gen"]
     max_seq = plen + steps
     torch.cuda.reset_peak_memory_stats()
@@ -1614,7 +1634,8 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
                              "not reproduce its own greedy tokens")
     record = {
         "arch": cfg.name, "traffic": phase, "params": M.count_params(params),
-        "dtype": cfg.dtype, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "layers": cfg.n_layers,
+        "full_layers": get_config(arch).n_layers, "d_model": cfg.d_model,
         "batch": b, "prompt_len": plen, "generated": steps,
         "target": "h100", "chosen": chosen, "ops": list(ops_),
         "launches": launches, "expected_launches": want,
@@ -3395,6 +3416,472 @@ def train_resume_phase(dev):
     return record
 
 
+# the sharded train step (``train.loop.make_sharded_train_step``): each
+# model on ranks that share the one card (gloo stages CUDA tensors through
+# the host; NCCL refuses two ranks on one device), held to the same
+# model's single-rank step.  (tag, arch, depth cut, mesh): depth None is
+# the full depth, "reduced" the config's reduced() widths.  mistral's
+# FSDP cut already splits every leaf over 'data', so its optimizer state
+# has no ZeRO-1 slice of its own; gemma3 (no FSDP, one 5:1 pattern unit
+# of its 26 layers) runs ZeRO-1's slice and all-gather (SHARDED_ZERO1).
+SHARDED = (("mistral", "mistral-large-123b", 1, (2, 1)),
+           ("granite", "granite-moe-1b-a400m", None, (1, 2)),
+           ("gemma3", "gemma3-1b", 6, (2, 1)))
+SHARDED_ZERO1 = ("gemma3",)
+SHARDED_F32 = (("granite_f32", "granite-moe-1b-a400m", 4, (1, 2)),
+               ("mistral_f32", "mistral-large-123b", "reduced", (2, 1)))
+SHARDED_TRAFFIC = dict(batch=4, seq=512, steps=2)
+SHARDED_OPS = ("gemm", "vsigmoid", "vtanh", "flash_attention")
+SHARDED_TIMEOUT = 480
+# the kernels' calls on the sharded path, timed: (rows, (K, N) of the
+# local weights), the flash shapes (B, S, H, Hkv, D) and the silu's
+SHARDED_GEMM = {"mistral": (1024, ((12288, 12288), (12288, 1024),
+                                   (12288, 28672), (28672, 12288),
+                                   (12288, 32768))),
+                "granite": (2048, ((1024, 512), (1024, 256), (512, 1024)))}
+SHARDED_FLASH = {"mistral": (2, 512, 96, 8, 128),
+                 "granite": (4, 512, 8, 4, 64)}
+SHARDED_SILU = {"mistral": (2, 512, 28672), "granite_experts": (16, 640, 512)}
+
+
+def sharded_config(arch, cut, dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cut == "reduced":
+        cfg = cfg.reduced()
+    elif cut is not None:
+        cfg = cfg.replace(n_layers=cut)
+    return cfg.replace(dtype=dtype)
+
+
+def sharded_want(cfg):
+    """Exact launches of gemm, vsigmoid, vtanh and flash in one train
+    step of a GQA transformer (``attn``, ``local``, ``moe`` blocks), on
+    one rank of any mesh: each block runs under remat, so its kernels
+    launch twice, and each gemm twice more in the backward (dA, dB); a
+    block's q, k, v, o and its dense MLP's products are gemms (an MoE's
+    experts are batched matmuls), its activation one vsigmoid (silu) or
+    vtanh (gelu), its attention one flash; an untied head is a gemm
+    outside remat (3 launches), a tied one a plain matmul; a final
+    softcap one vtanh outside remat.  Under a 'model' split each rank
+    makes the same calls on its shards."""
+    kinds = cfg.layer_pattern()
+    mlp = 3 if cfg.gated_mlp else 2
+    gemms = sum(4 + (mlp if k != "moe" else
+                     mlp * bool(cfg.n_shared_experts)) for k in kinds)
+    acts = sum(1 + (k == "moe" and bool(cfg.n_shared_experts))
+               for k in kinds)
+    return {"gemm": 4 * gemms + (0 if cfg.tie_embeddings else 3),
+            "vsigmoid": 2 * acts * (cfg.act == "silu"),
+            "vtanh": 2 * acts * (cfg.act == "gelu") +
+            (cfg.final_softcap is not None),
+            "flash_attention": 2 * len(kinds)}
+
+
+def _in_policy(policy):
+    """``use_policy(policy)``, or the registry's default where None."""
+    import contextlib
+    from repro_torch.core import use_policy
+    return contextlib.nullcontext() if policy is None else use_policy(policy)
+
+
+def _sharded_batches(cfg, dev, traffic):
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, traffic["seq"], traffic["batch"],
+                       seed=SEED)
+    return [data.batch(s, device=dev) for s in range(traffic["steps"])]
+
+
+def _counted_step(step, dev):
+    """One call of ``step()`` with every kernel's count set to 0 before
+    it: -> (its result, its LM launches, the tiers its ops ran), raising
+    unless the launches are ``sharded_want``'s and each op its kernel
+    tier's."""
+    from repro_torch.core import trace
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    mods = (gemm, ew, fa)
+    for m in mods:
+        m.reset_launches()
+    with trace.count() as counted:
+        out = step()
+        _sync(dev)
+    launched = {k: v for m in mods for k, v in m.LAUNCHES.items()
+                if k in SHARDED_OPS}
+    chosen = {op: sorted({t for (o, t) in counted["per_op"]
+                          if o == ("attention" if op == "flash_attention"
+                                   else op)}) for op in SHARDED_OPS}
+    return out, launched, chosen
+
+
+def _held(launched, chosen, want, what, dev):
+    """Raise unless each op ``want`` launches ran its kernel tier and no
+    other ran, and (on the card, where a call is a launch) the launches
+    are ``want``."""
+    if dev.type == "cuda" and launched != want:
+        raise AssertionError(f"{what}: launches {launched}, expected {want}")
+    if chosen != {op: ["pallas"] if want[op] else [] for op in chosen}:
+        raise AssertionError(f"{what}: ran {chosen}; each op must run its "
+                             "kernel tier")
+
+
+def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
+                    policy):
+    """The single-rank step (``train.loop.make_train_step``) of each job, on
+    ``dev_type`` (the card) under ``policy`` (None: the default): step
+    0's gradient (one loss_fn + backward, saved to ``out_dir`` in the
+    model's dtype) and the two steps' metrics and launches; an MoE's
+    router calls recorded (``route_probe``) for the sharded ranks to
+    route by."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type)
+    out = {}
+    for tag, arch, cut, _ in jobs:
+        cfg = sharded_config(arch, cut, "float32" if tag.endswith("f32")
+                             else "bfloat16")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = loop.trainable(M.init(cfg, gen, dev))
+        batches = _sharded_batches(cfg, dev, traffic)
+        saved, calls = moe_mod._route, None
+        try:
+            if cfg.n_experts:
+                moe_mod._route, calls = route_probe(moe_mod)
+            with _in_policy(policy), torch.enable_grad():
+                loss, _ = loop.loss_fn(params, cfg, batches[0])
+                grads = torch.autograd.grad(loss, tree.leaves(params))
+            torch.save([g.detach().to(model_dtype(cfg)).cpu() for g in grads],
+                       out_dir / f"{tag}.grads.pt")
+            del grads, loss
+            # the sharded ranks route step by step as the steps below do
+            # (their first step's gradient is this pass's)
+            first = len(calls) if calls is not None else 0
+            step = loop.make_train_step(cfg, loop.TrainConfig())
+            opt = adamw.init(params)
+            metrics, launches, step_s = [], [], []
+            for s, b in enumerate(batches):
+                t0 = time.perf_counter()
+                with _in_policy(policy):
+                    (params, opt, _, m), launched, chosen = _counted_step(
+                        lambda: step(params, opt, None, b), dev)
+                step_s.append(time.perf_counter() - t0)
+                _held(launched, chosen, sharded_want(cfg),
+                      f"sharded/{tag}/single step {s}", dev)
+                metrics.append({k: float(v) for k, v in m.items()})
+                launches.append(launched)
+        finally:
+            moe_mod._route = saved
+        if calls is not None:
+            torch.save([c["idx"].cpu() for c in calls[first:]],
+                       out_dir / f"{tag}.routes.pt")
+        out[tag] = {"params": M.count_params(params), "metrics": metrics,
+                    "launches": launches, "step_s": step_s,
+                    "peak_gb": _peak_gb(dev)}
+        del params, opt
+        _freed(dev)
+    return out
+
+
+def model_dtype(cfg):
+    import torch
+    return getattr(torch, cfg.dtype)
+
+
+def _no_copy_reduce(ctx, g):
+    """The control's ``sharding._Copy.backward``: the copy into the model
+    region without its all-reduce."""
+    return g, None
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gb(dev):
+    import torch
+    return torch.cuda.max_memory_allocated() / 1e9 \
+        if dev.type == "cuda" else None
+
+
+def _freed(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _sharded_ranks(rank, world, jobs, traffic, out_dir, control, dev_type,
+                   policy):
+    """Each job's two sharded steps on this rank (``_sharded_job``), then
+    the control: job ``control`` (a tag of ``jobs``) again with the copy
+    into the model region reduced by nothing backward, under ``out
+    ["control"]``.  ``dev_type`` and ``policy`` as ``_sharded_single``'s."""
+    from repro_torch.models import sharding as Sh
+    out = {job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
+                                policy) for job in jobs}
+    job = next(j for j in jobs if j[0] == control)
+    saved = Sh._Copy.backward
+    Sh._Copy.backward = staticmethod(_no_copy_reduce)
+    try:
+        out["control"] = _sharded_job(rank, job, traffic, out_dir, dev_type,
+                                      policy)
+    finally:
+        Sh._Copy.backward = saved
+    return out
+
+
+def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
+    """One job's two sharded steps on this rank, on the card, the params
+    cut from the same seeded init as the single-rank run's, an MoE routed
+    by the single-rank run's indices: the first as its two parts
+    (``make_sharded_grads``, then ``sharded_update``), the gradient
+    between them gathered leaf by leaf to its full shape (in the model's
+    dtype) and held on rank 0 against the single-rank one
+    (``sharded_grad_gaps``); the second through
+    ``make_sharded_train_step``."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import sharding as Sh
+    from repro_torch.train import loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(dev_type)
+    tag, arch, cut, shape = job
+    cfg = sharded_config(arch, cut, "float32" if tag.endswith("f32")
+                         else "bfloat16")
+    mesh = LM.make_mesh(shape, ("data", "model"), dev_type)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    full = M.init(cfg, gen, dev)
+    like = tree.map(lambda p: p.to("meta"), full)
+    local = loop.trainable(Sh.shard_params(full, mesh, cfg))
+    del full
+    _freed(dev)
+    batches = _sharded_batches(cfg, dev, traffic)
+    bsds = {k: v.to("meta") for k, v in batches[0].items()}
+    tcfg = loop.TrainConfig()
+    saved = moe_mod._route
+    try:
+        if cfg.n_experts:
+            pinned = [{"idx": i.to(dev)} for i in
+                      torch.load(out_dir / f"{tag}.routes.pt")]
+            moe_mod._route, _ = route_probe(moe_mod, pinned=pinned)
+        grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
+        lay = grads_fn.layout
+        opt = loop.sharded_opt_init(local, cfg, mesh, like)
+        step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
+        want = sharded_want(cfg)
+        # step 1 is the step's two parts, its gradient gathered and held
+        # to the single rank's between them (not timed)
+        t0 = time.perf_counter()
+        with _in_policy(policy):
+            (loss, aux, grads), launched, chosen = _counted_step(
+                lambda: grads_fn(local, batches[0]), dev)
+        step_s = [time.perf_counter() - t0]
+        _held(launched, chosen, want, f"sharded/{tag}/rank {rank} step 0",
+              dev)
+        gaps = sharded_grad_gaps(grads, lay, mesh, like, cfg, rank,
+                                 out_dir / f"{tag}.grads.pt")
+        t0 = time.perf_counter()
+        local, opt, om = loop.sharded_update(grads, opt, local, lay,
+                                             tcfg.optim)
+        del grads
+        _sync(dev)
+        step_s[0] += time.perf_counter() - t0
+        metrics = [{"loss": loss, "aux": aux, **om}]
+        launches = [launched]
+        for s, b in enumerate(batches[1:], 1):
+            t0 = time.perf_counter()
+            with _in_policy(policy):
+                (local, opt, _, m), launched, chosen = _counted_step(
+                    lambda: step(local, opt, None, b), dev)
+            step_s.append(time.perf_counter() - t0)
+            _held(launched, chosen, want,
+                  f"sharded/{tag}/rank {rank} step {s}", dev)
+            metrics.append(m)
+            launches.append(launched)
+        metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    finally:
+        moe_mod._route = saved
+    rec = {"rank": rank, "mesh": list(shape), "gaps": gaps,
+           "metrics": metrics, "launches": launches, "step_s": step_s,
+           "local_params": M.count_params(local),
+           "zero1_leaves": sum(bool(lay.zero1_dims(i))
+                               for i in range(len(lay.shapes))),
+           "opt_elems": sum(x.numel() for x in tree.leaves(opt["m"])),
+           "peak_gb": _peak_gb(dev)}
+    del local, opt
+    _freed(dev)
+    return rec
+
+
+def sharded_grad_gaps(grads, layout, mesh, like, cfg, rank, path):
+    """Each leaf's gradient (this rank's shards, ``grads``) gathered to its
+    full shape in the model's dtype (every rank takes part) and, on rank
+    0, its max |g - g_single| over the single-rank leaf's max |g| (the
+    single-rank gradient read leaf by leaf from ``path``); {} elsewhere."""
+    import torch
+    from repro_torch.models import sharding as Sh
+    want = torch.load(path, mmap=True) if rank == 0 else None
+    gaps = {}
+    for name, g, spec, shape, w in zip(
+            leaf_names(like), grads, layout.pspecs, layout.shapes,
+            want if want is not None else [None] * len(grads)):
+        whole = Sh.gather(g.to(model_dtype(cfg)), spec, mesh, shape)
+        if w is not None:
+            w = w.to(whole.device).float()
+            scale = float(w.abs().max())
+            err = float((whole.float() - w).abs().max())
+            gaps[name] = err / scale if scale else \
+                (0.0 if err == 0 else float("inf"))
+        del whole
+    return gaps
+
+
+def sharded_gate(single, ranks, tag, rel_tol, leaf_tol=None):
+    """The gaps of a sharded run to the single-rank one: the loss of each
+    step and its ``grad_norm`` (relative), and step 0's per-leaf
+    gradient gaps (each over the single-rank leaf's max |g|): with
+    ``leaf_tol`` the median leaf within ``rel_tol`` and the worst within
+    ``leaf_tol`` (the bf16 gate), else every leaf within ``rel_tol``.
+    Every rank's launches and metrics must agree.  -> (record,
+    failures)."""
+    one = single[tag]
+    r0 = ranks[0][tag]
+    failures = []
+    gaps = {}
+    for s, (a, b) in enumerate(zip(r0["metrics"], one["metrics"])):
+        for k in ("loss", "grad_norm"):
+            gaps[f"step{s + 1}_{k}"] = abs(a[k] - b[k]) / abs(b[k])
+    for r in ranks[1:]:
+        if r[tag]["metrics"] != r0["metrics"]:
+            failures.append(f"sharded/{tag}: rank {r[tag]['rank']}'s metrics "
+                            f"{r[tag]['metrics']} differ from rank 0's")
+    failures += [f"sharded/{tag}: {k} {v} from the single-rank step's, "
+                 f"against {rel_tol}" for k, v in gaps.items()
+                 if v > rel_tol]
+    leaf = r0["gaps"]
+    order = sorted(leaf, key=lambda k: -leaf[k])
+    median = statistics.median(leaf.values())
+    if leaf_tol is None:
+        failures += [f"sharded/{tag}: {k}'s gradient is {leaf[k]} of its "
+                     f"max from the single-rank one, against {rel_tol}"
+                     for k in order if leaf[k] > rel_tol][:4]
+    else:
+        if median > rel_tol:
+            failures.append(f"sharded/{tag}: the median leaf's gradient is "
+                            f"{median} of its max from the single-rank one,"
+                            f" against {rel_tol}")
+        if leaf[order[0]] > leaf_tol:
+            failures.append(f"sharded/{tag}: {order[0]}'s gradient is "
+                            f"{leaf[order[0]]} of its max from the "
+                            f"single-rank one, against {leaf_tol}")
+    record = {"mesh": r0["mesh"], "single": one, "rel_gap": gaps,
+              "leaves": len(leaf), "median_rel_leaf_err": median,
+              "max_rel_leaf_err": leaf[order[0]], "worst_leaf": order[0],
+              "worst_8": {k: float(f"{leaf[k]:.3g}") for k in order[:8]},
+              "ranks": [{k: r[tag][k] for k in ("rank", "launches",
+                                                "step_s", "local_params",
+                                                "zero1_leaves", "opt_elems",
+                                                "peak_gb")}
+                        for r in ranks],
+              "metrics": r0["metrics"], "failures": failures}
+    return record, failures
+
+
+def sharded_phase(dev, policy=None):
+    """``make_sharded_train_step`` on ranks that share the card
+    (``launch.mesh.run_ranks``: gloo, every collective and the whole run
+    under a timeout): mistral-large-123b at full width cut to one of its
+    88 layers on a (2, 1) mesh (FSDP and data parallelism), granite-moe-
+    1b-a400m at full width and depth on (1, 2) (``linear_rp``'s bf16 TP
+    branch, 16 of 32 experts a rank, the vocab-parallel embedding and
+    head) and gemma3-1b at full width, one pattern unit, on (2, 1) (data
+    parallelism with ZeRO-1: each rank's optimizer state a slice of its
+    leaves, the updated slices all-gathered back), bf16,
+    ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
+    from the same seeded weights and tokens, run first in a process of
+    its own: the loss of both steps and their grad_norm within 3e-2,
+    step 0's gradient leaf by leaf (median within 3e-2, worst within
+    0.3), every rank's gemm, vsigmoid and flash launches of each step
+    exact (``sharded_want``) and on the kernel tier, and the optimizer
+    state of each ``SHARDED_ZERO1`` job sliced.  Then in float32
+    (granite 4 layers, mistral reduced) every leaf within 2e-4; then, in
+    the same ranks, the control, the float32 granite run with the copy
+    into the model region reduced by nothing backward, which must fail
+    that gate.  The routing of every granite run is pinned to the
+    single-rank run's.  (``policy`` and ``dev`` let the CPU tests run it
+    on reduced configs; on the CPU no kernel launches, so only the tiers
+    are held.)"""
+    import shutil
+    from repro_torch.launch import mesh as LM
+    out_dir = ROOT / "build" / "sharded"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    _freed(dev)
+    jobs = SHARDED + SHARDED_F32
+    ctag = SHARDED_F32[0][0]
+    t0 = time.perf_counter()
+    try:
+        single = LM.run_ranks(_sharded_single, 1, jobs, SHARDED_TRAFFIC,
+                              out_dir, dev.type, policy,
+                              timeout=SHARDED_TIMEOUT)[0]
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = LM.run_ranks(_sharded_ranks, 2, jobs, SHARDED_TRAFFIC,
+                             out_dir, ctag, dev.type, policy,
+                             timeout=SHARDED_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    control = [{ctag: r.pop("control")} for r in ranks]
+    records, failures = {}, []
+    for tag, *_ in SHARDED:
+        records[tag], bad = sharded_gate(single, ranks, tag, TRAIN_TOL,
+                                         TRAIN_LEAF_TOL)
+        failures += bad
+    for tag in SHARDED_ZERO1:
+        sliced = [(r[tag]["zero1_leaves"], r[tag]["opt_elems"],
+                   r[tag]["local_params"]) for r in ranks]
+        records[tag]["zero1"] = sliced
+        if any(n == 0 or e >= p for n, e, p in sliced):
+            failures.append(f"sharded/{tag}: ZeRO-1 sliced no optimizer "
+                            f"state ((leaves, elements, params) {sliced})")
+    for tag, *_ in SHARDED_F32:
+        records[tag], bad = sharded_gate(single, ranks, tag,
+                                         LM_TOL["float32"])
+        failures += bad
+    records["control"], caught = sharded_gate(single, control, ctag,
+                                              LM_TOL["float32"])
+    records["control"].pop("single")
+    caught_leaves = sorted(k for k, v in control[0][ctag]["gaps"].items()
+                           if v > LM_TOL["float32"])
+    records["control"]["failed_leaves"] = caught_leaves
+    if not caught or not any(k.endswith("router") or "::ln" in k
+                             for k in caught_leaves):
+        failures.append(f"sharded/control: dropping the copy's backward "
+                        f"all-reduce passed the gate ({caught_leaves})")
+    launches = {op: sum(n[op] for r in ranks for tag, *_ in SHARDED
+                        for n in r[tag]["launches"]) for op in SHARDED_OPS}
+    emit("sharded", traffic=SHARDED_TRAFFIC, single_s=single_s,
+         ranks_s=ranks_s, launches=launches,
+         want={tag: sharded_want(sharded_config(arch, cut, "bfloat16"))
+               for tag, arch, cut, _ in SHARDED}, **records)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"launches": launches, **records}
+
+
 def guard_phase(dev, module):
     """Every one of the thirteen kernel entries, called on a CUDA input
     that requires grad with grad mode on, raises RuntimeError naming its
@@ -3425,6 +3912,42 @@ def guard_phase(dev, module):
     return refused
 
 
+def time_gemm_parts(k, n, m, label, r, flush):
+    """The ``time`` rows of a train step's three gemm calls against a (k,
+    n) weight at m rows, bf16 (``r(*shape, scale)`` draws an operand):
+    the forward and its backward products dA = dY B^T and dB = A^T dY
+    (on the transposed copies the backward makes), each held to its plain
+    version (MM_TOL) and timed beside it, torch.matmul and the card's
+    bound."""
+    import torch
+    from repro_torch.kernels import gemm
+    bf = torch.bfloat16
+    rows = {}
+    x, w, g = r(m, k), r(k, n, scale=k ** -0.5), r(m, n)
+    for part, (a, b) in (("fwd", (x, w)), ("da", (g, w.t().contiguous())),
+                         ("db", (x.t().contiguous(), g))):
+        m_, k_ = a.shape
+        n_ = b.shape[1]
+        size = f"{label}_{part}_{k}x{n}"
+        err = compare(f"gemm/{size}", gemm.gemm(a, b),
+                      gemm.gemm_plain(a, b))
+        k_ms = time_ms(lambda: gemm.gemm(a, b), flush)
+        p_ms = time_ms(lambda: gemm.gemm_plain(a, b), flush)
+        l_ms = time_ms(lambda: torch.matmul(a, b), flush)
+        nbytes = 2 * (a.numel() + b.numel() + m_ * n_)
+        b_ms, b_by = mma_bound_ms(nbytes, 2 * m_ * n_ * k_)
+        row = {"op": "gemm", "size": size, "dtype": "bfloat16",
+               "shapes": [[m_, k_], [k_, n_]],
+               "variant": gemm.variant(bf, m_), "max_abs_err": err,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "ops": 2 * m_ * n_ * k_, "bound_share": b_ms / k_ms,
+               "library_ratio": k_ms / l_ms}
+        rows[("gemm", row["size"])] = row
+        emit("time", **row)
+    return rows
+
+
 def time_train(gen, dev, flush):
     """The ``time`` rows of the train path's kernel calls at zamba2's train
     shapes (``TRAIN_M`` rows a microbatch), bf16, each output held to its
@@ -3435,36 +3958,14 @@ def time_train(gen, dev, flush):
     from repro_torch.core import trace, use_target
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm, ssd
+    from repro_torch.kernels import ssd
     bf = torch.bfloat16
     rows = {}
 
     def r(*shape, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
     for k, n in SERVE_GEMM:
-        x, w, g = r(TRAIN_M, k), r(k, n, scale=k ** -0.5), r(TRAIN_M, n)
-        for part, (a, b) in (("fwd", (x, w)), ("da", (g, w.t().contiguous())),
-                             ("db", (x.t().contiguous(), g))):
-            m_, k_ = a.shape
-            n_ = b.shape[1]
-            size = f"train_{part}_{k}x{n}"
-            err = compare(f"gemm/{size}", gemm.gemm(a, b),
-                          gemm.gemm_plain(a, b))
-            k_ms = time_ms(lambda: gemm.gemm(a, b), flush)
-            p_ms = time_ms(lambda: gemm.gemm_plain(a, b), flush)
-            l_ms = time_ms(lambda: torch.matmul(a, b), flush)
-            nbytes = 2 * (a.numel() + b.numel() + m_ * n_)
-            b_ms, b_by = mma_bound_ms(nbytes, 2 * m_ * n_ * k_)
-            row = {"op": "gemm", "size": size, "dtype": "bfloat16",
-                   "shapes": [[m_, k_], [k_, n_]],
-                   "variant": gemm.variant(bf, m_), "max_abs_err": err,
-                   "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                   "ops": 2 * m_ * n_ * k_, "bound_share": b_ms / k_ms,
-                   "library_ratio": k_ms / l_ms}
-            rows[("gemm", row["size"])] = row
-            emit("time", **row)
-        del x, w, g
+        rows.update(time_gemm_parts(k, n, TRAIN_M, "train", r, flush))
     s, b_ = TRAIN["seq"], TRAIN["batch"] // TRAIN["accum"]
     x = 2.0 * r(b_, s, 8192)
     err = compare("vtanh", ew.vtanh(x), ew.vtanh_plain(x))
@@ -3515,6 +4016,67 @@ def time_train(gen, dev, flush):
         rows[(op, "train")] = row
         emit("time", **row)
         del out
+    return rows
+
+
+def time_sharded(gen, dev, flush):
+    """The ``time`` rows of the sharded path's kernel calls at its local
+    shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_SILU``), bf16,
+    each output held to its plain version's and timed beside it, the
+    library call and the card's bound."""
+    import torch
+    from repro_torch.core import trace, use_target
+    from repro_torch.kernels import elementwise as ew
+    from repro_torch.kernels import flash_attention as fa
+    bf = torch.bfloat16
+    rows = {}
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(bf)
+    for arch, (m, shapes) in SHARDED_GEMM.items():
+        for k, n in shapes:
+            rows.update(time_gemm_parts(k, n, m, f"sharded_{arch}", r, flush))
+    for arch, (b, s, h, hkv, d) in SHARDED_FLASH.items():
+        targs = (r(b, s, h, d), r(b, s, hkv, d), r(b, s, hkv, d), True, None,
+                 None)
+        out = fa.flash_attention(*targs)
+        if not bool(out.isfinite().all()):
+            raise AssertionError(f"flash/sharded_{arch}: non-finite output")
+        err = compare("flash_attention", out, fa.flash_attention_plain(
+            *targs))
+        k_ms = time_ms(lambda: fa.flash_attention(*targs), flush)
+        p_ms = time_ms(lambda: fa.flash_attention_plain(*targs), flush)
+        l_ms = time_ms(lm_library_call("flash_attention", targs), flush)
+        nbytes, n_ops = lm_work("flash_attention", targs, out)
+        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
+        row = {"op": "flash_attention", "size": f"sharded_{arch}",
+               "dtype": "bfloat16",
+               "shapes": [list(a.shape) for a in targs[:3]],
+               "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bytes": nbytes, "ops": n_ops, "bound_share": b_ms / k_ms}
+        rows[("flash_attention", row["size"])] = row
+        emit("time", **row)
+        del out, targs
+    for label, shape in SHARDED_SILU.items():
+        x = r(*shape, scale=2.0)
+        err = compare("vsigmoid", ew.vsigmoid(x), ew.vsigmoid_plain(x))
+        k_ms = time_ms(lambda: ew.vsigmoid(x), flush)
+        p_ms = time_ms(lambda: ew.vsigmoid_plain(x), flush)
+        l_ms = time_ms(lambda: torch.sigmoid(x), flush)
+        with use_target("h100"):
+            f32 = torch.empty(x.shape, device="meta")
+            n_ops = trace.fx_vector_instrs(ew.vsigmoid_math, f32) * \
+                trace.vreg_for(f32.dtype)
+        b_ms, b_by = bound_ms(4 * x.numel(), n_ops)
+        row = {"op": "vsigmoid", "size": f"sharded_{label}",
+               "dtype": "bfloat16", "shape": list(shape), "max_abs_err": err,
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": 4 * x.numel(),
+               "ops": n_ops, "bound_share": b_ms / k_ms}
+        rows[("vsigmoid", row["size"])] = row
+        emit("time", **row)
+        del x
     return rows
 
 
@@ -3853,6 +4415,7 @@ def main(argv=None) -> int:
     train_grad_phase(dev)
     train_archs_phase(dev)
     train_resume_phase(dev)
+    sharded = sharded_phase(dev)
     guard_phase(dev, module)
 
     # 6. the NEON frontend: every isa op, then the corpus through port ----
@@ -4023,6 +4586,8 @@ def main(argv=None) -> int:
     # against the five weight shapes, then the gelu, causal flash and ssd
     # with its skip term at S 4096
     times.update(time_train(gen, dev, flush))
+    # the sharded path's calls at its local shapes
+    times.update(time_sharded(gen, dev, flush))
     # the small-M threshold: split-K against the kernel that takes the rows
     # above it, at M = 4, 8 and 16, in both dtypes
     for k, n in ((2048, 8512), (8192, 2048)):
@@ -4048,13 +4613,13 @@ def main(argv=None) -> int:
     kernels = []
     paths = {"figure2": launches,
              **{arch: r["launches"] for arch, r in serve.items()},
-             "train": train["launches"]}
+             "train": train["launches"], "sharded": sharded["launches"]}
     at = {op: (op, "serve") for op in LM_OPS}
     at["gemm"] = ("gemm", "serve_m4_2048x8512")
     max_err["gemm"] = times[at["gemm"]]["max_abs_err"]
     for op in ALL_OPS + LM_OPS:
         t = times[at.get(op, (op, "figure2"))]
-        by_path = {p: n[op] for p, n in paths.items() if n[op]}
+        by_path = {p: n[op] for p, n in paths.items() if n.get(op)}
         kernels.append({"name": op, "route": "cuda", "source": SOURCE[op],
                         "replaces": REPLACES[op],
                         "launches": sum(by_path.values()),

@@ -132,6 +132,11 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {rc}")
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor" and \
+        type(t).__module__.startswith("torch.distributed.tensor")
+
+
 def route(op: str, *tensors) -> str:
     """'cuda' launches the kernel, 'cpu' runs the plain version; tensors
     on any other device, or spread over two devices, are refused.  So is
@@ -140,7 +145,15 @@ def route(op: str, *tensors) -> str:
     no ``grad_fn``, so the gradient of everything upstream would be
     dropped without a word.  Such a call goes through the op's autograd
     Function (``ops.<op>`` picks it), whose forward runs with grad mode
-    off."""
+    off.  A DTensor is refused too: the kernel would read one rank's
+    local storage as if it were the whole tensor; a sharded model hands
+    the kernels its local shards (``models/sharding.py``)."""
+    for t in tensors:
+        if _is_dtensor(t):
+            raise TypeError(
+                f"{op}: a DTensor ({t.placements} on {t.device_mesh}) "
+                f"reached a hand kernel, which takes plain tensors; pass "
+                f"its local shard (DTensor.to_local())")
     devices = {t.device for t in tensors if t is not None}
     if len(devices) == 1:
         (dev,) = devices

@@ -11,7 +11,9 @@ Without ``--device`` it runs on the card.  The weights come from a seeded
 ``torch.Generator``, the data from ``data.pipeline.SyntheticLM`` (and
 whisper's frames from ``extra_inputs``).  The multi-host path of the
 JAX package's launcher (``--coordinator``, ``--num-hosts``,
-``--host-id``) waits for the port's distribution and is refused.
+``--host-id``) waits (ROADMAP A.13.2) and is refused; the sharded step
+runs on the ranks of one host (``train.loop.make_sharded_train_step``,
+``launch/mesh.py``).
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def main(argv=None):
     if args.coordinator or args.num_hosts > 1:
         raise NotImplementedError(
             "multi-host training (--coordinator, --num-hosts) is the "
-            "distribution part of ROADMAP A.13, not ported yet; this "
-            "launcher trains on one device")
+            "distribution part of ROADMAP A.13 (A.13.2), not ported yet; "
+            "this launcher trains on one device")
 
     logging.basicConfig(level=logging.INFO)
     from ..configs import get_config

@@ -18,6 +18,12 @@ vector tier by the reference's own rule (``ops._attn_supports``), and its
 absorbed decode is plain products, as the reference's is.
 Cross-attention (``memory``: whisper's decoder) attends the encoder's k
 and v, non-causal and without rope, in every mode; its caller keeps them.
+
+Under a 'model' split (``models/sharding.py``) GQA's projections hold
+this rank's whole q and kv heads: the replicated input enters the model
+region once, attention runs on the local heads (their count read from
+the weights' widths) and ``linear_rp`` sums the output projection's
+partials.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 
 from ..kernels import ops
 from . import layers as L
+from . import sharding as Sh
 
 
 def gqa_init(gen, cfg, device, d_in=None):
@@ -60,7 +67,10 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     as it came.  ``target`` pins the attention lowering selection to an
     explicit machine model."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    # this rank's heads: all of them without a 'model' split
+    h, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    x = Sh.enter_model(x)
     q = L.linear(params["wq"], x).reshape(b, s, h, hd)
     if memory is None:
         k = L.linear(params["wk"], x).reshape(b, s, hkv, hd)

@@ -5,6 +5,14 @@ lowering ladder applies model-wide.  Norm and softmax math stays fp32;
 weights and activations take the config's dtype.  The inits draw from an
 explicit ``torch.Generator`` on the device the params are made on (on
 ``meta`` nothing is drawn), with the reference's scales.
+
+Under an active mesh (``models/sharding.py``) with a 'model' axis of
+more than one rank the weights are local shards: the MLP's and the
+head's column-parallel products run on the rank's columns of a
+replicated input (``sharding.enter_model``), ``linear_rp`` reduces the
+row-parallel partials over 'model', the embedding looks up the rank's
+vocab rows and reduces, and the head's logits are gathered over 'model'.
+Without a mesh each is the plain layer.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import sharding as Sh
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -43,9 +52,14 @@ def linear(w, x):
 
 
 def linear_rp(w, x, cfg):
-    """Row-parallel linear.  With no mesh (the port has none yet) it is
-    :func:`linear`, as the reference's is without an active mesh."""
-    return linear(w, x)
+    """Row-parallel linear: the local product of this rank's rows of
+    ``w`` with its columns of ``x``, summed over 'model'.  The sum runs in
+    the product's dtype: bf16 where the reference's ``shard_map`` branch
+    runs (bf16, no FSDP, the dims divide, which the sharded step
+    requires), float32 where it leaves the reduction to GSPMD's float32
+    partials (a float32 model; TP on an FSDP config is refused, ROADMAP
+    A.9.7).  Without a mesh it is :func:`linear`."""
+    return Sh.leave_model(linear(w, x))
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +153,7 @@ def mlp_init(gen, cfg, device, d_in=None, d_ff=None, d_out=None):
 
 
 def mlp_apply(params, x, cfg):
+    x = Sh.enter_model(x)
     up = linear(params["wu"], x)
     if cfg.gated_mlp:
         h = act_apply(linear(params["wg"], x), cfg.act) * up
@@ -166,7 +181,18 @@ def embed_init(gen, cfg, device):
 
 
 def embed_apply(params, tokens, cfg):
-    x = params["emb"][tokens]
+    """The rows of ``tokens``; vocab-parallel under a 'model' split: this
+    rank's rows looked up (zeros for the others' tokens), then summed
+    over 'model'."""
+    r, n = Sh.model_split()
+    if n == 1:
+        x = params["emb"][tokens]
+    else:
+        emb = params["emb"]
+        lo, hi = Sh.chunk_range(padded_vocab(cfg), r, n)
+        mine = (tokens >= lo) & (tokens < hi)
+        local = torch.where(mine, tokens - lo, 0)
+        x = Sh.leave_model(emb[local] * mine[..., None].to(emb.dtype))
     if cfg.scale_embeddings:
         x = (x.to(torch.float32) * math.sqrt(cfg.d_model)).to(x.dtype)
     return x
@@ -174,9 +200,12 @@ def embed_apply(params, tokens, cfg):
 
 def head_apply(params, x, cfg):
     # the tied head is one plain matrix product, as the reference leaves
-    # its einsum to XLA
+    # its einsum to XLA; under a 'model' split each rank makes its vocab
+    # columns and they are gathered
+    x = Sh.enter_model(x)
     logits = linear(params["head"], x) if not cfg.tie_embeddings else \
         torch.matmul(x, params["emb"].t())
+    logits = Sh.gather_model(logits, -1, padded_vocab(cfg))
     if cfg.final_softcap is not None:
         lf = logits.to(torch.float32) / cfg.final_softcap
         logits = (cfg.final_softcap *

@@ -20,6 +20,13 @@ In train mode with ``cfg.remat`` and grad mode on, each block runs under
 backward), the counterpart of the reference's ``jax.checkpoint`` of its
 scanned unit and encoder layer; ``aux`` sums the MoE blocks'
 load-balance losses, as the reference's forward does.
+
+Under an active mesh (``models/sharding.py``; the sharded train step)
+the params are this rank's shards: each block's (and the embedding's)
+are all-gathered over 'data' to their TP-only shards on entry where the
+config is FSDP (``gather_layer_params``, inside remat, so that the
+recompute gathers again), and ``sp_spec`` constrains the residual
+stream before each block, as the reference's scan body does.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from ..core import registry
 from ..core.targets import resolve_device
 from . import blocks as B
 from . import layers as L
+from . import sharding as Sh
 
 
 def _device(device) -> torch.device:
@@ -94,19 +102,26 @@ def _embed_inputs(params, cfg, batch, mode, lengths):
     return x, positions
 
 
+def _apply(kind, params, x, cache, ctx):
+    """``B.block_apply`` on the block's params gathered to its TP-only
+    shards (a no-op without an FSDP mesh)."""
+    return B.block_apply(kind, Sh.gather_layer_params(params, ctx.cfg), x,
+                         cache, ctx)
+
+
 def _blocks(cfg, mode):
-    """``B.block_apply``, under ``torch.utils.checkpoint`` where the
-    forward is remat'd: train mode, ``cfg.remat`` and grad mode on.  The
-    recompute runs on autograd's thread, so it re-enters this thread's
-    policy and target; early stopping is off, so it reruns the whole block
+    """``_apply``, under ``torch.utils.checkpoint`` where the forward is
+    remat'd: train mode, ``cfg.remat`` and grad mode on.  The recompute
+    runs on autograd's thread, so it re-enters this thread's policy,
+    target and mesh; early stopping is off, so it reruns the whole block
     and each kernel launches exactly twice a step."""
     if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
-        return B.block_apply
-    scope = registry.current_scope()
+        return _apply
+    scope, state = registry.current_scope(), Sh.current_state()
 
     def run(*a):
-        with registry.use_scope(scope):
-            return B.block_apply(*a)
+        with registry.use_scope(scope), Sh.resumed(state):
+            return _apply(*a)
 
     def apply(*a):
         with tc.set_checkpoint_early_stop(False):
@@ -128,22 +143,28 @@ def _encode(params, cfg, frames, target=None):
 
 
 def forward(params, cfg, batch, *, mode: str, cache=None,
-            lengths: Optional[torch.Tensor] = None, target=None):
+            lengths: Optional[torch.Tensor] = None, sp_spec=None,
+            target=None):
     """Returns (logits, new_cache, aux): aux the MoE blocks' summed
     load-balance loss, a float32 scalar (0 where there is none).
 
     ``batch`` holds ``tokens``, and ``frames`` (encdec) or ``patches``
-    (vlm) outside decode.  ``target`` pins every attention/ssd lowering
-    selection in this forward to an explicit machine model.
+    (vlm) outside decode.  ``sp_spec`` (a ``sharding.P``) constrains the
+    residual stream before each block under a mesh.  ``target`` pins
+    every attention/ssd lowering selection in this forward to an
+    explicit machine model.
     """
     prefix, unit, reps, rem = cfg.pattern_unit()
+    params = {**params,
+              "embed": Sh.gather_layer_params(params["embed"], cfg)}
     x, positions = _embed_inputs(params, cfg, batch, mode, lengths)
     memory = None
     if cfg.family == "encdec" and mode != "decode":
         memory = _encode(params, cfg, batch["frames"], target=target)
     ctx = B.Ctx(cfg=cfg, mode=mode, positions=positions, lengths=lengths,
                 memory=memory, emb0=x if cfg.shared_attn_every else None,
-                shared=params.get("shared"), target=target)
+                shared=Sh.gather_layer_params(params["shared"], cfg)
+                if "shared" in params else None, target=target)
     new_cache = {"prefix": [], "unit": [[] for _ in unit], "rem": []}
     block = _blocks(cfg, mode)
     aux = 0.0
@@ -163,6 +184,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
         aux = aux + a
     for r in range(reps):
         for j, kind in enumerate(unit):
+            if sp_spec is not None:
+                x = Sh.constrain(x, *sp_spec)
             x, c, a = block(kind, params["unit"][j][r], x,
                             cached("unit", j, r), ctx)
             new_cache["unit"][j].append(c)

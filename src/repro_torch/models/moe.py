@@ -19,8 +19,16 @@ batched matrix products, as the reference leaves its einsums to XLA
 outside any Pallas kernel; the experts' activation goes through
 :func:`layers.act_apply` (``ops.vsigmoid`` for silu).
 
-Only the reference's no-mesh branch is ported: expert parallelism under
-``shard_map`` waits for ``models/sharding.py`` (ROADMAP A.9.6, A.13).
+Under an active mesh (``models/sharding.py``) the reference's
+``shard_map`` branch: each rank dispatches its own rows' tokens (the
+capacity taken per data shard, ``t // n_b`` of the reference's global
+``t``) to its ``e_local`` experts, from ``r * e_local`` on its 'model'
+index r, and one all-reduce over 'model' combines the partial outputs.
+The tokens and gates enter the model region through
+``sharding.enter_model``, so that the router's gradient sums every
+rank's experts.  The router itself sees the global batch in the
+reference (GSPMD): its load-balance statistics are summed over the
+batch axes' ranks before the aux loss is formed.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from ..core.vtypes import round_up
 from . import layers as L
+from . import sharding as Sh
 
 
 def moe_init(gen, cfg, device):
@@ -60,6 +69,10 @@ def _route(params, xt, cfg):
     me = probs.mean(dim=0)
     ce = torch.nn.functional.one_hot(idx[:, 0], e).to(torch.float32) \
         .mean(dim=0)
+    # the means over every rank's rows (no-ops without a mesh)
+    n_b = Sh.batch_split(Sh.current_mesh())
+    me = Sh.sum_over_batch(me) / n_b
+    ce = Sh.sum_over_batch(ce) / n_b
     aux = e * torch.sum(me * ce)                # Switch-style load balance
     return gates, idx, aux
 
@@ -110,13 +123,17 @@ def _dispatch_compute(params, xt, gates, idx, cfg, cap, e_lo, e_local):
 
 
 def moe_apply(params, x, cfg):
-    """x:(B, S, d) -> (y, aux_loss)."""
+    """x:(B, S, d) -> (y, aux_loss); under a mesh x is this rank's rows
+    and the expert weights its 'model' shard."""
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     gates, idx, aux = _route(params, xt, cfg)
-    y = _dispatch_compute(params, xt, gates, idx, cfg, capacity(cfg, t),
-                          0, cfg.n_experts)
+    r, n_m = Sh.model_split()
+    e_local = cfg.n_experts // n_m
+    y = Sh.leave_model(_dispatch_compute(
+        params, Sh.enter_model(xt), Sh.enter_model(gates), idx, cfg,
+        capacity(cfg, t), r * e_local, e_local))
     if cfg.n_shared_experts:
         y = y + L.mlp_apply(params["shared"], xt, cfg)
     return y.reshape(b, s, d), aux

@@ -1,0 +1,586 @@
+"""Parameter/activation sharding rules (TP / EP / FSDP / SP), and the
+collectives that carry them out in an explicit-SPMD step.
+
+The JAX package's ``models/sharding.py`` in torch.  Megatron-style
+pairing: column-parallel projections shard their output dim on 'model';
+the following row-parallel projection shards its input dim on 'model',
+so each block pays one reduce.  MoE expert stacks ride 'model' with
+their leading E axis (expert parallelism).  When ``cfg.fsdp`` the other
+matrix dim additionally shards over 'data' (a per-layer all-gather).
+The port's params hold one dictionary a layer (no stacked scan axis), so
+a spec here is the reference's spec of the same leaf without its
+leading unsharded entry.
+
+Specs are :class:`P`, a tuple with ``PartitionSpec``'s entries (an axis
+name, a tuple of names, or None per dim), and the spec functions are
+shape-only: they take a :class:`Mesh` with no process group and run on
+``meta`` tensors.
+
+Under a mesh every rank holds plain local tensors, cut from the full
+ones by :func:`shard_params` (unevenly where a dim does not divide, as
+GSPMD cuts: ceil-sized chunks, the last ones short or empty).  The model
+calls the collectives where the reference's ``shard_map`` or GSPMD puts
+them (``layers``, ``attention``, ``moe``, ``model``), through autograd
+Functions in conjugate pairs: :func:`enter_model` is the identity
+forward and an all-reduce over 'model' backward (every replicated input
+of a local computation passes through it), :func:`leave_model` an
+all-reduce forward and the identity backward.  No DTensor and no
+``torch.compile`` is on this path; the hand kernels see local shards.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from .. import tree
+
+_TLS = threading.local()
+
+
+class P(tuple):
+    """A partition spec: one entry a dim, each an axis name, a tuple of
+    axis names (the dim cut over their product, the first the major) or
+    None; trailing dims unsharded.  A one-name tuple is that name, as
+    ``PartitionSpec`` has it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self):
+        return "P" + tuple.__repr__(self)
+
+
+class Mesh:
+    """Named axes and their sizes, row-major over the ranks (rank r sits
+    at ``np.unravel_index(r, shape)``, as ``jax.make_mesh`` places its
+    devices).  With ``device_mesh`` (a ``DeviceMesh`` over the live
+    process group, ``launch/mesh.py``) it also knows this rank's
+    coordinate and a process group per axis; without one it is
+    shape-only, which is all the spec functions need."""
+
+    def __init__(self, shape, axis_names, device_mesh=None):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"mesh shape {tuple(shape)} against axes "
+                             f"{tuple(axis_names)}")
+        self.axis_names = tuple(axis_names)
+        self.devices_shape = tuple(int(n) for n in shape)
+        self.shape = dict(zip(self.axis_names, self.devices_shape))
+        self.device_mesh = device_mesh
+        self._coord = None
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+    def coordinate(self) -> Dict[str, int]:
+        """This rank's index along each axis."""
+        if self.device_mesh is None:
+            raise RuntimeError("a shape-only mesh has no ranks; build it "
+                               "with launch.mesh.make_mesh")
+        if self._coord is None:
+            self._coord = dict(zip(self.axis_names,
+                                   self.device_mesh.get_coordinate()))
+        return self._coord
+
+    def group(self, axis: str):
+        return self.device_mesh.get_group(axis)
+
+
+# ---------------------------------------------------------------------------
+# the mesh in force while a step traces its forward
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def active_mesh(mesh, full_shapes=None):
+    """Set the mesh the model's collectives and :func:`constrain` use,
+    for this thread.  ``full_shapes`` maps ``id`` of each local param
+    shard to its full shape (what :func:`gather_layer_params` gathers
+    to)."""
+    with resumed((mesh, full_shapes or {})):
+        yield
+
+
+@contextlib.contextmanager
+def resumed(state):
+    """Re-enter a :func:`current_state` (on autograd's thread, for the
+    recompute of a remat'd block)."""
+    prev = current_state()
+    _TLS.state = state
+    try:
+        yield
+    finally:
+        _TLS.state = prev
+
+
+def current_state():
+    """(mesh, full shapes) in force on this thread; (None, {}) without."""
+    return getattr(_TLS, "state", (None, {}))
+
+
+def current_mesh() -> Optional[Mesh]:
+    return current_state()[0]
+
+
+def axes_of(entry) -> tuple:
+    """The mesh axes a spec entry names (none for None)."""
+    return () if entry is None else \
+        (entry if isinstance(entry, tuple) else (entry,))
+
+
+def axes_size(mesh, entry) -> int:
+    """The product of the sizes of ``entry``'s axes."""
+    return math.prod(mesh.shape[a] for a in axes_of(entry))
+
+
+def fit_spec(spec, shape, mesh) -> P:
+    """Drop axes whose size exceeds the dim (e.g. 8 kv heads on a 16-way
+    'model' axis) — the sharding analogue of the paper's validity rule."""
+    out = []
+    for i, entry in enumerate(spec):
+        if entry is not None and (i >= len(shape) or
+                                  shape[i] < axes_size(mesh, entry)):
+            out.append(None)
+        else:
+            out.append(entry)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def constrain(x, *spec):
+    """The reference's ``with_sharding_constraint`` against the active
+    mesh (a no-op without one).  ``"batch"`` entries expand to the mesh's
+    non-model axes; axes that do not fit the dim are dropped.  Here the
+    batch axes are already local (each rank holds its rows), so a spec
+    that cuts nothing else is the identity; one that cuts another dim
+    (sequence parallelism) is refused (ROADMAP A.9.7)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    ba = batch_axes(mesh)
+    fitted = fit_spec(P(*(ba if s == "batch" else s for s in spec)),
+                      x.shape, mesh)
+    for entry in fitted[1:]:
+        if entry is not None and axes_size(mesh, entry) > 1:
+            raise NotImplementedError(
+                f"a {fitted} activation constraint cuts a non-batch dim "
+                f"(sequence parallelism): not ported, ROADMAP A.9.7")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# the rules: parameter leaf name -> spec
+# ---------------------------------------------------------------------------
+
+def _rules(fsdp_axis):
+    f = fsdp_axis
+    col = (2, lambda: P(f, "model"))      # (d_in, d_out-model)
+    row = (2, lambda: P("model", f))      # (d_in-model, d_out)
+    return {
+        # embeddings / head
+        "emb": (2, lambda: P("model", f)),       # vocab-parallel
+        "head": (2, lambda: P(f, "model")),
+        # attention
+        "wq": col, "wk": col, "wv": col, "wo": row,
+        "w_uq": col, "w_uk": col, "w_uv": col,
+        "w_dq": (2, lambda: P(f, None)), "w_dkv": (2, lambda: P(f, None)),
+        # mlp
+        "wg": col, "wu": col, "wd": row,
+        # moe experts: leading E axis = expert parallelism
+        "router": (2, lambda: P(None, None)),
+        # mamba
+        "w_in": col, "w_out": row,
+        "conv_w": (2, lambda: P(None, "model")),
+        "conv_b": (1, lambda: P("model")),
+        "A_log": (1, lambda: P(None)), "D": (1, lambda: P(None)),
+        "dt_bias": (1, lambda: P(None)),
+        # norms
+        "w": (1, lambda: P(None)), "b": (1, lambda: P(None)),
+    }
+
+
+_MOE_RULES = {
+    # (E, d, f) / (E, f, d) expert stacks — expert axis = EP over 'model'
+    "we_g": lambda f: P("model", f, None),
+    "we_u": lambda f: P("model", f, None),
+    "we_d": lambda f: P("model", None, f),
+}
+
+
+def _leaf_spec(path, leaf, cfg, fsdp_axis) -> P:
+    """The rule's spec of the leaf at ``path`` (a key path of
+    ``tree.paths``; its last dict key names the leaf), unfitted."""
+    names = [k for k in path if isinstance(k, str)]
+    name = names[-1] if names else ""
+    if name in _MOE_RULES:
+        base, rank = _MOE_RULES[name](fsdp_axis), 3
+    else:
+        rules = _rules(fsdp_axis)
+        if name not in rules:
+            return P()
+        rank, make = rules[name]
+        base = make()
+    extra = leaf.ndim - rank
+    if extra < 0:
+        return P()
+    return P(*([None] * extra + list(base)))
+
+
+def _specs(params, cfg, fsdp_axis, mesh):
+    def spec(path, leaf):
+        s = _leaf_spec(path, leaf, cfg, fsdp_axis)
+        return fit_spec(s, leaf.shape, mesh) if mesh is not None else s
+    return tree.unflatten(params, [spec(p, x) for p, x in
+                                   tree.paths(params)])
+
+
+def param_pspecs(params, cfg, mesh=None):
+    """Tree of :class:`P` matching ``params`` (meta tensors will do)."""
+    return _specs(params, cfg, "data" if cfg.fsdp else None, mesh)
+
+
+def opt_pspecs(params, cfg, mesh=None):
+    """Optimizer-state specs: ZeRO-1 — always FSDP-shard moments."""
+    return _specs(params, cfg, "data", mesh)
+
+
+def batch_axes(mesh) -> tuple:
+    return tuple(a for a in mesh.axis_names if a != "model")
+
+
+def batch_spec(mesh) -> P:
+    return P(batch_axes(mesh))
+
+
+def token_spec(mesh) -> P:
+    return P(batch_axes(mesh), None)
+
+
+def activation_spec(mesh, cfg) -> P:
+    """Residual-stream constraint; SP shards sequence over 'model'."""
+    if cfg.use_sp:
+        return P(batch_axes(mesh), "model", None)
+    return P(batch_axes(mesh), None, None)
+
+
+def cache_pspecs(cache, mesh):
+    """KV/state caches: batch over data axes, heads over 'model'.
+
+    When the kv-head count is smaller than the 'model' axis the head dim
+    is sharded instead (GSPMD psums the contraction) — the validity-rule
+    fallback again.  The port's caches hold one entry a layer, so no
+    leaf carries the reference's stacked leading axis.
+    """
+    ba = batch_axes(mesh)
+    msize = axes_size(mesh, "model")
+
+    def spec(leaf):
+        shape = leaf.shape
+        if len(shape) == 4:   # (B, S, Hkv, hd) kv | (B, H, p, n) ssm state
+            s = P(ba, None, "model", None) if shape[2] >= msize else \
+                P(ba, None, None, "model")
+        elif len(shape) == 3:  # (B, S, C) mla / conv history caches
+            s = P(ba, None, None)
+        else:
+            s = P(ba)
+        return fit_spec(s, shape, mesh)
+
+    return tree.map(spec, cache)
+
+
+def ns(mesh, tree_of_specs):
+    """Spec tree -> tree of DTensor placements, one a mesh axis
+    (``Shard(d)`` where the axis cuts dim d, else ``Replicate()``), for
+    code that hands the same layout to ``torch.distributed.tensor``; the
+    train step itself holds plain local tensors."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def place(spec):
+        out = [Replicate() for _ in mesh.axis_names]
+        for d, entry in enumerate(spec):
+            for a in axes_of(entry):
+                out[mesh.axis_names.index(a)] = Shard(d)
+        return tuple(out)
+
+    return tree.map(place, tree_of_specs)
+
+
+# ---------------------------------------------------------------------------
+# local shards
+# ---------------------------------------------------------------------------
+
+def chunk_index(mesh, entry):
+    """(this rank's chunk index along ``entry``'s axes, their product)."""
+    coord, idx, n = mesh.coordinate(), 0, 1
+    for a in axes_of(entry):
+        idx, n = idx * mesh.shape[a] + coord[a], n * mesh.shape[a]
+    return idx, n
+
+
+def chunk_range(length, idx, n):
+    """[lo, hi) of chunk ``idx`` of ``n`` along a dim of ``length``:
+    ceil-sized chunks, the last ones short or empty."""
+    size = -(-length // n)
+    lo = min(idx * size, length)
+    return lo, min(lo + size, length)
+
+
+def local_shard(x, spec, mesh):
+    """This rank's piece of the full tensor ``x`` under ``spec``."""
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            lo, hi = chunk_range(x.shape[d], *chunk_index(mesh, entry))
+            x = x.narrow(d, lo, hi - lo)
+    return x
+
+
+def shard_params(params, mesh, cfg):
+    """Each leaf's local shard under ``param_pspecs``, a plain tensor (a
+    contiguous copy, requiring grad where the leaf did)."""
+    specs = tree.leaves(param_pspecs(params, cfg, mesh))
+    out = [local_shard(x.detach(), s, mesh).contiguous().clone()
+           .requires_grad_(x.requires_grad)
+           for x, s in zip(tree.leaves(params), specs)]
+    return tree.unflatten(params, out)
+
+
+def _pad_to(x, dim, size):
+    if x.shape[dim] == size:
+        return x.contiguous()
+    pad = list(x.shape)
+    pad[dim] = size - x.shape[dim]
+    return torch.cat([x, x.new_zeros(pad)], dim)
+
+
+def gather_dim(x, dim, mesh, entry, length):
+    """The full dim ``dim`` (``length`` long) from each rank's chunk of
+    it along ``entry``'s axes: every chunk padded to the ceil size, one
+    all-gather an axis from the minor up, then cut to ``length``."""
+    axes = axes_of(entry)
+    x = _pad_to(x, dim, -(-length // axes_size(mesh, entry)))
+    for a in reversed(axes):
+        if mesh.shape[a] > 1:
+            parts = [torch.empty_like(x) for _ in range(mesh.shape[a])]
+            dist.all_gather(parts, x, group=mesh.group(a))
+            x = torch.cat(parts, dim)
+    return x.narrow(dim, 0, length)
+
+
+def gather(x, spec, mesh, shape):
+    """The full tensor of ``shape`` from this rank's shard ``x`` under
+    ``spec`` (every rank of the mesh calls it)."""
+    for d, entry in enumerate(spec):
+        if entry is not None:
+            x = gather_dim(x, d, mesh, entry, shape[d])
+    return x
+
+
+def gather_params(local, mesh, cfg, like):
+    """The inverse of :func:`shard_params`: the full tree from each
+    rank's shards, the full shapes read from ``like`` (the params or
+    meta stand-ins of them)."""
+    specs = tree.leaves(param_pspecs(like, cfg, mesh))
+    out = [gather(x.detach(), s, mesh, full.shape)
+           for x, s, full in zip(tree.leaves(local), specs,
+                                 tree.leaves(like))]
+    return tree.unflatten(like, out)
+
+
+# ---------------------------------------------------------------------------
+# collectives with autograd: the conjugate pairs
+# ---------------------------------------------------------------------------
+
+def all_reduce(x, mesh, axes):
+    """Sum ``x`` in place over each of ``axes`` of size > 1."""
+    for a in axes:
+        if mesh.shape.get(a, 1) > 1:
+            dist.all_reduce(x, group=mesh.group(a))
+    return x
+
+
+class _Copy(torch.autograd.Function):
+    """Into the model region: identity forward, all-reduce over 'model'
+    backward (each rank's local computation gave part of the gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ("model",)), \
+            None
+
+
+class _Reduce(torch.autograd.Function):
+    """Out of the model region: all-reduce over 'model' forward, identity
+    backward (the gradient of a replicated output is whole on each
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.contiguous().clone(), mesh, ("model",))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumAcross(torch.autograd.Function):
+    """A sum over ranks that each feed their own loss: all-reduce forward
+    and backward (each rank's loss reads every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_reduce(x.contiguous().clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.mesh, ctx.axes), \
+            None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of dim ``dim`` over ``entry``'s axes.  Backward, this
+    rank's chunk of the gradient: summed over those axes first (in
+    float32) where ``reduce_grad`` (an FSDP weight, used by every data
+    rank on its own rows), taken as it is where every rank holds the
+    same gradient (logits gathered over 'model' under a replicated
+    loss)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, entry, length, reduce_grad):
+        ctx.args = (dim, mesh, entry, x.shape[dim], reduce_grad)
+        return gather_dim(x, dim, mesh, entry, length)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, entry, size, reduce_grad = ctx.args
+        if reduce_grad:
+            g = all_reduce(g.to(torch.float32, copy=True), mesh,
+                           axes_of(entry)).to(g.dtype)
+        lo, _ = chunk_range(g.shape[dim], *chunk_index(mesh, entry))
+        return g.narrow(dim, lo, size), None, None, None, None, None
+
+
+def model_split():
+    """(this rank's index along 'model', the axis size) under the active
+    mesh; (0, 1) without one."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("model", 1) == 1:
+        return 0, 1
+    return mesh.coordinate()["model"], mesh.shape["model"]
+
+
+def batch_split(mesh) -> int:
+    """Ranks the batch rows are spread over (the product of the batch
+    axes); 1 without a mesh."""
+    return 1 if mesh is None else axes_size(mesh, batch_axes(mesh))
+
+
+def enter_model(x):
+    """``x`` (replicated over 'model') into a model-parallel region."""
+    mesh = current_mesh()
+    if x is None or model_split()[1] == 1:
+        return x
+    return _Copy.apply(x, mesh)
+
+
+def leave_model(x):
+    """The sum over 'model' of each rank's partial ``x``."""
+    if model_split()[1] == 1:
+        return x
+    return _Reduce.apply(x, current_mesh())
+
+
+def gather_model(x, dim, length):
+    """The full dim ``dim`` of ``x`` from each 'model' rank's chunk."""
+    if model_split()[1] == 1:
+        return x
+    return _Gather.apply(x, dim % x.ndim, current_mesh(), "model", length,
+                         False)
+
+
+def sum_over_batch(x):
+    """The sum of ``x`` over the batch axes' ranks, differentiable."""
+    mesh = current_mesh()
+    if batch_split(mesh) == 1:
+        return x
+    return _SumAcross.apply(x, mesh, batch_axes(mesh))
+
+
+def gather_layer_params(ps, cfg):
+    """FSDP: each of ``ps``'s leaves (one layer's, or the embedding's)
+    all-gathered over 'data' to its TP-only shard, once a call; the
+    backward sums the gradient over 'data' and keeps this rank's chunk.
+    A no-op without a mesh or without ``cfg.fsdp``.  The leaves' full
+    shapes are the ones :func:`active_mesh` was given."""
+    mesh, shapes = current_state()
+    if mesh is None or not cfg.fsdp:
+        return ps
+    out = []
+    for path, x in tree.paths(ps):
+        shape = shapes.get(id(x))
+        if shape is None:
+            raise RuntimeError(f"{'/'.join(map(str, path))}: an FSDP leaf "
+                               "whose full shape the active mesh was not "
+                               "given")
+        fsdp = fit_spec(_leaf_spec(path, x, cfg, "data"), shape, mesh)
+        tp = fit_spec(_leaf_spec(path, x, cfg, None), shape, mesh)
+        for d, entry in enumerate(fsdp):
+            if entry != (tp[d] if d < len(tp) else None):
+                x = _Gather.apply(x, d, mesh, entry, shape[d], True)
+        out.append(x)
+    return tree.unflatten(ps, out)
+
+
+# the block kinds whose tensor-parallel split is ported: GQA attention
+# (whole q and kv heads a rank) with a dense or MoE FFN
+TP_KINDS = ("attn", "local", "moe")
+
+
+def check_mesh(cfg, mesh):
+    """Refuse, naming its ROADMAP item, a mesh the explicit-SPMD step
+    cannot run: a 'model' split (> 1 rank) of an SP or FSDP config
+    (A.9.7), of any block kind but GQA's ``attn``, ``local`` and ``moe``,
+    or of widths it does not divide into whole heads, FFN columns and
+    experts (A.9.8).  Every mesh with one 'model' rank is served."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return
+    if cfg.use_sp or cfg.fsdp:
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {m} on a config with "
+            f"use_sp={cfg.use_sp}, fsdp={cfg.fsdp} (sequence parallelism, "
+            "TP on an FSDP config): not ported, ROADMAP A.9.7")
+    kinds = set(cfg.layer_pattern()) | ({"enc"} if cfg.n_enc_layers
+                                        else set())
+    other = sorted(kinds - set(TP_KINDS))
+    if other or cfg.attn_kind != "gqa" or cfg.shared_attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {m} over block kinds "
+            f"{other or sorted(kinds)} with {cfg.attn_kind} attention: "
+            "tensor parallelism is ported for GQA's attn, local and moe "
+            "blocks only, ROADMAP A.9.8")
+    widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
+    if kinds & {"attn", "local"}:
+        widths["d_ff"] = cfg.d_ff
+    if "moe" in kinds:
+        widths["n_experts"] = cfg.n_experts
+        widths["shared d_ff"] = cfg.n_shared_experts * cfg.d_expert
+    odd = {k: v for k, v in widths.items() if v % m}
+    if odd:
+        raise NotImplementedError(
+            f"{cfg.name}: a 'model' axis of {m} does not divide {odd} into "
+            "whole heads, columns or experts a rank, ROADMAP A.9.8")

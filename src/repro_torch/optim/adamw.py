@@ -64,11 +64,14 @@ def global_norm(grads) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: AdamWConfig):
+def update(grads, state, params, cfg: AdamWConfig, gnorm=None):
     """Returns (params, state, metrics); params and state updated in
-    place, metrics {"grad_norm", "lr"} as device scalars."""
+    place, metrics {"grad_norm", "lr"} as device scalars.  ``gnorm``, the
+    gradient's global norm, is ``global_norm(grads)`` unless given (a
+    sharded step passes the norm over every rank's shards)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = schedule(cfg, state["step"])
     stepf = step.to(torch.float32)

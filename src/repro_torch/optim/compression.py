@@ -5,8 +5,8 @@ step: each leaf (plus its carried error) is scaled by max|x| / 127,
 rounded half to even (``torch.round``, as ``jnp.round``), clipped to
 [-127, 127] and stored as int8; the rounding error is carried into the
 next step.  The int8 payloads are bitwise the reference's.  Its
-``compressed_psum`` is a collective and waits for the port's
-distribution (ROADMAP A.13).
+``compressed_psum`` is a collective and waits (ROADMAP A.13.1): the
+sharded step refuses ``compress_grads``.
 """
 from __future__ import annotations
 

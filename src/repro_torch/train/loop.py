@@ -1,4 +1,5 @@
-"""Training on one device: the step and the supervised driver.
+"""Training: the step on one device, the sharded step, and the
+supervised training loop.
 
 The JAX package's ``train/loop.py`` in torch.  ``make_train_step`` builds
 (params, opt_state, err_state, batch) -> (params, opt_state, err_state,
@@ -12,9 +13,18 @@ an autograd Function would otherwise leave it silently out.  ``train``
 wires the synthetic data, the checkpointer, the watchdog and the
 supervisor around the step.
 
-The sharded step (``make_sharded_train_step``) and the pipeline
-schedule (``train/pipeline.py``) wait for the port's distribution
-(ROADMAP A.13).
+``make_sharded_train_step`` is the same step on every rank of a mesh
+(``launch/mesh.py``), explicit SPMD over plain local tensors
+(``models/sharding.py``): each rank holds its ``param_pspecs`` shard of
+every leaf and its ZeRO-1 slice (``opt_pspecs``) of the optimizer state,
+takes its rows of each microbatch (``token_spec``), runs the forward and
+backward under ``active_mesh`` (the model's collectives; an FSDP
+config's per-layer gathers), takes the mean of the gradients over the
+batch axes, the global norm over every shard (each replicated leaf
+counted once), does the AdamW update on its slice and all-gathers the
+new params back to its shards.  The pipeline schedule
+(``train/pipeline.py``) and ``compress_grads`` on a mesh wait (ROADMAP
+A.13.2, A.13.1).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ from ..core.targets import resolve_device
 from ..data.pipeline import SyntheticLM, extra_inputs
 from ..kernels import ref
 from ..models import model as M
+from ..models import sharding as Sh
 from ..optim import adamw, compression
 from ..runtime.fault_tolerance import FailureInjector, Supervisor, Watchdog
 
@@ -47,9 +58,10 @@ class TrainConfig:
         default_factory=adamw.AdamWConfig)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, sp_spec=None):
     """-> (mean xent + 0.01 aux, (mean xent, aux)), over the padded vocab."""
-    logits, _, aux = M.forward(params, cfg, batch, mode="train")
+    logits, _, aux = M.forward(params, cfg, batch, mode="train",
+                               sp_spec=sp_spec)
     xent = ref.softmax_xent(logits, batch["targets"]).mean()
     return xent + 0.01 * aux, (xent, aux)
 
@@ -96,6 +108,175 @@ def make_train_step(cfg, tcfg: TrainConfig):
         params, opt_state, om = adamw.update(grads, opt_state, params,
                                              tcfg.optim)
         metrics = {"loss": lsum / accum, "aux": asum / accum, **om}
+        return params, opt_state, err_state, metrics
+
+    return step
+
+
+class _Layout:
+    """What a sharded step knows of each param leaf, in leaf order: its
+    full shape, its ``param_pspecs`` spec (the rank's shard) and its
+    ``opt_pspecs`` spec (the rank's ZeRO-1 slice of that shard)."""
+
+    def __init__(self, cfg, mesh, params_sds):
+        self.mesh = mesh
+        self.shapes = [tuple(x.shape) for x in tree.leaves(params_sds)]
+        self.pspecs = tree.leaves(Sh.param_pspecs(params_sds, cfg, mesh))
+        self.ospecs = tree.leaves(Sh.opt_pspecs(params_sds, cfg, mesh))
+
+    def zero1_dims(self, i):
+        """(dim, entry) where leaf i's optimizer slice cuts its shard."""
+        ps, os_ = self.pspecs[i], self.ospecs[i]
+        out = []
+        for d, entry in enumerate(os_):
+            have = ps[d] if d < len(ps) else None
+            if entry != have and Sh.axes_size(self.mesh, entry) > 1:
+                if have is not None:
+                    raise ValueError(f"leaf {i}: optimizer spec {os_} is not "
+                                     f"a cut of its param spec {ps}")
+                out.append((d, entry))
+        return out
+
+    def slices(self, leaves):
+        """Views of each local shard in ``leaves`` cut to the rank's ZeRO-1
+        slice."""
+        out = []
+        for i, x in enumerate(leaves):
+            for d, entry in self.zero1_dims(i):
+                lo, hi = Sh.chunk_range(x.shape[d],
+                                        *Sh.chunk_index(self.mesh, entry))
+                x = x.narrow(d, lo, hi - lo)
+            out.append(x)
+        return out
+
+
+def _check_sharded(cfg, tcfg, mesh, batch_sds):
+    Sh.check_mesh(cfg, mesh)
+    if tcfg.compress_grads:
+        raise NotImplementedError(
+            "compress_grads on a mesh needs compressed_psum (its int8 scale "
+            "global over the shards): not ported, ROADMAP A.13.1")
+    rows = tcfg.accum * Sh.batch_split(mesh)
+    for k, v in batch_sds.items():
+        if v.shape[0] % rows:
+            raise ValueError(f"batch[{k!r}]: {v.shape[0]} rows do not split "
+                             f"into {tcfg.accum} microbatches over "
+                             f"{Sh.batch_split(mesh)} data ranks")
+
+
+def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
+    """(params, batch) -> (loss, aux, grads): the sharded step's mean
+    gradient before its update, float32, one tensor a leaf of this
+    rank's shards (in leaf order), the mean xent over the global batch
+    and the aux loss.  ``batch`` is the global batch, on every rank."""
+    _check_sharded(cfg, tcfg, mesh, batch_sds)
+    lay = _Layout(cfg, mesh, params_sds)
+    ba, n_b = Sh.batch_axes(mesh), Sh.batch_split(mesh)
+    rows = Sh.token_spec(mesh)
+    sp_spec = Sh.activation_spec(mesh, cfg) if cfg.use_sp else None
+
+    def grads_fn(params, batch):
+        accum = tcfg.accum
+        leaves = tree.leaves(params)
+        full = {id(x): shape for x, shape in zip(leaves, lay.shapes)}
+        gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves]
+        lsum = asum = 0.0
+        for i in range(accum):
+            # microbatch i's global rows, then this rank's rows of them
+            micro = {k: Sh.local_shard(
+                v.reshape(accum, v.shape[0] // accum, *v.shape[1:])[i],
+                rows, mesh) for k, v in batch.items()}
+            with Sh.active_mesh(mesh, full), torch.enable_grad():
+                loss, (xent, aux) = loss_fn(params, cfg, micro, sp_spec)
+                grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for s, g in zip(gsum, grads):
+                    s.add_(g.to(torch.float32))
+                lsum = lsum + xent.detach()
+                asum = asum + aux.detach()
+            del loss, grads
+        with torch.no_grad():
+            for s, spec in zip(gsum, lay.pspecs):
+                # the leaves cut over a batch axis (FSDP) had their
+                # gradient summed over it by the gather's backward
+                cut = {a for e in spec for a in Sh.axes_of(e)}
+                Sh.all_reduce(s, mesh, [a for a in ba if a not in cut])
+                s.div_(accum * n_b)
+            loss = Sh.all_reduce(torch.as_tensor(lsum, dtype=torch.float32,
+                                                 device=gsum[0].device)
+                                 .clone(), mesh, ba) / (accum * n_b)
+        return loss, asum / accum, gsum
+
+    grads_fn.layout = lay
+    return grads_fn
+
+
+def sharded_global_norm(grads, layout):
+    """The global norm of a gradient held as each rank's shards: the
+    squares summed over the local shards, all-reduced over the axes that
+    cut them, each replicated leaf counted once."""
+    mesh, by_axes = layout.mesh, {}
+    for g, spec in zip(grads, layout.pspecs):
+        axes = tuple(a for e in spec for a in Sh.axes_of(e)
+                     if mesh.shape[a] > 1)
+        sq = torch.sum(torch.square(g.to(torch.float32)))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+    total = sum(Sh.all_reduce(sq, mesh, axes)
+                for axes, sq in by_axes.items())
+    return torch.sqrt(total)
+
+
+def sharded_opt_init(params, cfg, mesh, params_sds):
+    """``adamw.init`` of this rank's ZeRO-1 slices of its shards
+    ``params``."""
+    lay = _Layout(cfg, mesh, params_sds)
+    return adamw.init(tree.unflatten(params, lay.slices(
+        [p.detach() for p in tree.leaves(params)])))
+
+
+@torch.no_grad()
+def sharded_update(grads, opt_state, params, layout, optim):
+    """``adamw.update`` of a sharded step: ``grads`` (``make_sharded_grads``'
+    mean gradient, this rank's shards in leaf order) clipped by their
+    global norm over every shard, applied to this rank's ZeRO-1 slices
+    of ``opt_state`` and ``params`` in place, then the other ranks' slices
+    all-gathered back into each param shard.  -> (params, opt_state,
+    metrics)."""
+    gnorm = sharded_global_norm(grads, layout)
+    leaves = tree.leaves(params)
+    views = layout.slices(leaves)
+    _, opt_state, om = adamw.update(
+        tree.unflatten(params, layout.slices(grads)), opt_state,
+        tree.unflatten(params, views), optim, gnorm=gnorm)
+    # each rank updated its slice in place; the others' slices come back
+    # by an all-gather over the axes that cut them
+    for i, (p, v) in enumerate(zip(leaves, views)):
+        dims = layout.zero1_dims(i)
+        if dims:
+            for d, entry in dims:
+                v = Sh.gather_dim(v, d, layout.mesh, entry, p.shape[d])
+            p.copy_(v)
+    return params, opt_state, om
+
+
+def make_sharded_train_step(cfg, tcfg: TrainConfig, mesh, params_sds,
+                            batch_sds):
+    """(params, opt_state, err_state, batch) -> (params, opt_state,
+    err_state, metrics) on each rank of ``mesh``: params this rank's
+    shards (``sharding.shard_params``), opt_state its ZeRO-1 slices
+    (``sharded_opt_init``), both updated in place; batch the global
+    batch.  ``params_sds`` gives the full shapes (meta tensors will do).
+    The step is ``make_sharded_grads`` then ``sharded_update``.  Refuses,
+    naming the ROADMAP item, what it cannot run (``sharding.check_mesh``;
+    ``compress_grads``)."""
+    grads_fn = make_sharded_grads(cfg, tcfg, mesh, params_sds, batch_sds)
+
+    def step(params, opt_state, err_state, batch):
+        loss, aux, grads = grads_fn(params, batch)
+        params, opt_state, om = sharded_update(grads, opt_state, params,
+                                               grads_fn.layout, tcfg.optim)
+        metrics = {"loss": loss, "aux": aux, **om}
         return params, opt_state, err_state, metrics
 
     return step

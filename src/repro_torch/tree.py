@@ -1,6 +1,8 @@
 """Parameter trees: nested dicts and lists of tensors, walked in the
 JAX package's leaf order (a dict's keys sorted, a list's in order), so
-that a flattened port tree lines up with the reference's."""
+that a flattened port tree lines up with the reference's.  A plain tuple
+is a node too; a subclass of tuple (``models.sharding.P``, a partition
+spec) is a leaf."""
 from __future__ import annotations
 
 from typing import Any, Callable, List, Tuple
@@ -13,7 +15,7 @@ def _items(tree):
 
 
 def _is_node(tree) -> bool:
-    return isinstance(tree, (dict, list, tuple))
+    return isinstance(tree, (dict, list)) or type(tree) is tuple
 
 
 def leaves(tree) -> List[Any]:
@@ -35,7 +37,7 @@ def map(fn: Callable, tree, *rest):  # noqa: A001 — jax.tree.map's name
     place in ``rest``, in a tree of the same structure (None stays)."""
     if isinstance(tree, dict):
         return {k: map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if _is_node(tree):
         return [map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return None if tree is None else fn(tree, *rest)
 
@@ -48,7 +50,7 @@ def unflatten(template, flat: List[Any]):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
+        if _is_node(t):
             return [build(v) for v in t]
         return None if t is None else next(it)
     out = build(template)

@@ -118,7 +118,9 @@ ARCH_OPS = {"zamba2-1.2b": {"gemm", "vtanh", "attention",
             "whisper-tiny": {"gemm", "vtanh", "attention",
                              "decode_attention"},
             "pixtral-12b": {"gemm", "vsigmoid", "attention",
-                            "decode_attention"}}
+                            "decode_attention"},
+            "mistral-large-123b": {"gemm", "vsigmoid", "attention",
+                                   "decode_attention"}}
 # tier -> (policy, target)
 TIERS = {"vector": ("vector", None), "pallas": ("pallas", "rvv-128"),
          "h100": ("pallas", "h100")}
@@ -370,11 +372,8 @@ def test_unported_archs_and_kinds_name_their_roadmap_item():
         get_config("mamba2-1.3b")
     with pytest.raises(NotImplementedError, match="ROADMAP C.23"):
         get_config("pixtral-12b")
-    # mistral waits for sharding (its bf16 weights do not fit one card)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        get_config("mistral-large-123b")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        get_config("mistral-large-123b")
+    # mistral is ported with models/sharding.py (ROADMAP A.9.6)
+    assert get_config("mistral-large-123b").fsdp
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     # every block kind of the reference is ported: local, enc and dec too

@@ -1,0 +1,226 @@
+"""``train.loop.make_sharded_train_step`` against the JAX package's.
+
+Each case is float32 at ``cfg.reduced()`` widths, 2 layers, 4 rows of 16
+tokens (``SyntheticLM`` steps 0 and 1): the reference's
+``make_sharded_train_step`` on as many forced host devices as the mesh
+has (an Auto mesh, ROADMAP C.2) in a subprocess, the port's on as many
+gloo CPU ranks (``launch.mesh.run_ranks``), both from the reference's
+``init`` (carried across by ``models/convert.py``).  Held: the loss of
+both steps, their aux and ``grad_norm`` within 2e-4 relative, and each
+leaf's gradient at step 0, gathered to its full shape, within 2e-4 of
+its max |g| from ``jax.grad(loss_fn)`` under the same mesh.  A control
+drops the backward all-reduce of the copy into the model region: the
+replicated leaves' gradients come out partial and fail that gate.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import tree
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch import mesh as LM
+from repro_torch.models import convert
+from repro_torch.models import model as M
+from repro_torch.models import sharding as Sh
+from repro_torch.train import loop
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (arch, mesh): data-parallel, tensor- and expert-parallel, FSDP + ZeRO-1
+CASES = (("gemma2-2b", (2, 1)), ("gemma2-2b", (1, 2)),
+         ("mistral-large-123b", (2, 1)),
+         ("granite-moe-1b-a400m", (1, 2)), ("granite-moe-1b-a400m", (2, 2)))
+TRAFFIC = dict(seq=16, batch=4)
+TOL = 2e-4
+# the reference's data-parallel step on gemma2 (ROADMAP A.13's probe)
+GEMMA2_DP_LOSS = 5.518292
+
+REFERENCE = r"""
+import json, pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_config
+from repro.data.pipeline import SyntheticLM
+from repro.models import model as M, sharding as Sh
+from repro.optim import adamw
+from repro.train import loop
+cases, traffic, path = json.loads(sys.argv[1])
+cfgs = [get_config(a).reduced().replace(dtype="float32", n_layers=2)
+        for a, _ in cases]
+inits = [jax.tree.map(np.asarray, M.init(c, jax.random.PRNGKey(0)))
+         for c in cfgs]
+with open(path + ".params", "wb") as f:
+    pickle.dump(inits, f)
+print("params-ready", flush=True)
+out = []
+for (arch, shape), cfg, p0 in zip(cases, cfgs, inits):
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    data = SyntheticLM(cfg.vocab_size, traffic["seq"], traffic["batch"])
+    batches = [data.batch(s) for s in range(2)]
+    params = jax.tree.map(jnp.asarray, p0)
+    opt = jax.tree.map(jnp.array, adamw.init(params))
+    psds = jax.eval_shape(lambda: params)
+    bsds = jax.eval_shape(lambda: batches[0])
+    step = loop.make_sharded_train_step(cfg, loop.TrainConfig(), mesh,
+                                        psds, bsds)
+    metrics = []
+    with mesh:
+        p, o = jax.tree.map(jnp.array, params), opt
+        for b in batches:
+            p, o, _, m = step(p, o, None, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        sp = NamedSharding(mesh, Sh.activation_spec(mesh, cfg)) \
+            if cfg.use_sp else None
+        pspecs = Sh.ns(mesh, Sh.param_pspecs(psds, cfg, mesh))
+        bspec = Sh.ns(mesh, jax.tree.map(lambda _: Sh.token_spec(mesh),
+                                         bsds))
+        grad = jax.jit(jax.grad(
+            lambda q, b: loop.loss_fn(q, cfg, b, sp)[0]),
+            in_shardings=(pspecs, bspec))
+        with Sh.active_mesh(mesh):
+            g = grad(params, batches[0])
+    out.append({"metrics": metrics,
+                "grads": jax.tree.map(np.asarray, g)})
+with open(path, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def _config(arch):
+    return get_config(arch).reduced().replace(dtype="float32", n_layers=2)
+
+
+def _no_copy_reduce(ctx, g):
+    return g, None
+
+
+def _port(rank, world, cases, inits, control=False):
+    """Each case of ``world`` ranks: (step-0 gradient gathered to full
+    shapes, the two steps' metrics), from rank 0."""
+    if control:
+        Sh._Copy.backward = staticmethod(_no_copy_reduce)
+    out = []
+    for (arch, shape), init in zip(cases, inits):
+        if shape[0] * shape[1] != world:
+            continue
+        cfg = _config(arch)
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        full = convert.from_jax(init, cfg, device="cpu")
+        like = tree.map(lambda x: x.to("meta"), full)
+        local = loop.trainable(Sh.shard_params(full, mesh, cfg))
+        data = SyntheticLM(cfg.vocab_size, TRAFFIC["seq"], TRAFFIC["batch"])
+        batches = [data.batch(s, device="cpu") for s in range(2)]
+        bsds = {k: v.to("meta") for k, v in batches[0].items()}
+        tcfg = loop.TrainConfig()
+        grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
+        _, _, g = grads_fn(local, batches[0])
+        g = tree.leaves(Sh.gather_params(tree.unflatten(local, g), mesh,
+                                         cfg, like))
+        opt = loop.sharded_opt_init(local, cfg, mesh, like)
+        step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
+        metrics = []
+        for b in batches:
+            local, opt, _, m = step(local, opt, None, b)
+            metrics.append({k: float(v) for k, v in m.items()})
+        out.append({"case": (arch, shape), "metrics": metrics,
+                    "grads": [x.numpy() for x in g]})
+    return out if rank == 0 else None
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """(reference runs, port runs), case by case: the reference's
+    subprocess writes its inits first, and the port's ranks run on them
+    while it steps."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pkl")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", REFERENCE,
+             json.dumps([CASES, TRAFFIC, path])],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        try:
+            line = proc.stdout.readline()
+            assert line.strip() == "params-ready", proc.stderr.read()[-3000:]
+            with open(path + ".params", "rb") as f:
+                inits = pickle.load(f)
+            port = {}
+            for world in (2, 4):
+                for row in LM.run_ranks(_port, world, CASES, inits,
+                                        timeout=150)[0]:
+                    port[row["case"]] = row
+            _, err = proc.communicate(timeout=200)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, err[-3000:]
+        with open(path, "rb") as f:
+            ref = pickle.load(f)
+    # the reference's gradient unstacked into the port's leaves
+    for (arch, _), r in zip(CASES, ref):
+        r["grads"] = [x.numpy() for x in tree.leaves(convert.from_jax(
+            r["grads"], _config(arch), device="cpu"))]
+    return ref, port, inits
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_sharded_step_matches_the_reference(runs, case):
+    ref, port, _ = runs
+    arch, shape = CASES[case]
+    want, got = ref[case], port[(arch, shape)]
+    for s in range(2):
+        for k in ("loss", "aux", "grad_norm", "lr"):
+            w, g = want["metrics"][s][k], got["metrics"][s][k]
+            if w == 0:
+                assert g == 0, (s, k)
+            else:
+                assert _rel(g, w) <= TOL, (s, k, g, w)
+    assert (want["metrics"][0]["aux"] > 0) == (arch.startswith("granite"))
+    assert len(got["grads"]) == len(want["grads"])
+    for i, (g, w) in enumerate(zip(got["grads"], want["grads"])):
+        assert g.shape == w.shape, i
+        scale = float(np.abs(w).max())
+        assert float(np.abs(g - w).max()) <= TOL * max(scale, 1e-30), \
+            (arch, shape, i)
+
+
+def test_gemma2_data_parallel_reads_the_probes_loss(runs):
+    ref, port, _ = runs
+    case = CASES.index(("gemma2-2b", (2, 1)))
+    assert ref[case]["metrics"][0]["loss"] == pytest.approx(GEMMA2_DP_LOSS,
+                                                            abs=1e-6)
+    assert port[("gemma2-2b", (2, 1))]["metrics"][0]["loss"] == \
+        pytest.approx(GEMMA2_DP_LOSS, rel=TOL)
+
+
+def test_dropping_the_copys_reduce_fails_the_gate(runs):
+    """The control: granite on (1, 2) with the copy into the model
+    region reduced by nothing backward.  The router's and the norms'
+    gradients sum only one rank's experts and heads, and fail."""
+    ref, _, inits = runs
+    case = CASES.index(("granite-moe-1b-a400m", (1, 2)))
+    got = LM.run_ranks(_port, 2, CASES[case:case + 1],
+                       inits[case:case + 1], True, timeout=100)[0][0]
+    names = [tree_path for tree_path, _ in
+             tree.paths(M.init(_config("granite-moe-1b-a400m"), None,
+                               torch.device("meta")))]
+    failed = set()
+    for name, g, w in zip(names, got["grads"], ref[case]["grads"]):
+        scale = float(np.abs(w).max())
+        if float(np.abs(g - w).max()) > TOL * max(scale, 1e-30):
+            failed.add(name[-1] if name[-1] != "w" else name[-2])
+    assert "router" in failed and {"ln1", "ln2"} & failed, failed

@@ -1,0 +1,101 @@
+"""``chip_smoke.py``'s ``sharded`` phase, on the CPU.
+
+The card runs ``sharded_phase`` on mistral-large-123b (one layer, mesh
+(2, 1)), granite-moe-1b-a400m (full depth, mesh (1, 2)) and gemma3-1b
+(one pattern unit, mesh (2, 1), ZeRO-1).  Here: the
+exact launches ``sharded_want`` gates each rank's step on, held to the
+kernel entries' calls of a step of each reduced model; and the phase
+whole on the reduced configs on gloo CPU ranks under ``policy="pallas"``
+(no kernel launches on the CPU, so the tiers are held and the launches
+are not): its single-rank run, both sharded runs within the bf16 gate,
+the float32 runs within 2e-4 leaf by leaf, and the control (the copy
+into the model region without its backward all-reduce) caught.
+"""
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+from repro_torch.core import use_policy  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.kernels import elementwise as ew  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.train import loop  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _counting(monkeypatch):
+    calls = {}
+    for mod, name in ((gemm_mod, "gemm"), (ew, "vsigmoid"), (ew, "vtanh"),
+                      (fa, "flash_attention")):
+        entry = getattr(mod, name)
+
+        def counted(*a, _entry=entry, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _entry(*a, **k)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["mistral-large-123b",
+                                  "granite-moe-1b-a400m", "gemma2-2b",
+                                  "gemma3-1b"])
+def test_sharded_want_counts_a_steps_kernel_calls(monkeypatch, arch):
+    """One train step of the reduced model under the kernel tier calls
+    each kernel entry as often as sharded_want says: the forward,
+    remat's recompute, gemm's two backward products; an untied head's
+    three gemm calls (mistral), a tied head's none (granite, the
+    gemmas)."""
+    cfg = cs.sharded_config(arch, "reduced", "float32")
+    params = loop.trainable(M.init(cfg, torch.Generator().manual_seed(0),
+                                   CPU))
+    opt = loop.adamw.init(params)
+    calls = _counting(monkeypatch)
+    batch = SyntheticLM(cfg.vocab_size, 32, 2).batch(0, device=CPU)
+    with use_policy("pallas"):
+        loop.make_train_step(cfg, loop.TrainConfig())(params, opt, None,
+                                                      batch)
+    want = cs.sharded_want(cfg)
+    assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == want
+    assert want["gemm"] > 0 and want["flash_attention"] == 2 * cfg.n_layers
+    assert (want["vsigmoid"] > 0) == (cfg.act == "silu")
+    assert (want["vtanh"] > 0) == (cfg.act == "gelu")
+
+
+def test_sharded_phase_runs_reduced(monkeypatch):
+    reduced = tuple((tag, arch, "reduced", mesh)
+                    for tag, arch, _, mesh in cs.SHARDED)
+    reduced_f32 = tuple((tag, arch, "reduced", mesh)
+                        for tag, arch, _, mesh in cs.SHARDED_F32)
+    monkeypatch.setattr(cs, "SHARDED", reduced)
+    monkeypatch.setattr(cs, "SHARDED_F32", reduced_f32)
+    monkeypatch.setattr(cs, "SHARDED_TIMEOUT", 100)
+    # the spawned gloo ranks share the host's cores: one thread each, as
+    # torchrun gives its ranks (eight each ran ~4x slower here)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(cs, "SHARDED_TRAFFIC", dict(batch=4, seq=32, steps=2))
+    out = cs.sharded_phase(CPU, policy="pallas")
+    for tag in ("mistral", "granite", "gemma3"):
+        rec = out[tag]
+        assert rec["failures"] == [] and rec["leaves"] > 0, tag
+        assert rec["median_rel_leaf_err"] <= cs.TRAIN_TOL
+        assert [r["rank"] for r in rec["ranks"]] == [0, 1]
+    assert out["mistral"]["mesh"] == out["gemma3"]["mesh"] == [2, 1]
+    assert out["granite"]["mesh"] == [1, 2]
+    # FSDP leaves ZeRO-1 nothing to slice; gemma3's optimizer state is
+    # sliced over 'data'
+    assert all(r["zero1_leaves"] == 0 for r in out["mistral"]["ranks"])
+    for r in out["gemma3"]["ranks"]:
+        assert r["zero1_leaves"] > 0
+        assert r["opt_elems"] < r["local_params"]
+    for tag in ("granite_f32", "mistral_f32"):
+        assert out[tag]["max_rel_leaf_err"] <= cs.LM_TOL["float32"], tag
+    control = out["control"]
+    assert control["failures"]
+    assert any(k.endswith("router") for k in control["failed_leaves"])

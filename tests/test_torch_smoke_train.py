@@ -103,7 +103,7 @@ def test_graph_functions_finds_the_kernels_functions():
 # arch -> layers of its prefix and one pattern unit
 UNIT = {"zamba2-1.2b": 6, "granite-moe-1b-a400m": 1,
         "deepseek-v2-lite-16b": 2, "minicpm3-4b": 1, "gemma2-2b": 2,
-        "gemma3-1b": 6, "whisper-tiny": 1}
+        "gemma3-1b": 6, "whisper-tiny": 1, "mistral-large-123b": 1}
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
