@@ -100,13 +100,18 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     checkpoint every 2, a failure injected at step 4: one restart, the
     last step saved, the params restored bitwise and the losses equal to
     an uninterrupted run's; each save's bytes and seconds;
-  * ``sharded``: ``train.loop.make_sharded_train_step`` on two gloo ranks
+  * ``sharded``: ``train.loop.make_sharded_train_step`` on gloo ranks
     that share the card (``launch.mesh.run_ranks``): mistral-large-123b
-    at full width and 1 of 88 layers on a (2, 1) mesh (FSDP, data
-    parallelism), granite-moe-1b-a400m at full width and depth on (1, 2)
-    (TP, expert parallelism), gemma3-1b at full width, 6 of 26 layers, on
-    (2, 1) (data parallelism, ZeRO-1), bf16, 4 x 512 tokens, 2 steps,
-    each held to its single-rank step (``sharded_phase``, ``SHARDED``);
+    at full width and 1 of 88 layers on a (2, 2) mesh of four ranks
+    (FSDP, data, tensor and sequence parallelism), granite-moe-1b-a400m
+    at full width and depth on (1, 2) (TP, expert parallelism),
+    gemma3-1b at full width, 6 of 26 layers, on (2, 1) (data
+    parallelism, ZeRO-1, ``compress_grads``), bf16, 4 x 512 tokens, 2
+    steps, each held to its single-rank step (``sharded_phase``,
+    ``SHARDED``); ``compressed_psum`` of 64 M floats on two ranks,
+    bitwise the formula on one; ``train/pipeline.py`` over two stages of
+    gemma3's ``attn`` block, bitwise the blocks in turn; and the
+    launcher's ``--coordinator`` over ``nccl`` (one host);
   * ``guard``: each of the thirteen kernel entries refuses an input that
     requires grad (grad mode on) and launches nothing.
 
@@ -205,6 +210,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3420,28 +3426,35 @@ def train_resume_phase(dev):
 # model on ranks that share the one card (gloo stages CUDA tensors through
 # the host; NCCL refuses two ranks on one device), held to the same
 # model's single-rank step.  (tag, arch, depth cut, mesh): depth None is
-# the full depth, "reduced" the config's reduced() widths.  mistral's
-# FSDP cut already splits every leaf over 'data', so its optimizer state
-# has no ZeRO-1 slice of its own; gemma3 (no FSDP, one 5:1 pattern unit
-# of its 26 layers) runs ZeRO-1's slice and all-gather (SHARDED_ZERO1).
-SHARDED = (("mistral", "mistral-large-123b", 1, (2, 1)),
+# the full depth, "reduced" the config's reduced() widths.  mistral on
+# (2, 2) runs FSDP, data, tensor and sequence parallelism at once (FSDP's
+# cut already splits every leaf over 'data', so its optimizer state has
+# no ZeRO-1 slice of its own); gemma3 (no FSDP, one 5:1 pattern unit of
+# its 26 layers) runs ZeRO-1's slice and all-gather (SHARDED_ZERO1) and
+# compresses its gradient to int8 (SHARDED_INT8).
+SHARDED = (("mistral", "mistral-large-123b", 1, (2, 2)),
            ("granite", "granite-moe-1b-a400m", None, (1, 2)),
            ("gemma3", "gemma3-1b", 6, (2, 1)))
 SHARDED_ZERO1 = ("gemma3",)
+SHARDED_INT8 = ("gemma3",)
 SHARDED_F32 = (("granite_f32", "granite-moe-1b-a400m", 4, (1, 2)),
-               ("mistral_f32", "mistral-large-123b", "reduced", (2, 1)))
+               ("mistral_f32", "mistral-large-123b", "reduced", (2, 2)))
+# compressed_psum's input a rank (float32 elements), and the pipeline:
+# two stages of one full-width ``attn`` block, M microbatches
+SHARDED_PSUM = 64 << 20
+PIPELINE = dict(arch="gemma3-1b", cut=None, micro=8, batch=1, seq=512)
 SHARDED_TRAFFIC = dict(batch=4, seq=512, steps=2)
 SHARDED_OPS = ("gemm", "vsigmoid", "vtanh", "flash_attention")
 SHARDED_TIMEOUT = 480
 # the kernels' calls on the sharded path, timed: (rows, (K, N) of the
 # local weights), the flash shapes (B, S, H, Hkv, D) and the silu's
-SHARDED_GEMM = {"mistral": (1024, ((12288, 12288), (12288, 1024),
-                                   (12288, 28672), (28672, 12288),
-                                   (12288, 32768))),
+SHARDED_GEMM = {"mistral": (1024, ((12288, 6144), (12288, 512),
+                                   (6144, 12288), (12288, 14336),
+                                   (14336, 12288), (12288, 16384))),
                 "granite": (2048, ((1024, 512), (1024, 256), (512, 1024)))}
-SHARDED_FLASH = {"mistral": (2, 512, 96, 8, 128),
+SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128),
                  "granite": (4, 512, 8, 4, 64)}
-SHARDED_SILU = {"mistral": (2, 512, 28672), "granite_experts": (16, 640, 512)}
+SHARDED_SILU = {"mistral": (2, 512, 14336), "granite_experts": (16, 640, 512)}
 
 
 def sharded_config(arch, cut, dtype):
@@ -3533,12 +3546,13 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
     0's gradient (one loss_fn + backward, saved to ``out_dir`` in the
     model's dtype) and the two steps' metrics and launches; an MoE's
     router calls recorded (``route_probe``) for the sharded ranks to
-    route by."""
+    route by; a ``SHARDED_INT8`` job's steps with ``compress_grads``, step
+    0's int8 payload saved (q) and returned (the scales)."""
     import torch
     from repro_torch import tree
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
-    from repro_torch.optim import adamw
+    from repro_torch.optim import adamw, compression
     from repro_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
@@ -3563,14 +3577,18 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
             # the sharded ranks route step by step as the steps below do
             # (their first step's gradient is this pass's)
             first = len(calls) if calls is not None else 0
-            step = loop.make_train_step(cfg, loop.TrainConfig())
+            int8 = tag in SHARDED_INT8
+            step = loop.make_train_step(
+                cfg, loop.TrainConfig(compress_grads=int8))
             opt = adamw.init(params)
+            err = compression.err_init(params) if int8 else None
+            packed = _recording(compression, "compress") if int8 else []
             metrics, launches, step_s = [], [], []
             for s, b in enumerate(batches):
                 t0 = time.perf_counter()
                 with _in_policy(policy):
-                    (params, opt, _, m), launched, chosen = _counted_step(
-                        lambda: step(params, opt, None, b), dev)
+                    (params, opt, err, m), launched, chosen = _counted_step(
+                        lambda: step(params, opt, err, b), dev)
                 step_s.append(time.perf_counter() - t0)
                 _held(launched, chosen, sharded_want(cfg),
                       f"sharded/{tag}/single step {s}", dev)
@@ -3578,15 +3596,39 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
                 launches.append(launched)
         finally:
             moe_mod._route = saved
+            _recording(compression, "compress", stop=True)
         if calls is not None:
             torch.save([c["idx"].cpu() for c in calls[first:]],
                        out_dir / f"{tag}.routes.pt")
         out[tag] = {"params": M.count_params(params), "metrics": metrics,
                     "launches": launches, "step_s": step_s,
                     "peak_gb": _peak_gb(dev)}
-        del params, opt
+        if packed:
+            torch.save([q.cpu() for q in tree.leaves(packed[0][0][0]["q"])],
+                       out_dir / f"{tag}.q.pt")
+            out[tag]["scales"] = [float(x) for x in
+                                  tree.leaves(packed[0][0][0]["scale"])]
+        del params, opt, err, packed
         _freed(dev)
     return out
+
+
+def _recording(module, name, stop=False):
+    """``module.name`` wrapped to record each call's (output, args) in the
+    list returned; with ``stop``, the function put back as it was."""
+    fn = getattr(module, name)
+    if stop:
+        setattr(module, name, getattr(fn, "recorded", fn))
+        return None
+    calls = []
+
+    def recorded(*a):
+        out = fn(*a)
+        calls.append((out, a))
+        return out
+    recorded.recorded = fn
+    setattr(module, name, recorded)
+    return calls
 
 
 def model_dtype(cfg):
@@ -3620,23 +3662,171 @@ def _freed(dev):
 
 
 def _sharded_ranks(rank, world, jobs, traffic, out_dir, control, dev_type,
-                   policy):
-    """Each job's two sharded steps on this rank (``_sharded_job``), then
-    the control: job ``control`` (a tag of ``jobs``) again with the copy
-    into the model region reduced by nothing backward, under ``out
-    ["control"]``.  ``dev_type`` and ``policy`` as ``_sharded_single``'s."""
+                   policy, side):
+    """Each job of ``world`` ranks' two sharded steps on this rank
+    (``_sharded_job``); on two ranks also ``compressed_psum`` of
+    ``side["psum"]`` elements (``_psum_job``) and the pipeline of
+    ``side["pipeline"]`` (``_pipeline_job``); then, where
+    ``control`` names a job, that job again with the copy into the model
+    region reduced by nothing backward, under ``out["control"]``.
+    ``dev_type`` and ``policy`` as ``_sharded_single``'s."""
     from repro_torch.models import sharding as Sh
+    mine = [job for job in jobs if math.prod(job[3]) == world]
     out = {job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
-                                policy) for job in jobs}
-    job = next(j for j in jobs if j[0] == control)
-    saved = Sh._Copy.backward
-    Sh._Copy.backward = staticmethod(_no_copy_reduce)
-    try:
-        out["control"] = _sharded_job(rank, job, traffic, out_dir, dev_type,
-                                      policy)
-    finally:
-        Sh._Copy.backward = saved
+                                policy) for job in mine}
+    if world == 2:
+        out["psum"] = _psum_job(rank, world, dev_type, side["psum"])
+        out["pipeline"] = _pipeline_job(rank, world, dev_type, policy,
+                                        side["pipeline"])
+    job = next((j for j in mine if j[0] == control), None)
+    if job is not None:
+        saved = Sh._Copy.backward
+        Sh._Copy.backward = staticmethod(_no_copy_reduce)
+        try:
+            out["control"] = _sharded_job(rank, job, traffic, out_dir,
+                                          dev_type, policy)
+        finally:
+            Sh._Copy.backward = saved
     return out
+
+
+def _psum_job(rank, world, dev_type, n):
+    """``compressed_psum`` over a ('pod',) mesh of the ranks, of ``n``
+    normals a rank (rank r's drawn from seed SEED + 100 +
+    r on the card), against the reference's formula applied on this one
+    rank to every rank's input (each drawn again): bitwise; host seconds
+    of the collective."""
+    import torch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.optim import compression
+    dev = torch.device(dev_type)
+    mesh = LM.make_mesh((world,), ("pod",), dev_type)
+
+    def draw(r):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 100 + r)
+        return torch.randn(n, generator=gen, device=dev)
+    x = draw(rank)
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = compression.compressed_psum(x, mesh, "pod")
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    xs = [draw(r) for r in range(world)]
+    scale = torch.stack([torch.clamp(v.abs().max(), min=1e-12) / 127.0
+                         for v in xs]).max()
+    total = sum(torch.clamp(torch.round(v / scale), -127, 127)
+                .to(torch.int32) for v in xs)
+    want = total.to(torch.float32) * scale / float(world)
+    mean = torch.stack(xs).mean(0)
+    rec = {"elements": n, "bitwise": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max()),
+           "max_abs_err_vs_mean": float((got - mean).abs().max()),
+           "scale": float(scale), "seconds": seconds}
+    del x, xs, total, want, mean, got
+    _freed(dev)
+    return rec
+
+
+def pipeline_want(cfg, micro):
+    """Exact launches of one ``train.pipeline.pipeline`` rank over stages
+    of one ``attn`` block each, forward only: a microbatch's q, k, v, o
+    and MLP gemms, its activation and its flash, once each."""
+    mlp = 3 if cfg.gated_mlp else 2
+    return {"gemm": micro * (4 + mlp),
+            "vsigmoid": micro * (cfg.act == "silu"),
+            "vtanh": micro * (cfg.act == "gelu"),
+            "flash_attention": micro}
+
+
+def _pipeline_job(rank, world, dev_type, policy, spec):
+    """``train.pipeline.pipeline`` over a ('pipe',) mesh of the ranks, a
+    stage one ``attn`` block of ``spec`` (``PIPELINE``: its own seeded
+    params, stacked on a leading stage axis), ``spec["micro"]`` seeded
+    microbatches,
+    forward, bf16: each rank's launches exact (``pipeline_want``) on the
+    kernel tier; on rank 0 the outputs against the blocks applied in turn
+    on this one rank (bitwise, else the gap); host seconds of both."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import blocks as B
+    from repro_torch.train.pipeline import pipeline
+    dev = torch.device(dev_type)
+    cfg = sharded_config(spec["arch"], spec["cut"], "bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    stages = [B.block_init("attn", gen, cfg, dev) for _ in range(world)]
+    stacked = tree.map(lambda *xs: torch.stack(xs), *stages)
+    m, b, seq = spec["micro"], spec["batch"], spec["seq"]
+    x = torch.randn((m, b, seq, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    ctx = B.Ctx(cfg=cfg, mode="train",
+                positions=torch.arange(seq, device=dev).expand(b, seq))
+
+    def stage(p, v):
+        return B.block_apply("attn", p, v, None, ctx)[0]
+    mesh = LM.make_mesh((world,), ("pipe",), dev_type)
+    t0 = time.perf_counter()
+    with torch.no_grad(), _in_policy(policy):
+        y, launched, chosen = _counted_step(
+            lambda: pipeline(stage, stacked, x, mesh), dev)
+    seconds = time.perf_counter() - t0
+    _held(launched, chosen, pipeline_want(cfg, m),
+          f"sharded/pipeline/rank {rank}", dev)
+    rec = {"rank": rank, "micro": m, "shape": list(x.shape[1:]),
+           "launches": launched, "seconds": seconds,
+           "bubble": world - 1, "ticks": m + world - 1}
+    if rank == 0:
+        t0 = time.perf_counter()
+        with torch.no_grad(), _in_policy(policy):
+            want = torch.stack([functools.reduce(
+                lambda v, p: stage(p, v), stages, x[j]) for j in range(m)])
+            _sync(dev)
+        rec.update(sequential_seconds=time.perf_counter() - t0,
+                   bitwise=bool(torch.equal(y, want)),
+                   max_abs_err=float((y.float() - want.float()).abs().max()),
+                   finite=bool(y.isfinite().all()))
+    del stages, stacked, x, y
+    _freed(dev)
+    return rec
+
+
+def launcher_start(dev):
+    """Start ``python -m repro_torch.launch.train --coordinator`` as one
+    host of one (``--num-hosts 1 --host-id 0``) on ``dev`` (``nccl`` on
+    the card, ``gloo`` on the CPU): zamba2-1.2b ``--reduced``, 2 steps;
+    -> (the process, its start time) for ``launcher_result``."""
+    from repro_torch.launch import mesh as LM
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "zamba2-1.2b", "--reduced", "--steps", "2", "--batch", "2",
+           "--seq", "64", "--device", dev.type, "--coordinator",
+           f"127.0.0.1:{LM._free_port()}", "--num-hosts", "1",
+           "--host-id", "0"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return (subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True, cwd=ROOT),
+            time.perf_counter())
+
+
+def launcher_result(started, dev):
+    """The launcher's last loss and seconds, raising unless it exits 0
+    with a finite loss within ``SHARDED_TIMEOUT``; the process is killed
+    if it outlasts it."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=SHARDED_TIMEOUT)
+    finally:
+        proc.kill()
+    seconds = time.perf_counter() - t0
+    found = [ln for ln in out.splitlines()
+             if ln.startswith("done: step 1 loss ")]
+    loss = float(found[0].split()[4]) if found else float("nan")
+    if proc.returncode or not math.isfinite(loss):
+        raise AssertionError(f"launcher: exit {proc.returncode}, "
+                             f"{out[-500:]} {err[-2000:]}")
+    return {"backend": "nccl" if dev.type == "cuda" else "gloo",
+            "loss": loss, "seconds": seconds}
 
 
 def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
@@ -3647,13 +3837,16 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     between them gathered leaf by leaf to its full shape (in the model's
     dtype) and held on rank 0 against the single-rank one
     (``sharded_grad_gaps``); the second through
-    ``make_sharded_train_step``."""
+    ``make_sharded_train_step``.  A ``SHARDED_INT8`` job compresses its
+    gradient (``compress_grads``), and its first update's int8 payload is
+    held on rank 0 (``sharded_int8_gaps``)."""
     import torch
     from repro_torch import tree
     from repro_torch.launch import mesh as LM
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding as Sh
+    from repro_torch.optim import compression
     from repro_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
@@ -3670,7 +3863,9 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     _freed(dev)
     batches = _sharded_batches(cfg, dev, traffic)
     bsds = {k: v.to("meta") for k, v in batches[0].items()}
-    tcfg = loop.TrainConfig()
+    int8 = tag in SHARDED_INT8
+    tcfg = loop.TrainConfig(compress_grads=int8)
+    err = loop.sharded_err_init(local, cfg, mesh, like) if int8 else None
     saved = moe_mod._route
     try:
         if cfg.n_experts:
@@ -3693,19 +3888,25 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
               dev)
         gaps = sharded_grad_gaps(grads, lay, mesh, like, cfg, rank,
                                  out_dir / f"{tag}.grads.pt")
+        seen = _recording(compression, "compress_sharded") if int8 else []
         t0 = time.perf_counter()
-        local, opt, om = loop.sharded_update(grads, opt, local, lay,
-                                             tcfg.optim)
-        del grads
-        _sync(dev)
+        try:
+            local, opt, err, om = loop.sharded_update(
+                grads, opt, local, lay, tcfg.optim, err)
+            _sync(dev)
+        finally:
+            _recording(compression, "compress_sharded", stop=True)
         step_s[0] += time.perf_counter() - t0
+        int8_gaps = sharded_int8_gaps(seen[0], lay, mesh, rank,
+                                      out_dir / tag) if int8 else None
+        del grads, seen
         metrics = [{"loss": loss, "aux": aux, **om}]
         launches = [launched]
         for s, b in enumerate(batches[1:], 1):
             t0 = time.perf_counter()
             with _in_policy(policy):
-                (local, opt, _, m), launched, chosen = _counted_step(
-                    lambda: step(local, opt, None, b), dev)
+                (local, opt, err, m), launched, chosen = _counted_step(
+                    lambda: step(local, opt, err, b), dev)
             step_s.append(time.perf_counter() - t0)
             _held(launched, chosen, want,
                   f"sharded/{tag}/rank {rank} step {s}", dev)
@@ -3720,8 +3921,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
            "zero1_leaves": sum(bool(lay.zero1_dims(i))
                                for i in range(len(lay.shapes))),
            "opt_elems": sum(x.numel() for x in tree.leaves(opt["m"])),
-           "peak_gb": _peak_gb(dev)}
-    del local, opt
+           "peak_gb": _peak_gb(dev), "int8": int8_gaps}
+    del local, opt, err
     _freed(dev)
     return rec
 
@@ -3747,6 +3948,85 @@ def sharded_grad_gaps(grads, layout, mesh, like, cfg, rank, path):
                 (0.0 if err == 0 else float("inf"))
         del whole
     return gaps
+
+
+INT8_SCALE_TOL = 1e-6
+
+
+def sharded_int8_gaps(seen, layout, mesh, rank, stem):
+    """Step 0's compression on the mesh (``seen``: ``compress_sharded``'s
+    (output, args) of this rank's ZeRO-1 slices), each leaf gathered
+    whole (every rank takes part) and read on rank 0 against
+    ``compression.compress`` of the whole leaf on one rank (the
+    reference's formula on the same gradient): each scale's relative gap
+    and the q elements off by one and by more.  The control, each slice
+    scaled by its own max (no all-reduce), read against the same.  And,
+    as readings, the gaps to the single-rank step's own payload
+    (``stem``.q.pt and the scales in the single run's record; its bf16
+    gradient is not this run's).  {} on the other ranks."""
+    import torch
+    from repro_torch.models import sharding as Sh
+    from repro_torch.optim import compression
+    (packed, _), (gs, errs, _, axes, _) = seen
+    if len(set(layout.groups)) != len(layout.groups):
+        raise ValueError("the whole-leaf int8 check takes a model whose "
+                         "leaves each have a scale of their own (one "
+                         "pattern unit)")
+    control = compression.compress_sharded(gs, errs, mesh,
+                                           [()] * len(gs))[0]["scale"]
+    q_single = torch.load(f"{stem}.q.pt", mmap=True) if rank == 0 else None
+    rows = []
+    for i, (g, e, q) in enumerate(zip(gs, errs, packed["q"])):
+        spec, shape = layout.ospecs[i], layout.shapes[i]
+        whole = Sh.gather(g.to(torch.float32) + e, spec, mesh, shape)
+        qw = Sh.gather(q.to(torch.int32), spec, mesh, shape)
+        if rank == 0:
+            want, _ = compression.compress([whole])
+            s, w = float(packed["scale"][i]), float(want["scale"][0])
+            d = (qw - want["q"][0].to(torch.int32)).abs()
+            d1 = (qw - q_single[i].to(qw.device, torch.int32)).abs()
+            rows.append({"scale": s, "scale_gap": abs(s - w) / w,
+                         "control_gap": abs(float(control[i]) - w) / w,
+                         "q_off1": int((d == 1).sum()),
+                         "q_far": int((d > 1).sum()),
+                         "elems": d.numel(),
+                         "single_q_off1": int((d1 == 1).sum()),
+                         "single_q_far": int((d1 > 1).sum())})
+        del whole, qw
+    return {"leaves": rows} if rank == 0 else {}
+
+
+def int8_gate(single, ranks, tag):
+    """The int8 gate of a ``SHARDED_INT8`` job from rank 0's
+    ``sharded_int8_gaps``: every leaf's scale within ``INT8_SCALE_TOL`` of
+    the whole-leaf formula's and q within one step of it; the per-slice
+    control must miss the scale gate.  -> (record, failures)."""
+    rows = ranks[0][tag]["int8"]["leaves"]
+    elems = sum(r["elems"] for r in rows)
+    scales = single[tag]["scales"]
+    rec = {"leaves": len(rows),
+           "max_scale_gap": max(r["scale_gap"] for r in rows),
+           "q_off1_share": sum(r["q_off1"] for r in rows) / elems,
+           "q_far": sum(r["q_far"] for r in rows),
+           "control_max_scale_gap": max(r["control_gap"] for r in rows),
+           "control_leaves_off": sum(r["control_gap"] > INT8_SCALE_TOL
+                                     for r in rows),
+           "single_scale_gap_median": statistics.median(
+               abs(r["scale"] - w) / w for r, w in zip(rows, scales)),
+           "single_scale_gap_max": max(
+               abs(r["scale"] - w) / w for r, w in zip(rows, scales)),
+           "single_q_off1_share": sum(r["single_q_off1"] for r in rows)
+           / elems,
+           "single_q_far_share": sum(r["single_q_far"] for r in rows)
+           / elems}
+    failures = []
+    if rec["max_scale_gap"] > INT8_SCALE_TOL or rec["q_far"]:
+        failures.append(f"sharded/{tag}: the mesh's int8 payload is off the "
+                        f"whole-leaf formula's ({rec})")
+    if rec["control_leaves_off"] == 0:
+        failures.append(f"sharded/{tag}: a per-slice scale passed the int8 "
+                        "gate")
+    return rec, failures
 
 
 def sharded_gate(single, ranks, tag, rel_tol, leaf_tol=None):
@@ -3804,26 +4084,35 @@ def sharded_phase(dev, policy=None):
     """``make_sharded_train_step`` on ranks that share the card
     (``launch.mesh.run_ranks``: gloo, every collective and the whole run
     under a timeout): mistral-large-123b at full width cut to one of its
-    88 layers on a (2, 1) mesh (FSDP and data parallelism), granite-moe-
-    1b-a400m at full width and depth on (1, 2) (``linear_rp``'s bf16 TP
-    branch, 16 of 32 experts a rank, the vocab-parallel embedding and
-    head) and gemma3-1b at full width, one pattern unit, on (2, 1) (data
-    parallelism with ZeRO-1: each rank's optimizer state a slice of its
-    leaves, the updated slices all-gathered back), bf16,
-    ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
-    from the same seeded weights and tokens, run first in a process of
-    its own: the loss of both steps and their grad_norm within 3e-2,
+    88 layers on a (2, 2) mesh of four ranks (FSDP, data, tensor and
+    sequence parallelism: each layer gathered to its TP-only shard, the
+    stream cut over the sequence), granite-moe-1b-a400m at full width and
+    depth on (1, 2) (``linear_rp``'s bf16 TP branch, 16 of 32 experts a
+    rank, the vocab-parallel embedding and head) and gemma3-1b at full
+    width, one pattern unit, on (2, 1) (data parallelism with ZeRO-1:
+    each rank's optimizer and error state a slice of its leaves, the
+    updated slices all-gathered back; the gradient int8-compressed),
+    bf16, ``SHARDED_TRAFFIC``, each held to the same model's single-rank
+    step from the same seeded weights and tokens, run first in a process
+    of its own: the loss of both steps and their grad_norm within 3e-2,
     step 0's gradient leaf by leaf (median within 3e-2, worst within
     0.3), every rank's gemm, vsigmoid and flash launches of each step
-    exact (``sharded_want``) and on the kernel tier, and the optimizer
-    state of each ``SHARDED_ZERO1`` job sliced.  Then in float32
-    (granite 4 layers, mistral reduced) every leaf within 2e-4; then, in
-    the same ranks, the control, the float32 granite run with the copy
-    into the model region reduced by nothing backward, which must fail
-    that gate.  The routing of every granite run is pinned to the
-    single-rank run's.  (``policy`` and ``dev`` let the CPU tests run it
-    on reduced configs; on the CPU no kernel launches, so only the tiers
-    are held.)"""
+    exact (``sharded_want``) and on the kernel tier, the optimizer state
+    of each ``SHARDED_ZERO1`` job sliced, and each ``SHARDED_INT8`` job's
+    int8 payload the whole-leaf formula's (``int8_gate``: a per-slice
+    scale must miss it).  Then in float32 (granite 4 layers on (1, 2),
+    mistral reduced on (2, 2)) every leaf within 2e-4; then, in the two
+    ranks, the control, the float32 granite run with the copy into the
+    model region reduced by nothing backward, which must fail that gate.
+    The two ranks also run ``compressed_psum`` (``_psum_job``: bitwise
+    the formula on one rank) and ``train/pipeline.py`` (``_pipeline_job``:
+    bitwise the blocks in turn, launches exact); the launcher with
+    ``--coordinator`` runs beside the single-rank steps (``launcher_start``,
+    ``launcher_result``; its seconds, and theirs, are taken side by side).
+    The routing of every granite run
+    is pinned to the single-rank run's.  (``policy`` and ``dev`` let the
+    CPU tests run it on reduced configs; on the CPU no kernel launches, so
+    only the tiers are held.)"""
     import shutil
     from repro_torch.launch import mesh as LM
     out_dir = ROOT / "build" / "sharded"
@@ -3831,34 +4120,47 @@ def sharded_phase(dev, policy=None):
     _freed(dev)
     jobs = SHARDED + SHARDED_F32
     ctag = SHARDED_F32[0][0]
+    worlds = sorted({math.prod(job[3]) for job in jobs} | {2})
     t0 = time.perf_counter()
+    ranks_s = {}
+    launcher = launcher_start(dev)
     try:
         single = LM.run_ranks(_sharded_single, 1, jobs, SHARDED_TRAFFIC,
                               out_dir, dev.type, policy,
                               timeout=SHARDED_TIMEOUT)[0]
         single_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        ranks = LM.run_ranks(_sharded_ranks, 2, jobs, SHARDED_TRAFFIC,
-                             out_dir, ctag, dev.type, policy,
-                             timeout=SHARDED_TIMEOUT)
-        ranks_s = time.perf_counter() - t0
+        by_world = {}
+        for world in worlds:
+            t0 = time.perf_counter()
+            by_world[world] = LM.run_ranks(
+                _sharded_ranks, world, jobs, SHARDED_TRAFFIC, out_dir, ctag,
+                dev.type, policy, {"psum": SHARDED_PSUM, "pipeline": PIPELINE},
+                timeout=SHARDED_TIMEOUT)
+            ranks_s[world] = time.perf_counter() - t0
+        launched = launcher_result(launcher, dev)
     finally:
+        launcher[0].kill()
         shutil.rmtree(out_dir, ignore_errors=True)
-    control = [{ctag: r.pop("control")} for r in ranks]
+    ranks_of = {job[0]: by_world[math.prod(job[3])] for job in jobs}
+    two = by_world[2]
+    control = [{ctag: r.pop("control")} for r in ranks_of[ctag]]
     records, failures = {}, []
     for tag, *_ in SHARDED:
-        records[tag], bad = sharded_gate(single, ranks, tag, TRAIN_TOL,
-                                         TRAIN_LEAF_TOL)
+        records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
+                                         TRAIN_TOL, TRAIN_LEAF_TOL)
         failures += bad
     for tag in SHARDED_ZERO1:
         sliced = [(r[tag]["zero1_leaves"], r[tag]["opt_elems"],
-                   r[tag]["local_params"]) for r in ranks]
+                   r[tag]["local_params"]) for r in ranks_of[tag]]
         records[tag]["zero1"] = sliced
         if any(n == 0 or e >= p for n, e, p in sliced):
             failures.append(f"sharded/{tag}: ZeRO-1 sliced no optimizer "
                             f"state ((leaves, elements, params) {sliced})")
+    for tag in SHARDED_INT8:
+        records[tag]["int8"], bad = int8_gate(single, ranks_of[tag], tag)
+        failures += bad
     for tag, *_ in SHARDED_F32:
-        records[tag], bad = sharded_gate(single, ranks, tag,
+        records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
                                          LM_TOL["float32"])
         failures += bad
     records["control"], caught = sharded_gate(single, control, ctag,
@@ -3871,8 +4173,20 @@ def sharded_phase(dev, policy=None):
                              for k in caught_leaves):
         failures.append(f"sharded/control: dropping the copy's backward "
                         f"all-reduce passed the gate ({caught_leaves})")
-    launches = {op: sum(n[op] for r in ranks for tag, *_ in SHARDED
-                        for n in r[tag]["launches"]) for op in SHARDED_OPS}
+    records["psum"] = [r["psum"] for r in two]
+    if not all(r["bitwise"] for r in records["psum"]):
+        failures.append(f"sharded/psum: compressed_psum is not the formula "
+                        f"on one rank bitwise ({records['psum']})")
+    records["pipeline"] = [r["pipeline"] for r in two]
+    head = records["pipeline"][0]
+    if not (head["bitwise"] and head["finite"]):
+        failures.append(f"sharded/pipeline: the pipeline's outputs are not "
+                        f"the blocks' in turn bitwise ({head})")
+    records["launcher"] = launched
+    launches = {op: sum(n[op] for tag, *_ in SHARDED
+                        for r in ranks_of[tag] for n in r[tag]["launches"])
+                + sum(r["pipeline"]["launches"][op] for r in two)
+                for op in SHARDED_OPS}
     emit("sharded", traffic=SHARDED_TRAFFIC, single_s=single_s,
          ranks_s=ranks_s, launches=launches,
          want={tag: sharded_want(sharded_config(arch, cut, "bfloat16"))

@@ -1,4 +1,6 @@
-"""Training launcher, on one device.
+"""Training launcher.
+
+Single host (on the card unless ``--device`` says otherwise):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
       --reduced --device cpu --steps 200 --batch 8 --seq 128 \\
@@ -7,12 +9,24 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --steps 8 --batch 8 --seq 4096 --accum 2
 
-Without ``--device`` it runs on the card.  The weights come from a seeded
-``torch.Generator``, the data from ``data.pipeline.SyntheticLM`` (and
-whisper's frames from ``extra_inputs``).  The multi-host path of the
-JAX package's launcher (``--coordinator``, ``--num-hosts``,
-``--host-id``) waits (ROADMAP A.13.2) and is refused; the sharded step
-runs on the ranks of one host (``train.loop.make_sharded_train_step``,
+Multi-host (per host, under your cluster runner):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --coordinator <host:port> --num-hosts 2 --host-id $HOST_ID
+
+With ``--coordinator`` each host joins one process group
+(``torch.distributed.init_process_group`` over ``tcp://<host:port>``,
+world size ``--num-hosts``, rank ``--host-id``; ``nccl`` on ``cuda``,
+``gloo`` on ``cpu``), runs the single-host ``train()`` as the JAX
+package's launcher does after ``jax.distributed.initialize``, and leaves
+the group at the end; data loading is (seed, step)-deterministic per
+host, so every host trains on the same batches.  The reference also sets
+XLA's TPU compute/collective overlap flags there; they have no
+counterpart here and nothing is set in their place.  NCCL refuses two
+ranks on one card, so one card runs one host.  The weights come from a
+seeded ``torch.Generator``, the data from ``data.pipeline.SyntheticLM``
+(and whisper's frames from ``extra_inputs``).  The sharded step runs on
+the ranks of a mesh (``train.loop.make_sharded_train_step``,
 ``launch/mesh.py``).
 """
 from __future__ import annotations
@@ -37,18 +51,27 @@ def main(argv=None):
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    # multi-host deployment: not ported
+    # multi-host deployment
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--num-hosts", type=int, default=1)
     ap.add_argument("--host-id", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.coordinator or args.num_hosts > 1:
-        raise NotImplementedError(
-            "multi-host training (--coordinator, --num-hosts) is the "
-            "distribution part of ROADMAP A.13 (A.13.2), not ported yet; "
-            "this launcher trains on one device")
+    if args.coordinator:
+        import torch.distributed as dist
+        dist.init_process_group(
+            "nccl" if args.device.startswith("cuda") else "gloo",
+            init_method=f"tcp://{args.coordinator}",
+            world_size=args.num_hosts, rank=args.host_id)
+        dist.barrier()      # every host has joined before any trains
+    try:
+        _train(args)
+    finally:
+        if args.coordinator:
+            dist.destroy_process_group()
 
+
+def _train(args):
     logging.basicConfig(level=logging.INFO)
     from ..configs import get_config
     from ..optim.adamw import AdamWConfig

@@ -21,9 +21,10 @@ and v, non-causal and without rope, in every mode; its caller keeps them.
 
 Under a 'model' split (``models/sharding.py``) GQA's projections hold
 this rank's whole q and kv heads: the replicated input enters the model
-region once, attention runs on the local heads (their count read from
-the weights' widths) and ``linear_rp`` sums the output projection's
-partials.
+region once (a sequence-parallel stream's chunks are gathered there),
+attention runs on the local heads (their count read from the weights'
+widths) over the whole sequence and ``linear_rp`` sums the output
+projection's partials.
 """
 from __future__ import annotations
 
@@ -66,11 +67,12 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     of a cross-attention, each (B, F, Hkv, hd); the cache is then returned
     as it came.  ``target`` pins the attention lowering selection to an
     explicit machine model."""
-    b, s, _ = x.shape
     hd = cfg.head_dim
     # this rank's heads: all of them without a 'model' split
     h, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    # (a sequence-parallel stream's chunks gathered whole)
     x = Sh.enter_model(x)
+    b, s, _ = x.shape
     q = L.linear(params["wq"], x).reshape(b, s, h, hd)
     if memory is None:
         k = L.linear(params["wk"], x).reshape(b, s, hkv, hd)

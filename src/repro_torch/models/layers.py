@@ -12,6 +12,8 @@ head's column-parallel products run on the rank's columns of a
 replicated input (``sharding.enter_model``), ``linear_rp`` reduces the
 row-parallel partials over 'model', the embedding looks up the rank's
 vocab rows and reduces, and the head's logits are gathered over 'model'.
+Under sequence parallelism the MLP's input is gathered from the
+stream's chunks and ``linear_rp`` reduce-scatters back into them.
 Without a mesh each is the plain layer.
 """
 from __future__ import annotations
@@ -53,13 +55,23 @@ def linear(w, x):
 
 def linear_rp(w, x, cfg):
     """Row-parallel linear: the local product of this rank's rows of
-    ``w`` with its columns of ``x``, summed over 'model'.  The sum runs in
-    the product's dtype: bf16 where the reference's ``shard_map`` branch
-    runs (bf16, no FSDP, the dims divide, which the sharded step
-    requires), float32 where it leaves the reduction to GSPMD's float32
-    partials (a float32 model; TP on an FSDP config is refused, ROADMAP
-    A.9.7).  Without a mesh it is :func:`linear`."""
-    return Sh.leave_model(linear(w, x))
+    ``w`` with its columns of ``x``, summed over 'model' (into a
+    sequence-parallel stream: this rank's chunk of the sum).  The sum's
+    dtype mirrors the reference's.  Its ``shard_map`` branch (bf16, no
+    FSDP, the dims divide, which the sharded step requires) psums the
+    partials in the product's dtype, bf16.  On an FSDP config it falls
+    back to ``linear`` and GSPMD places the sum: the reference's sharded
+    step of mistral-large-123b (``reduced()``, bf16, mesh (2, 2), forced
+    host devices) compiles it to an all-reduce over 'model' of the dot's
+    float32 output, cast to bf16 after the sum.  So on an FSDP config the
+    partials are summed in float32 and cast once; the port's bf16 gemm
+    rounds each partial to bf16 first, where the reference's is the
+    float32 accumulator.  A float32 model sums in float32 either way.
+    Without a mesh it is :func:`linear`."""
+    y = linear(w, x)
+    if cfg.fsdp and Sh.model_split()[1] > 1:
+        return Sh.leave_model(y.to(torch.float32)).to(y.dtype)
+    return Sh.leave_model(y)
 
 
 # ---------------------------------------------------------------------------

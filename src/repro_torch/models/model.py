@@ -26,7 +26,10 @@ the params are this rank's shards: each block's (and the embedding's)
 are all-gathered over 'data' to their TP-only shards on entry where the
 config is FSDP (``gather_layer_params``, inside remat, so that the
 recompute gathers again), and ``sp_spec`` constrains the residual
-stream before each block, as the reference's scan body does.
+stream before each block, as the reference's scan body does: on a
+'model' axis above 1 the first constraint cuts it to this rank's chunk
+of the sequence, and it is gathered whole after the final norm, before
+the head (``sharding.gather_stream``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.utils.checkpoint as tc
 
+from .. import tree
 from ..core import registry
 from ..core.targets import resolve_device
 from . import blocks as B
@@ -117,13 +121,16 @@ def _blocks(cfg, mode):
     and each kernel launches exactly twice a step."""
     if not (cfg.remat and mode == "train" and torch.is_grad_enabled()):
         return _apply
-    scope, state = registry.current_scope(), Sh.current_state()
-
-    def run(*a):
-        with registry.use_scope(scope), Sh.resumed(state):
-            return _apply(*a)
+    scope = registry.current_scope()
 
     def apply(*a):
+        # the mesh state as this block sees it (a sequence-parallel
+        # stream is cut from the first block on)
+        state = Sh.current_state()
+
+        def run(*b):
+            with registry.use_scope(scope), Sh.resumed(state):
+                return _apply(*b)
         with tc.set_checkpoint_early_stop(False):
             return tc.checkpoint(run, *a, use_reentrant=False,
                                  preserve_rng_state=False)
@@ -197,11 +204,27 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    x = Sh.gather_stream(L.norm_apply(params["final_norm"], x, cfg.norm))
     if cfg.family == "vlm" and mode != "decode":
         x = x[:, -batch["tokens"].shape[1]:]     # the token positions
     logits = L.head_apply(params["embed"], x, cfg)
     return logits, (new_cache if cache is not None else None), aux
+
+
+def stack_groups(params):
+    """A key a leaf of ``params``, in leaf order: the leaves that the
+    reference's params stack into one (a pattern unit's layer over its
+    repeats, the encoder's layers) share their key, each other leaf has
+    its own.  What a whole-leaf statistic of the reference (int8
+    compression's scale) is taken over."""
+    keys = []
+    for path, _ in tree.paths(params):
+        if path[0] == "unit":
+            path = ("unit", path[1]) + path[3:]
+        elif path[0] == "enc":
+            path = ("enc",) + path[2:]
+        keys.append(path)
+    return keys
 
 
 def count_params(params) -> int:

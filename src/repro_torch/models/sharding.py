@@ -26,6 +26,18 @@ forward and an all-reduce over 'model' backward (every replicated input
 of a local computation passes through it), :func:`leave_model` an
 all-reduce forward and the identity backward.  No DTensor and no
 ``torch.compile`` is on this path; the hand kernels see local shards.
+
+Sequence parallelism (a ``use_sp`` config on a 'model' axis above 1),
+Megatron's explicit form of the reference's ``P(batch, "model", None)``
+stream constraint: :func:`constrain` cuts the residual stream to this
+rank's chunk of the sequence (backward, the chunks' gradients
+all-gathered), and the stream stays cut until :func:`gather_stream`
+gathers it before the head.  In between the norms run on the chunk,
+:func:`enter_model` all-gathers the chunks over 'model' (backward, the
+partial gradients summed and cut: a reduce-scatter) and
+:func:`leave_model` sums the partials and keeps this rank's chunk (a
+reduce-scatter, done as an all-reduce and a cut; backward, an
+all-gather).
 """
 from __future__ import annotations
 
@@ -105,7 +117,7 @@ def active_mesh(mesh, full_shapes=None):
     for this thread.  ``full_shapes`` maps ``id`` of each local param
     shard to its full shape (what :func:`gather_layer_params` gathers
     to)."""
-    with resumed((mesh, full_shapes or {})):
+    with resumed((mesh, full_shapes or {}, None)):
         yield
 
 
@@ -122,8 +134,11 @@ def resumed(state):
 
 
 def current_state():
-    """(mesh, full shapes) in force on this thread; (None, {}) without."""
-    return getattr(_TLS, "state", (None, {}))
+    """(mesh, full shapes, stream length) in force on this thread;
+    (None, {}, None) without.  The stream length is the sequence length
+    of a residual stream cut over 'model' (sequence parallelism), None
+    while the stream is whole."""
+    return getattr(_TLS, "state", (None, {}, None))
 
 
 def current_mesh() -> Optional[Mesh]:
@@ -157,24 +172,44 @@ def fit_spec(spec, shape, mesh) -> P:
 
 
 def constrain(x, *spec):
-    """The reference's ``with_sharding_constraint`` against the active
-    mesh (a no-op without one).  ``"batch"`` entries expand to the mesh's
-    non-model axes; axes that do not fit the dim are dropped.  Here the
-    batch axes are already local (each rank holds its rows), so a spec
-    that cuts nothing else is the identity; one that cuts another dim
-    (sequence parallelism) is refused (ROADMAP A.9.7)."""
-    mesh = current_mesh()
-    if mesh is None:
+    """The reference's ``with_sharding_constraint`` of the residual
+    stream against the active mesh (a no-op without one).  ``"batch"``
+    entries expand to the mesh's non-model axes; axes that do not fit
+    the dim are dropped.  The batch axes are already local (each rank
+    holds its rows), so a spec that cuts nothing else is the identity.
+    One that cuts the sequence (dim 1) over 'model' (sequence
+    parallelism) cuts the stream to this rank's chunk, and the stream
+    stays cut (the identity here) until :func:`gather_stream`; any other
+    cut is refused (ROADMAP A.9.8)."""
+    mesh, shapes, seq = current_state()
+    if mesh is None or seq is not None:
         return x
     ba = batch_axes(mesh)
     fitted = fit_spec(P(*(ba if s == "batch" else s for s in spec)),
                       x.shape, mesh)
-    for entry in fitted[1:]:
-        if entry is not None and axes_size(mesh, entry) > 1:
-            raise NotImplementedError(
-                f"a {fitted} activation constraint cuts a non-batch dim "
-                f"(sequence parallelism): not ported, ROADMAP A.9.7")
-    return x
+    cuts = [(d, e) for d, e in enumerate(fitted)
+            if d > 0 and e is not None and axes_size(mesh, e) > 1]
+    if not cuts:
+        return x
+    if cuts != [(1, "model")]:
+        raise NotImplementedError(
+            f"a {fitted} activation constraint cuts {cuts}: only the "
+            "sequence over 'model' is ported, ROADMAP A.9.8")
+    _TLS.state = (mesh, shapes, x.shape[1])
+    return _Slice.apply(x, 1, mesh, "model")
+
+
+def gather_stream(x):
+    """The whole residual stream from this rank's chunk of a
+    sequence-parallel one (all-gathered over 'model'; backward, this
+    rank's chunk of the gradient, whole on every rank past the head's
+    :func:`enter_model`), and the stream whole from here on.  The
+    identity where the stream is whole."""
+    mesh, shapes, seq = current_state()
+    if seq is None:
+        return x
+    _TLS.state = (mesh, shapes, None)
+    return _Gather.apply(x, 1, mesh, "model", seq, False)
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +509,26 @@ class _Gather(torch.autograd.Function):
         return g.narrow(dim, lo, size), None, None, None, None, None
 
 
+class _Slice(torch.autograd.Function):
+    """This rank's chunk of dim ``dim`` over ``entry``'s axes of a tensor
+    whole on every rank of them.  Backward, the chunks' gradients
+    all-gathered: each rank's loss reads its own chunk, and the whole
+    tensor's gradient is every chunk's."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, entry):
+        ctx.args = (dim, mesh, entry, x.shape[dim])
+        lo, hi = chunk_range(x.shape[dim], *chunk_index(mesh, entry))
+        return x.narrow(dim, lo, hi - lo).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, mesh, entry, length = ctx.args
+        return gather_dim(g.contiguous(), dim, mesh, entry, length), \
+            None, None, None
+
+
 def model_split():
     """(this rank's index along 'model', the axis size) under the active
     mesh; (0, 1) without one."""
@@ -490,18 +545,24 @@ def batch_split(mesh) -> int:
 
 
 def enter_model(x):
-    """``x`` (replicated over 'model') into a model-parallel region."""
-    mesh = current_mesh()
+    """``x`` (replicated over 'model') into a model-parallel region; from
+    a sequence-parallel stream, its chunks all-gathered over 'model'."""
+    mesh, _, seq = current_state()
     if x is None or model_split()[1] == 1:
         return x
+    if seq is not None:
+        return _Gather.apply(x, 1, mesh, "model", seq, True)
     return _Copy.apply(x, mesh)
 
 
 def leave_model(x):
-    """The sum over 'model' of each rank's partial ``x``."""
+    """The sum over 'model' of each rank's partial ``x``; into a
+    sequence-parallel stream, this rank's chunk of the sum."""
     if model_split()[1] == 1:
         return x
-    return _Reduce.apply(x, current_mesh())
+    mesh, _, seq = current_state()
+    x = _Reduce.apply(x, mesh)
+    return x if seq is None else _Slice.apply(x, 1, mesh, "model")
 
 
 def gather_model(x, dim, length):
@@ -526,7 +587,7 @@ def gather_layer_params(ps, cfg):
     backward sums the gradient over 'data' and keeps this rank's chunk.
     A no-op without a mesh or without ``cfg.fsdp``.  The leaves' full
     shapes are the ones :func:`active_mesh` was given."""
-    mesh, shapes = current_state()
+    mesh, shapes, _ = current_state()
     if mesh is None or not cfg.fsdp:
         return ps
     out = []
@@ -552,18 +613,15 @@ TP_KINDS = ("attn", "local", "moe")
 
 def check_mesh(cfg, mesh):
     """Refuse, naming its ROADMAP item, a mesh the explicit-SPMD step
-    cannot run: a 'model' split (> 1 rank) of an SP or FSDP config
-    (A.9.7), of any block kind but GQA's ``attn``, ``local`` and ``moe``,
-    or of widths it does not divide into whole heads, FFN columns and
-    experts (A.9.8).  Every mesh with one 'model' rank is served."""
+    cannot run: a 'model' split (> 1 rank) of any block kind but GQA's
+    ``attn``, ``local`` and ``moe`` (sequence parallelism: ``attn`` and
+    ``local``), or of widths it does not divide into whole heads, FFN
+    columns and experts (A.9.8).  Every mesh with one 'model' rank is
+    served, and so are sequence parallelism and TP on an FSDP config
+    (A.9.7)."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
-    if cfg.use_sp or cfg.fsdp:
-        raise NotImplementedError(
-            f"{cfg.name}: a 'model' axis of {m} on a config with "
-            f"use_sp={cfg.use_sp}, fsdp={cfg.fsdp} (sequence parallelism, "
-            "TP on an FSDP config): not ported, ROADMAP A.9.7")
     kinds = set(cfg.layer_pattern()) | ({"enc"} if cfg.n_enc_layers
                                         else set())
     other = sorted(kinds - set(TP_KINDS))
@@ -573,6 +631,11 @@ def check_mesh(cfg, mesh):
             f"{other or sorted(kinds)} with {cfg.attn_kind} attention: "
             "tensor parallelism is ported for GQA's attn, local and moe "
             "blocks only, ROADMAP A.9.8")
+    if cfg.use_sp and "moe" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: sequence parallelism over 'model' {m} through "
+            "moe blocks: ported for the attn and local blocks only, "
+            "ROADMAP A.9.8")
     widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
     if kinds & {"attn", "local"}:
         widths["d_ff"] = cfg.d_ff

@@ -1,1 +1,2 @@
-"""repro_torch.train: the train step and the single-host driver."""
+"""repro_torch.train: the train step, the sharded step, the pipeline
+schedule and the single-host driver."""

@@ -16,15 +16,18 @@ supervisor around the step.
 ``make_sharded_train_step`` is the same step on every rank of a mesh
 (``launch/mesh.py``), explicit SPMD over plain local tensors
 (``models/sharding.py``): each rank holds its ``param_pspecs`` shard of
-every leaf and its ZeRO-1 slice (``opt_pspecs``) of the optimizer state,
-takes its rows of each microbatch (``token_spec``), runs the forward and
-backward under ``active_mesh`` (the model's collectives; an FSDP
-config's per-layer gathers), takes the mean of the gradients over the
-batch axes, the global norm over every shard (each replicated leaf
-counted once), does the AdamW update on its slice and all-gathers the
-new params back to its shards.  The pipeline schedule
-(``train/pipeline.py``) and ``compress_grads`` on a mesh wait (ROADMAP
-A.13.2, A.13.1).
+every leaf and its ZeRO-1 slice (``opt_pspecs``) of the optimizer state
+(and of the compression error, with ``compress_grads``), takes its rows
+of each microbatch (``token_spec``), runs the forward and backward under
+``active_mesh`` (the model's collectives; an FSDP config's per-layer
+gathers; a ``use_sp`` config's sequence-parallel stream), takes the mean
+of the gradients over the batch axes, cuts it to its ZeRO-1 slice,
+compresses that slice against the whole leaf's int8 scale where
+``compress_grads`` says so (``compression.compress_sharded``), takes the
+global norm over every slice (each replicated slice counted once), does
+the AdamW update on its slice and all-gathers the new params back to its
+shards.  The pipeline schedule over a 'pipe' axis is
+``train/pipeline.py``.
 """
 from __future__ import annotations
 
@@ -103,7 +106,8 @@ def make_train_step(cfg, tcfg: TrainConfig):
         grads = tree.unflatten(params, gsum)
         del gsum
         if tcfg.compress_grads:
-            packed, err_state = compression.compress(grads, err_state)
+            packed, err_state = compression.compress(
+                grads, err_state, M.stack_groups(params))
             grads = compression.decompress(packed)
         params, opt_state, om = adamw.update(grads, opt_state, params,
                                              tcfg.optim)
@@ -115,14 +119,16 @@ def make_train_step(cfg, tcfg: TrainConfig):
 
 class _Layout:
     """What a sharded step knows of each param leaf, in leaf order: its
-    full shape, its ``param_pspecs`` spec (the rank's shard) and its
-    ``opt_pspecs`` spec (the rank's ZeRO-1 slice of that shard)."""
+    full shape, its ``param_pspecs`` spec (the rank's shard), its
+    ``opt_pspecs`` spec (the rank's ZeRO-1 slice of that shard) and its
+    ``model.stack_groups`` key."""
 
     def __init__(self, cfg, mesh, params_sds):
         self.mesh = mesh
         self.shapes = [tuple(x.shape) for x in tree.leaves(params_sds)]
         self.pspecs = tree.leaves(Sh.param_pspecs(params_sds, cfg, mesh))
         self.ospecs = tree.leaves(Sh.opt_pspecs(params_sds, cfg, mesh))
+        self.groups = M.stack_groups(params_sds)
 
     def zero1_dims(self, i):
         """(dim, entry) where leaf i's optimizer slice cuts its shard."""
@@ -136,6 +142,14 @@ class _Layout:
                                      f"a cut of its param spec {ps}")
                 out.append((d, entry))
         return out
+
+    def cut_axes(self, i):
+        """The mesh axes (of size > 1) that cut leaf i's ZeRO-1 slice: its
+        param spec's and its ZeRO-1 cut's; the slice is replicated over
+        the others."""
+        entries = list(self.pspecs[i]) + [e for _, e in self.zero1_dims(i)]
+        return tuple(a for e in entries for a in Sh.axes_of(e)
+                     if self.mesh.shape[a] > 1)
 
     def slices(self, leaves):
         """Views of each local shard in ``leaves`` cut to the rank's ZeRO-1
@@ -152,10 +166,6 @@ class _Layout:
 
 def _check_sharded(cfg, tcfg, mesh, batch_sds):
     Sh.check_mesh(cfg, mesh)
-    if tcfg.compress_grads:
-        raise NotImplementedError(
-            "compress_grads on a mesh needs compressed_psum (its int8 scale "
-            "global over the shards): not ported, ROADMAP A.13.1")
     rows = tcfg.accum * Sh.batch_split(mesh)
     for k, v in batch_sds.items():
         if v.shape[0] % rows:
@@ -174,6 +184,10 @@ def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
     ba, n_b = Sh.batch_axes(mesh), Sh.batch_split(mesh)
     rows = Sh.token_spec(mesh)
     sp_spec = Sh.activation_spec(mesh, cfg) if cfg.use_sp else None
+    # under sequence parallelism each 'model' rank runs the norms on its
+    # chunk of the sequence, so the leaves 'model' does not cut (the
+    # norms) have their gradient summed over it too
+    sums = ba + (("model",) if cfg.use_sp else ())
 
     def grads_fn(params, batch):
         accum = tcfg.accum
@@ -201,7 +215,7 @@ def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
                 # the leaves cut over a batch axis (FSDP) had their
                 # gradient summed over it by the gather's backward
                 cut = {a for e in spec for a in Sh.axes_of(e)}
-                Sh.all_reduce(s, mesh, [a for a in ba if a not in cut])
+                Sh.all_reduce(s, mesh, [a for a in sums if a not in cut])
                 s.div_(accum * n_b)
             loss = Sh.all_reduce(torch.as_tensor(lsum, dtype=torch.float32,
                                                  device=gsum[0].device)
@@ -212,14 +226,14 @@ def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
     return grads_fn
 
 
-def sharded_global_norm(grads, layout):
-    """The global norm of a gradient held as each rank's shards: the
-    squares summed over the local shards, all-reduced over the axes that
-    cut them, each replicated leaf counted once."""
+def sharded_global_norm(slices, layout):
+    """The global norm of a gradient held as each rank's ZeRO-1 slices
+    (``layout.slices``): the squares summed over the local slices,
+    all-reduced over the axes that cut them, each replicated slice
+    counted once."""
     mesh, by_axes = layout.mesh, {}
-    for g, spec in zip(grads, layout.pspecs):
-        axes = tuple(a for e in spec for a in Sh.axes_of(e)
-                     if mesh.shape[a] > 1)
+    for i, g in enumerate(slices):
+        axes = layout.cut_axes(i)
         sq = torch.sum(torch.square(g.to(torch.float32)))
         by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
     total = sum(Sh.all_reduce(sq, mesh, axes)
@@ -227,27 +241,48 @@ def sharded_global_norm(grads, layout):
     return torch.sqrt(total)
 
 
+def _own_slices(params, cfg, mesh, params_sds):
+    """This rank's ZeRO-1 slices of its shards ``params``, detached."""
+    lay = _Layout(cfg, mesh, params_sds)
+    return tree.unflatten(params, lay.slices(
+        [p.detach() for p in tree.leaves(params)]))
+
+
 def sharded_opt_init(params, cfg, mesh, params_sds):
     """``adamw.init`` of this rank's ZeRO-1 slices of its shards
     ``params``."""
-    lay = _Layout(cfg, mesh, params_sds)
-    return adamw.init(tree.unflatten(params, lay.slices(
-        [p.detach() for p in tree.leaves(params)])))
+    return adamw.init(_own_slices(params, cfg, mesh, params_sds))
+
+
+def sharded_err_init(params, cfg, mesh, params_sds):
+    """``compression.err_init`` of this rank's ZeRO-1 slices of its shards
+    ``params``: the error state of ``compress_grads``, laid out as the
+    optimizer state is."""
+    return compression.err_init(_own_slices(params, cfg, mesh, params_sds))
 
 
 @torch.no_grad()
-def sharded_update(grads, opt_state, params, layout, optim):
+def sharded_update(grads, opt_state, params, layout, optim, err_state=None):
     """``adamw.update`` of a sharded step: ``grads`` (``make_sharded_grads``'
-    mean gradient, this rank's shards in leaf order) clipped by their
-    global norm over every shard, applied to this rank's ZeRO-1 slices
-    of ``opt_state`` and ``params`` in place, then the other ranks' slices
-    all-gathered back into each param shard.  -> (params, opt_state,
-    metrics)."""
-    gnorm = sharded_global_norm(grads, layout)
+    mean gradient, this rank's shards in leaf order) cut to this rank's
+    ZeRO-1 slices, int8-compressed with error feedback against each whole
+    leaf's scale where ``err_state`` (``sharded_err_init``'s) is given,
+    clipped by their global norm over every slice, applied to the slices
+    of ``opt_state`` and ``params`` in place, then the other ranks'
+    slices all-gathered back into each param shard.  -> (params,
+    opt_state, err_state, metrics)."""
     leaves = tree.leaves(params)
     views = layout.slices(leaves)
+    gs = layout.slices(grads)
+    if err_state is not None:
+        packed, errs = compression.compress_sharded(
+            gs, tree.leaves(err_state), layout.mesh,
+            [layout.cut_axes(i) for i in range(len(gs))], layout.groups)
+        gs = tree.leaves(compression.decompress(packed))
+        err_state = tree.unflatten(err_state, errs)
+    gnorm = sharded_global_norm(gs, layout)
     _, opt_state, om = adamw.update(
-        tree.unflatten(params, layout.slices(grads)), opt_state,
+        tree.unflatten(params, gs), opt_state,
         tree.unflatten(params, views), optim, gnorm=gnorm)
     # each rank updated its slice in place; the others' slices come back
     # by an all-gather over the axes that cut them
@@ -257,7 +292,7 @@ def sharded_update(grads, opt_state, params, layout, optim):
             for d, entry in dims:
                 v = Sh.gather_dim(v, d, layout.mesh, entry, p.shape[d])
             p.copy_(v)
-    return params, opt_state, om
+    return params, opt_state, err_state, om
 
 
 def make_sharded_train_step(cfg, tcfg: TrainConfig, mesh, params_sds,
@@ -265,17 +300,19 @@ def make_sharded_train_step(cfg, tcfg: TrainConfig, mesh, params_sds,
     """(params, opt_state, err_state, batch) -> (params, opt_state,
     err_state, metrics) on each rank of ``mesh``: params this rank's
     shards (``sharding.shard_params``), opt_state its ZeRO-1 slices
-    (``sharded_opt_init``), both updated in place; batch the global
-    batch.  ``params_sds`` gives the full shapes (meta tensors will do).
-    The step is ``make_sharded_grads`` then ``sharded_update``.  Refuses,
-    naming the ROADMAP item, what it cannot run (``sharding.check_mesh``;
-    ``compress_grads``)."""
+    (``sharded_opt_init``), err_state its slices of the compression error
+    (``sharded_err_init``) with ``compress_grads``, else None, all updated
+    in place; batch the global batch.  ``params_sds`` gives the full
+    shapes (meta tensors will do).  The step is ``make_sharded_grads``
+    then ``sharded_update``.  Refuses, naming the ROADMAP item, what it
+    cannot run (``sharding.check_mesh``)."""
     grads_fn = make_sharded_grads(cfg, tcfg, mesh, params_sds, batch_sds)
 
     def step(params, opt_state, err_state, batch):
         loss, aux, grads = grads_fn(params, batch)
-        params, opt_state, om = sharded_update(grads, opt_state, params,
-                                               grads_fn.layout, tcfg.optim)
+        params, opt_state, err_state, om = sharded_update(
+            grads, opt_state, params, grads_fn.layout, tcfg.optim,
+            err_state if tcfg.compress_grads else None)
         metrics = {"loss": loss, "aux": aux, **om}
         return params, opt_state, err_state, metrics
 

@@ -135,11 +135,10 @@ def _port(rank, world, cases, inits, control=False):
     return out if rank == 0 else None
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """(reference runs, port runs), case by case: the reference's
-    subprocess writes its inits first, and the port's ranks run on them
-    while it steps."""
+def run_cases(cases):
+    """(reference runs, port runs by case, inits) of ``cases``: the
+    reference's subprocess writes its inits first, and the port's ranks
+    run on them while it steps."""
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
@@ -147,7 +146,7 @@ def runs():
         path = os.path.join(tmp, "reference.pkl")
         proc = subprocess.Popen(
             [sys.executable, "-c", REFERENCE,
-             json.dumps([CASES, TRAFFIC, path])],
+             json.dumps([cases, TRAFFIC, path])],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         try:
@@ -156,8 +155,8 @@ def runs():
             with open(path + ".params", "rb") as f:
                 inits = pickle.load(f)
             port = {}
-            for world in (2, 4):
-                for row in LM.run_ranks(_port, world, CASES, inits,
+            for world in sorted({a * b for _, (a, b) in cases}):
+                for row in LM.run_ranks(_port, world, cases, inits,
                                         timeout=150)[0]:
                     port[row["case"]] = row
             _, err = proc.communicate(timeout=200)
@@ -167,21 +166,24 @@ def runs():
         with open(path, "rb") as f:
             ref = pickle.load(f)
     # the reference's gradient unstacked into the port's leaves
-    for (arch, _), r in zip(CASES, ref):
+    for (arch, _), r in zip(cases, ref):
         r["grads"] = [x.numpy() for x in tree.leaves(convert.from_jax(
             r["grads"], _config(arch), device="cpu"))]
     return ref, port, inits
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_cases(CASES)
 
 
 def _rel(a, b):
     return abs(a - b) / abs(b)
 
 
-@pytest.mark.parametrize("case", range(len(CASES)))
-def test_sharded_step_matches_the_reference(runs, case):
-    ref, port, _ = runs
-    arch, shape = CASES[case]
-    want, got = ref[case], port[(arch, shape)]
+def check_case(want, got, arch, shape):
+    """Two steps' metrics within ``TOL`` relative and step 0's gradient
+    leaf by leaf within ``TOL`` of its max |g|."""
     for s in range(2):
         for k in ("loss", "aux", "grad_norm", "lr"):
             w, g = want["metrics"][s][k], got["metrics"][s][k]
@@ -196,6 +198,13 @@ def test_sharded_step_matches_the_reference(runs, case):
         scale = float(np.abs(w).max())
         assert float(np.abs(g - w).max()) <= TOL * max(scale, 1e-30), \
             (arch, shape, i)
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_sharded_step_matches_the_reference(runs, case):
+    ref, port, _ = runs
+    arch, shape = CASES[case]
+    check_case(ref[case], port[(arch, shape)], arch, shape)
 
 
 def test_gemma2_data_parallel_reads_the_probes_loss(runs):

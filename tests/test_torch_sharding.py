@@ -264,8 +264,6 @@ def test_refusals_name_their_roadmap_item():
     each with its ROADMAP ID (shape-only meshes suffice)."""
     tp = Sh.Mesh((1, 2), ("data", "model"))
     cases = [
-        # SP, and TP on an FSDP config
-        ("mistral-large-123b", tp, "A.9.7"),
         # block kinds without a TP split: mamba, mamba_shared, MLA, enc/dec
         ("zamba2-1.2b", tp, "A.9.8"),
         ("deepseek-v2-lite-16b", tp, "A.9.8"),
@@ -280,33 +278,46 @@ def test_refusals_name_their_roadmap_item():
     for arch, mesh, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             Sh.check_mesh(get_config(arch), mesh)
-    for arch in ("mamba2-1.3b", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9.[78]"):
-            Sh.check_mesh(_config(arch), tp)
-    # data-parallel meshes are served for every arch; TP for GQA blocks
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9.8"):
+        Sh.check_mesh(_config("mamba2-1.3b"), tp)
+    # data-parallel meshes are served for every arch; TP for GQA blocks,
+    # on an FSDP config too, with sequence parallelism where the config
+    # asks for it (mistral; pixtral's FSDP; A.9.7, no longer refused)
     for arch in ("zamba2-1.2b", "deepseek-v2-lite-16b", "whisper-tiny",
                  "mistral-large-123b"):
         Sh.check_mesh(get_config(arch), Sh.Mesh((4, 1), ("data", "model")))
-    for arch in ("granite-moe-1b-a400m", "gemma2-2b"):
+    for arch in ("granite-moe-1b-a400m", "gemma2-2b", "mistral-large-123b"):
         Sh.check_mesh(get_config(arch), tp)
-    # int8 compression on a mesh waits for compressed_psum
+    Sh.check_mesh(_config("pixtral-12b"), tp)
+    # int8 compression on a mesh (A.13.1, no longer refused): the step
+    # builds, its error state laid out as the optimizer state
     cfg = get_config("gemma2-2b").reduced()
     like = M.init(cfg, None, torch.device("meta"))
     batch = {"tokens": torch.empty((4, 8), device="meta")}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.13.1"):
-        loop.make_sharded_train_step(
-            cfg, loop.TrainConfig(compress_grads=True),
-            Sh.Mesh((2, 1), ("data", "model")), like, batch)
+    step = loop.make_sharded_train_step(
+        cfg, loop.TrainConfig(compress_grads=True),
+        Sh.Mesh((2, 1), ("data", "model")), like, batch)
+    assert callable(step)
     with pytest.raises(ValueError, match="do not split"):
         loop.make_sharded_train_step(
             cfg, loop.TrainConfig(accum=3),
             Sh.Mesh((2, 1), ("data", "model")), like, batch)
-    # sequence parallelism over a 'model' axis of 2 is refused, of 1 is
-    # the identity
-    x = torch.zeros((2, 8, 4))
-    with Sh.active_mesh(tp):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9.7"):
-            Sh.constrain(x, "batch", "model", None)
+    # sequence parallelism over a 'model' axis of 2 (A.9.7, no longer
+    # refused) cuts the stream to this rank's chunk (rank 0 of a fake
+    # 2-rank group: the first half); over 1 it is the identity
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    x = torch.arange(64.0).reshape(2, 8, 4)
+    dist.init_process_group("fake", rank=0, world_size=2, store=FakeStore())
+    try:
+        with Sh.active_mesh(LM.make_mesh((1, 2), ("data", "model"), "cpu")):
+            chunk = Sh.constrain(x, "batch", "model", None)
+            assert torch.equal(chunk, x[:, :4])
+            assert Sh.current_state()[2] == 8
+            assert Sh.constrain(chunk, "batch", "model", None) is chunk
+        assert Sh.current_state() == (None, {}, None)
+    finally:
+        dist.destroy_process_group()
     with Sh.active_mesh(Sh.Mesh((2, 1), ("data", "model"))):
         assert Sh.constrain(x, "batch", "model", None) is x
 

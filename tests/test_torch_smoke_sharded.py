@@ -1,15 +1,21 @@
 """``chip_smoke.py``'s ``sharded`` phase, on the CPU.
 
 The card runs ``sharded_phase`` on mistral-large-123b (one layer, mesh
-(2, 1)), granite-moe-1b-a400m (full depth, mesh (1, 2)) and gemma3-1b
-(one pattern unit, mesh (2, 1), ZeRO-1).  Here: the
-exact launches ``sharded_want`` gates each rank's step on, held to the
-kernel entries' calls of a step of each reduced model; and the phase
-whole on the reduced configs on gloo CPU ranks under ``policy="pallas"``
-(no kernel launches on the CPU, so the tiers are held and the launches
-are not): its single-rank run, both sharded runs within the bf16 gate,
-the float32 runs within 2e-4 leaf by leaf, and the control (the copy
-into the model region without its backward all-reduce) caught.
+(2, 2): FSDP, data, tensor and sequence parallelism),
+granite-moe-1b-a400m (full depth, mesh (1, 2)) and gemma3-1b (one
+pattern unit, mesh (2, 1), ZeRO-1, int8 compression), with
+``compressed_psum``, the pipeline and the multi-host launcher beside
+them.  Here: the exact launches ``sharded_want`` and ``pipeline_want``
+gate each rank on, held to the kernel entries' calls of a step of each
+reduced model and of a pipeline rank; and the phase whole on the
+reduced configs on gloo CPU ranks under ``policy="pallas"`` (no kernel
+launches on the CPU, so the tiers are held and the launches are not):
+its single-rank run, the sharded runs within the bf16 gate, the float32
+runs within 2e-4 leaf by leaf, the control (the copy into the model
+region without its backward all-reduce) caught, gemma3's int8 payload
+the whole-leaf formula's with the per-slice control caught,
+``compressed_psum`` bitwise, the pipeline bitwise and the launcher over
+gloo.
 """
 import sys
 from pathlib import Path
@@ -20,6 +26,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core import use_policy  # noqa: E402
+from repro_torch.launch import mesh as LM  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import elementwise as ew  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -80,13 +87,18 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     # torchrun gives its ranks (eight each ran ~4x slower here)
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.setattr(cs, "SHARDED_TRAFFIC", dict(batch=4, seq=32, steps=2))
+    monkeypatch.setattr(cs, "SHARDED_PSUM", 4099)
+    monkeypatch.setattr(cs, "PIPELINE", {**cs.PIPELINE, "cut": "reduced",
+                                         "seq": 16})
     out = cs.sharded_phase(CPU, policy="pallas")
     for tag in ("mistral", "granite", "gemma3"):
         rec = out[tag]
         assert rec["failures"] == [] and rec["leaves"] > 0, tag
         assert rec["median_rel_leaf_err"] <= cs.TRAIN_TOL
-        assert [r["rank"] for r in rec["ranks"]] == [0, 1]
-    assert out["mistral"]["mesh"] == out["gemma3"]["mesh"] == [2, 1]
+        assert [r["rank"] for r in rec["ranks"]] == \
+            list(range(rec["mesh"][0] * rec["mesh"][1]))
+    assert out["mistral"]["mesh"] == out["mistral_f32"]["mesh"] == [2, 2]
+    assert out["gemma3"]["mesh"] == [2, 1]
     assert out["granite"]["mesh"] == [1, 2]
     # FSDP leaves ZeRO-1 nothing to slice; gemma3's optimizer state is
     # sliced over 'data'
@@ -99,3 +111,44 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     control = out["control"]
     assert control["failures"]
     assert any(k.endswith("router") for k in control["failed_leaves"])
+    # gemma3's int8 payload is the whole-leaf formula's; a per-slice scale
+    # is caught
+    int8 = out["gemma3"]["int8"]
+    assert int8["max_scale_gap"] == 0 and int8["q_far"] == 0, int8
+    assert int8["control_leaves_off"] > 0
+    assert [r["elements"] for r in out["psum"]] == [4099, 4099]
+    assert all(r["bitwise"] for r in out["psum"])
+    head = out["pipeline"][0]
+    assert head["bitwise"] and head["shape"] == [1, 16, 64], head
+    assert [r["ticks"] for r in out["pipeline"]] == [9, 9]
+    assert out["launcher"]["backend"] == "gloo"
+
+
+def _pipeline_calls(rank, world):
+    """The kernel entries' calls of one ``_pipeline_job`` rank on the
+    reduced gemma3 block."""
+    calls = {}
+    for mod, name in ((gemm_mod, "gemm"), (ew, "vsigmoid"), (ew, "vtanh"),
+                      (fa, "flash_attention")):
+        entry = getattr(mod, name)
+
+        def counted(*a, _entry=entry, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _entry(*a, **k)
+        setattr(mod, name, counted)
+    spec = {**cs.PIPELINE, "cut": "reduced", "seq": 16}
+    rec = cs._pipeline_job(rank, world, "cpu", "pallas", spec)
+    return calls, rec
+
+
+def test_pipeline_want_counts_a_ranks_kernel_calls():
+    """Stage 1 of the two (no sequential run beside it) calls each
+    kernel entry as often as ``pipeline_want`` says: a microbatch's seven
+    gemms, its gelu's vtanh and its flash."""
+    (_, head), (calls, _) = LM.run_ranks(_pipeline_calls, 2, timeout=100)
+    cfg = cs.sharded_config("gemma3-1b", "reduced", "bfloat16")
+    want = cs.pipeline_want(cfg, cs.PIPELINE["micro"])
+    assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == want
+    assert want == {"gemm": 56, "vsigmoid": 0, "vtanh": 8,
+                    "flash_attention": 8}
+    assert head["bitwise"]

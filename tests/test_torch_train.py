@@ -351,6 +351,15 @@ def test_launcher_trains_and_refuses_a_coordinator(capsys):
     out = capsys.readouterr().out
     assert out.startswith("done: step 2 loss ")
     assert "restarts 0 stragglers 0" in out
-    with pytest.raises(NotImplementedError, match="A.13"):
-        launch.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
-                     "--coordinator", "localhost:1234", "--num-hosts", "2"])
+    # --coordinator (ROADMAP A.13.2, no longer refused): one host joins a
+    # gloo group over tcp, trains as the single host did, and leaves it
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import _free_port
+    launch.main(["--arch", "gemma2-2b", "--reduced", "--device", "cpu",
+                 "--steps", "3", "--batch", "2", "--seq", "16",
+                 "--accum", "2", "--coordinator",
+                 f"localhost:{_free_port()}", "--num-hosts", "1",
+                 "--host-id", "0"])
+    assert capsys.readouterr().out.split(" restarts")[0] == \
+        out.split(" restarts")[0]
+    assert not dist.is_initialized()

@@ -168,6 +168,7 @@ def probe(dev, arch):
         f"repro_torch.configs.{ARCHS[arch]}").CONFIG
     b, plen, steps = cs.SERVE["batch"], cs.SERVE["prompt"], cs.SERVE["gen"]
     max_seq = plen + steps
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
     params = M.init(cfg, gen, dev)
@@ -268,8 +269,15 @@ def probe(dev, arch):
                          stats["update_one_step_allowed"]}
         del ctrl, cblocks, vblocks
     record["controls"] = controls
-    del params, kern, plain, kblocks
+    # everything that holds the bf16 weights or a run's activations goes
+    # before the float32 model is drawn: ``run`` (and through it
+    # ``swapped``) holds ``params``, the block probes hold each block's
+    # input and output
+    del params, kern, plain, kblocks, run, block, pin_block, cblock
     torch.cuda.empty_cache()
+    record["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    record["in_use_before_float32_gb"] = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
 
     # the same model in float32 (weights drawn anew from the seed, once
     # the bf16 model is freed), teacher forced on the same tokens
@@ -282,6 +290,7 @@ def probe(dev, arch):
     kern = run32("pallas", route32)
     pinned32 = cs.route_probe(moe_mod, pinned=calls32)[0] if moe else None
     record["float32_gate"] = rel_gap(kern, run32("vector", pinned32))["max"]
+    record["float32_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(record), flush=True)
     del params, kern
     torch.cuda.empty_cache()
