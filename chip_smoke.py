@@ -106,9 +106,15 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     (FSDP, data, tensor and sequence parallelism), granite-moe-1b-a400m
     at full width and depth on (1, 2) (TP, expert parallelism),
     gemma3-1b at full width, 6 of 26 layers, on (2, 1) (data
-    parallelism, ZeRO-1, ``compress_grads``), bf16, 4 x 512 tokens, 2
-    steps, each held to its single-rank step (``sharded_phase``,
-    ``SHARDED``); ``compressed_psum`` of 64 M floats on two ranks,
+    parallelism, ZeRO-1, ``compress_grads``), and tensor parallelism of
+    every other block kind on (1, 2) at full width: zamba2-1.2b's 6-layer
+    unit (ssd on each rank's SSM heads), deepseek-v2-lite's 2 layers
+    (MLA), whisper-tiny (enc, dec) and gemma3-1b's unit (its kv head
+    split), bf16, 4 x 512 tokens, 2 steps, each held to its single-rank
+    step (``sharded_phase``, ``SHARDED``); float32 runs (zamba2 reduced
+    on (1, 4), granite reduced with sequence parallelism through moe
+    among them) and two controls that must fail; ``compressed_psum`` of
+    64 M floats on two ranks,
     bitwise the formula on one; ``train/pipeline.py`` over two stages of
     gemma3's ``attn`` block, bitwise the blocks in turn; and the
     launcher's ``--coordinator`` over ``nccl`` (one host);
@@ -3434,27 +3440,59 @@ def train_resume_phase(dev):
 # compresses its gradient to int8 (SHARDED_INT8).
 SHARDED = (("mistral", "mistral-large-123b", 1, (2, 2)),
            ("granite", "granite-moe-1b-a400m", None, (1, 2)),
-           ("gemma3", "gemma3-1b", 6, (2, 1)))
+           ("gemma3", "gemma3-1b", 6, (2, 1)),
+           # tensor parallelism of every other block kind: zamba2's one
+           # pattern unit (five mamba, one mamba_shared) with the ssd kernel
+           # on each rank's 32 of 64 SSM heads, deepseek's MLA (moe_dense
+           # and moe, 32 of 64 experts a rank), whisper's enc and dec
+           # blocks (3 of 6 heads) and gemma3's one kv head split over two
+           # ranks, each at full width
+           ("zamba2", "zamba2-1.2b", 6, (1, 2)),
+           ("deepseek", "deepseek-v2-lite-16b", 2, (1, 2)),
+           ("whisper", "whisper-tiny", None, (1, 2)),
+           ("gemma3_tp", "gemma3-1b", 6, (1, 2)))
 SHARDED_ZERO1 = ("gemma3",)
 SHARDED_INT8 = ("gemma3",)
+# float32: zamba2 reduced on (1, 4) (two ranks share an SSM group),
+# granite reduced with sequence parallelism through its moe blocks
 SHARDED_F32 = (("granite_f32", "granite-moe-1b-a400m", 4, (1, 2)),
-               ("mistral_f32", "mistral-large-123b", "reduced", (2, 2)))
+               ("mistral_f32", "mistral-large-123b", "reduced", (2, 2)),
+               ("zamba2_f32", "zamba2-1.2b", "reduced", (1, 4)),
+               ("granite_sp_f32", "granite-moe-1b-a400m", "reduced", (1, 2)))
+# a job's config fields beyond its cut
+SHARDED_OVER = {"granite_sp_f32": {"use_sp": True}}
+# the controls, each the float32 job of its tag run again with a fault
+# planted in its ranks, which must fail the job's gate: the copy into the
+# model region reduced by nothing backward, and the gated norm's sum of
+# squares over 'model' dropped
+SHARDED_CONTROLS = {"granite_f32": "copy", "zamba2_f32": "norm_sum"}
 # compressed_psum's input a rank (float32 elements), and the pipeline:
 # two stages of one full-width ``attn`` block, M microbatches
 SHARDED_PSUM = 64 << 20
 PIPELINE = dict(arch="gemma3-1b", cut=None, micro=8, batch=1, seq=512)
 SHARDED_TRAFFIC = dict(batch=4, seq=512, steps=2)
-SHARDED_OPS = ("gemm", "vsigmoid", "vtanh", "flash_attention")
+SHARDED_OPS = ("gemm", "vsigmoid", "vtanh", "flash_attention", "ssd")
 SHARDED_TIMEOUT = 480
 # the kernels' calls on the sharded path, timed: (rows, (K, N) of the
 # local weights), the flash shapes (B, S, H, Hkv, D) and the silu's
+# zamba2's on a (1, 2) rank: w_in's 4256 local columns, w_out and the
+# shared block's o, its q / k / v and its MLP's down, its MLP's up
 SHARDED_GEMM = {"mistral": (1024, ((12288, 6144), (12288, 512),
                                    (6144, 12288), (12288, 14336),
                                    (14336, 12288), (12288, 16384))),
-                "granite": (2048, ((1024, 512), (1024, 256), (512, 1024)))}
-SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128),
-                 "granite": (4, 512, 8, 4, 64)}
+                "granite": (2048, ((1024, 512), (1024, 256), (512, 1024))),
+                "zamba2": (2048, ((2048, 4256), (2048, 2048), (4096, 2048),
+                                  (4096, 4096)))}
+# (B, S, H, Hkv, D, causal): gemma3's two q heads over its gathered kv
+# head, whisper's encoder (3 of 6 heads), zamba2's shared block (16 of 32)
+SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128, True),
+                 "granite": (4, 512, 8, 4, 64, True),
+                 "gemma3": (4, 512, 2, 1, 256, True),
+                 "whisper": (4, 1500, 3, 3, 64, False),
+                 "zamba2": (4, 512, 16, 16, 128, True)}
 SHARDED_SILU = {"mistral": (2, 512, 14336), "granite_experts": (16, 640, 512)}
+# ssd on a zamba2 (1, 2) rank: (B, S, heads, p, groups, n)
+SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64)}
 
 
 def sharded_config(arch, cut, dtype):
@@ -3467,28 +3505,68 @@ def sharded_config(arch, cut, dtype):
     return cfg.replace(dtype=dtype)
 
 
-def sharded_want(cfg):
-    """Exact launches of gemm, vsigmoid, vtanh and flash in one train
-    step of a GQA transformer (``attn``, ``local``, ``moe`` blocks), on
-    one rank of any mesh: each block runs under remat, so its kernels
-    launch twice, and each gemm twice more in the backward (dA, dB); a
-    block's q, k, v, o and its dense MLP's products are gemms (an MoE's
-    experts are batched matmuls), its activation one vsigmoid (silu) or
-    vtanh (gelu), its attention one flash; an untied head is a gemm
-    outside remat (3 launches), a tied one a plain matmul; a final
-    softcap one vtanh outside remat.  Under a 'model' split each rank
-    makes the same calls on its shards."""
-    kinds = cfg.layer_pattern()
+def job_config(job, dtype):
+    """A ``SHARDED`` or ``SHARDED_F32`` job's config in ``dtype``."""
+    tag, arch, cut, _ = job
+    return sharded_config(arch, cut, dtype).replace(
+        **SHARDED_OVER.get(tag, {}))
+
+
+def sharded_want(cfg, seq):
+    """Exact launches of gemm, vsigmoid, vtanh, flash and ssd in one train
+    step on one rank of any mesh, ``seq`` positions a row: each block
+    runs under remat, so its kernels launch twice, and each gemm twice
+    more in the backward (dA, dB).  A
+    GQA block's q, k, v, o and its dense MLP's products are gemms (an
+    MoE's experts are batched matmuls), its activation one vsigmoid (silu)
+    or vtanh (gelu), its attention one flash; an MLA block's q (``wq``, or
+    ``w_dq`` and ``w_uq``), ``w_dkv``, ``w_uk``, ``w_uv`` and ``wo`` are
+    gemms and its attention runs on the vector tier (no flash); a Mamba2
+    layer's ``w_in`` and ``w_out`` are gemms and its scan one ssd call of
+    ``ssd.launches(seq)`` launches; ``mamba_shared`` adds zamba2's shared
+    GQA block with its MLP; whisper's encoder blocks are GQA blocks and
+    its decoder's add the cross-attention's q, k, v, o and a flash.  An
+    untied head is a gemm outside remat (3 launches), a tied one a plain
+    matmul; a final softcap one vtanh outside remat.  Under a 'model'
+    split each rank makes the same calls on its shards."""
+    from repro_torch.kernels import ssd as ssd_mod
     mlp = 3 if cfg.gated_mlp else 2
-    gemms = sum(4 + (mlp if k != "moe" else
-                     mlp * bool(cfg.n_shared_experts)) for k in kinds)
-    acts = sum(1 + (k == "moe" and bool(cfg.n_shared_experts))
-               for k in kinds)
-    return {"gemm": 4 * gemms + (0 if cfg.tie_embeddings else 3),
-            "vsigmoid": 2 * acts * (cfg.act == "silu"),
-            "vtanh": 2 * acts * (cfg.act == "gelu") +
+    mla = cfg.attn_kind == "mla"
+    attn = (2 if cfg.q_lora_rank else 1) + 4 if mla else 4
+    n = {"gemm": 0, "act": 0, "flash": 0, "ssd": 0}
+
+    def add(gemm, act=0, flash=0, ssd=0):
+        for k, v in (("gemm", gemm), ("act", act), ("flash", flash),
+                     ("ssd", ssd)):
+            n[k] += v
+    for k in cfg.layer_pattern() + ["enc"] * cfg.n_enc_layers:
+        if k in MAMBA_KINDS:
+            add(2, ssd=1)
+        if k in ("mamba_shared", "enc"):
+            add(4 + mlp, 1, 1)
+        elif k == "dec":
+            add(8 + mlp, 1, 2)
+        elif k == "moe":
+            shared = bool(cfg.n_shared_experts)
+            add(attn + mlp * shared, 1 + shared, not mla)
+        elif k != "mamba":
+            add(attn + mlp, 1, not mla)
+    return {"gemm": 4 * n["gemm"] + (0 if cfg.tie_embeddings else 3),
+            "vsigmoid": 2 * n["act"] * (cfg.act == "silu"),
+            "vtanh": 2 * n["act"] * (cfg.act == "gelu") +
             (cfg.final_softcap is not None),
-            "flash_attention": 2 * len(kinds)}
+            "flash_attention": 2 * n["flash"],
+            "ssd": 2 * n["ssd"] * ssd_mod.launches(seq)}
+
+
+def sharded_tiers(cfg, want):
+    """The tier each op of ``want`` must run on: the kernel tier where it
+    launches, MLA's attention the vector tier (the reference's rule),
+    none elsewhere."""
+    tiers = {op: ["pallas"] if want.get(op) else [] for op in SHARDED_OPS}
+    if cfg.attn_kind == "mla":
+        tiers["flash_attention"] = ["vector"]
+    return tiers
 
 
 def _in_policy(policy):
@@ -3499,10 +3577,13 @@ def _in_policy(policy):
 
 
 def _sharded_batches(cfg, dev, traffic):
-    from repro_torch.data.pipeline import SyntheticLM
+    """The steps' batches: seeded tokens, and whisper's stub frames."""
+    from repro_torch.data.pipeline import SyntheticLM, extra_inputs
     data = SyntheticLM(cfg.vocab_size, traffic["seq"], traffic["batch"],
                        seed=SEED)
-    return [data.batch(s, device=dev) for s in range(traffic["steps"])]
+    extra = extra_inputs(cfg, traffic["batch"], SEED, dev)
+    return [{**data.batch(s, device=dev), **extra}
+            for s in range(traffic["steps"])]
 
 
 def _counted_step(step, dev):
@@ -3514,7 +3595,8 @@ def _counted_step(step, dev):
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
-    mods = (gemm, ew, fa)
+    from repro_torch.kernels import ssd as ssd_mod
+    mods = (gemm, ew, fa, ssd_mod)
     for m in mods:
         m.reset_launches()
     with trace.count() as counted:
@@ -3528,15 +3610,17 @@ def _counted_step(step, dev):
     return out, launched, chosen
 
 
-def _held(launched, chosen, want, what, dev):
-    """Raise unless each op ``want`` launches ran its kernel tier and no
-    other ran, and (on the card, where a call is a launch) the launches
-    are ``want``."""
-    if dev.type == "cuda" and launched != want:
+def _held(launched, chosen, want, cfg, what, dev):
+    """Raise unless each op ran the tier ``sharded_tiers`` gives ``cfg``
+    and ``want``, and (on the card, where a call is a launch) the
+    launches are ``want``, an op it does not name none."""
+    got = {op: launched.get(op, 0) for op in SHARDED_OPS}
+    if dev.type == "cuda" and got != {op: want.get(op, 0)
+                                      for op in SHARDED_OPS}:
         raise AssertionError(f"{what}: launches {launched}, expected {want}")
-    if chosen != {op: ["pallas"] if want[op] else [] for op in chosen}:
-        raise AssertionError(f"{what}: ran {chosen}; each op must run its "
-                             "kernel tier")
+    tiers = sharded_tiers(cfg, want)
+    if chosen != tiers:
+        raise AssertionError(f"{what}: ran {chosen}; expected {tiers}")
 
 
 def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
@@ -3557,9 +3641,10 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
     out = {}
-    for tag, arch, cut, _ in jobs:
-        cfg = sharded_config(arch, cut, "float32" if tag.endswith("f32")
-                             else "bfloat16")
+    for job in jobs:
+        tag = job[0]
+        cfg = job_config(job, "float32" if tag.endswith("f32")
+                         else "bfloat16")
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         params = loop.trainable(M.init(cfg, gen, dev))
@@ -3590,7 +3675,8 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
                     (params, opt, err, m), launched, chosen = _counted_step(
                         lambda: step(params, opt, err, b), dev)
                 step_s.append(time.perf_counter() - t0)
-                _held(launched, chosen, sharded_want(cfg),
+                want = sharded_want(cfg, traffic["seq"])
+                _held(launched, chosen, want, cfg,
                       f"sharded/{tag}/single step {s}", dev)
                 metrics.append({k: float(v) for k, v in m.items()})
                 launches.append(launched)
@@ -3661,16 +3747,29 @@ def _freed(dev):
         torch.cuda.reset_peak_memory_stats()
 
 
-def _sharded_ranks(rank, world, jobs, traffic, out_dir, control, dev_type,
+def _no_norm_sum(x):
+    """The control's ``sharding.sum_over_model``: each rank's gated norm
+    over its own heads' channels alone."""
+    return x
+
+
+def _planted(fault):
+    """(module, attribute, stand-in) of a control's fault."""
+    from repro_torch.models import sharding as Sh
+    if fault == "copy":
+        return Sh._Copy, "backward", staticmethod(_no_copy_reduce)
+    return Sh, "sum_over_model", _no_norm_sum
+
+
+def _sharded_ranks(rank, world, jobs, traffic, out_dir, controls, dev_type,
                    policy, side):
     """Each job of ``world`` ranks' two sharded steps on this rank
     (``_sharded_job``); on two ranks also ``compressed_psum`` of
     ``side["psum"]`` elements (``_psum_job``) and the pipeline of
-    ``side["pipeline"]`` (``_pipeline_job``); then, where
-    ``control`` names a job, that job again with the copy into the model
-    region reduced by nothing backward, under ``out["control"]``.
-    ``dev_type`` and ``policy`` as ``_sharded_single``'s."""
-    from repro_torch.models import sharding as Sh
+    ``side["pipeline"]`` (``_pipeline_job``); then each job that
+    ``controls`` names again with its fault planted (``_planted``), under
+    ``out["control/<tag>"]``.  ``dev_type`` and ``policy`` as
+    ``_sharded_single``'s."""
     mine = [job for job in jobs if math.prod(job[3]) == world]
     out = {job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
                                 policy) for job in mine}
@@ -3678,15 +3777,17 @@ def _sharded_ranks(rank, world, jobs, traffic, out_dir, control, dev_type,
         out["psum"] = _psum_job(rank, world, dev_type, side["psum"])
         out["pipeline"] = _pipeline_job(rank, world, dev_type, policy,
                                         side["pipeline"])
-    job = next((j for j in mine if j[0] == control), None)
-    if job is not None:
-        saved = Sh._Copy.backward
-        Sh._Copy.backward = staticmethod(_no_copy_reduce)
+    for job in mine:
+        if job[0] not in controls:
+            continue
+        owner, name, stand_in = _planted(controls[job[0]])
+        saved = owner.__dict__[name]
+        setattr(owner, name, stand_in)
         try:
-            out["control"] = _sharded_job(rank, job, traffic, out_dir,
-                                          dev_type, policy)
+            out[f"control/{job[0]}"] = _sharded_job(
+                rank, job, traffic, out_dir, dev_type, policy)
         finally:
-            Sh._Copy.backward = saved
+            setattr(owner, name, saved)
     return out
 
 
@@ -3736,7 +3837,7 @@ def pipeline_want(cfg, micro):
     return {"gemm": micro * (4 + mlp),
             "vsigmoid": micro * (cfg.act == "silu"),
             "vtanh": micro * (cfg.act == "gelu"),
-            "flash_attention": micro}
+            "flash_attention": micro, "ssd": 0}
 
 
 def _pipeline_job(rank, world, dev_type, policy, spec):
@@ -3772,7 +3873,7 @@ def _pipeline_job(rank, world, dev_type, policy, spec):
         y, launched, chosen = _counted_step(
             lambda: pipeline(stage, stacked, x, mesh), dev)
     seconds = time.perf_counter() - t0
-    _held(launched, chosen, pipeline_want(cfg, m),
+    _held(launched, chosen, pipeline_want(cfg, m), cfg,
           f"sharded/pipeline/rank {rank}", dev)
     rec = {"rank": rank, "micro": m, "shape": list(x.shape[1:]),
            "launches": launched, "seconds": seconds,
@@ -3829,6 +3930,26 @@ def launcher_result(started, dev):
             "loss": loss, "seconds": seconds}
 
 
+def pinned_routes(path, cfg, mesh, traffic, dev):
+    """The single-rank run's router indices at ``path``, call by call, cut
+    to the tokens this rank routes: under sequence parallelism its chunk
+    of each row's sequence (a mesh with one data rank, whose rows are the
+    single run's)."""
+    import torch
+    from repro_torch.models import sharding as Sh
+    idx = [i.to(dev) for i in torch.load(path)]
+    m = mesh.shape["model"]
+    if cfg.use_sp and m > 1:
+        if Sh.batch_split(mesh) != 1:
+            raise ValueError("pinned routes under sequence parallelism take "
+                             "one data rank")
+        b, s = traffic["batch"], traffic["seq"]
+        lo, hi = Sh.chunk_range(s, mesh.coordinate()["model"], m)
+        idx = [i.reshape(b, s, -1)[:, lo:hi].reshape(-1, i.shape[-1])
+               for i in idx]
+    return [{"idx": i} for i in idx]
+
+
 def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     """One job's two sharded steps on this rank, on the card, the params
     cut from the same seeded init as the single-rank run's, an MoE routed
@@ -3850,9 +3971,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     from repro_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
-    tag, arch, cut, shape = job
-    cfg = sharded_config(arch, cut, "float32" if tag.endswith("f32")
-                         else "bfloat16")
+    tag, _, _, shape = job
+    cfg = job_config(job, "float32" if tag.endswith("f32") else "bfloat16")
     mesh = LM.make_mesh(shape, ("data", "model"), dev_type)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3869,14 +3989,14 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     saved = moe_mod._route
     try:
         if cfg.n_experts:
-            pinned = [{"idx": i.to(dev)} for i in
-                      torch.load(out_dir / f"{tag}.routes.pt")]
+            pinned = pinned_routes(out_dir / f"{tag}.routes.pt", cfg, mesh,
+                                   traffic, dev)
             moe_mod._route, _ = route_probe(moe_mod, pinned=pinned)
         grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
         lay = grads_fn.layout
         opt = loop.sharded_opt_init(local, cfg, mesh, like)
         step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
-        want = sharded_want(cfg)
+        want = sharded_want(cfg, traffic["seq"])
         # step 1 is the step's two parts, its gradient gathered and held
         # to the single rank's between them (not timed)
         t0 = time.perf_counter()
@@ -3884,8 +4004,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
             (loss, aux, grads), launched, chosen = _counted_step(
                 lambda: grads_fn(local, batches[0]), dev)
         step_s = [time.perf_counter() - t0]
-        _held(launched, chosen, want, f"sharded/{tag}/rank {rank} step 0",
-              dev)
+        _held(launched, chosen, want, cfg,
+              f"sharded/{tag}/rank {rank} step 0", dev)
         gaps = sharded_grad_gaps(grads, lay, mesh, like, cfg, rank,
                                  out_dir / f"{tag}.grads.pt")
         seen = _recording(compression, "compress_sharded") if int8 else []
@@ -3908,7 +4028,7 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
                 (local, opt, err, m), launched, chosen = _counted_step(
                     lambda: step(local, opt, err, b), dev)
             step_s.append(time.perf_counter() - t0)
-            _held(launched, chosen, want,
+            _held(launched, chosen, want, cfg,
                   f"sharded/{tag}/rank {rank} step {s}", dev)
             metrics.append(m)
             launches.append(launched)
@@ -4092,25 +4212,34 @@ def sharded_phase(dev, policy=None):
     width, one pattern unit, on (2, 1) (data parallelism with ZeRO-1:
     each rank's optimizer and error state a slice of its leaves, the
     updated slices all-gathered back; the gradient int8-compressed),
-    bf16, ``SHARDED_TRAFFIC``, each held to the same model's single-rank
-    step from the same seeded weights and tokens, run first in a process
-    of its own: the loss of both steps and their grad_norm within 3e-2,
-    step 0's gradient leaf by leaf (median within 3e-2, worst within
-    0.3), every rank's gemm, vsigmoid and flash launches of each step
-    exact (``sharded_want``) and on the kernel tier, the optimizer state
-    of each ``SHARDED_ZERO1`` job sliced, and each ``SHARDED_INT8`` job's
-    int8 payload the whole-leaf formula's (``int8_gate``: a per-slice
-    scale must miss it).  Then in float32 (granite 4 layers on (1, 2),
-    mistral reduced on (2, 2)) every leaf within 2e-4; then, in the two
-    ranks, the control, the float32 granite run with the copy into the
-    model region reduced by nothing backward, which must fail that gate.
-    The two ranks also run ``compressed_psum`` (``_psum_job``: bitwise
+    and tensor parallelism over (1, 2) of every other block kind at full
+    width: zamba2-1.2b's one pattern unit (mamba, with the ssd kernel on
+    each rank's SSM heads, and mamba_shared), deepseek-v2-lite's first
+    two layers (MLA, moe_dense, moe), whisper-tiny whole (enc, dec) and
+    gemma3-1b's unit again (its one kv head split over the ranks), bf16,
+    ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
+    from the same seeded weights and tokens, run first in a process of
+    its own: the loss of both steps and their grad_norm within 3e-2, step
+    0's gradient leaf by leaf (median within 3e-2, worst within 0.3),
+    every rank's gemm, vsigmoid, vtanh, flash and ssd launches of each
+    step exact (``sharded_want``) and on the kernel tier (MLA's attention
+    on the vector tier), the optimizer state of each ``SHARDED_ZERO1``
+    job sliced, and each ``SHARDED_INT8`` job's int8 payload the
+    whole-leaf formula's (``int8_gate``: a per-slice scale must miss
+    it).  Then in float32 (granite 4 layers on (1, 2), mistral reduced on
+    (2, 2), zamba2 reduced on (1, 4), granite reduced with sequence
+    parallelism through its moe blocks on (1, 2)) every leaf within
+    2e-4; then, in the same ranks, the controls (``SHARDED_CONTROLS``):
+    the float32 granite run with the copy into the model region reduced
+    by nothing backward and the float32 zamba2 run with the gated norm's
+    sum over 'model' dropped, each of which must fail that gate.  The
+    two ranks also run ``compressed_psum`` (``_psum_job``: bitwise
     the formula on one rank) and ``train/pipeline.py`` (``_pipeline_job``:
     bitwise the blocks in turn, launches exact); the launcher with
     ``--coordinator`` runs beside the single-rank steps (``launcher_start``,
     ``launcher_result``; its seconds, and theirs, are taken side by side).
-    The routing of every granite run
-    is pinned to the single-rank run's.  (``policy`` and ``dev`` let the
+    The routing of every MoE run (granite's, deepseek's) is pinned to the
+    single-rank run's (``pinned_routes``).  (``policy`` and ``dev`` let the
     CPU tests run it on reduced configs; on the CPU no kernel launches, so
     only the tiers are held.)"""
     import shutil
@@ -4119,7 +4248,6 @@ def sharded_phase(dev, policy=None):
     out_dir.mkdir(parents=True, exist_ok=True)
     _freed(dev)
     jobs = SHARDED + SHARDED_F32
-    ctag = SHARDED_F32[0][0]
     worlds = sorted({math.prod(job[3]) for job in jobs} | {2})
     t0 = time.perf_counter()
     ranks_s = {}
@@ -4133,8 +4261,9 @@ def sharded_phase(dev, policy=None):
         for world in worlds:
             t0 = time.perf_counter()
             by_world[world] = LM.run_ranks(
-                _sharded_ranks, world, jobs, SHARDED_TRAFFIC, out_dir, ctag,
-                dev.type, policy, {"psum": SHARDED_PSUM, "pipeline": PIPELINE},
+                _sharded_ranks, world, jobs, SHARDED_TRAFFIC, out_dir,
+                SHARDED_CONTROLS, dev.type, policy,
+                {"psum": SHARDED_PSUM, "pipeline": PIPELINE},
                 timeout=SHARDED_TIMEOUT)
             ranks_s[world] = time.perf_counter() - t0
         launched = launcher_result(launcher, dev)
@@ -4143,7 +4272,6 @@ def sharded_phase(dev, policy=None):
         shutil.rmtree(out_dir, ignore_errors=True)
     ranks_of = {job[0]: by_world[math.prod(job[3])] for job in jobs}
     two = by_world[2]
-    control = [{ctag: r.pop("control")} for r in ranks_of[ctag]]
     records, failures = {}, []
     for tag, *_ in SHARDED:
         records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
@@ -4163,16 +4291,23 @@ def sharded_phase(dev, policy=None):
         records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
                                          LM_TOL["float32"])
         failures += bad
-    records["control"], caught = sharded_gate(single, control, ctag,
-                                              LM_TOL["float32"])
-    records["control"].pop("single")
-    caught_leaves = sorted(k for k, v in control[0][ctag]["gaps"].items()
-                           if v > LM_TOL["float32"])
-    records["control"]["failed_leaves"] = caught_leaves
-    if not caught or not any(k.endswith("router") or "::ln" in k
-                             for k in caught_leaves):
-        failures.append(f"sharded/control: dropping the copy's backward "
-                        f"all-reduce passed the gate ({caught_leaves})")
+    # each control must fail its job's gate, on the leaves its fault
+    # reaches: the router's and the norms' (the copy), the mamba blocks'
+    # (the gated norm's sum)
+    reached = {"copy": lambda k: k.endswith("router") or "::ln" in k,
+               "norm_sum": lambda k: "::mamba::" in k}
+    for ctag, fault in SHARDED_CONTROLS.items():
+        control = [{ctag: r.pop(f"control/{ctag}")} for r in ranks_of[ctag]]
+        key = "control" if fault == "copy" else f"control_{fault}"
+        records[key], caught = sharded_gate(single, control, ctag,
+                                            LM_TOL["float32"])
+        records[key].pop("single")
+        caught_leaves = sorted(k for k, v in control[0][ctag]["gaps"].items()
+                               if v > LM_TOL["float32"])
+        records[key]["failed_leaves"] = caught_leaves
+        if not caught or not any(map(reached[fault], caught_leaves)):
+            failures.append(f"sharded/{key}: the {fault} fault in {ctag} "
+                            f"passed the gate ({caught_leaves})")
     records["psum"] = [r["psum"] for r in two]
     if not all(r["bitwise"] for r in records["psum"]):
         failures.append(f"sharded/psum: compressed_psum is not the formula "
@@ -4189,8 +4324,9 @@ def sharded_phase(dev, policy=None):
                 for op in SHARDED_OPS}
     emit("sharded", traffic=SHARDED_TRAFFIC, single_s=single_s,
          ranks_s=ranks_s, launches=launches,
-         want={tag: sharded_want(sharded_config(arch, cut, "bfloat16"))
-               for tag, arch, cut, _ in SHARDED}, **records)
+         want={job[0]: sharded_want(job_config(job, "bfloat16"),
+                                    SHARDED_TRAFFIC["seq"])
+               for job in SHARDED}, **records)
     if failures:
         raise AssertionError("; ".join(failures))
     return {"launches": launches, **records}
@@ -4335,13 +4471,14 @@ def time_train(gen, dev, flush):
 
 def time_sharded(gen, dev, flush):
     """The ``time`` rows of the sharded path's kernel calls at its local
-    shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_SILU``), bf16,
-    each output held to its plain version's and timed beside it, the
-    library call and the card's bound."""
+    shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_SILU``,
+    ``SHARDED_SSD``), bf16, each output held to its plain version's and
+    timed beside it, the library call and the card's bound."""
     import torch
     from repro_torch.core import trace, use_target
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
     bf = torch.bfloat16
     rows = {}
 
@@ -4350,28 +4487,39 @@ def time_sharded(gen, dev, flush):
     for arch, (m, shapes) in SHARDED_GEMM.items():
         for k, n in shapes:
             rows.update(time_gemm_parts(k, n, m, f"sharded_{arch}", r, flush))
-    for arch, (b, s, h, hkv, d) in SHARDED_FLASH.items():
-        targs = (r(b, s, h, d), r(b, s, hkv, d), r(b, s, hkv, d), True, None,
-                 None)
-        out = fa.flash_attention(*targs)
+    lm = [("flash_attention", arch, (r(b, s, h, d), r(b, s, hkv, d),
+                                     r(b, s, hkv, d), causal, None, None))
+          for arch, (b, s, h, hkv, d, causal) in SHARDED_FLASH.items()]
+    for arch, (b, s, h, p, g, n) in SHARDED_SSD.items():
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, h), generator=gen, device=dev) - 1.0)
+        lm.append(("ssd", arch, (
+            r(b, s, h, p), dt,
+            -torch.arange(1, h + 1, dtype=torch.float32, device=dev),
+            r(b, s, g, n, scale=0.5), r(b, s, g, n, scale=0.5),
+            torch.ones(h, device=dev))))
+    for op, arch, targs in lm:
+        mod = fa if op == "flash_attention" else ssd
+        out = mod.KERNELS[op](*targs)
         if not bool(out.isfinite().all()):
-            raise AssertionError(f"flash/sharded_{arch}: non-finite output")
-        err = compare("flash_attention", out, fa.flash_attention_plain(
-            *targs))
-        k_ms = time_ms(lambda: fa.flash_attention(*targs), flush)
-        p_ms = time_ms(lambda: fa.flash_attention_plain(*targs), flush)
-        l_ms = time_ms(lm_library_call("flash_attention", targs), flush)
-        nbytes, n_ops = lm_work("flash_attention", targs, out)
+            raise AssertionError(f"{op}/sharded_{arch}: non-finite output")
+        err = compare(op, out, mod.PLAIN[op](*targs))
+        k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
+        p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
+        lib = lm_library_call(op, targs)
+        l_ms = None if lib is None else time_ms(lib, flush)
+        nbytes, n_ops = lm_work(op, targs, out)
         b_ms, b_by = mma_bound_ms(nbytes, n_ops)
-        row = {"op": "flash_attention", "size": f"sharded_{arch}",
-               "dtype": "bfloat16",
-               "shapes": [list(a.shape) for a in targs[:3]],
+        row = {"op": op, "size": f"sharded_{arch}", "dtype": "bfloat16",
+               "shapes": [list(a.shape) for a in targs
+                          if isinstance(a, torch.Tensor)],
                "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
                "bytes": nbytes, "ops": n_ops, "bound_share": b_ms / k_ms}
-        rows[("flash_attention", row["size"])] = row
+        rows[(op, row["size"])] = row
         emit("time", **row)
         del out, targs
+    del lm
     for label, shape in SHARDED_SILU.items():
         x = r(*shape, scale=2.0)
         err = compare("vsigmoid", ew.vsigmoid(x), ew.vsigmoid_plain(x))

@@ -20,11 +20,20 @@ Cross-attention (``memory``: whisper's decoder) attends the encoder's k
 and v, non-causal and without rope, in every mode; its caller keeps them.
 
 Under a 'model' split (``models/sharding.py``) GQA's projections hold
-this rank's whole q and kv heads: the replicated input enters the model
-region once (a sequence-parallel stream's chunks are gathered there),
-attention runs on the local heads (their count read from the weights'
-widths) over the whole sequence and ``linear_rp`` sums the output
-projection's partials.
+this rank's whole q heads: the replicated input enters the model region
+once (a sequence-parallel stream's chunks are gathered there), attention
+runs on the local heads (their count read from the weights' widths) over
+the whole sequence and ``linear_rp`` sums the output projection's
+partials.  Where 'model' gives each rank whole kv heads, ``wk`` and
+``wv`` hold them; with fewer kv heads than ranks (:func:`kv_proj`) each
+rank's k and v columns are gathered over 'model' and the kv heads its q
+heads read are kept.  The qk-norm
+weights pass through ``sharding.model_leaf``.  MLA's down-projections
+and their norms run replicated on every rank (on the stream's chunk
+under sequence parallelism); its latent ``c_kv``, its shared ``k_rope``
+and the q input of its column-parallel up-projection enter the model
+region, and its heads are the rank's ``w_uq``/``wq``, ``w_uk``, ``w_uv``
+columns.
 """
 from __future__ import annotations
 
@@ -61,6 +70,29 @@ def gqa_cache_init(cfg, batch, s_max, device, window=None, dtype=None):
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
 
+def _norm_leaf(p, x):
+    """The per-head RMSNorm of ``x`` by a replicated weight applied to this
+    rank's heads (``sharding.model_leaf``)."""
+    return L.norm_apply({"w": Sh.model_leaf(p["w"])}, x)
+
+
+def kv_proj(w, x, cfg):
+    """``x`` @ ``w`` as (B, S, Hkv, hd): the kv heads that this rank's
+    q heads read.  Without a 'model' split, or where it gives each
+    rank whole kv heads, those are ``w``'s columns.  With fewer kv heads
+    than ranks, ``w``'s contiguous cut holds part of a head: its
+    columns' products are gathered over 'model' (backward, summed and
+    this rank's chunk kept), and q head j reads kv head
+    j // (n_heads / n_kv_heads)."""
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    b, s = x.shape[:2]
+    if hkv % Sh.model_split()[1] == 0:
+        return L.linear(w, x).reshape(b, s, w.shape[-1] // hd, hd)
+    y = Sh.gather_model(L.linear(w, x), -1, hkv * hd, True)
+    lo, hi = Sh.groups_read(*Sh.model_range(cfg.n_heads), cfg.n_heads, hkv)
+    return y.reshape(b, s, hkv, hd)[:, :, lo:hi].contiguous()
+
+
 def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
               window=None, memory=None, causal=True, target=None):
     """x:(B,S,d).  mode in train|prefill|decode.  ``memory``: the (k, v)
@@ -69,20 +101,20 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     explicit machine model."""
     hd = cfg.head_dim
     # this rank's heads: all of them without a 'model' split
-    h, hkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    h = params["wq"].shape[-1] // hd
     # (a sequence-parallel stream's chunks gathered whole)
     x = Sh.enter_model(x)
     b, s, _ = x.shape
     q = L.linear(params["wq"], x).reshape(b, s, h, hd)
     if memory is None:
-        k = L.linear(params["wk"], x).reshape(b, s, hkv, hd)
-        v = L.linear(params["wv"], x).reshape(b, s, hkv, hd)
+        k = kv_proj(params["wk"], x, cfg)
+        v = kv_proj(params["wv"], x, cfg)
     else:
         k, v = memory
     if cfg.qk_norm:
-        q = L.norm_apply(params["qn"], q)
+        q = _norm_leaf(params["qn"], q)
         if memory is None:
-            k = L.norm_apply(params["kn"], k)
+            k = _norm_leaf(params["kn"], k)
     if cfg.rope_theta and memory is None:
         q = L.rope_apply(q, positions, cfg.rope_theta)
         k = L.rope_apply(k, positions, cfg.rope_theta)
@@ -160,25 +192,30 @@ def mla_cache_init(cfg, batch, s_max, device, dtype=None):
 
 
 def _mla_q(params, x, cfg, positions):
-    b, s, _ = x.shape
-    h = cfg.n_heads
+    """(q_nope, q_rope) of this rank's heads; the q input enters the model
+    region at the column-parallel up-projection (or ``wq``)."""
     r, nd = cfg.qk_rope_dim, cfg.qk_nope_dim
     if cfg.q_lora_rank:
         cq = L.norm_apply(params["q_norm"], L.linear(params["w_dq"], x))
-        q = L.linear(params["w_uq"], cq)
+        q = L.linear(params["w_uq"], Sh.enter_model(cq))
     else:
-        q = L.linear(params["wq"], x)
-    q = q.reshape(b, s, h, nd + r)
+        q = L.linear(params["wq"], Sh.enter_model(x))
+    b, s = q.shape[:2]
+    q = q.reshape(b, s, q.shape[-1] // (nd + r), nd + r)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
     q_rope = L.rope_apply(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
 def _mla_ckv(params, x, cfg, positions):
+    """(c_kv, k_rope) from the replicated down-projection, entered into
+    the model region (whole along the sequence) before the rope."""
     dkv = L.linear(params["w_dkv"], x)
-    c_kv = L.norm_apply(params["kv_norm"], dkv[..., :cfg.kv_lora_rank])
-    k_rope = L.rope_apply(dkv[..., cfg.kv_lora_rank:][:, :, None, :],
-                          positions, cfg.rope_theta)[:, :, 0]
+    c_kv = Sh.enter_model(L.norm_apply(params["kv_norm"],
+                                       dkv[..., :cfg.kv_lora_rank]))
+    k_rope = Sh.enter_model(dkv[..., cfg.kv_lora_rank:])
+    k_rope = L.rope_apply(k_rope[:, :, None, :], positions,
+                          cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope
 
 
@@ -186,11 +223,12 @@ def mla_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
               target=None):
     """x:(B,S,d).  mode in train|prefill|decode.  MLA takes no window (the
     reference ignores one; no MLA config has one)."""
-    b, s, _ = x.shape
-    h = cfg.n_heads
     r, nd, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    # this rank's heads: all of them without a 'model' split
+    h = params["w_uk"].shape[-1] // nd
     scale = 1.0 / math.sqrt(nd + r)
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
+    b, s = q_nope.shape[:2]
 
     if mode in ("train", "prefill"):
         c_kv, k_rope = _mla_ckv(params, x, cfg, positions)
@@ -221,7 +259,8 @@ def _mla_absorbed(params, q_nope, q_rope, cache, lengths, cfg, scale):
     """The absorbed decode attention, in float32: q into W_uk, the
     compressed cache attended up to each row's ``lengths`` (inclusive),
     out through W_uv -> (B, 1, H, v_head_dim)."""
-    h, nd, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    nd, vd = cfg.qk_nope_dim, cfg.v_head_dim
+    h = q_nope.shape[2]
     c_kv = cache["c_kv"].to(torch.float32)
     k_rope = cache["k_rope"].to(torch.float32)
     w_uk = params["w_uk"].reshape(cfg.kv_lora_rank, h, nd)

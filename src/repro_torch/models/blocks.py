@@ -12,6 +12,11 @@ the encoder's output, whose k and v the cache keeps from the prefill).
 Blocks are functions of (params, x, cache, ctx), where ctx carries the
 mode, positions, lengths, the encoder's output and the zamba2
 shared-block closure, and return (x, cache, aux) as the reference's do.
+Under a 'model' split (``models/sharding.py``) the shared block takes
+its params through ``sharding.layer_params`` at each use, its embedding
+stream cut as a sequence-parallel stream is, and the decoder's
+cross-attention takes the encoder's output whole into the
+model region and projects it to the kv heads this rank's q heads read.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 from . import attention as A
 from . import layers as L
 from . import moe as M
+from . import sharding as Sh
 from . import ssm as S
 
 
@@ -120,7 +126,9 @@ def shared_block_init(gen, cfg, device):
 
 def _shared_apply(shared, x, cache, ctx: Ctx):
     cfg = ctx.cfg
-    cat = torch.cat([x, ctx.emb0], dim=-1)
+    shared = Sh.layer_params(shared, cfg)
+    # (the embedding cut as the stream is, where it is sequence-parallel)
+    cat = torch.cat([x, Sh.stream_cut(ctx.emb0)], dim=-1)
     h = L.norm_apply(shared["ln1"], cat, cfg.norm)
     h, cache = A.gqa_apply(shared["attn"], h, cfg, positions=ctx.positions,
                            mode=ctx.mode, cache=cache, lengths=ctx.lengths,
@@ -184,7 +192,6 @@ def _dec_apply(params, x, cache, ctx: Ctx):
     prefill writes the cross k and v into the cache, a decode step reads
     them from it (``ctx.memory`` is None there)."""
     cfg = ctx.cfg
-    b = x.shape[0]
     h = L.norm_apply(params["ln1"], x, cfg.norm)
     h, _ = A.gqa_apply(params["attn"], h, cfg, positions=ctx.positions,
                        mode=ctx.mode,
@@ -195,12 +202,11 @@ def _dec_apply(params, x, cache, ctx: Ctx):
     if ctx.mode == "decode":
         xk, xv = cache["xk"], cache["xv"]
     else:
-        mem = ctx.memory
-        f = mem.shape[1]
-        xk = L.linear(params["xattn"]["wk"], mem).reshape(
-            b, f, cfg.n_kv_heads, cfg.head_dim)
-        xv = L.linear(params["xattn"]["wv"], mem).reshape(
-            b, f, cfg.n_kv_heads, cfg.head_dim)
+        # the encoder's output, whole on every rank, into the model
+        # region; k and v of the kv heads this rank's q heads read
+        mem = Sh.enter_model(ctx.memory, whole=True)
+        xk = A.kv_proj(params["xattn"]["wk"], mem, cfg)
+        xv = A.kv_proj(params["xattn"]["wv"], mem, cfg)
         if cache is not None:
             cache["xk"].copy_(xk)
             cache["xv"].copy_(xv)

@@ -22,14 +22,16 @@ scanned unit and encoder layer; ``aux`` sums the MoE blocks'
 load-balance losses, as the reference's forward does.
 
 Under an active mesh (``models/sharding.py``; the sharded train step)
-the params are this rank's shards: each block's (and the embedding's)
-are all-gathered over 'data' to their TP-only shards on entry where the
-config is FSDP (``gather_layer_params``, inside remat, so that the
-recompute gathers again), and ``sp_spec`` constrains the residual
-stream before each block, as the reference's scan body does: on a
-'model' axis above 1 the first constraint cuts it to this rank's chunk
-of the sequence, and it is gathered whole after the final norm, before
-the head (``sharding.gather_stream``).
+the params are this rank's shards, which each block (and the
+embedding, zamba2's shared block, the final norm) takes through
+``sharding.layer_params`` on entry (inside remat, so that the recompute
+takes them again): all-gathered over 'data' where the config is FSDP,
+and summed over 'model' backward where the stream is cut.  ``sp_spec``
+constrains the residual stream before each block of the pattern unit,
+as the reference's scan body does: on a 'model' axis above 1 the first
+constraint cuts it to this rank's chunk of the sequence, and it is
+gathered whole after the final norm, before the head
+(``sharding.gather_stream``).
 """
 from __future__ import annotations
 
@@ -107,9 +109,9 @@ def _embed_inputs(params, cfg, batch, mode, lengths):
 
 
 def _apply(kind, params, x, cache, ctx):
-    """``B.block_apply`` on the block's params gathered to its TP-only
-    shards (a no-op without an FSDP mesh)."""
-    return B.block_apply(kind, Sh.gather_layer_params(params, ctx.cfg), x,
+    """``B.block_apply`` on the block's params as this rank uses them
+    (``sharding.layer_params``; a no-op without a mesh)."""
+    return B.block_apply(kind, Sh.layer_params(params, ctx.cfg), x,
                          cache, ctx)
 
 
@@ -163,15 +165,14 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
     """
     prefix, unit, reps, rem = cfg.pattern_unit()
     params = {**params,
-              "embed": Sh.gather_layer_params(params["embed"], cfg)}
+              "embed": Sh.layer_params(params["embed"], cfg)}
     x, positions = _embed_inputs(params, cfg, batch, mode, lengths)
     memory = None
     if cfg.family == "encdec" and mode != "decode":
         memory = _encode(params, cfg, batch["frames"], target=target)
     ctx = B.Ctx(cfg=cfg, mode=mode, positions=positions, lengths=lengths,
                 memory=memory, emb0=x if cfg.shared_attn_every else None,
-                shared=Sh.gather_layer_params(params["shared"], cfg)
-                if "shared" in params else None, target=target)
+                shared=params.get("shared"), target=target)
     new_cache = {"prefix": [], "unit": [[] for _ in unit], "rem": []}
     block = _blocks(cfg, mode)
     aux = 0.0
@@ -204,7 +205,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
     if not isinstance(aux, torch.Tensor):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    x = Sh.gather_stream(L.norm_apply(params["final_norm"], x, cfg.norm))
+    x = Sh.gather_stream(L.norm_apply(
+        Sh.layer_params(params["final_norm"], cfg), x, cfg.norm))
     if cfg.family == "vlm" and mode != "decode":
         x = x[:, -batch["tokens"].shape[1]:]     # the token positions
     logits = L.head_apply(params["embed"], x, cfg)

@@ -28,7 +28,15 @@ The tokens and gates enter the model region through
 ``sharding.enter_model``, so that the router's gradient sums every
 rank's experts.  The router itself sees the global batch in the
 reference (GSPMD): its load-balance statistics are summed over the
-batch axes' ranks before the aux loss is formed.
+batch axes' ranks before the aux loss is formed.  Under sequence
+parallelism each rank routes its chunk of the stream (its router
+gradient its chunk's, summed over 'model' by the block's
+``sharding.layer_params``), the
+statistics are summed over the chunks too, and the tokens, gates and
+indices are gathered along the sequence before they are flattened, so
+that each rank dispatches its data shard's whole sequences with the
+reference's capacity and slot order; the combine reduce-scatters back
+into the chunk.
 """
 from __future__ import annotations
 
@@ -66,9 +74,10 @@ def _route(params, xt, cfg):
     probs = torch.softmax(logits, dim=-1)
     gates, idx = torch.topk(probs, k, dim=-1)                     # (T, k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
-    me = probs.mean(dim=0)
-    ce = torch.nn.functional.one_hot(idx[:, 0], e).to(torch.float32) \
-        .mean(dim=0)
+    # (over a sequence-parallel stream's every chunk)
+    me = Sh.stream_mean(probs)
+    ce = Sh.stream_mean(torch.nn.functional.one_hot(idx[:, 0], e)
+                        .to(torch.float32))
     # the means over every rank's rows (no-ops without a mesh)
     n_b = Sh.batch_split(Sh.current_mesh())
     me = Sh.sum_over_batch(me) / n_b
@@ -124,16 +133,23 @@ def _dispatch_compute(params, xt, gates, idx, cfg, cap, e_lo, e_local):
 
 def moe_apply(params, x, cfg):
     """x:(B, S, d) -> (y, aux_loss); under a mesh x is this rank's rows
-    and the expert weights its 'model' shard."""
+    (under sequence parallelism, its chunk of their sequence) and the
+    expert weights its 'model' shard."""
     b, s, d = x.shape
-    t = b * s
-    xt = x.reshape(t, d)
-    gates, idx, aux = _route(params, xt, cfg)
+    gates, idx, aux = _route(params, x.reshape(b * s, d), cfg)
+    k = idx.shape[-1]
     r, n_m = Sh.model_split()
     e_local = cfg.n_experts // n_m
-    y = Sh.leave_model(_dispatch_compute(
-        params, Sh.enter_model(xt), Sh.enter_model(gates), idx, cfg,
-        capacity(cfg, t), r * e_local, e_local))
+    # the rows' whole sequences (a sequence-parallel stream's chunks
+    # gathered before flattening, so that the tokens and their capacity
+    # slots come in the reference's order)
+    xs = Sh.enter_model(x)
+    t = b * xs.shape[1]
+    gates = Sh.enter_model(gates.reshape(b, s, k)).reshape(t, k)
+    idx = Sh.stream_gather(idx.reshape(b, s, k)).reshape(t, k)
+    y = _dispatch_compute(params, xs.reshape(t, d), gates, idx, cfg,
+                          capacity(cfg, t), r * e_local, e_local)
+    y = Sh.leave_model(y.reshape(b, -1, d))
     if cfg.n_shared_experts:
-        y = y + L.mlp_apply(params["shared"], xt, cfg)
-    return y.reshape(b, s, d), aux
+        y = y + L.mlp_apply(params["shared"], x, cfg)
+    return y, aux

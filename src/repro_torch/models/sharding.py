@@ -38,6 +38,24 @@ partial gradients summed and cut: a reduce-scatter) and
 :func:`leave_model` sums the partials and keeps this rank's chunk (a
 reduce-scatter, done as an all-reduce and a cut; backward, an
 all-gather).
+
+A replicated leaf whose use on a rank covers only its share of the work
+has its partial gradient summed over 'model' once, here, by one rule
+read from the stream's state: a block entered while the stream is cut
+passes every leaf 'model' does not cut through :func:`layer_params`
+(each rank's gradient is its chunk's), and while the stream is whole a
+leaf used on the rank's heads passes through :func:`model_leaf`.
+
+Every block kind splits over 'model' (the rank's heads,
+:func:`model_range`, and the kv heads or SSM groups they read,
+:func:`groups_read`): a replicated leaf used on the rank's heads passes
+through :func:`model_leaf` (above), a statistic over all the heads
+through :func:`sum_over_model`, and a leaf whose stored contiguous cut
+does not line up with the rank's heads (the mamba block's ``w_in`` and
+conv, a kv head split over ranks) is gathered over 'model' in the step
+(:func:`gather_model` with ``reduce_grad``) while its stored layout
+stays the reference's.  :func:`check_mesh` refuses the splits that are
+not whole (ROADMAP A.9.10).
 """
 from __future__ import annotations
 
@@ -115,8 +133,7 @@ class Mesh:
 def active_mesh(mesh, full_shapes=None):
     """Set the mesh the model's collectives and :func:`constrain` use,
     for this thread.  ``full_shapes`` maps ``id`` of each local param
-    shard to its full shape (what :func:`gather_layer_params` gathers
-    to)."""
+    shard to its full shape (what :func:`layer_params` reads)."""
     with resumed((mesh, full_shapes or {}, None)):
         yield
 
@@ -180,7 +197,7 @@ def constrain(x, *spec):
     One that cuts the sequence (dim 1) over 'model' (sequence
     parallelism) cuts the stream to this rank's chunk, and the stream
     stays cut (the identity here) until :func:`gather_stream`; any other
-    cut is refused (ROADMAP A.9.8)."""
+    cut is refused (the reference's ``activation_spec`` makes none)."""
     mesh, shapes, seq = current_state()
     if mesh is None or seq is not None:
         return x
@@ -194,7 +211,7 @@ def constrain(x, *spec):
     if cuts != [(1, "model")]:
         raise NotImplementedError(
             f"a {fitted} activation constraint cuts {cuts}: only the "
-            "sequence over 'model' is ported, ROADMAP A.9.8")
+            "sequence over 'model' is ported")
     _TLS.state = (mesh, shapes, x.shape[1])
     return _Slice.apply(x, 1, mesh, "model")
 
@@ -544,15 +561,88 @@ def batch_split(mesh) -> int:
     return 1 if mesh is None else axes_size(mesh, batch_axes(mesh))
 
 
-def enter_model(x):
+def enter_model(x, whole=False):
     """``x`` (replicated over 'model') into a model-parallel region; from
-    a sequence-parallel stream, its chunks all-gathered over 'model'."""
+    a sequence-parallel stream, its chunks all-gathered over 'model'
+    (unless ``whole``: ``x`` is whole on every rank there too, as
+    whisper's encoder output is)."""
     mesh, _, seq = current_state()
     if x is None or model_split()[1] == 1:
         return x
-    if seq is not None:
+    if seq is not None and not whole:
         return _Gather.apply(x, 1, mesh, "model", seq, True)
     return _Copy.apply(x, mesh)
+
+
+def model_leaf(w):
+    """A replicated leaf ``w`` used on this rank's share of a
+    model-parallel region (its heads, its channels): the identity
+    forward, and backward the partial gradient summed over 'model', so
+    that every rank holds the whole one.  Where the stream is cut its
+    block's :func:`layer_params` sums it instead (the rank's share is
+    then also its chunk's), and here it is the identity both ways."""
+    mesh, _, seq = current_state()
+    if model_split()[1] == 1 or seq is not None:
+        return w
+    return _Copy.apply(w, mesh)
+
+
+def model_range(n):
+    """[lo, hi) of this rank's share of ``n`` heads (or experts) along
+    'model', which :func:`check_mesh` has 'model' divide; all ``n``
+    without a split."""
+    r, m = model_split()
+    return r * (n // m), (r + 1) * (n // m)
+
+
+def groups_read(lo, hi, n, n_of):
+    """[lo, hi) of the ``n_of`` groups (kv heads, SSM groups) that heads
+    [lo, hi) of ``n`` read: head j reads group j // (n / n_of)."""
+    per = n // n_of
+    return lo // per, (hi - 1) // per + 1
+
+
+def sum_over_model(x):
+    """The sum over 'model' of each rank's partial ``x`` (its heads'
+    share of a statistic every rank's loss reads), differentiable both
+    ways: the all-reduce forward and backward."""
+    if model_split()[1] == 1:
+        return x
+    return _SumAcross.apply(x, current_mesh(), ("model",))
+
+
+def stream_mean(x):
+    """The mean of ``x`` over its rows (tokens of the residual stream):
+    under sequence parallelism over every 'model' rank's chunk, the sums
+    and the row counts all-reduced forward and passed through backward
+    (each rank's loss is the whole one, and each rank's rows are its
+    own)."""
+    mesh, _, seq = current_state()
+    if seq is None:
+        return x.mean(0)
+    tot = _Reduce.apply(torch.cat([x.sum(0), x.new_full((1,), x.shape[0])]),
+                        mesh)
+    return tot[:-1] / tot[-1]
+
+
+def stream_cut(x):
+    """``x``, whole along the sequence (dim 1), cut as the residual
+    stream is: this rank's chunk where it is sequence-parallel (backward,
+    the chunks' gradients all-gathered), else ``x``."""
+    mesh, _, seq = current_state()
+    if seq is None:
+        return x
+    return _Slice.apply(x, 1, mesh, "model")
+
+
+def stream_gather(x):
+    """The whole sequence (dim 1) of ``x`` from every 'model' rank's chunk
+    of a sequence-parallel stream, with no gradient (router indices);
+    ``x`` where the stream is whole."""
+    mesh, _, seq = current_state()
+    if seq is None:
+        return x
+    return gather_dim(x.contiguous(), 1, mesh, "model", seq)
 
 
 def leave_model(x):
@@ -565,12 +655,16 @@ def leave_model(x):
     return x if seq is None else _Slice.apply(x, 1, mesh, "model")
 
 
-def gather_model(x, dim, length):
-    """The full dim ``dim`` of ``x`` from each 'model' rank's chunk."""
+def gather_model(x, dim, length, reduce_grad=False):
+    """The full dim ``dim`` of ``x`` from each 'model' rank's chunk.
+    Backward, this rank's chunk of the gradient, summed over 'model'
+    first where ``reduce_grad`` (each rank used the whole tensor its own
+    way: a weight, or kv columns its q heads read), else as it is (every
+    rank holds the same gradient: logits under a replicated loss)."""
     if model_split()[1] == 1:
         return x
     return _Gather.apply(x, dim % x.ndim, current_mesh(), "model", length,
-                         False)
+                         reduce_grad)
 
 
 def sum_over_batch(x):
@@ -581,69 +675,74 @@ def sum_over_batch(x):
     return _SumAcross.apply(x, mesh, batch_axes(mesh))
 
 
-def gather_layer_params(ps, cfg):
-    """FSDP: each of ``ps``'s leaves (one layer's, or the embedding's)
-    all-gathered over 'data' to its TP-only shard, once a call; the
-    backward sums the gradient over 'data' and keeps this rank's chunk.
-    A no-op without a mesh or without ``cfg.fsdp``.  The leaves' full
-    shapes are the ones :func:`active_mesh` was given."""
-    mesh, shapes, _ = current_state()
-    if mesh is None or not cfg.fsdp:
+def layer_params(ps, cfg):
+    """``ps`` (one layer's leaves, or the embedding's or a norm's) as the
+    rank's computation uses them, once a call.  FSDP: each leaf
+    all-gathered over 'data' to its TP-only shard (backward, the
+    gradient summed over 'data' and this rank's chunk kept).  Where the
+    stream is cut over 'model' (sequence parallelism), each leaf 'model'
+    does not cut through :func:`_Copy` (backward, this rank's chunk's
+    gradient summed over 'model').  A no-op without a mesh, or without
+    both.  The leaves' full shapes are the ones :func:`active_mesh` was
+    given."""
+    mesh, shapes, seq = current_state()
+    if mesh is None or not (cfg.fsdp or seq is not None):
         return ps
     out = []
     for path, x in tree.paths(ps):
         shape = shapes.get(id(x))
         if shape is None:
-            raise RuntimeError(f"{'/'.join(map(str, path))}: an FSDP leaf "
+            raise RuntimeError(f"{'/'.join(map(str, path))}: a leaf "
                                "whose full shape the active mesh was not "
                                "given")
-        fsdp = fit_spec(_leaf_spec(path, x, cfg, "data"), shape, mesh)
         tp = fit_spec(_leaf_spec(path, x, cfg, None), shape, mesh)
-        for d, entry in enumerate(fsdp):
-            if entry != (tp[d] if d < len(tp) else None):
-                x = _Gather.apply(x, d, mesh, entry, shape[d], True)
+        if cfg.fsdp:
+            fsdp = fit_spec(_leaf_spec(path, x, cfg, "data"), shape, mesh)
+            for d, entry in enumerate(fsdp):
+                if entry != (tp[d] if d < len(tp) else None):
+                    x = _Gather.apply(x, d, mesh, entry, shape[d], True)
+        if seq is not None and "model" not in {a for e in tp
+                                               for a in axes_of(e)}:
+            x = _Copy.apply(x, mesh)
         out.append(x)
     return tree.unflatten(ps, out)
 
 
-# the block kinds whose tensor-parallel split is ported: GQA attention
-# (whole q and kv heads a rank) with a dense or MoE FFN
-TP_KINDS = ("attn", "local", "moe")
-
-
 def check_mesh(cfg, mesh):
     """Refuse, naming its ROADMAP item, a mesh the explicit-SPMD step
-    cannot run: a 'model' split (> 1 rank) of any block kind but GQA's
-    ``attn``, ``local`` and ``moe`` (sequence parallelism: ``attn`` and
-    ``local``), or of widths it does not divide into whole heads, FFN
-    columns and experts (A.9.8).  Every mesh with one 'model' rank is
-    served, and so are sequence parallelism and TP on an FSDP config
-    (A.9.7)."""
+    cannot run: a 'model' split (> 1 rank) of widths it does not divide
+    into whole heads, FFN columns, experts and SSM heads a rank, or whose
+    q heads do not read whole groups of kv heads or SSM groups (or lie in
+    one), which GSPMD cuts unevenly and explicit SPMD does not (A.9.10).
+    Every block kind splits over 'model' (A.9.8), and every mesh with one
+    'model' rank is served."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
     kinds = set(cfg.layer_pattern()) | ({"enc"} if cfg.n_enc_layers
                                         else set())
-    other = sorted(kinds - set(TP_KINDS))
-    if other or cfg.attn_kind != "gqa" or cfg.shared_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: a 'model' axis of {m} over block kinds "
-            f"{other or sorted(kinds)} with {cfg.attn_kind} attention: "
-            "tensor parallelism is ported for GQA's attn, local and moe "
-            "blocks only, ROADMAP A.9.8")
-    if cfg.use_sp and "moe" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: sequence parallelism over 'model' {m} through "
-            "moe blocks: ported for the attn and local blocks only, "
-            "ROADMAP A.9.8")
-    widths = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads}
-    if kinds & {"attn", "local"}:
+    widths, groups = {}, {}
+    if kinds - {"mamba"}:
+        widths["n_heads"] = cfg.n_heads
+        if cfg.attn_kind == "gqa" or cfg.shared_attn_every:
+            groups["n_kv_heads"] = (cfg.n_heads, cfg.n_kv_heads)
+    if kinds & {"attn", "local", "enc", "dec", "mamba_shared"}:
         widths["d_ff"] = cfg.d_ff
+    if "moe_dense" in kinds:
+        widths["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
     if "moe" in kinds:
         widths["n_experts"] = cfg.n_experts
         widths["shared d_ff"] = cfg.n_shared_experts * cfg.d_expert
+    if kinds & {"mamba", "mamba_shared"}:
+        widths["ssm_heads"] = cfg.ssm_heads
+        groups["ssm_groups"] = (cfg.ssm_heads, cfg.ssm_groups)
     odd = {k: v for k, v in widths.items() if v % m}
+    for k, (n, n_of) in groups.items():
+        per, mine = n // n_of, n // m
+        if not odd and mine % per and per % mine:
+            odd[k] = n_of
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: a 'model' axis of {m} does not divide {odd} into "
-            "whole heads, columns or experts a rank, ROADMAP A.9.8")
+            "whole heads, columns, experts or head groups a rank, ROADMAP "
+            "A.9.10")

@@ -4,6 +4,21 @@ Train and prefill run the chunked SSD lowering (``kernels/ssd.py``
 customized, ``ref.ssd`` vector tier).  Decode keeps {conv window,
 (h, p, n) SSM state} as the cache and applies the recurrence in closed
 form, in plain tensor code, as the prefill's final state is.
+
+Under a 'model' split (``models/sharding.py``) each rank runs its share
+of the SSM heads, ``ssm_heads / model`` of them, and the groups they
+read.  ``w_in``'s and the conv's stored shards are contiguous cuts
+across the ``[z | x | B | C | dt]`` sections, so the block gathers
+``w_in``, ``conv_w`` and ``conv_b`` whole over 'model' once a call
+(backward, the gradient summed over 'model' and this rank's chunk kept)
+and takes this rank's columns of them: one gemm of the rank's width and
+no activation gather.  ``A_log``, ``D``, ``dt_bias`` and the gated
+norm's weight are replicated and sliced to the rank's heads after
+``sharding.model_leaf`` (backward, the sliced gradients summed over
+'model').  The gated norm's sum of squares over all of ``d_inner`` is
+summed over 'model' (``sharding.sum_over_model``, float32), ssd runs on
+the local heads and groups, and ``w_out``'s head-aligned row cut sums
+through ``linear_rp``.
 """
 from __future__ import annotations
 
@@ -12,6 +27,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import layers as L
+from . import sharding as Sh
 
 
 def mamba_init(gen, cfg, device):
@@ -44,12 +60,60 @@ def mamba_cache_init(cfg, batch, device, dtype=None):
     }
 
 
-def _split(zxbcdt, cfg):
-    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+def _split(zxbcdt, di, g, n):
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * g * n]
     dt = zxbcdt[..., di + di + 2 * g * n:]
     return z, xbc, dt
+
+
+def _span(lo, hi, device):
+    return torch.arange(lo, hi, device=device)
+
+
+def _local(params, cfg):
+    """(this rank's weights, d_inner, groups, heads): the params and the
+    config's widths without a 'model' split; under one, the rank's heads
+    [lo, hi) and the groups [glo, ghi) they read, with ``w_in``'s and the
+    conv's columns for them out of the gathered leaves and the
+    replicated leaves sliced to them."""
+    di, g, n, h, p = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
+                      cfg.ssm_heads, cfg.ssm_headdim)
+    if Sh.model_split()[1] == 1:
+        return params, di, g, h
+    lo, hi = Sh.model_range(h)
+    glo, ghi = Sh.groups_read(lo, hi, h, g)
+    dev = params["w_in"].device
+    # the conv's channels [x | B | C], then w_in's [z | xBC | dt]
+    ch = torch.cat([_span(lo * p, hi * p, dev),
+                    _span(di + glo * n, di + ghi * n, dev),
+                    _span(di + (g + glo) * n, di + (g + ghi) * n, dev)])
+    cols = torch.cat([_span(lo * p, hi * p, dev), di + ch,
+                      _span(2 * di + 2 * g * n + lo, 2 * di + 2 * g * n + hi,
+                            dev)])
+    conv_dim = di + 2 * g * n
+    w_in = Sh.gather_model(params["w_in"], -1, conv_dim + di + h, True)
+    local = {
+        "w_in": w_in.index_select(1, cols),
+        "conv_w": Sh.gather_model(params["conv_w"], -1, conv_dim, True)
+        .index_select(1, ch),
+        "conv_b": Sh.gather_model(params["conv_b"], 0, conv_dim, True)
+        .index_select(0, ch),
+        "gn": {"w": Sh.model_leaf(params["gn"]["w"])[lo * p:hi * p]},
+        "w_out": params["w_out"],
+    }
+    for k in ("A_log", "D", "dt_bias"):
+        local[k] = Sh.model_leaf(params[k])[lo:hi]
+    return local, (hi - lo) * p, ghi - glo, hi - lo
+
+
+def _gated_norm(w, gated, di, eps=1e-6):
+    """The RMSNorm of ``gated`` over all ``di`` channels of d_inner, this
+    rank holding its heads' channels: the float32 sum of squares summed
+    over 'model'."""
+    xf = gated.to(torch.float32)
+    ms = Sh.sum_over_model(xf.square().sum(-1, keepdim=True)) / di
+    return (xf * torch.rsqrt(ms + eps) * w).to(gated.dtype)
 
 
 def _causal_conv(xbc, w, b, history=None):
@@ -77,12 +141,14 @@ def _silu(t):
 def mamba_apply(params, x, cfg, *, mode, cache=None, target=None):
     """x:(B, S, d) -> (y, cache).  ``target`` pins the ssd lowering
     selection to an explicit machine model."""
+    # (a sequence-parallel stream's chunks gathered whole)
+    x = Sh.enter_model(x)
     bsz, s, d = x.shape
-    di, g, n, h, p = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
-                      cfg.ssm_heads, cfg.ssm_headdim)
+    n, p = cfg.ssm_state, cfg.ssm_headdim
+    params, di, g, h = _local(params, cfg)
     rep = h // g
     zxbcdt = L.linear(params["w_in"], x)
-    z, xbc, dt_raw = _split(zxbcdt, cfg)
+    z, xbc, dt_raw = _split(zxbcdt, di, g, n)
     A = -torch.exp(params["A_log"])
     dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"])
 
@@ -127,6 +193,6 @@ def mamba_apply(params, x, cfg, *, mode, cache=None, target=None):
 
     gated = (y.to(torch.float32) * torch.sigmoid(z.to(torch.float32))) \
         .to(x.dtype)
-    y = L.norm_apply(params["gn"], gated)
+    y = _gated_norm(params["gn"]["w"], gated, cfg.d_inner)
     return L.linear_rp(params["w_out"], y, cfg), cache
 

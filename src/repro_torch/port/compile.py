@@ -47,6 +47,8 @@ graph serves a whole bucket (the serving engine,
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
 import itertools
 import threading
 import warnings
@@ -227,7 +229,7 @@ def _capture(device, run, name: str, target):
     """Capture ``run()`` in a CUDA graph: ``(graph, its outputs)``."""
     graph = torch.cuda.CUDAGraph()
     try:
-        with _CAPTURE_LOCK, warnings.catch_warnings():
+        with _CAPTURE_LOCK, warnings.catch_warnings(), _gc_paused():
             # a signature that launches nothing (n = 0 with no store)
             # captures an empty graph, which replays as a no-op
             warnings.filterwarnings("ignore", "The CUDA Graph is empty")
@@ -255,6 +257,21 @@ _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 # one capture at a time in the process (they share a capture stream);
 # other threads' eager walks go on meanwhile: capture is thread-local
 _CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic collector off for a capture: a collection there
+    could free an unreachable plan's CUDA graph, and destroying a graph
+    is not permitted while a stream captures (it invalidates the
+    capture)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":

@@ -184,10 +184,6 @@ def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
     ba, n_b = Sh.batch_axes(mesh), Sh.batch_split(mesh)
     rows = Sh.token_spec(mesh)
     sp_spec = Sh.activation_spec(mesh, cfg) if cfg.use_sp else None
-    # under sequence parallelism each 'model' rank runs the norms on its
-    # chunk of the sequence, so the leaves 'model' does not cut (the
-    # norms) have their gradient summed over it too
-    sums = ba + (("model",) if cfg.use_sp else ())
 
     def grads_fn(params, batch):
         accum = tcfg.accum
@@ -215,7 +211,7 @@ def make_sharded_grads(cfg, tcfg: TrainConfig, mesh, params_sds, batch_sds):
                 # the leaves cut over a batch axis (FSDP) had their
                 # gradient summed over it by the gather's backward
                 cut = {a for e in spec for a in Sh.axes_of(e)}
-                Sh.all_reduce(s, mesh, [a for a in sums if a not in cut])
+                Sh.all_reduce(s, mesh, [a for a in ba if a not in cut])
                 s.div_(accum * n_b)
             loss = Sh.all_reduce(torch.as_tensor(lsum, dtype=torch.float32,
                                                  device=gsum[0].device)

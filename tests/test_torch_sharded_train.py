@@ -25,7 +25,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs import get_config
-from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.data.pipeline import SyntheticLM, extra_inputs
 from repro_torch.launch import mesh as LM
 from repro_torch.models import convert
 from repro_torch.models import model as M
@@ -47,24 +47,26 @@ import json, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
 from repro.configs import get_config
-from repro.data.pipeline import SyntheticLM
+from repro.data.pipeline import SyntheticLM, extra_inputs
 from repro.models import model as M, sharding as Sh
 from repro.optim import adamw
 from repro.train import loop
 cases, traffic, path = json.loads(sys.argv[1])
-cfgs = [get_config(a).reduced().replace(dtype="float32", n_layers=2)
-        for a, _ in cases]
+cfgs = [get_config(c[0]).reduced().replace(dtype="float32", n_layers=2,
+                                          **(c[2] if len(c) > 2 else {}))
+        for c in cases]
 inits = [jax.tree.map(np.asarray, M.init(c, jax.random.PRNGKey(0)))
          for c in cfgs]
 with open(path + ".params", "wb") as f:
     pickle.dump(inits, f)
 print("params-ready", flush=True)
 out = []
-for (arch, shape), cfg, p0 in zip(cases, cfgs, inits):
+for (arch, shape, *_), cfg, p0 in zip(cases, cfgs, inits):
     mesh = jax.make_mesh(tuple(shape), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
     data = SyntheticLM(cfg.vocab_size, traffic["seq"], traffic["batch"])
-    batches = [data.batch(s) for s in range(2)]
+    extra = extra_inputs(cfg, traffic["batch"])
+    batches = [{**data.batch(s), **extra} for s in range(2)]
     params = jax.tree.map(jnp.asarray, p0)
     opt = jax.tree.map(jnp.array, adamw.init(params))
     psds = jax.eval_shape(lambda: params)
@@ -94,81 +96,128 @@ with open(path, "wb") as f:
 """
 
 
-def _config(arch):
-    return get_config(arch).reduced().replace(dtype="float32", n_layers=2)
+def _config(arch, **over):
+    """The case's config: ``arch`` reduced, float32, 2 layers, with
+    ``over`` (a case's third entry) replaced."""
+    return get_config(arch).reduced().replace(dtype="float32", n_layers=2,
+                                              **over)
 
 
 def _no_copy_reduce(ctx, g):
     return g, None
 
 
-def _port(rank, world, cases, inits, control=False):
+def _port(rank, world, cases, inits, control=False, controls=()):
     """Each case of ``world`` ranks: (step-0 gradient gathered to full
-    shapes, the two steps' metrics), from rank 0."""
+    shapes, the two steps' metrics), from rank 0.  ``control`` True drops
+    the copy's backward all-reduce.  Each (case index, fault) of
+    ``controls`` whose case has ``world`` ranks runs that case again
+    after the others, inside the context manager ``fault()`` (which
+    plants a fault), keyed ("control", index).  One thread a rank: the
+    ranks share the host's cores with the reference's subprocesses."""
+    torch.set_num_threads(1)
     if control:
         Sh._Copy.backward = staticmethod(_no_copy_reduce)
     out = []
-    for (arch, shape), init in zip(cases, inits):
-        if shape[0] * shape[1] != world:
-            continue
-        cfg = _config(arch)
-        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
-        full = convert.from_jax(init, cfg, device="cpu")
-        like = tree.map(lambda x: x.to("meta"), full)
-        local = loop.trainable(Sh.shard_params(full, mesh, cfg))
-        data = SyntheticLM(cfg.vocab_size, TRAFFIC["seq"], TRAFFIC["batch"])
-        batches = [data.batch(s, device="cpu") for s in range(2)]
-        bsds = {k: v.to("meta") for k, v in batches[0].items()}
-        tcfg = loop.TrainConfig()
-        grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
-        _, _, g = grads_fn(local, batches[0])
-        g = tree.leaves(Sh.gather_params(tree.unflatten(local, g), mesh,
-                                         cfg, like))
-        opt = loop.sharded_opt_init(local, cfg, mesh, like)
-        step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
-        metrics = []
-        for b in batches:
-            local, opt, _, m = step(local, opt, None, b)
-            metrics.append({k: float(v) for k, v in m.items()})
-        out.append({"case": (arch, shape), "metrics": metrics,
-                    "grads": [x.numpy() for x in g]})
+    for case, init in zip(cases, inits):
+        if _world(case) == world:
+            out.append({"case": _key(case), **_port_case(case, init)})
+    for j, fault in controls:
+        if _world(cases[j]) == world:
+            with fault():
+                out.append({"case": ("control", j),
+                            **_port_case(cases[j], inits[j])})
     return out if rank == 0 else None
 
 
-def run_cases(cases):
+def _world(case):
+    return case[1][0] * case[1][1]
+
+
+def _port_case(case, init):
+    """One case's step-0 gradient (gathered to full shapes) and metrics."""
+    arch, shape, *over = case
+    cfg = _config(arch, **(over[0] if over else {}))
+    mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+    full = convert.from_jax(init, cfg, device="cpu")
+    like = tree.map(lambda x: x.to("meta"), full)
+    local = loop.trainable(Sh.shard_params(full, mesh, cfg))
+    data = SyntheticLM(cfg.vocab_size, TRAFFIC["seq"], TRAFFIC["batch"])
+    extra = extra_inputs(cfg, TRAFFIC["batch"], device="cpu")
+    batches = [{**data.batch(s, device="cpu"), **extra} for s in range(2)]
+    bsds = {k: v.to("meta") for k, v in batches[0].items()}
+    tcfg = loop.TrainConfig()
+    grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
+    _, _, g = grads_fn(local, batches[0])
+    g = tree.leaves(Sh.gather_params(tree.unflatten(local, g), mesh, cfg,
+                                     like))
+    opt = loop.sharded_opt_init(local, cfg, mesh, like)
+    step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
+    metrics = []
+    for b in batches:
+        local, opt, _, m = step(local, opt, None, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "grads": [x.numpy() for x in g]}
+
+
+def _key(case):
+    """A case's key among the port's runs: (arch, mesh), and its
+    overrides' names where it has any."""
+    arch, shape, *over = case
+    return (arch, tuple(shape)) + tuple(sorted(over[0])) if over else \
+        (arch, tuple(shape))
+
+
+def run_cases(cases, controls=()):
     """(reference runs, port runs by case, inits) of ``cases``: the
-    reference's subprocess writes its inits first, and the port's ranks
-    run on them while it steps."""
+    reference's subprocesses (one for every three cases, at most three;
+    case i in process i % their count) write their inits first, and the
+    port's ranks run on them while they step; each (case index, fault)
+    of ``controls`` runs that case again under the fault, in the same
+    ranks, its run keyed ("control", index) (``_port``)."""
+    # (LLVM's optimisation off: the reference compiles a step and a
+    # gradient a case and runs each on 4 rows of 16 tokens)
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
            "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_backend_optimization_level=0"}
+    procs = min(3, -(-len(cases) // 3))
+    parts = [list(range(i, len(cases), procs)) for i in range(procs)]
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "reference.pkl")
-        proc = subprocess.Popen(
+        paths = [os.path.join(tmp, f"reference{i}.pkl") for i in range(procs)]
+        running = [subprocess.Popen(
             [sys.executable, "-c", REFERENCE,
-             json.dumps([cases, TRAFFIC, path])],
+             json.dumps([[cases[j] for j in part], TRAFFIC, path])],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
+            text=True) for part, path in zip(parts, paths)]
+        inits, ref = [None] * len(cases), [None] * len(cases)
         try:
-            line = proc.stdout.readline()
-            assert line.strip() == "params-ready", proc.stderr.read()[-3000:]
-            with open(path + ".params", "rb") as f:
-                inits = pickle.load(f)
+            for proc, part, path in zip(running, parts, paths):
+                line = proc.stdout.readline()
+                assert line.strip() == "params-ready", \
+                    proc.stderr.read()[-3000:]
+                with open(path + ".params", "rb") as f:
+                    for j, init in zip(part, pickle.load(f)):
+                        inits[j] = init
             port = {}
-            for world in sorted({a * b for _, (a, b) in cases}):
-                for row in LM.run_ranks(_port, world, cases, inits,
-                                        timeout=150)[0]:
+            for world in sorted({_world(c) for c in cases}):
+                for row in LM.run_ranks(_port, world, cases, inits, False,
+                                        controls, timeout=150)[0]:
                     port[row["case"]] = row
-            _, err = proc.communicate(timeout=200)
+            for proc, part, path in zip(running, parts, paths):
+                _, err = proc.communicate(timeout=200)
+                assert proc.returncode == 0, err[-3000:]
+                with open(path, "rb") as f:
+                    for j, r in zip(part, pickle.load(f)):
+                        ref[j] = r
         finally:
-            proc.kill()
-        assert proc.returncode == 0, err[-3000:]
-        with open(path, "rb") as f:
-            ref = pickle.load(f)
+            for proc in running:
+                proc.kill()
     # the reference's gradient unstacked into the port's leaves
-    for (arch, _), r in zip(cases, ref):
+    for (arch, _, *over), r in zip(cases, ref):
         r["grads"] = [x.numpy() for x in tree.leaves(convert.from_jax(
-            r["grads"], _config(arch), device="cpu"))]
+            r["grads"], _config(arch, **(over[0] if over else {})),
+            device="cpu"))]
     return ref, port, inits
 
 
@@ -191,7 +240,8 @@ def check_case(want, got, arch, shape):
                 assert g == 0, (s, k)
             else:
                 assert _rel(g, w) <= TOL, (s, k, g, w)
-    assert (want["metrics"][0]["aux"] > 0) == (arch.startswith("granite"))
+    # an MoE's load-balance loss, and none without experts
+    assert (want["metrics"][0]["aux"] > 0) == bool(get_config(arch).n_experts)
     assert len(got["grads"]) == len(want["grads"])
     for i, (g, w) in enumerate(zip(got["grads"], want["grads"])):
         assert g.shape == w.shape, i

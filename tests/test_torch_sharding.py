@@ -261,25 +261,53 @@ def test_shard_then_gather_is_the_identity(world):
 
 def test_refusals_name_their_roadmap_item():
     """What the explicit-SPMD step cannot run is refused before it runs,
-    each with its ROADMAP ID (shape-only meshes suffice)."""
+    each with its ROADMAP ID (shape-only meshes suffice): a 'model' axis
+    that does not split the widths into whole heads, columns, experts or
+    head groups a rank (A.9.10).  Every block kind splits over 'model'
+    (A.9.8, no longer refused): mamba, mamba_shared, MLA, enc/dec, kv
+    heads below 'model'."""
     tp = Sh.Mesh((1, 2), ("data", "model"))
     cases = [
-        # block kinds without a TP split: mamba, mamba_shared, MLA, enc/dec
-        ("zamba2-1.2b", tp, "A.9.8"),
-        ("deepseek-v2-lite-16b", tp, "A.9.8"),
-        ("minicpm3-4b", tp, "A.9.8"),
-        ("whisper-tiny", tp, "A.9.8"),
-        # gemma3's one kv head does not split over 2 ranks
-        ("gemma3-1b", tp, "A.9.8"),
         # 16 heads and 8 kv heads do not split over 3
         ("granite-moe-1b-a400m", Sh.Mesh((1, 3), ("data", "model")),
-         "A.9.8"),
+         "A.9.10"),
+        # whisper's 6 heads over 4
+        ("whisper-tiny", Sh.Mesh((1, 4), ("data", "model")), "A.9.10"),
+        # minicpm3's 40 heads over 16
+        ("minicpm3-4b", Sh.Mesh((1, 16), ("data", "model")), "A.9.10"),
+        # zamba2's 64 SSM heads over 128 ranks
+        ("zamba2-1.2b", Sh.Mesh((1, 128), ("data", "model")), "A.9.10"),
     ]
     for arch, mesh, item in cases:
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             Sh.check_mesh(get_config(arch), mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9.8"):
-        Sh.check_mesh(_config("mamba2-1.3b"), tp)
+    # heads that straddle two kv heads: 12 heads, 6 kv heads on 4 ranks
+    with pytest.raises(NotImplementedError, match="n_kv_heads.*A.9.10"):
+        Sh.check_mesh(get_config("gemma2-2b").replace(n_heads=12,
+                                                      n_kv_heads=6),
+                      Sh.Mesh((1, 4), ("data", "model")))
+    # SSM heads and their groups: 8 heads in 4 groups on 4 ranks (a
+    # group a rank) is served, 6 heads in 3 groups on 2 ranks (a rank's
+    # heads across groups) is not
+    ssm = get_config("zamba2-1.2b").reduced()
+    Sh.check_mesh(ssm.replace(ssm_groups=4), Sh.Mesh((1, 4),
+                                                     ("data", "model")))
+    with pytest.raises(NotImplementedError, match="ssm_groups.*A.9.10"):
+        Sh.check_mesh(ssm.replace(d_model=48, ssm_groups=3), tp)
+    # the kinds A.9.8 lifted, and the production meshes of every arch
+    # whose widths 16 'model' ranks divide (mistral's 8 kv heads among
+    # them)
+    for arch in ("zamba2-1.2b", "deepseek-v2-lite-16b", "minicpm3-4b",
+                 "whisper-tiny", "gemma3-1b"):
+        Sh.check_mesh(get_config(arch), tp)
+    Sh.check_mesh(_config("mamba2-1.3b"), tp)
+    for shape, axes in (((16, 16), ("data", "model")),
+                        ((2, 16, 16), ("pod", "data", "model"))):
+        for arch in ("mistral-large-123b", "zamba2-1.2b"):
+            Sh.check_mesh(get_config(arch), Sh.Mesh(shape, axes))
+    # SP through moe blocks (A.9.8)
+    Sh.check_mesh(get_config("granite-moe-1b-a400m").replace(use_sp=True),
+                  tp)
     # data-parallel meshes are served for every arch; TP for GQA blocks,
     # on an FSDP config too, with sequence parallelism where the config
     # asks for it (mistral; pixtral's FSDP; A.9.7, no longer refused)

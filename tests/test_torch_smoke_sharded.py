@@ -31,6 +31,8 @@ from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels import elementwise as ew  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gemm as gemm_mod  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
+from repro_torch.data.pipeline import extra_inputs  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.train import loop  # noqa: E402
 
@@ -40,7 +42,7 @@ CPU = torch.device("cpu")
 def _counting(monkeypatch):
     calls = {}
     for mod, name in ((gemm_mod, "gemm"), (ew, "vsigmoid"), (ew, "vtanh"),
-                      (fa, "flash_attention")):
+                      (fa, "flash_attention"), (ssd_mod, "ssd")):
         entry = getattr(mod, name)
 
         def counted(*a, _entry=entry, _name=name, **k):
@@ -52,25 +54,35 @@ def _counting(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["mistral-large-123b",
                                   "granite-moe-1b-a400m", "gemma2-2b",
-                                  "gemma3-1b"])
+                                  "gemma3-1b", "zamba2-1.2b",
+                                  "deepseek-v2-lite-16b", "minicpm3-4b",
+                                  "whisper-tiny"])
 def test_sharded_want_counts_a_steps_kernel_calls(monkeypatch, arch):
     """One train step of the reduced model under the kernel tier calls
     each kernel entry as often as sharded_want says: the forward,
     remat's recompute, gemm's two backward products; an untied head's
-    three gemm calls (mistral), a tied head's none (granite, the
-    gemmas)."""
+    three gemm calls (mistral, deepseek), a tied head's none; zamba2's
+    ssd (one launch a call at 32 positions) and its shared block; MLA's
+    gemms and no flash; whisper's encoder and its decoder's
+    cross-attention."""
     cfg = cs.sharded_config(arch, "reduced", "float32")
     params = loop.trainable(M.init(cfg, torch.Generator().manual_seed(0),
                                    CPU))
     opt = loop.adamw.init(params)
     calls = _counting(monkeypatch)
-    batch = SyntheticLM(cfg.vocab_size, 32, 2).batch(0, device=CPU)
+    batch = {**SyntheticLM(cfg.vocab_size, 32, 2).batch(0, device=CPU),
+             **extra_inputs(cfg, 2, device=CPU)}
     with use_policy("pallas"):
         loop.make_train_step(cfg, loop.TrainConfig())(params, opt, None,
                                                       batch)
-    want = cs.sharded_want(cfg)
+    want = cs.sharded_want(cfg, 32)
     assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == want
-    assert want["gemm"] > 0 and want["flash_attention"] == 2 * cfg.n_layers
+    kinds = cfg.layer_pattern()
+    attn = sum(k != "mamba" for k in kinds) + cfg.n_enc_layers + \
+        kinds.count("dec")
+    assert want["gemm"] > 0 and want["flash_attention"] == \
+        2 * attn * (cfg.attn_kind != "mla")
+    assert want["ssd"] == 2 * sum(k.startswith("mamba") for k in kinds)
     assert (want["vsigmoid"] > 0) == (cfg.act == "silu")
     assert (want["vtanh"] > 0) == (cfg.act == "gelu")
 
@@ -106,11 +118,19 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     for r in out["gemma3"]["ranks"]:
         assert r["zero1_leaves"] > 0
         assert r["opt_elems"] < r["local_params"]
-    for tag in ("granite_f32", "mistral_f32"):
+    for tag in ("zamba2", "deepseek", "whisper", "gemma3_tp"):
+        assert out[tag]["failures"] == [] and out[tag]["mesh"] == [1, 2], tag
+    for tag in ("granite_f32", "mistral_f32", "zamba2_f32",
+                "granite_sp_f32"):
         assert out[tag]["max_rel_leaf_err"] <= cs.LM_TOL["float32"], tag
+    assert out["zamba2_f32"]["mesh"] == [1, 4]
     control = out["control"]
     assert control["failures"]
     assert any(k.endswith("router") for k in control["failed_leaves"])
+    # the gated norm's sum dropped: the mamba blocks' leaves fail
+    control = out["control_norm_sum"]
+    assert control["failures"]
+    assert any("::mamba::" in k for k in control["failed_leaves"])
     # gemma3's int8 payload is the whole-leaf formula's; a per-slice scale
     # is caught
     int8 = out["gemma3"]["int8"]
@@ -150,5 +170,5 @@ def test_pipeline_want_counts_a_ranks_kernel_calls():
     want = cs.pipeline_want(cfg, cs.PIPELINE["micro"])
     assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == want
     assert want == {"gemm": 56, "vsigmoid": 0, "vtanh": 8,
-                    "flash_attention": 8}
+                    "flash_attention": 8, "ssd": 0}
     assert head["bitwise"]

@@ -13,7 +13,8 @@ is gathered to its TP-only shard first.  Held here:
   two steps' metrics and step 0's gradient leaf by leaf within 2e-4;
 * the stream's cut and gather, and the reduce-scatter, as identities on
   2 and 4 gloo ranks, forward and backward;
-* ``check_mesh`` still refusing, by name, what A.9.8 holds back.
+* ``check_mesh`` refusing, by name (A.9.10), the uneven splits that
+  stay refused once A.9.8's kinds are lifted.
 """
 import pytest
 import torch
@@ -85,22 +86,25 @@ def test_stream_cut_and_gather_are_identities(shape):
 
 
 def test_a98_refusals_still_name_their_item():
-    """Lifting A.9.7 leaves A.9.8's refusals in place: other block kinds,
-    MLA, kv heads below 'model', and sequence parallelism through moe
-    blocks."""
+    """Of A.9.8's refusals, lifted with its port, what stays refused names
+    its item, A.9.10: a 'model' axis that does not divide the heads, or
+    that cuts a rank's heads across kv heads.  The kinds A.9.8 refused
+    (other block kinds, MLA, kv heads below 'model', sequence
+    parallelism through moe blocks) now pass."""
     tp = Sh.Mesh((2, 2), ("data", "model"))
     for arch in ("zamba2-1.2b", "deepseek-v2-lite-16b", "minicpm3-4b",
                  "whisper-tiny", "gemma3-1b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9.8"):
-            Sh.check_mesh(get_config(arch), tp)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9.8"):
+        Sh.check_mesh(get_config(arch), tp)
+    Sh.check_mesh(get_config("granite-moe-1b-a400m").replace(use_sp=True),
+                  tp)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9.10"):
         Sh.check_mesh(get_config("mistral-large-123b"),
                       Sh.Mesh((1, 3), ("data", "model")))
-    sp_moe = get_config("granite-moe-1b-a400m").replace(use_sp=True)
-    with pytest.raises(NotImplementedError,
-                       match="sequence parallelism.*ROADMAP A.9.8"):
-        Sh.check_mesh(sp_moe, tp)
-    # what A.9.7 lifts: SP and FSDP on a 'model' axis of 2 and 8
-    for m in (2, 8):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.9.10"):
+        Sh.check_mesh(get_config("granite-moe-1b-a400m").replace(
+            use_sp=True), Sh.Mesh((2, 3), ("data", "model")))
+    # what A.9.7 lifts: SP and FSDP on a 'model' axis of 2 and 8, and 16
+    # (8 kv heads, 6 q heads a rank reading one of them)
+    for m in (2, 8, 16):
         Sh.check_mesh(get_config("mistral-large-123b"),
                       Sh.Mesh((2, m), ("data", "model")))
