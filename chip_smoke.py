@@ -116,8 +116,15 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     among them) and two controls that must fail; ``compressed_psum`` of
     64 M floats on two ranks,
     bitwise the formula on one; ``train/pipeline.py`` over two stages of
-    gemma3's ``attn`` block, bitwise the blocks in turn; and the
-    launcher's ``--coordinator`` over ``nccl`` (one host);
+    gemma3's ``attn`` block, bitwise the blocks in turn; the
+    launcher's ``--coordinator`` over ``nccl`` (one host); and serving on
+    the mesh (``SHARDED_SERVE``): zamba2's unit on (1, 2) and mistral's
+    layer on (2, 2) prefill 4 x 512 tokens and decode 8 steps fed the
+    single rank's tokens, each rank's logits within 3e-2 of the single
+    rank's, its launches exact, and the dry run of the same cells
+    (``launch/dryrun.py``, traced here on stand-ins) equal to rank 0's
+    launches and argument bytes, its peak bytes beside rank 0's
+    ``max_memory_allocated``;
   * ``guard``: each of the thirteen kernel entries refuses an input that
     requires grad (grad mode on) and launches nothing.
 
@@ -230,9 +237,6 @@ ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 SEED = 0
 SPIN_CYCLES = 200_000          # ~0.1 ms of the card's clock (time_ms)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12         # H100 SXM data sheet, fp32 outside tensor cores
-BF16_MMA_PER_S = 989e12        # H100 SXM data sheet, dense bf16 tensor cores
 EW_OPS = ("vrelu", "vsqrt", "vtanh", "vsigmoid")
 NEW_OPS = ("gemm", "conv_hwc", "dwconv", "maxpool", "argmaxpool",
            "ibilinear")
@@ -893,48 +897,6 @@ def lm_library_call(op, args):
                                                   enable_gqa=gqa)
 
 
-def lm_work(op, args, out):
-    """(bytes, matrix operations) the LM function needs on these inputs:
-    each input read once and the output written once (decode: only the
-    valid prefix of the cache); multiply-adds of the visible (query, key)
-    pairs or of the SSD chunk products, two operations each."""
-    import math
-    import torch
-    size = lambda t: t.numel() * t.element_size()       # noqa: E731
-    if op == "flash_attention":
-        q, k, v, causal, window = args[:5]
-        b, sq, h, d = q.shape
-        sk = k.shape[1]
-        i = torch.arange(sq)[:, None] + (sk - sq)
-        j = torch.arange(sk)[None, :]
-        vis = torch.ones((sq, sk), dtype=torch.bool)
-        if causal:
-            vis &= i >= j
-        if window is not None:
-            vis &= i - j < window
-        pairs = int(vis.sum())
-        return (size(q) + size(k) + size(v) + size(out),
-                4 * b * h * pairs * d)
-    if op == "decode_attention":
-        q, k, v, lens, window = args[:5]
-        b, _, h, d = q.shape
-        hkv = k.shape[2]
-        hi = lens.clamp(0, k.shape[1])
-        lo = (hi - window).clamp(min=0) if window is not None else 0 * hi
-        keys = int((hi - lo).sum())
-        return (size(q) + size(lens) + size(out)
-                + 2 * keys * hkv * d * k.element_size(),
-                4 * h * d * keys)
-    x, B = args[0], args[3]
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    L = min(128, -(-s // 8) * 8)
-    macs = b * h * math.ceil(s / L) * (L * (L + 1) // 2 * (n + p)
-                                       + 2 * L * p * n)
-    return (sum(size(t) for t in args if isinstance(t, torch.Tensor))
-            + size(out), 2 * macs)
-
-
 def emit_simt_plan(size, m, n, k):
     """The fp32 SIMT gemm's plan for (m, k) @ (k, n): its tile, K slices
     and blocks in flight."""
@@ -980,48 +942,6 @@ def emit_plan(size, op, args):
          ks=ks, blocks=-(-n * oh * ow // bm) * -(-co // bn) * splits)
 
 
-def mma_bound_ms(nbytes, n_ops):
-    """The larger of the bytes at the HBM rate and the operations at the
-    dense bf16 tensor-core rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / BF16_MMA_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
-        else "operations"
-
-
-def work(op, args, out):
-    """(bytes, operations) the function must move and do: each input read
-    once, each output written once; fp32 operations on these inputs."""
-    import torch
-    outs = out if isinstance(out, tuple) else (out,)
-    tensors = [a for a in args if isinstance(a, torch.Tensor)] + list(outs)
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    y = outs[0].numel()
-    if op == "gemm":
-        m, k = args[0].shape
-        # the product, the bias add and the two-sided clamp
-        n_ops = 2 * m * k * args[1].shape[1] + 3 * y
-    elif op == "conv_hwc":
-        kh, kw, ci, _ = args[1].shape
-        n_ops = y * (2 * kh * kw * ci + 1)
-    elif op == "dwconv":
-        kh, kw, _ = args[1].shape
-        n_ops = y * (2 * kh * kw + 1)
-    elif op in ("maxpool", "argmaxpool"):
-        kh, kw = args[1]
-        n_ops = y * (kh * kw - (op == "maxpool"))
-    else:
-        n_ops = 12 * y                   # 3 subs, 6 muls, 3 adds
-    return nbytes, n_ops
-
-
-def bound_ms(nbytes, n_ops):
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms \
-        else "operations"
-
-
 def corner_bytes(args, out):
     """ibilinear's bytes if no corner run is reused: each pixel's four
     C-element corners read from memory, its four per-pixel scalars read
@@ -1040,15 +960,14 @@ def time_new(op, mod, size, targs, flush):
     ibilinear also ``corner_bytes`` and their time at the HBM rate as a
     share of the kernel's."""
     import torch
+    from repro_torch.kernels import cost
     out = mod.KERNELS[op](*targs)
     k_ms = time_ms(lambda: mod.KERNELS[op](*targs), flush)
     p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
     lib = library_call(op, targs)
     l_ms = None if lib is None else time_ms(lib, flush)
-    nbytes, n_ops = work(op, targs, out)
+    b_ms, b_by, nbytes, n_ops = cost.bound(op, targs, out)
     dt = targs[0].dtype
-    b_ms, b_by = (mma_bound_ms if op == "conv_hwc" and dt == torch.bfloat16
-                  else bound_ms)(nbytes, n_ops)
     row = {"op": op, "size": size, "dtype": str(dt).replace("torch.", ""),
            "shapes": [list(a.shape) for a in targs
                       if isinstance(a, torch.Tensor)],
@@ -1060,7 +979,7 @@ def time_new(op, mod, size, targs, flush):
     if op == "ibilinear":
         row["corner_bytes"] = corner_bytes(targs, out)
         row["corner_share"] = \
-            row["corner_bytes"] / HBM_BYTES_PER_S * 1e3 / k_ms
+            row["corner_bytes"] / cost.HBM_BYTES_PER_S * 1e3 / k_ms
     return row
 
 
@@ -1526,6 +1445,7 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     from the kernel run's input.  Emits and returns the ``phase``
     record."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch.configs import get_config
     from repro_torch.core import trace
     from repro_torch.core.registry import REGISTRY
@@ -1661,7 +1581,7 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
         expert_bytes = n_moe * 3 * cfg.n_experts * cfg.d_model * \
             cfg.d_expert * params["unit"][0][0]["ffn"]["we_g"].element_size()
         record["expert_weight_floor_ms"] = \
-            expert_bytes / HBM_BYTES_PER_S * 1e3
+            expert_bytes / cost.HBM_BYTES_PER_S * 1e3
         record["moe_capacity"] = {"prefill": moe_mod.capacity(cfg, b * plen),
                                   "decode": moe_mod.capacity(cfg, b)}
     # the bf16 model leaves the card before the float32 one is drawn
@@ -2940,6 +2860,7 @@ def train_phase(dev, modules):
     the rest of the backward), the idle share against the median
     unprofiled step; and the bf16-peak share of 6 N tokens."""
     import torch
+    from repro_torch.kernels import cost
     from repro_torch import tree
     from repro_torch.configs import get_config
     from repro_torch.core import trace
@@ -3068,7 +2989,7 @@ def train_phase(dev, modules):
         "step_ms": step_ms, "step_ms_median_2_on": ms,
         "tokens_per_s": tokens / ms * 1e3, "peak_gb": peak_gb,
         "bf16_peak_share": 6 * n_params * tokens / (ms / 1e3)
-        / BF16_MMA_PER_S, "step0_vs_vector": step0,
+        / cost.BF16_MMA_PER_S, "step0_vs_vector": step0,
         "profiled_step": {**profiled, "device_busy_ms": busy,
                           "idle_share": 1.0 - busy / ms}}
     emit("train", **record)
@@ -3493,6 +3414,14 @@ SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128, True),
 SHARDED_SILU = {"mistral": (2, 512, 14336), "granite_experts": (16, 640, 512)}
 # ssd on a zamba2 (1, 2) rank: (B, S, heads, p, groups, n)
 SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64)}
+# serving on the mesh (``serve.engine``'s prefill and decode steps on a
+# rank's shards, its part of the cache and its rows): the SHARDED jobs of
+# these tags in bf16, a prefill of ``prompt`` seeded tokens a row and
+# ``steps`` decode steps fed the single rank's greedy tokens, each rank
+# held to the single rank's steps on the same params; and the dry run
+# (``launch/dryrun.py``) of the same two cells on stand-ins in this process
+SHARDED_SERVE = ("zamba2", "mistral")
+SERVE_TRAFFIC = dict(batch=4, prompt=512, steps=8)
 
 
 def sharded_config(arch, cut, dtype):
@@ -3624,7 +3553,7 @@ def _held(launched, chosen, want, cfg, what, dev):
 
 
 def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
-                    policy):
+                    policy, serve_traffic):
     """The single-rank step (``train.loop.make_train_step``) of each job, on
     ``dev_type`` (the card) under ``policy`` (None: the default): step
     0's gradient (one loss_fn + backward, saved to ``out_dir`` in the
@@ -3640,7 +3569,9 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
     from repro_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
-    out = {}
+    out = {f"serve/{job[0]}": _serve_single(job, serve_traffic, out_dir,
+                                            dev, policy)
+           for job in jobs if job[0] in SHARDED_SERVE}
     for job in jobs:
         tag = job[0]
         cfg = job_config(job, "float32" if tag.endswith("f32")
@@ -3697,6 +3628,212 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
         del params, opt, err, packed
         _freed(dev)
     return out
+
+
+def _counted_serve(fn, dev):
+    """(``fn()``, every kernel's launches in it that are not 0, by launch
+    counter), each count set to 0 before."""
+    from repro_torch.kernels import (conv, elementwise, flash_attention,
+                                     gemm, ibilinear, pooling, ssd)
+    mods = (conv, elementwise, flash_attention, gemm, ibilinear, pooling,
+            ssd)
+    for m in mods:
+        m.reset_launches()
+    out = fn()
+    _sync(dev)
+    return out, {k: v for m in mods for k, v in m.LAUNCHES.items() if v}
+
+
+def _serve_prompts(cfg, traffic):
+    """The seeded prompts of ``traffic`` (``SERVE_TRAFFIC``), (batch,
+    prompt) int32."""
+    rng = np.random.default_rng(SEED + 11)
+    return rng.integers(0, cfg.vocab_size, (traffic["batch"],
+                                            traffic["prompt"])) \
+        .astype(np.int32)
+
+
+def _serve_single(job, traffic, out_dir, dev, policy):
+    """A ``SHARDED_SERVE`` job on the single rank: ``serve.engine``'s
+    prefill and decode steps (the ``Engine``'s) from the seeded init the
+    sharded ranks cut, a prefill of ``_serve_prompts`` and
+    ``traffic["steps"]`` greedy steps; its logits and tokens saved
+    to ``out_dir`` for the ranks, its launches a step returned."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve import engine as E
+    tag = job[0]
+    cfg = job_config(job, "bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = M.init(cfg, gen, dev)
+    b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
+    cache = M.init_cache(cfg, b, s + n, dev)
+    prompts = torch.as_tensor(_serve_prompts(cfg, traffic), device=dev)
+    prefill, step = E.make_prefill_step(cfg), E.make_serve_step(cfg)
+    t0 = time.perf_counter()
+    with torch.no_grad(), _in_policy(policy):
+        (logits, cache), launched = _counted_serve(
+            lambda: prefill(params, cache, {"tokens": prompts}), dev)
+        seen, tokens, launches = [logits.float().cpu()], [], [launched]
+        for i in range(n):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            lengths = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            (logits, cache), launched = _counted_serve(
+                lambda: step(params, cache, tok[:, None], lengths), dev)
+            seen.append(logits.float().cpu())
+            tokens.append(tok.cpu())
+            launches.append(launched)
+    torch.save({"logits": seen, "tokens": tokens}, out_dir / f"{tag}.serve.pt")
+    rec = {"launches": launches, "s": time.perf_counter() - t0,
+           "peak_gb": _peak_gb(dev)}
+    del params, cache
+    _freed(dev)
+    return rec
+
+
+def _logit_gap(got, want):
+    """max |got - want| over max |want|, in float32 on the host."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
+    """A ``SHARDED_SERVE`` job on this rank of its mesh: the same seeded
+    params cut to the rank's shards, its part of the cache
+    (``model.init_cache`` with the mesh), the prefill of its rows of the
+    prompts and the decode steps fed its rows of the single rank's
+    tokens; each step's logits against the single rank's rows, its
+    launches a step, the bytes of its arguments (params, cache and rows,
+    as the dry run counts them) and its peak bytes."""
+    import torch
+    from repro_torch.launch import mesh as LM
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as Sh
+    from repro_torch import tree
+    from repro_torch.launch.dryrun import tensor_bytes
+    from repro_torch.serve import engine as E
+    dev = torch.device(dev_type)
+    tag, _, _, shape = job
+    cfg = job_config(job, "bfloat16")
+    mesh = LM.make_mesh(shape, ("data", "model"), dev_type)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    full = M.init(cfg, gen, dev)
+    like = tree.map(lambda p: p.to("meta"), full)
+    local = Sh.shard_params(full, mesh, cfg)
+    del full
+    _freed(dev)
+    single = torch.load(out_dir / f"{tag}.serve.pt")
+    b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
+    prompts = Sh.local_rows(torch.as_tensor(_serve_prompts(cfg, traffic),
+                                            device=dev), mesh)
+    cache = M.init_cache(cfg, b, s + n, dev, mesh=mesh)
+    held = tensor_bytes(local) + tensor_bytes(cache)
+    prefill = E.make_prefill_step(cfg, mesh=mesh, params_sds=like)
+    step = E.make_serve_step(cfg, mesh=mesh, params_sds=like)
+    rows = lambda t: Sh.local_rows(t, mesh)  # noqa: E731
+    t0 = time.perf_counter()
+    with torch.no_grad(), _in_policy(policy):
+        (logits, cache), launched = _counted_serve(
+            lambda: prefill(local, cache, {"tokens": prompts}), dev)
+        gaps = [_logit_gap(logits, rows(single["logits"][0]))]
+        launches = [launched]
+        for i in range(n):
+            tok = rows(single["tokens"][i].to(dev))
+            lengths = torch.full(tok.shape, s + i, dtype=torch.int32,
+                                 device=dev)
+            (logits, cache), launched = _counted_serve(
+                lambda: step(local, cache, tok[:, None], lengths), dev)
+            gaps.append(_logit_gap(logits, rows(single["logits"][i + 1])))
+            launches.append(launched)
+    rec = {"rank": rank, "mesh": list(shape), "gaps": gaps,
+           "launches": launches, "s": time.perf_counter() - t0,
+           "arguments": {"prefill": held + tensor_bytes(prompts),
+                         "decode": held + tensor_bytes(tok[:, None])},
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None}
+    del local, cache
+    _freed(dev)
+    return rec
+
+
+def serve_dryrun(job, traffic):
+    """The dry run (``launch/dryrun.py``) of a ``SHARDED_SERVE`` job's two
+    cells, its prefill and a decode step, traced for rank 0 on
+    stand-ins in this process (torch's fake process group; no device):
+    {kind: (record, argument bytes by part)}."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as LM
+    shape = job[3]
+    cfg = job_config(job, "bfloat16")
+    b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
+    out = {}
+    with dryrun.fake_ranks(math.prod(shape)):
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        for kind, seq in (("prefill", s), ("decode", 1)):
+            out[kind] = dryrun.trace_cell(
+                cfg, kind, {"tokens": ((b, seq), torch.int32)}, mesh,
+                cache_len=s + n)
+    return out
+
+
+def serve_gate(single, ranks, job, dev):
+    """A ``SHARDED_SERVE`` job's gates: every rank's logits within
+    ``LM_TOL["bfloat16"]`` of the single rank's at every step; on the
+    card its launches a step the single rank's, and rank 0's the dry
+    run's (prefill, and every decode step); rank 0's argument bytes the
+    dry run's; the dry run's peak bytes beside rank 0's
+    ``max_memory_allocated`` (not gated).  -> (record, failures)."""
+    tag = job[0]
+    one = single[f"serve/{tag}"]
+    mine = [r[f"serve/{tag}"] for r in ranks]
+    t0 = time.perf_counter()
+    dry = serve_dryrun(job, SERVE_TRAFFIC)
+    dry_s = time.perf_counter() - t0
+    failures = []
+    for r in mine:
+        worst = max(r["gaps"])
+        if worst > LM_TOL["bfloat16"]:
+            failures.append(f"sharded_serve/{tag}: rank {r['rank']}'s logits "
+                            f"{worst} of max|logit| from the single rank's, "
+                            f"against {LM_TOL['bfloat16']}")
+        if dev.type == "cuda" and r["launches"] != one["launches"]:
+            failures.append(f"sharded_serve/{tag}: rank {r['rank']} launched "
+                            f"{r['launches']}, the single rank "
+                            f"{one['launches']}")
+    r0 = mine[0]
+    want = {"prefill": [r0["launches"][0]], "decode": r0["launches"][1:]}
+    for kind, (rec, parts) in dry.items():
+        if dev.type == "cuda" and any(got != rec["launches"]
+                                      for got in want[kind]):
+            failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
+                            f"launches {rec['launches']}, rank 0's "
+                            f"{want[kind]}")
+        if sum(parts.values()) != r0["arguments"][kind]:
+            failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
+                            f"arguments {parts}, rank 0's "
+                            f"{r0['arguments'][kind]} bytes")
+    peak = max(rec["peak_bytes"] for rec, _ in dry.values())
+    record = {"mesh": r0["mesh"], "traffic": SERVE_TRAFFIC,
+              "max_rel_logit_gap": max(max(r["gaps"]) for r in mine),
+              "gaps": [r["gaps"] for r in mine],
+              "launches": r0["launches"][:2],
+              "single_launches": one["launches"][:2],
+              "dryrun": {kind: {"launches": rec["launches"],
+                                "argument_parts": parts,
+                                "peak_bytes": rec["peak_bytes"],
+                                "flops": rec["flops"],
+                                "collectives": rec["collectives"]}
+                         for kind, (rec, parts) in dry.items()},
+              "arguments": r0["arguments"],
+              "rank_max_allocated": r0["peak_bytes"],
+              "dry_peak_over_allocated": None if not r0["peak_bytes"]
+              else peak / r0["peak_bytes"],
+              "s": [r["s"] for r in mine], "single_s": one["s"],
+              "dryrun_s": dry_s, "failures": failures}
+    return record, failures
 
 
 def _recording(module, name, stop=False):
@@ -3766,13 +3903,18 @@ def _sharded_ranks(rank, world, jobs, traffic, out_dir, controls, dev_type,
     """Each job of ``world`` ranks' two sharded steps on this rank
     (``_sharded_job``); on two ranks also ``compressed_psum`` of
     ``side["psum"]`` elements (``_psum_job``) and the pipeline of
-    ``side["pipeline"]`` (``_pipeline_job``); then each job that
+    ``side["pipeline"]`` (``_pipeline_job``); the ``SHARDED_SERVE`` jobs
+    of ``world`` ranks serve ``side["serve"]`` first (``_serve_job``);
+    then each job that
     ``controls`` names again with its fault planted (``_planted``), under
     ``out["control/<tag>"]``.  ``dev_type`` and ``policy`` as
     ``_sharded_single``'s."""
     mine = [job for job in jobs if math.prod(job[3]) == world]
-    out = {job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
-                                policy) for job in mine}
+    out = {f"serve/{job[0]}": _serve_job(rank, job, side["serve"], out_dir,
+                                         dev_type, policy)
+           for job in mine if job[0] in SHARDED_SERVE}
+    out.update({job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
+                                     policy) for job in mine})
     if world == 2:
         out["psum"] = _psum_job(rank, world, dev_type, side["psum"])
         out["pipeline"] = _pipeline_job(rank, world, dev_type, policy,
@@ -4239,7 +4381,11 @@ def sharded_phase(dev, policy=None):
     ``--coordinator`` runs beside the single-rank steps (``launcher_start``,
     ``launcher_result``; its seconds, and theirs, are taken side by side).
     The routing of every MoE run (granite's, deepseek's) is pinned to the
-    single-rank run's (``pinned_routes``).  (``policy`` and ``dev`` let the
+    single-rank run's (``pinned_routes``).  The ``SHARDED_SERVE`` jobs
+    also serve on their ranks (``_serve_job``: prefill and decode on the
+    mesh, each rank held to the single rank's ``_serve_single``), and
+    the dry run of their cells is traced here and held to rank 0's
+    launches and argument bytes (``serve_gate``).  (``policy`` and ``dev`` let the
     CPU tests run it on reduced configs; on the CPU no kernel launches, so
     only the tiers are held.)"""
     import shutil
@@ -4254,7 +4400,7 @@ def sharded_phase(dev, policy=None):
     launcher = launcher_start(dev)
     try:
         single = LM.run_ranks(_sharded_single, 1, jobs, SHARDED_TRAFFIC,
-                              out_dir, dev.type, policy,
+                              out_dir, dev.type, policy, SERVE_TRAFFIC,
                               timeout=SHARDED_TIMEOUT)[0]
         single_s = time.perf_counter() - t0
         by_world = {}
@@ -4263,7 +4409,8 @@ def sharded_phase(dev, policy=None):
             by_world[world] = LM.run_ranks(
                 _sharded_ranks, world, jobs, SHARDED_TRAFFIC, out_dir,
                 SHARDED_CONTROLS, dev.type, policy,
-                {"psum": SHARDED_PSUM, "pipeline": PIPELINE},
+                {"psum": SHARDED_PSUM, "pipeline": PIPELINE,
+                 "serve": SERVE_TRAFFIC},
                 timeout=SHARDED_TIMEOUT)
             ranks_s[world] = time.perf_counter() - t0
         launched = launcher_result(launcher, dev)
@@ -4317,6 +4464,12 @@ def sharded_phase(dev, policy=None):
     if not (head["bitwise"] and head["finite"]):
         failures.append(f"sharded/pipeline: the pipeline's outputs are not "
                         f"the blocks' in turn bitwise ({head})")
+    records["serve"] = {}
+    for job in SHARDED:
+        if job[0] in SHARDED_SERVE:
+            records["serve"][job[0]], bad = serve_gate(
+                single, ranks_of[job[0]], job, dev)
+            failures += bad
     records["launcher"] = launched
     launches = {op: sum(n[op] for tag, *_ in SHARDED
                         for r in ranks_of[tag] for n in r[tag]["launches"])
@@ -4370,7 +4523,7 @@ def time_gemm_parts(k, n, m, label, r, flush):
     version (MM_TOL) and timed beside it, torch.matmul and the card's
     bound."""
     import torch
-    from repro_torch.kernels import gemm
+    from repro_torch.kernels import cost, gemm
     bf = torch.bfloat16
     rows = {}
     x, w, g = r(m, k), r(k, n, scale=k ** -0.5), r(m, n)
@@ -4379,19 +4532,19 @@ def time_gemm_parts(k, n, m, label, r, flush):
         m_, k_ = a.shape
         n_ = b.shape[1]
         size = f"{label}_{part}_{k}x{n}"
-        err = compare(f"gemm/{size}", gemm.gemm(a, b),
-                      gemm.gemm_plain(a, b))
+        out = gemm.gemm(a, b)
+        err = compare(f"gemm/{size}", out, gemm.gemm_plain(a, b))
         k_ms = time_ms(lambda: gemm.gemm(a, b), flush)
         p_ms = time_ms(lambda: gemm.gemm_plain(a, b), flush)
         l_ms = time_ms(lambda: torch.matmul(a, b), flush)
-        nbytes = 2 * (a.numel() + b.numel() + m_ * n_)
-        b_ms, b_by = mma_bound_ms(nbytes, 2 * m_ * n_ * k_)
+        b_ms, b_by, nbytes, n_ops = cost.bound("gemm", (a, b), out)
+        del out
         row = {"op": "gemm", "size": size, "dtype": "bfloat16",
                "shapes": [[m_, k_], [k_, n_]],
                "variant": gemm.variant(bf, m_), "max_abs_err": err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "ops": 2 * m_ * n_ * k_, "bound_share": b_ms / k_ms,
+               "ops": n_ops, "bound_share": b_ms / k_ms,
                "library_ratio": k_ms / l_ms}
         rows[("gemm", row["size"])] = row
         emit("time", **row)
@@ -4405,7 +4558,7 @@ def time_train(gen, dev, flush):
     LM_TOL's bf16), and timed beside it, the library call and the card's
     bound."""
     import torch
-    from repro_torch.core import trace, use_target
+    from repro_torch.kernels import cost
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
@@ -4418,19 +4571,17 @@ def time_train(gen, dev, flush):
         rows.update(time_gemm_parts(k, n, TRAIN_M, "train", r, flush))
     s, b_ = TRAIN["seq"], TRAIN["batch"] // TRAIN["accum"]
     x = 2.0 * r(b_, s, 8192)
-    err = compare("vtanh", ew.vtanh(x), ew.vtanh_plain(x))
+    y = ew.vtanh(x)
+    err = compare("vtanh", y, ew.vtanh_plain(x))
     k_ms = time_ms(lambda: ew.vtanh(x), flush)
     p_ms = time_ms(lambda: ew.vtanh_plain(x), flush)
     l_ms = time_ms(lambda: torch.tanh(x), flush)
-    with use_target("h100"):
-        f32 = torch.empty(x.shape, device="meta")
-        n_ops = trace.fx_vector_instrs(ew.vtanh_math, f32) * \
-            trace.vreg_for(f32.dtype)
-    b_ms, b_by = bound_ms(2 * x.numel() * 2, n_ops)
+    b_ms, b_by, nbytes, n_ops = cost.bound("vtanh", (x,), y)
+    del y
     row = {"op": "vtanh", "size": "train_gelu", "dtype": "bfloat16",
            "shape": list(x.shape), "max_abs_err": err, "kernel_ms": k_ms,
            "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": 4 * x.numel(), "ops": n_ops,
+           "bound_by": b_by, "bytes": nbytes, "ops": n_ops,
            "bound_share": b_ms / k_ms}
     rows[("vtanh", "train_gelu")] = row
     emit("time", **row)
@@ -4455,8 +4606,7 @@ def time_train(gen, dev, flush):
         p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
         lib = lm_library_call(op, targs)
         l_ms = None if lib is None else time_ms(lib, flush)
-        nbytes, n_ops = lm_work(op, targs, out)
-        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
+        b_ms, b_by, nbytes, n_ops = cost.bound(op, targs, out)
         row = {"op": op, "size": "train", "dtype": "bfloat16",
                "shapes": [list(a.shape) for a in targs
                           if isinstance(a, torch.Tensor)],
@@ -4475,7 +4625,7 @@ def time_sharded(gen, dev, flush):
     ``SHARDED_SSD``), bf16, each output held to its plain version's and
     timed beside it, the library call and the card's bound."""
     import torch
-    from repro_torch.core import trace, use_target
+    from repro_torch.kernels import cost
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
@@ -4508,8 +4658,7 @@ def time_sharded(gen, dev, flush):
         p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
         lib = lm_library_call(op, targs)
         l_ms = None if lib is None else time_ms(lib, flush)
-        nbytes, n_ops = lm_work(op, targs, out)
-        b_ms, b_by = mma_bound_ms(nbytes, n_ops)
+        b_ms, b_by, nbytes, n_ops = cost.bound(op, targs, out)
         row = {"op": op, "size": f"sharded_{arch}", "dtype": "bfloat16",
                "shapes": [list(a.shape) for a in targs
                           if isinstance(a, torch.Tensor)],
@@ -4522,19 +4671,17 @@ def time_sharded(gen, dev, flush):
     del lm
     for label, shape in SHARDED_SILU.items():
         x = r(*shape, scale=2.0)
-        err = compare("vsigmoid", ew.vsigmoid(x), ew.vsigmoid_plain(x))
+        y = ew.vsigmoid(x)
+        err = compare("vsigmoid", y, ew.vsigmoid_plain(x))
         k_ms = time_ms(lambda: ew.vsigmoid(x), flush)
         p_ms = time_ms(lambda: ew.vsigmoid_plain(x), flush)
         l_ms = time_ms(lambda: torch.sigmoid(x), flush)
-        with use_target("h100"):
-            f32 = torch.empty(x.shape, device="meta")
-            n_ops = trace.fx_vector_instrs(ew.vsigmoid_math, f32) * \
-                trace.vreg_for(f32.dtype)
-        b_ms, b_by = bound_ms(4 * x.numel(), n_ops)
+        b_ms, b_by, nbytes, n_ops = cost.bound("vsigmoid", (x,), y)
+        del y
         row = {"op": "vsigmoid", "size": f"sharded_{label}",
                "dtype": "bfloat16", "shape": list(shape), "max_abs_err": err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": 4 * x.numel(),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                "ops": n_ops, "bound_share": b_ms / k_ms}
         rows[("vsigmoid", row["size"])] = row
         emit("time", **row)
@@ -4612,8 +4759,8 @@ def main(argv=None) -> int:
         return 0
     from repro_torch.core import trace, use_target
     from repro_torch.core.registry import REGISTRY, TIERS
-    from repro_torch.kernels import _build, conv, gemm, ibilinear, ops, \
-        pooling, ref, ssd
+    from repro_torch.kernels import _build, conv, cost, gemm, ibilinear, \
+        ops, pooling, ref, ssd
     from repro_torch.kernels import elementwise as ew
     from repro_torch.kernels import flash_attention as fa
 
@@ -4890,9 +5037,6 @@ def main(argv=None) -> int:
     library = {"vrelu": lambda x: torch.clamp(x, *RELU_BOUNDS),
                "vsqrt": torch.sqrt, "vtanh": torch.tanh,
                "vsigmoid": torch.sigmoid}
-    math_fn = {"vrelu": lambda x: ew.vrelu_math(x, *RELU_BOUNDS),
-               "vsqrt": ew.vsqrt_math, "vtanh": ew.vtanh_math,
-               "vsigmoid": ew.vsigmoid_math}
     times = {}
     # fp32 and bf16 at the Figure-2 and the large size; vtanh also at the
     # shapes of zamba2's gelu in prefill and decode, vsigmoid at granite's
@@ -4923,12 +5067,8 @@ def main(argv=None) -> int:
         p_ms = time_ms(lambda: ew.PLAIN[op](x, *ex), flush)
         l_ms = time_ms(lambda: library[op](x), flush)
         n = x.numel()
-        nbytes = 2 * n * x.element_size()
-        with use_target("h100"):
-            f32 = torch.empty(shape, device="meta")
-            n_ops = trace.fx_vector_instrs(math_fn[op], f32) * \
-                trace.vreg_for(f32.dtype)
-        b_ms, b_by = bound_ms(nbytes, n_ops)
+        b_ms, b_by, nbytes, n_ops = cost.bound(op, (x, *ex),
+                                               ew.KERNELS[op](x, *ex))
         dtype = str(dt).replace("torch.", "")
         row = {"op": op, "size": size, "n": n, "shape": list(shape),
                "dtype": dtype, "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -4971,15 +5111,9 @@ def main(argv=None) -> int:
         p_ms = time_ms(lambda: mod.PLAIN[op](*targs), flush)
         lib = lm_library_call(op, targs)
         l_ms = None if lib is None else time_ms(lib, flush)
-        nbytes, n_ops = lm_work(op, targs, out)
+        # (float32 ssd runs on the bf16 tensor cores too: kernels/cost.py)
+        b_ms, b_by, nbytes, n_ops = cost.bound(op, targs, out)
         bf16 = targs[0].dtype == torch.bfloat16
-        if op == "ssd" and not bf16:
-            # float32 ssd runs on the bf16 tensor cores too, each product
-            # as three of its operands' split terms (csrc/ssd.cu)
-            n_ops *= 3
-        # the bf16 tensor cores' rate where the kernel runs on them
-        b_ms, b_by = (mma_bound_ms if bf16 or op == "ssd" else bound_ms)(
-            nbytes, n_ops)
         row = {"op": op, "size": size,
                "dtype": "bfloat16" if bf16 else "float32",
                "shapes": [list(a.shape) for a in targs
@@ -5025,10 +5159,7 @@ def main(argv=None) -> int:
             k_ms = time_ms(lambda: gemm.gemm(x, w), flush)
             p_ms = time_ms(lambda: gemm.gemm_plain(x, w), flush)
             l_ms = time_ms(lambda: torch.matmul(x, w), flush)
-            nbytes = x.element_size() * (x.numel() + w.numel()
-                                         + out.numel())
-            b_ms, b_by = (mma_bound_ms if dt == bf else bound_ms)(
-                nbytes, 2 * m * n * k)
+            b_ms, b_by, nbytes, n_ops = cost.bound("gemm", (x, w), out)
             row = {"op": "gemm", "size": tag,
                    "dtype": str(dt).replace("torch.", ""),
                    "shapes": [[m, k], [k, n]],
@@ -5036,7 +5167,7 @@ def main(argv=None) -> int:
                    "kernel_ms": k_ms, "plain_ms": p_ms,
                    "library_ms": l_ms, "bound_ms": b_ms,
                    "bound_by": b_by, "bytes": nbytes,
-                   "ops": 2 * m * n * k, "bound_share": b_ms / k_ms,
+                   "ops": n_ops, "bound_share": b_ms / k_ms,
                    "library_ratio": k_ms / l_ms}
             times[("gemm", row["size"])] = row
             emit("time", **row)

@@ -40,6 +40,8 @@ _WAITING = {
 }
 
 ARCH_NAMES = tuple(_PORTED)
+# known by name, their configs ported, refused by get_config
+HELD_NAMES = tuple(_WAITING)
 
 
 def get_config(name: str) -> ModelConfig:
@@ -52,5 +54,5 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f".{_PORTED[name]}", __package__).CONFIG
 
 
-__all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeConfig",
+__all__ = ["ARCH_NAMES", "HELD_NAMES", "SHAPES", "ModelConfig", "ShapeConfig",
            "get_config"]

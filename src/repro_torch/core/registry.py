@@ -185,6 +185,12 @@ class _Registry:
 
         return deco
 
+    def costing(self) -> bool:
+        """Whether this thread is evaluating candidates' costs (host-side
+        work, no part of the computation a step dispatches:
+        ``launch/graph_analysis.py`` counts none of it)."""
+        return getattr(self._tls, "costing", False)
+
     # -- policy (a *cap* on the candidate tier set) -------------------------
     @property
     def policy(self) -> str:
@@ -300,8 +306,12 @@ class _Registry:
         else:
             with self._cache_lock:
                 self._uncacheable += 1
-        best = self._pick(self._candidates(op, args, kw, pol, tgt),
-                          tgt.kind == "cuda")
+        prev, self._tls.costing = self.costing(), True
+        try:
+            cands = self._candidates(op, args, kw, pol, tgt)
+        finally:
+            self._tls.costing = prev
+        best = self._pick(cands, tgt.kind == "cuda")
         if best is None:
             raise KeyError(f"no valid lowering for op {op!r} at policy "
                            f"{pol!r} on target {tgt.name!r} with given args")

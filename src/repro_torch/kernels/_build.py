@@ -17,11 +17,23 @@ as it is.  A missing ``nvcc`` or a failed build raises; nothing falls
 back.
 
 The wrappers call an entry point through :func:`launch`, which passes
-PyTorch's current stream and raises if the launch was refused; they
-pick the kernel or the plain version with :func:`route`.
+PyTorch's current stream, raises if the launch was refused and counts
+it; they pick the kernel or the plain version with :func:`route`.
+
+A stand-in for a card tensor has shapes and no data: a ``FakeTensor``
+(``torch._subclasses``; on a CUDA build of torch its device is the
+card's), or a ``meta`` tensor inside :func:`stand_in_card`.  Its
+address (:func:`ptr`) is its offset in its storage, so the alignment
+rules see what the card's allocation would give, and :func:`launch`
+given one loads nothing and calls nothing: it records the launch, its
+counts and its work (``kernels/cost.py``) in each active
+:func:`recording`.  This is how ``launch/graph_analysis.py`` counts the
+kernels a step would launch on the card without a card.  A tensor with
+data never takes that path.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -52,6 +64,7 @@ INT32_MAX = 2 ** 31 - 1
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_tls = threading.local()
 
 
 class BuildError(RuntimeError):
@@ -137,6 +150,42 @@ def _is_dtensor(t) -> bool:
         type(t).__module__.startswith("torch.distributed.tensor")
 
 
+def stand_in(t) -> bool:
+    """Whether ``t`` stands for a card tensor without data: a FakeTensor,
+    or a meta tensor inside :func:`stand_in_card`."""
+    if isinstance(t, torch._subclasses.FakeTensor):
+        return True
+    return t.is_meta and getattr(_tls, "card", False)
+
+
+@contextlib.contextmanager
+def stand_in_card():
+    """Meta tensors stand for the card's tensors on this thread: the
+    kernels' wrappers route them to the kernel path (:func:`route`), whose
+    launches are recorded rather than made (:func:`launch`)."""
+    prev = getattr(_tls, "card", False)
+    _tls.card = True
+    try:
+        yield
+    finally:
+        _tls.card = prev
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the stand-in launches made on this thread inside the
+    block: yields a list that gets one dictionary a launch (``counts``:
+    the launch counters it stands for; ``shapes``, ``dtype``; ``bytes``
+    and ``ops`` of its function's work, ``kernels/cost.py``)."""
+    out = []
+    stack = getattr(_tls, "recorders", [])
+    _tls.recorders = stack + [out]
+    try:
+        yield out
+    finally:
+        _tls.recorders = stack
+
+
 def route(op: str, *tensors) -> str:
     """'cuda' launches the kernel, 'cpu' runs the plain version; tensors
     on any other device, or spread over two devices, are refused.  So is
@@ -147,31 +196,44 @@ def route(op: str, *tensors) -> str:
     Function (``ops.<op>`` picks it), whose forward runs with grad mode
     off.  A DTensor is refused too: the kernel would read one rank's
     local storage as if it were the whole tensor; a sharded model hands
-    the kernels its local shards (``models/sharding.py``)."""
+    the kernels its local shards (``models/sharding.py``).  Meta tensors
+    inside :func:`stand_in_card` are the card's."""
     for t in tensors:
         if _is_dtensor(t):
             raise TypeError(
                 f"{op}: a DTensor ({t.placements} on {t.device_mesh}) "
                 f"reached a hand kernel, which takes plain tensors; pass "
                 f"its local shard (DTensor.to_local())")
-    devices = {t.device for t in tensors if t is not None}
+    devices = {"cuda" if t.is_meta and stand_in(t) else t.device.type
+               for t in tensors if t is not None}
     if len(devices) == 1:
         (dev,) = devices
-        if dev.type == "cuda" and torch.is_grad_enabled() and any(
+        if dev == "cuda" and torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in tensors):
             raise RuntimeError(
                 f"{op}: an input requires grad, and the kernel's output "
                 f"would have no grad_fn; call it through ops (its autograd "
                 f"Function) or under torch.no_grad()")
-        if dev.type in ("cuda", "cpu"):
-            return dev.type
+        if dev in ("cuda", "cpu"):
+            return dev
     raise ValueError(f"{op}: kernels take CUDA or CPU tensors, all on one "
-                     f"device, not {sorted(map(str, devices))}")
+                     f"device, not "
+                     f"{sorted({str(t.device) for t in tensors if t is not None})}")
+
+
+class FakePtr(int):
+    """A stand-in tensor's address: its byte offset in its storage
+    (storages start 256-byte aligned on the card)."""
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
-    """Device address for a ctypes pointer argument; None passes NULL."""
-    return None if t is None else t.data_ptr()
+    """Device address for a ctypes pointer argument; None passes NULL; a
+    stand-in's is a :class:`FakePtr`."""
+    if t is None:
+        return None
+    if stand_in(t):
+        return FakePtr(t.storage_offset() * t.element_size())
+    return t.data_ptr()
 
 
 def lanes(dtype: torch.dtype, vector: bool) -> int:
@@ -186,8 +248,7 @@ def vector16(x: torch.Tensor, *outs: Optional[torch.Tensor]) -> bool:
     outputs 16-byte aligned (outputs made by ``torch.empty`` always are; x
     may be a view that is not).  ``None`` outputs are skipped."""
     return x.shape[-1] % lanes(x.dtype, True) == 0 and all(
-        t.data_ptr() % VECTOR_BYTES == 0 for t in (x, *outs)
-        if t is not None)
+        ptr(t) % VECTOR_BYTES == 0 for t in (x, *outs) if t is not None)
 
 
 def spread(items: int):
@@ -200,10 +261,44 @@ def spread(items: int):
     return threads, min(-(-items // threads), INT32_MAX)
 
 
-def launch(fn, device: torch.device, *args, what: str) -> None:
-    """Call a C entry point on ``device`` with PyTorch's current stream as
-    its last argument, and raise if the launch was refused."""
+def launch(lib, entry: str, device: torch.device, *args, what: str,
+           count, work=None) -> None:
+    """Call entry point ``entry`` of the library ``lib()`` gives on
+    ``device`` with PyTorch's current stream as its last argument, raise
+    if the launch was refused, and add one to each counter of ``count``
+    (a dictionary and its keys).  Given a stand-in's address
+    (:class:`FakePtr`) nothing is loaded or called and nothing is
+    counted: each active :func:`recording` gets the launch, with the work
+    of ``work`` (``(op, args, out)`` for ``cost.work``; None where this
+    launch is a part of a call whose work another launch carries)."""
+    counter, keys = count
+    if any(isinstance(a, FakePtr) for a in args):
+        _record(keys, work)
+        return
+    fn = getattr(lib(), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     check(rc, what)
+    for k in keys:
+        counter[k] += 1
+
+
+def _record(keys, work) -> None:
+    stack = getattr(_tls, "recorders", [])
+    if not stack:
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+    from . import cost
+    rec = {"counts": tuple(keys), "shapes": [], "dtype": None, "bytes": 0,
+           "ops": 0}
+    if work is not None:
+        op, args, out = work
+        tensors = [a for a in args if isinstance(a, torch.Tensor)]
+        rec["shapes"] = [list(t.shape) for t in tensors]
+        rec["dtype"] = str(tensors[0].dtype).replace("torch.", "")
+        # (the cost model's own tracing is no part of the counted step)
+        with _disable_current_modes():
+            rec["bytes"], rec["ops"] = cost.work(op, args, out)
+    for out in stack:
+        out.append(rec)

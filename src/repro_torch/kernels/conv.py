@@ -134,7 +134,7 @@ def dwconv_vector(x, w, bias=None) -> bool:
     ``torch.empty``, always is)."""
     size = DW_LANES * x.element_size()
     return x.shape[-1] % DW_LANES == 0 and all(
-        t is None or t.data_ptr() % size == 0 for t in (x, w, bias))
+        t is None or _build.ptr(t) % size == 0 for t in (x, w, bias))
 
 
 @functools.cache
@@ -189,12 +189,12 @@ def conv_hwc(x, w, bias=None, stride=(1, 1)):
     bm, bn, splits, ks = conv_plan(x.shape, w.shape, stride)
     ws = None if splits == 1 else torch.empty(
         (splits, n * oh * ow, co), dtype=torch.float32, device=x.device)
-    fn = getattr(_lib(), f"repro_conv_hwc_{_build.DTYPES[x.dtype]}")
-    _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
-                  _build.ptr(bias), out.data_ptr(), _build.ptr(ws), n, h, iw,
-                  ci, kh, kw, co, sh, sw, bm, bn, splits, ks,
-                  what="conv_hwc kernel")
-    LAUNCHES["conv_hwc"] += 1
+    _build.launch(_lib, f"repro_conv_hwc_{_build.DTYPES[x.dtype]}",
+                  x.device, _build.ptr(x), _build.ptr(w), _build.ptr(bias),
+                  _build.ptr(out), _build.ptr(ws), n, h, iw, ci, kh, kw, co,
+                  sh, sw, bm, bn, splits, ks, what="conv_hwc kernel",
+                  count=(LAUNCHES, ("conv_hwc",)),
+                  work=("conv_hwc", (x, w, bias), out))
     return out
 
 
@@ -212,12 +212,12 @@ def dwconv(x, w, bias=None):
     if out.numel() == 0:
         return out
     plan = dwconv_plan(x.shape, w.shape, dwconv_vector(x, w, bias))
-    fn = getattr(_lib(), f"repro_dwconv_{_build.DTYPES[x.dtype]}")
-    _build.launch(fn, x.device, x.data_ptr(), w.data_ptr(),
-                  _build.ptr(bias), out.data_ptr(), n, h, iw, c, kh, kw,
-                  int(plan["vector"]), plan["group"], plan["run"],
-                  what="dwconv kernel")
-    LAUNCHES["dwconv"] += 1
+    _build.launch(_lib, f"repro_dwconv_{_build.DTYPES[x.dtype]}", x.device,
+                  _build.ptr(x), _build.ptr(w), _build.ptr(bias),
+                  _build.ptr(out), n, h, iw, c, kh, kw, int(plan["vector"]),
+                  plan["group"], plan["run"], what="dwconv kernel",
+                  count=(LAUNCHES, ("dwconv",)),
+                  work=("dwconv", (x, w, bias), out))
     return out
 
 

@@ -173,12 +173,12 @@ def _launch(op: str, x: torch.Tensor, *scalars) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    aligned = x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    aligned = _build.ptr(x) % 16 == 0 and _build.ptr(out) % 16 == 0
     threads, per_thread, _ = plan(x.numel(), x.element_size(), aligned)
-    fn = getattr(_lib(), f"repro_{op}_{_build.DTYPES[x.dtype]}")
-    _build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
-                  *scalars, threads, per_thread, what=f"{op} kernel")
-    LAUNCHES[op] += 1
+    _build.launch(_lib, f"repro_{op}_{_build.DTYPES[x.dtype]}", x.device,
+                  _build.ptr(x), _build.ptr(out), x.numel(), *scalars,
+                  threads, per_thread, what=f"{op} kernel",
+                  count=(LAUNCHES, (op,)), work=(op, (x, *scalars), out))
     return out
 
 

@@ -154,14 +154,15 @@ def flash_attention(q, k, v, causal=True, window=None, softcap=None,
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    fn = getattr(_lib(), f"repro_flash_attention_{_build.DTYPES[q.dtype]}")
-    _build.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, h, hkv, sq, sk, d, *qs, *ks, *vs,
-                  int(bool(causal)), -1 if window is None else int(window),
+    _build.launch(_lib, f"repro_flash_attention_{_build.DTYPES[q.dtype]}",
+                  q.device, *map(_build.ptr, (q, k, v, out)), b, h, hkv, sq,
+                  sk, d, *qs, *ks, *vs, int(bool(causal)),
+                  -1 if window is None else int(window),
                   int(softcap is not None),
                   0.0 if softcap is None else float(softcap),
-                  _scale(d, scale), what="flash_attention kernel")
-    LAUNCHES["flash_attention"] += 1
+                  _scale(d, scale), what="flash_attention kernel",
+                  count=(LAUNCHES, ("flash_attention",)),
+                  work=("flash_attention", (q, k, v, causal, window), out))
     return out
 
 
@@ -186,16 +187,16 @@ def decode_attention(q, k, v, lengths, window=None, softcap=None,
     splits, span = decode_plan(b, h, s, d)
     ws = torch.empty(b * h * splits * (d + 2), dtype=torch.float32,
                      device=q.device)
-    fn = getattr(_lib(), f"repro_decode_attention_{_build.DTYPES[q.dtype]}")
-    _build.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h,
-                  hkv, 1, s, d, *qs, *ks, *vs,
+    _build.launch(_lib, f"repro_decode_attention_{_build.DTYPES[q.dtype]}",
+                  q.device, *map(_build.ptr, (q, k, v, lengths, out, ws)), b,
+                  h, hkv, 1, s, d, *qs, *ks, *vs,
                   -1 if window is None else int(window),
                   int(softcap is not None),
                   0.0 if softcap is None else float(softcap),
                   _scale(d, scale), splits, span,
-                  what="decode_attention kernel")
-    LAUNCHES["decode_attention"] += 1
+                  what="decode_attention kernel",
+                  count=(LAUNCHES, ("decode_attention",)),
+                  work=("decode_attention", (q, k, v, lengths, window), out))
     return out
 
 

@@ -37,7 +37,8 @@ padded or copied.  Layouts are the reference's: a (M, K), b (K, N), bias
   * ``gemm_plain`` -- the plain version, in torch ops;
   * ``gemm`` -- the wrapper: a CUDA tensor launches the chosen kernel and
     counts the launch in ``LAUNCHES["gemm"]`` and in
-    ``LAUNCHES["gemm_<variant>"]``; a CPU tensor runs the plain version;
+    ``LAUNCHES["gemm_<variant>"]`` (a stand-in's is recorded, not
+    counted: ``_build.launch``); a CPU tensor runs the plain version;
     any other device raises, and so does a dtype the kernel does not
     take;
   * ``cost`` / ``supports`` -- what the registry ranks and validates it
@@ -168,26 +169,27 @@ def launch(kind, a, b, bias, clamp_min, clamp_max):
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    ptrs = (a.data_ptr(), b.data_ptr(), _build.ptr(bias), out.data_ptr())
+    ptrs = (_build.ptr(a), _build.ptr(b), _build.ptr(bias), _build.ptr(out))
+    tally = dict(count=(LAUNCHES, ("gemm", f"gemm_{kind}")),
+                 work=("gemm", (a, b, bias, clamp_min, clamp_max), out))
     if kind == "small_m":
         splits, ks = split_k(n, k, a.dtype)
         ws = torch.empty((splits, m, n), dtype=torch.float32,
                          device=a.device)
-        fn = getattr(_lib(), f"repro_gemm_small_m_{_build.DTYPES[a.dtype]}")
-        _build.launch(fn, a.device, *ptrs, ws.data_ptr(), m, n, k, splits,
-                      ks, clamp_min, clamp_max, what="gemm small_m kernel")
+        _build.launch(_lib, f"repro_gemm_small_m_{_build.DTYPES[a.dtype]}",
+                      a.device, *ptrs, _build.ptr(ws), m, n, k, splits, ks,
+                      clamp_min, clamp_max, what="gemm small_m kernel",
+                      **tally)
     elif kind == "simt":
         bm, bn, splits, ks = simt_plan(m, n, k)
         ws = None if splits == 1 else torch.empty(
             (splits, m, n), dtype=torch.float32, device=a.device)
-        _build.launch(_lib().repro_gemm_simt_f32, a.device, *ptrs,
+        _build.launch(_lib, "repro_gemm_simt_f32", a.device, *ptrs,
                       _build.ptr(ws), m, n, k, bm, bn, splits, ks, clamp_min,
-                      clamp_max, what="gemm simt kernel")
+                      clamp_max, what="gemm simt kernel", **tally)
     else:
-        _build.launch(_lib().repro_gemm_mma_bf16, a.device, *ptrs, m, n, k,
-                      clamp_min, clamp_max, what="gemm mma kernel")
-    LAUNCHES["gemm"] += 1
-    LAUNCHES[f"gemm_{kind}"] += 1
+        _build.launch(_lib, "repro_gemm_mma_bf16", a.device, *ptrs, m, n, k,
+                      clamp_min, clamp_max, what="gemm mma kernel", **tally)
     return out
 
 

@@ -114,13 +114,12 @@ def ibilinear(img, iy, ix, wy, wx):
         return out
     plan = ibilinear_plan(img.shape, p, img.dtype,
                           _build.vector16(img, out))
-    fn = getattr(_lib(), f"repro_ibilinear_{_build.DTYPES[img.dtype]}")
-    _build.launch(fn, img.device, img.data_ptr(), iy.data_ptr(),
-                  ix.data_ptr(), wy.data_ptr(), wx.data_ptr(),
-                  out.data_ptr(), h, w, c, p, plan["lanes"], plan["group"],
-                  plan["threads"], int(plan["wide"]),
-                  what="ibilinear kernel")
-    LAUNCHES["ibilinear"] += 1
+    _build.launch(_lib, f"repro_ibilinear_{_build.DTYPES[img.dtype]}",
+                  img.device, *map(_build.ptr, (img, iy, ix, wy, wx, out)),
+                  h, w, c, p, plan["lanes"], plan["group"], plan["threads"],
+                  int(plan["wide"]), what="ibilinear kernel",
+                  count=(LAUNCHES, ("ibilinear",)),
+                  work=("ibilinear", (img, iy, ix, wy, wx), out))
     return out
 
 

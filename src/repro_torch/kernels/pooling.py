@@ -124,13 +124,15 @@ def _launch(op, x, window):
     if out.numel() == 0:
         return out, idx
     plan = pool_plan(x.shape, x.dtype, window, _build.vector16(x, out, idx))
-    fn = getattr(_lib(), f"repro_{op}_{_build.DTYPES[x.dtype]}")
-    ptrs = (x.data_ptr(), out.data_ptr()) + (
-        () if idx is None else (idx.data_ptr(),))
-    _build.launch(fn, x.device, *ptrs, n, h, w, c, kh, kw, plan["lanes"],
+    ptrs = (_build.ptr(x), _build.ptr(out)) + (
+        () if idx is None else (_build.ptr(idx),))
+    _build.launch(_lib, f"repro_{op}_{_build.DTYPES[x.dtype]}", x.device,
+                  *ptrs, n, h, w, c, kh, kw, plan["lanes"],
                   int(plan["window"] == "2x2"), plan["threads"],
-                  int(plan["wide"]), what=f"{op} kernel")
-    LAUNCHES[op] += 1
+                  int(plan["wide"]), what=f"{op} kernel",
+                  count=(LAUNCHES, (op,)),
+                  work=(op, (x, window), (out,) if idx is None
+                        else (out, idx)))
     return out, idx
 
 

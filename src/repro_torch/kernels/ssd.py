@@ -128,7 +128,7 @@ def _vec(x, B, C) -> bool:
     """bf16 operands whose rows the kernels copy 16 bytes at a time."""
     p, n = x.shape[-1], B.shape[-1]
     return (x.dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0
-            and all(t.data_ptr() % 16 == 0 and
+            and all(_build.ptr(t) % 16 == 0 and
                     all(st % 8 == 0 for st in t.stride()[:3])
                     for t in (x, B, C)))
 
@@ -160,7 +160,7 @@ def ssd(x, dt, A, B, C, D=None, chunk=128):
     if y.numel() == 0 or n == 0:
         return _add_d(y.zero_(), x, D)
     D_ = None if D is None else D.to(torch.float32).contiguous()
-    lib, sfx = _lib(), _build.DTYPES[x.dtype]
+    sfx = _build.DTYPES[x.dtype]
     shape = (b, s, h, p, g, n, *x_.stride()[:3], *dt_.stride(),
              *B_.stride()[:3], *C_.stride()[:3], int(_vec(x_, B_, C_)))
     nch1, dev = chunks(s) - 1, x.device
@@ -174,18 +174,16 @@ def ssd(x, dt, A, B, C, D=None, chunk=128):
                               dtype=torch.float32, device=dev)
         decay = torch.empty(b * h * nch1, dtype=torch.float32, device=dev)
         count = torch.zeros(b * h, dtype=torch.int32, device=dev)
-        _build.launch(getattr(lib, f"repro_ssd_state_{sfx}"), dev,
-                      x_.data_ptr(), dt_.data_ptr(), A_.data_ptr(),
-                      B_.data_ptr(), changes.data_ptr(), states.data_ptr(),
-                      decay.data_ptr(), count.data_ptr(), *shape,
-                      what="ssd state kernel")
-        LAUNCHES["ssd"] += 1
-    _build.launch(getattr(lib, f"repro_ssd_out_{sfx}"), dev,
-                  x_.data_ptr(), dt_.data_ptr(), A_.data_ptr(),
-                  B_.data_ptr(), C_.data_ptr(), _build.ptr(D_),
-                  states.data_ptr(), y.data_ptr(), *shape,
-                  what="ssd output kernel")
-    LAUNCHES["ssd"] += 1
+        # (the call's work is carried by the output pass's launch)
+        _build.launch(_lib, f"repro_ssd_state_{sfx}", dev,
+                      *map(_build.ptr, (x_, dt_, A_, B_, changes, states,
+                                        decay, count)), *shape,
+                      what="ssd state kernel", count=(LAUNCHES, ("ssd",)))
+    _build.launch(_lib, f"repro_ssd_out_{sfx}", dev,
+                  *map(_build.ptr, (x_, dt_, A_, B_, C_, D_, states, y)),
+                  *shape, what="ssd output kernel",
+                  count=(LAUNCHES, ("ssd",)),
+                  work=("ssd", (x, dt, A, B, C, D), y))
     return y
 
 

@@ -12,7 +12,7 @@ of the token positions.
 
 API (functions of a parameter dictionary):
   init(cfg, gen, device)                        -> params
-  init_cache(cfg, batch, s_max, device)         -> cache
+  init_cache(cfg, batch, s_max, device, mesh)   -> cache
   forward(params, cfg, batch, mode, ...)        -> (logits, cache, aux)
 
 In train mode with ``cfg.remat`` and grad mode on, each block runs under
@@ -73,8 +73,17 @@ def init(cfg, gen: Optional[torch.Generator], device=None) -> Dict[str, Any]:
     return params
 
 
-def init_cache(cfg, batch: int, s_max: int, device=None):
+def init_cache(cfg, batch: int, s_max: int, device=None, mesh=None):
+    """Zero caches for ``batch`` rows of ``s_max`` positions; with
+    ``mesh`` this rank's part of them (``sharding.cache_shard_shape``),
+    which the serving steps on the rank read and write."""
     device = _device(device)
+    if mesh is not None:
+        full = init_cache(cfg, batch, s_max, "meta")
+        return tree.unflatten(full, [
+            torch.zeros(Sh.cache_shard_shape(path, x.shape, cfg, mesh),
+                        dtype=x.dtype, device=device)
+            for path, x in tree.paths(full)])
     prefix, unit, reps, rem = cfg.pattern_unit()
     return {
         "prefix": [B.block_cache_init(k, cfg, batch, s_max, device)

@@ -349,6 +349,56 @@ def cache_pspecs(cache, mesh):
     return tree.map(spec, cache)
 
 
+def local_rows(x, mesh):
+    """This rank's rows of ``x`` (a global batch, rows first), cut over
+    the batch axes as ``batch_spec`` cuts them, whole where they do not
+    fit the rows (``fit_spec``: a batch of one on every rank)."""
+    return local_shard(x, fit_spec(batch_spec(mesh), x.shape, mesh), mesh)
+
+
+def cache_shard_shape(path, shape, cfg, mesh) -> tuple:
+    """The shape of this rank's part of the cache leaf at ``path`` (a key
+    path of ``tree.paths``) of full ``shape``, as the model's serving
+    steps on the rank read and write it: its rows (:func:`local_rows`)
+    and, under a 'model' split, what its computation writes.
+
+      * k, v (and the cross-attention's xk, xv) ``(B, S, Hkv, hd)``: the
+        kv heads this rank's q heads read (``attention.kv_proj``): its
+        ``Hkv / model`` where 'model' divides them, as ``cache_pspecs``
+        cuts them; below that the groups its heads read, whole, where
+        ``cache_pspecs`` cuts the head dim (ROADMAP C.33);
+      * the SSM state ``(B, H, p, n)``: its ``H / model`` heads, where
+        ``cache_pspecs`` cuts ``p`` (the same bytes; C.35);
+      * the conv history ``(B, K-1, C)``: the channels of its heads and
+        their groups, where ``cache_pspecs`` keeps all of them (C.34);
+      * MLA's ``c_kv`` and ``k_rope``: whole, as ``cache_pspecs`` has
+        them (the latent is computed before the model region).
+    """
+    names = [k for k in path if isinstance(k, str)]
+    name = names[-1] if names else ""
+    out = list(shape)
+    rows = fit_spec(batch_spec(mesh), shape, mesh)
+    lo, hi = chunk_range(shape[0],
+                         *chunk_index(mesh, rows[0] if rows else None))
+    out[0] = hi - lo
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return tuple(out)
+    r = mesh.coordinate()["model"]
+    if name in ("k", "v", "xk", "xv"):
+        h, hkv = cfg.n_heads, shape[2]
+        glo, ghi = groups_read(r * (h // m), (r + 1) * (h // m), h, hkv)
+        out[2] = hkv // m if hkv % m == 0 else ghi - glo
+    elif name == "state":
+        out[1] = shape[1] // m
+    elif name == "conv":
+        sh, g, n, p = (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
+                       cfg.ssm_headdim)
+        glo, ghi = groups_read(r * (sh // m), (r + 1) * (sh // m), sh, g)
+        out[2] = (sh // m) * p + 2 * (ghi - glo) * n
+    return tuple(out)
+
+
 def ns(mesh, tree_of_specs):
     """Spec tree -> tree of DTensor placements, one a mesh axis
     (``Shard(d)`` where the axis cuts dim d, else ``Replicate()``), for

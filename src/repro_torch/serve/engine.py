@@ -21,34 +21,65 @@ position, never device data.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from .. import tree
 from ..core.targets import resolve_device
 from ..models import model as M
+from ..models import sharding as Sh
 
 
-def make_prefill_step(cfg, target=None):
+def _on_mesh(cfg, mesh, params_sds):
+    """(params -> the context a step runs in): the mesh made active with
+    the params' full shapes (``sharding.active_mesh``, for an FSDP
+    config's gathers); no context without a mesh.  Refuses what the
+    sharded step cannot run (``sharding.check_mesh``)."""
+    if mesh is None:
+        return lambda params: contextlib.nullcontext()
+    Sh.check_mesh(cfg, mesh)
+    shapes = [tuple(x.shape) for x in tree.leaves(params_sds)]
+    return lambda params: Sh.active_mesh(mesh, {
+        id(x): s for x, s in zip(tree.leaves(params), shapes)})
+
+
+def make_prefill_step(cfg, target=None, mesh=None, params_sds=None):
+    """(params, cache, batch) -> (the last position's logits, cache).
+
+    With ``mesh`` it is the step of one rank of it, as the reference's
+    dry run runs its prefill under ``active_mesh``: params its shards
+    (``sharding.shard_params``), cache its part (``model.init_cache``
+    with the mesh), batch its rows (``sharding.local_rows``); the logits
+    are its rows', whole over the vocabulary.  ``params_sds`` gives the
+    params' full shapes (meta tensors will do)."""
+    on = _on_mesh(cfg, mesh, params_sds)
+
     def prefill(params, cache, batch):
-        logits, cache, _ = M.forward(params, cfg, batch, mode="prefill",
-                                     cache=cache, target=target)
+        with on(params):
+            logits, cache, _ = M.forward(params, cfg, batch, mode="prefill",
+                                         cache=cache, target=target)
         return logits[:, -1], cache
     return prefill
 
 
-def make_serve_step(cfg, target=None):
+def make_serve_step(cfg, target=None, mesh=None, params_sds=None):
     """One decode step: (params, cache, tokens, lengths) -> (logits, cache).
 
     ``target`` pins the step's attention/ssd lowering selections to an
-    explicit machine model.
+    explicit machine model.  ``mesh`` and ``params_sds`` as for
+    :func:`make_prefill_step`: tokens and lengths are the rank's rows.
     """
+    on = _on_mesh(cfg, mesh, params_sds)
+
     def serve_step(params, cache, tokens, lengths):
-        logits, cache, _ = M.forward(params, cfg, {"tokens": tokens},
-                                     mode="decode", cache=cache,
-                                     lengths=lengths, target=target)
+        with on(params):
+            logits, cache, _ = M.forward(params, cfg, {"tokens": tokens},
+                                         mode="decode", cache=cache,
+                                         lengths=lengths, target=target)
         return logits[:, 0], cache
     return serve_step
 

@@ -98,3 +98,12 @@ def test_the_training_slice_is_covered():
             "runtime/fault_tolerance.py", "checkpoint/checkpointer.py",
             "train/loop.py", "launch/train.py", "data/pipeline.py",
             "kernels/_autograd.py", "kernels/ref.py"} <= names
+
+
+def test_the_dry_run_slice_is_covered():
+    """The dry run's modules, and the kernels' work model its stand-in
+    launches read, are among those read and imported above."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"launch/dryrun.py", "launch/graph_analysis.py",
+            "launch/mesh.py", "models/sharding.py", "kernels/cost.py",
+            "kernels/_build.py"} <= names

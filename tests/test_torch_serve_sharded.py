@@ -1,0 +1,275 @@
+"""Prefill and decode on a mesh (``serve.engine.make_prefill_step`` /
+``make_serve_step`` with ``mesh``) against the JAX package's steps under
+GSPMD, as its dry run lowers them.
+
+Each case is float32 at ``cfg.reduced()`` widths: a prefill of 4 rows of
+24 tokens into a 32-position cache, then 2 decode steps fed the same
+tokens on both sides.  The reference jits its steps with the params
+sharded by ``param_pspecs``, the cache by ``cache_pspecs`` and the rows
+by ``batch_spec``, under ``active_mesh``, on as many forced host devices
+as the mesh has (an Auto mesh, ROADMAP C.2), in a subprocess; the port
+runs each rank's step on as many gloo CPU ranks
+(``launch.mesh.run_ranks``) from the reference's ``init`` (carried across
+by ``models/convert.py``).  Held: each rank's logits and its part of
+every cache leaf within 2e-4 of max|.| of the reference's at the same
+place.  The cache layouts that differ from ``cache_pspecs`` (ROADMAP
+C.33-C.35) are pinned by their bytes a rank.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import tree
+from repro_torch.configs import get_config
+from repro_torch.launch import mesh as LM
+from repro_torch.models import convert
+from repro_torch.models import model as M
+from repro_torch.models import sharding as Sh
+from repro_torch.serve import engine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# (arch, mesh): SSM state and conv history; per-data-shard capacity with
+# experts over 'model'; one kv head below 'model'; FSDP
+CASES = (("zamba2-1.2b", (1, 2)), ("granite-moe-1b-a400m", (2, 2)),
+         ("gemma3-1b", (1, 2)), ("mistral-large-123b", (2, 2)))
+TRAFFIC = dict(batch=4, prompt=24, max_seq=32, steps=2)
+TOL = 2e-4
+
+REFERENCE = r"""
+import json, pickle, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, PartitionSpec as P
+from repro.configs import get_config
+from repro.models import model as M, sharding as Sh
+from repro.serve.engine import make_prefill_step, make_serve_step
+cases, traffic, path = json.loads(sys.argv[1])
+out = []
+for arch, shape in cases:
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    params = M.init(cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+    b, s = traffic["batch"], traffic["prompt"]
+    prompts = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    feed = rng.integers(0, cfg.vocab_size,
+                        (traffic["steps"], b, 1)).astype(np.int32)
+    mesh = jax.make_mesh(tuple(shape), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    cache = M.init_cache(cfg, b, traffic["max_seq"])
+    pspecs = Sh.ns(mesh, Sh.param_pspecs(params, cfg, mesh))
+    cspecs = Sh.ns(mesh, Sh.cache_pspecs(cache, mesh))
+    rows = Sh.ns(mesh, Sh.token_spec(mesh))
+    lens = Sh.ns(mesh, Sh.batch_spec(mesh))
+    prefill, step = make_prefill_step(cfg), make_serve_step(cfg)
+
+    def pf(p, c, batch):
+        with Sh.active_mesh(mesh):
+            return prefill(p, c, batch)
+
+    def st(p, c, t, l):
+        with Sh.active_mesh(mesh):
+            return step(p, c, t, l)
+    pf = jax.jit(pf, in_shardings=(pspecs, cspecs, {"tokens": rows}),
+                 out_shardings=(None, cspecs))
+    st = jax.jit(st, in_shardings=(pspecs, cspecs, rows, lens),
+                 out_shardings=(None, cspecs))
+    with mesh:
+        logits, cache = pf(params, cache, {"tokens": jnp.asarray(prompts)})
+        runs = [np.asarray(logits)]
+        for i in range(traffic["steps"]):
+            lengths = jnp.full((b,), s + i, jnp.int32)
+            logits, cache = st(params, cache, jnp.asarray(feed[i]), lengths)
+            runs.append(np.asarray(logits))
+    out.append({"params": jax.tree.map(np.asarray, params),
+                "prompts": prompts, "feed": feed, "logits": runs,
+                "cache": jax.tree.map(np.asarray, cache)})
+with open(path, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def _config(arch):
+    return get_config(arch).reduced().replace(dtype="float32")
+
+
+def _port(rank, world, cases, refs):
+    """Each case of ``world`` ranks: this rank's logits of every step and
+    its cache leaves, with its coordinate."""
+    torch.set_num_threads(1)
+    out = []
+    for (arch, shape), ref in zip(cases, refs):
+        if shape[0] * shape[1] != world:
+            continue
+        cfg = _config(arch)
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        full = convert.from_jax(ref["params"], cfg, device="cpu")
+        like = tree.map(lambda x: x.to("meta"), full)
+        local = Sh.shard_params(full, mesh, cfg)
+        cache = M.init_cache(cfg, TRAFFIC["batch"], TRAFFIC["max_seq"],
+                             "cpu", mesh=mesh)
+        prefill = engine.make_prefill_step(cfg, mesh=mesh, params_sds=like)
+        step = engine.make_serve_step(cfg, mesh=mesh, params_sds=like)
+        rows = lambda a: Sh.local_rows(torch.as_tensor(a), mesh)  # noqa
+        with torch.no_grad():
+            logits, cache = prefill(local, cache,
+                                    {"tokens": rows(ref["prompts"])})
+            runs = [logits]
+            for i in range(TRAFFIC["steps"]):
+                lengths = torch.full((TRAFFIC["batch"],),
+                                     TRAFFIC["prompt"] + i,
+                                     dtype=torch.int32)
+                logits, cache = step(local, cache, rows(ref["feed"][i]),
+                                     Sh.local_rows(lengths, mesh))
+                runs.append(logits)
+        out.append({"arch": arch, "coord": mesh.coordinate(),
+                    "logits": [x.numpy() for x in runs],
+                    "cache": [(p, x.numpy()) for p, x in tree.paths(cache)]})
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
+           "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+                        "--xla_backend_optimization_level=0"}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reference.pkl")
+        proc = subprocess.run(
+            [sys.executable, "-c", REFERENCE,
+             json.dumps([CASES, TRAFFIC, path])],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        with open(path, "rb") as f:
+            refs = pickle.load(f)
+    port = {}
+    for world in sorted({s[0] * s[1] for _, s in CASES}):
+        for rank_out in LM.run_ranks(_port, world, CASES, refs,
+                                     timeout=600):
+            for r in rank_out:
+                port.setdefault(r["arch"], []).append(r)
+    return refs, port
+
+
+def _part(path, full, cfg, coord, mesh_shape):
+    """The part of the reference's full cache leaf ``full`` that the rank
+    at ``coord`` holds (``sharding.cache_shard_shape``'s layout)."""
+    name = [k for k in path if isinstance(k, str)][-1]
+    d, m = mesh_shape
+    rows = full.shape[0] // d
+    x = full[coord["data"] * rows:(coord["data"] + 1) * rows]
+    r = coord["model"]
+    if m == 1:
+        return x
+    if name in ("k", "v", "xk", "xv"):
+        h, hkv = cfg.n_heads, x.shape[2]
+        if hkv % m == 0:
+            return x[:, :, r * hkv // m:(r + 1) * hkv // m]
+        lo, hi = Sh.groups_read(r * h // m, (r + 1) * h // m, h, hkv)
+        return x[:, :, lo:hi]
+    if name == "state":
+        return x[:, r * x.shape[1] // m:(r + 1) * x.shape[1] // m]
+    if name == "conv":
+        sh, g, n, p = (cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state,
+                       cfg.ssm_headdim)
+        di = cfg.d_inner
+        lo, hi = r * sh // m, (r + 1) * sh // m
+        glo, ghi = Sh.groups_read(lo, hi, sh, g)
+        ch = np.concatenate([np.arange(lo * p, hi * p),
+                             np.arange(di + glo * n, di + ghi * n),
+                             np.arange(di + (g + glo) * n,
+                                       di + (g + ghi) * n)])
+        return x[:, :, ch]
+    return x
+
+
+def _ref_leaf(cache, path):
+    """The reference's leaf at the port's ``path``: a stacked unit's
+    leaf at the repeat's index."""
+    if path[0] == "unit":
+        node = cache["unit"][path[1]]
+        for k in path[3:]:
+            node = node[k]
+        return node[path[2]]
+    node = cache
+    for k in path:
+        node = node[k]
+    return node
+
+
+@pytest.mark.parametrize("arch,shape", CASES,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in CASES])
+def test_mesh_serving_matches_the_reference(runs, arch, shape):
+    refs, port = runs
+    ref = refs[[a for a, _ in CASES].index(arch)]
+    cfg = _config(arch)
+    ranks = port[arch]
+    assert len(ranks) == shape[0] * shape[1]
+    b = TRAFFIC["batch"] // shape[0]
+    for r in ranks:
+        lo = r["coord"]["data"] * b
+        for want, got in zip(ref["logits"], r["logits"]):
+            want = want[lo:lo + b]
+            err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+            assert err <= TOL, (arch, r["coord"], err)
+        for path, got in r["cache"]:
+            want = _part(path, _ref_leaf(ref["cache"], path), cfg,
+                         r["coord"], shape)
+            assert got.shape == want.shape, (arch, path)
+            scale = max(np.max(np.abs(want)), 1e-30)
+            assert np.max(np.abs(got - want)) / scale <= TOL, (arch, path)
+
+
+def _bytes_a_rank(cfg, shape, batch=4, s_max=64):
+    """(port's, cache_pspecs') cache bytes of rank 0 by leaf name, on a
+    fake process group of as many ranks."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", rank=0, world_size=shape[0] * shape[1],
+                            store=FakeStore())
+    try:
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        full = M.init_cache(cfg, batch, s_max, "meta")
+        local = M.init_cache(cfg, batch, s_max, "meta", mesh=mesh)
+        specs = tree.leaves(Sh.cache_pspecs(full, mesh))
+        port, ref = {}, {}
+        for (path, x), y, spec in zip(tree.paths(full), tree.leaves(local),
+                                      specs):
+            name = [k for k in path if isinstance(k, str)][-1]
+            part = [n if i >= len(spec) or spec[i] is None
+                    else -(-n // Sh.axes_size(mesh, spec[i]))
+                    for i, n in enumerate(x.shape)]
+            port[name] = port.get(name, 0) + y.numel() * y.element_size()
+            ref[name] = ref.get(name, 0) + int(np.prod(part)) * \
+                x.element_size()
+    finally:
+        dist.destroy_process_group()
+    return port, ref
+
+
+def test_cache_layouts_pinned_by_their_bytes():
+    """C.33: one kv head below 'model' (gemma3 on (1, 2)): the rank holds
+    the whole head its q heads read, twice ``cache_pspecs``' half of its
+    head dim.  C.34: the conv history holds the rank's channels, not all
+    of them.  C.35: the SSM state, cut along heads, holds the bytes of
+    ``cache_pspecs``' cut along p.  Elsewhere the bytes agree."""
+    port, ref = _bytes_a_rank(_config("gemma3-1b"), (1, 2))
+    assert port["k"] == 2 * ref["k"] and port["v"] == 2 * ref["v"]
+    cfg = _config("zamba2-1.2b")
+    port, ref = _bytes_a_rank(cfg, (1, 2))
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    mine = cfg.d_inner // 2 + 2 * cfg.ssm_state     # 4 heads read 1 group
+    assert port["conv"] * conv_dim == ref["conv"] * mine
+    assert port["state"] == ref["state"]
+    assert (port["k"], port["v"]) == (ref["k"], ref["v"])
+    for arch, shape in (("granite-moe-1b-a400m", (2, 2)),
+                        ("mistral-large-123b", (2, 2)),
+                        ("deepseek-v2-lite-16b", (1, 2))):
+        assert _bytes_a_rank(_config(arch), shape)[0] == \
+            _bytes_a_rank(_config(arch), shape)[1], arch

@@ -100,6 +100,8 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.setattr(cs, "SHARDED_TRAFFIC", dict(batch=4, seq=32, steps=2))
     monkeypatch.setattr(cs, "SHARDED_PSUM", 4099)
+    monkeypatch.setattr(cs, "SERVE_TRAFFIC", dict(batch=4, prompt=32,
+                                                  steps=2))
     monkeypatch.setattr(cs, "PIPELINE", {**cs.PIPELINE, "cut": "reduced",
                                          "seq": 16})
     out = cs.sharded_phase(CPU, policy="pallas")
@@ -142,6 +144,17 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     assert head["bitwise"] and head["shape"] == [1, 16, 64], head
     assert [r["ticks"] for r in out["pipeline"]] == [9, 9]
     assert out["launcher"]["backend"] == "gloo"
+    # serving on the mesh: each rank's logits the single rank's, the dry
+    # run's arguments rank 0's (no launches on the CPU)
+    for tag, mesh in (("zamba2", [1, 2]), ("mistral", [2, 2])):
+        serve = out["serve"][tag]
+        assert serve["failures"] == [] and serve["mesh"] == mesh, tag
+        assert serve["max_rel_logit_gap"] <= cs.LM_TOL["bfloat16"]
+        assert len(serve["gaps"][0]) == 3
+        dry = serve["dryrun"]["decode"]
+        assert dry["launches"]["decode_attention"] > 0
+        assert sum(dry["argument_parts"].values()) == \
+            serve["arguments"]["decode"]
 
 
 def _pipeline_calls(rank, world):
