@@ -28,10 +28,10 @@ Then it drives the port's main paths:
     under the rvv-128 cost model, checking the paper's Figure-2 selection
     properties;
   * serving at full width (bf16, seeded random weights) under the
-    default target (h100) and policy, for zamba2-1.2b,
-    granite-moe-1b-a400m, gemma2-2b, gemma3-1b and whisper-tiny at full
-    depth, deepseek-v2-lite-16b, minicpm3-4b and mistral-large-123b cut
-    to 6, 8 and 8 layers (``SERVE_DEPTH``), each freed before the next
+    default target (h100) and policy, for zamba2-1.2b and whisper-tiny at
+    full depth, granite-moe-1b-a400m, gemma2-2b, gemma3-1b,
+    deepseek-v2-lite-16b, minicpm3-4b and mistral-large-123b cut to 6,
+    12, 14, 6, 8 and 8 layers (``SERVE_DEPTH``), each freed before the next
     (and each bf16 model before its float32 one): ``Engine.generate`` for 4
     requests of 512-token prompts and 32 greedy tokens (whisper's with
     1500 stub frames each: ``data.pipeline.extra_inputs``; pixtral-12b
@@ -60,9 +60,10 @@ Then it drives the port's main paths:
     the pinned run also read the kernel run's encoder output.  The
     profiled prefill and decode steps also read the device ms of prefill
     attention and of MLA's absorbed decode (``SPANS``);
-  * ``serve_window``: the same gates for gemma3-1b at 4 requests of
-    1024-token prompts (32 tokens) and gemma2-2b at one request of 4160
-    tokens (8 tokens), prompts longer than their windows (512, 4096):
+  * ``serve_window``: the same gates for gemma3-1b (one pattern unit, 6
+    layers) at 4 requests of 1024-token prompts (32 tokens) and gemma2-2b
+    (one unit, 2 layers) at one request of 4160 tokens (8 tokens),
+    prompts longer than their windows (512, 4096):
     the local layers' ring is written in prefill, the window masks
     flash, gemma3's decode wraps its ring (``SERVE_WINDOW``).
 
@@ -70,7 +71,9 @@ Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
 training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
 
-  * ``train``: zamba2-1.2b at full width and depth, bf16, seeded, under
+  * ``train``: zamba2-1.2b at full width, 20 of its 38 layers
+    (``TRAIN``: two of its six pattern units and its last two mamba
+    layers), bf16, seeded, under
     the default target and policy: 8 steps of ``SyntheticLM``'s 8 rows x
     4096 tokens at accum 2 (``TRAIN``), warmup 1; every step's exact
     launches (``train_want``: forward, remat's recompute and gemm's two
@@ -86,7 +89,7 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     forward, remat's recompute, the update, gemm's backward with its
     transposed copies, flash's and ssd's vector-tier recompute), the
     bf16-peak share of 6 N tokens;
-  * ``train_grad``: zamba2 float32 at full depth, 2 x 1024 tokens, one
+  * ``train_grad``: zamba2 float32 at the same depth, 2 x 1024 tokens, one
     backward on the kernel tier and one on the vector tier: the loss
     within 2e-4 and each leaf's gradient within 2e-4 of its max, but
     Mamba2's A_log leaves, held to a float64 run of the vector tier: no
@@ -96,7 +99,8 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     one pattern unit, float32, 2 x 512 tokens, the same per-leaf gate
     (raw), MoE routing pinned (``route_probe``), each op's kernel tier
     and Function;
-  * ``train_resume``: zamba2 cut to one pattern unit, 6 steps, a
+  * ``train_resume``: zamba2 cut to one pattern unit, 6 steps of 4 x
+    512 tokens, a
     checkpoint every 2, a failure injected at step 4: one restart, the
     last step saved, the params restored bitwise and the losses equal to
     an uninterrupted run's; each save's bytes and seconds;
@@ -110,19 +114,25 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     every other block kind on (1, 2) at full width: zamba2-1.2b's 6-layer
     unit (ssd on each rank's SSM heads), deepseek-v2-lite's 2 layers
     (MLA), whisper-tiny (enc, dec) and gemma3-1b's unit (its kv head
-    split), bf16, 4 x 512 tokens, 2 steps, each held to its single-rank
-    step (``sharded_phase``, ``SHARDED``); float32 runs (zamba2 reduced
-    on (1, 4), granite reduced with sequence parallelism through moe
-    among them) and two controls that must fail; ``compressed_psum`` of
-    64 M floats on two ranks,
+    split), and whisper-tiny again on (1, 4), its 6 heads split 2 / 2 /
+    2 / 0 (ROADMAP A.9.10), bf16, 4 x 512 tokens, 2 steps, each held to
+    its single-rank step, each rank's launches its own (``sharded_want``:
+    a rank without heads launches no flash) (``sharded_phase``,
+    ``SHARDED``); float32 runs (zamba2 reduced on (1, 4), granite reduced
+    with sequence parallelism through moe among them) and two controls
+    that must fail; ``compressed_psum`` of 64 M floats on two ranks,
     bitwise the formula on one; ``train/pipeline.py`` over two stages of
-    gemma3's ``attn`` block, bitwise the blocks in turn; the
-    launcher's ``--coordinator`` over ``nccl`` (one host); and serving on
-    the mesh (``SHARDED_SERVE``): zamba2's unit on (1, 2) and mistral's
-    layer on (2, 2) prefill 4 x 512 tokens and decode 8 steps fed the
+    gemma3's ``attn`` block, bitwise the blocks in turn, and its backward
+    (ROADMAP C.36) within 3e-2 of the blocks' in turn, every stage's
+    gradient; the launcher's ``--coordinator`` over ``nccl`` (one host);
+    and serving on the mesh (``SHARDED_SERVE``): zamba2's unit on (1, 2),
+    mistral's layer on (2, 2), whisper-tiny on (1, 4) and gemma3-1b's 6
+    layers on (1, 8) (one of its 4 heads on ranks 0-3, none on 4-7;
+    serving only) prefill 4 x 512 tokens and decode 8 steps fed the
     single rank's tokens, each rank's logits within 3e-2 of the single
-    rank's, its launches exact, and the dry run of the same cells
-    (``launch/dryrun.py``, traced here on stand-ins) equal to rank 0's
+    rank's, its launches exact (``serve_rank_want``), and the dry run of
+    the same cells (``launch/dryrun.py``, traced here on stand-ins for
+    rank 0 and the first rank without heads) equal to those ranks'
     launches and argument bytes, its peak bytes beside rank 0's
     ``max_memory_allocated``;
   * ``guard``: each of the thirteen kernel entries refuses an input that
@@ -355,7 +365,8 @@ DECODE_KERNELS = ("dec::split_kernel", "dec::combine_kernel")
 # absorbed decode, which the reference runs in plain products
 SPANS = (("attention", "repro_torch.kernels.ops", "attention"),
          ("mla_absorbed", "repro_torch.models.attention", "_mla_absorbed"))
-# The serving paths: each arch at full width and depth, bf16 and again
+# The serving paths: each arch at full width (and the depth SERVE_DEPTH
+# gives), bf16 and again
 # float32: 4 requests of 512-token prompts, 32 greedy tokens (whisper's
 # requests each with 1500 stub frames)
 SERVE = dict(batch=4, prompt=512, gen=32)
@@ -372,15 +383,21 @@ SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
 # card.  The MLA archs, whose attention runs the vector tier, are cut so
 # that the whole run stays within its time (their layers past the first
 # few repeat the same block; deepseek keeps its dense first layer): at
-# full depth deepseek's serving took 46 s more and the run 979 s
+# full depth deepseek's serving took 46 s more and the run 979 s.
+# granite and the gemmas are cut (whole pattern units, gemma3's last two
+# local layers kept) for the same reason
 SERVE_DEPTH = {"mistral-large-123b": 8, "deepseek-v2-lite-16b": 6,
-               "minicpm3-4b": 8}
+               "minicpm3-4b": 8, "granite-moe-1b-a400m": 6,
+               "gemma2-2b": 12, "gemma3-1b": 14}
 # The sliding-window traffic (``serve_window``): prompts longer than each
 # gemma's window, so that the local layers' ring is written in prefill,
 # the window masks flash and (gemma3) decode wraps the ring; gemma2's
-# vector tier takes its chunked attention there (Sq x Sk > 2048^2)
-SERVE_WINDOW = (("gemma3-1b", dict(batch=4, prompt=1024, gen=32)),
-                ("gemma2-2b", dict(batch=1, prompt=4160, gen=8)))
+# vector tier takes its chunked attention there (Sq x Sk > 2048^2); each
+# model cut to one pattern unit (``layers``: gemma3's five local layers
+# and its global one, gemma2's local and global pair), which holds every
+# mechanism the traffic drives, to keep the script within its time limit
+SERVE_WINDOW = (("gemma3-1b", dict(batch=4, prompt=1024, gen=32, layers=6)),
+                ("gemma2-2b", dict(batch=1, prompt=4160, gen=8, layers=2)))
 # the block kinds whose layers attend (each with an MLP after it), and
 # those that are Mamba2 layers
 ATTN_KINDS = ("mamba_shared", "moe", "moe_dense", "attn", "local", "enc",
@@ -411,7 +428,7 @@ EXACT = ("vrelu", "dwconv", "maxpool", "argmaxpool", "ibilinear")
 # (gemm's bf16 rows are at the serving path's shapes)
 NEW_DTYPES = {op: ("float32", "bfloat16") for op in NEW_OPS}
 NEW_DTYPES["gemm"] = ("float32",)
-# The train path (``train``): zamba2-1.2b at full width and depth, bf16,
+# The train path (``train``): zamba2-1.2b at full width, 20 layers, bf16,
 # 8 rows of 4096 tokens a step (train_4k's sequence, src/repro/configs/
 # base.py:255; the pod's 256 rows cut to 8 for one card), accum 2, 8
 # steps; step 0's loss and grad_norm within TRAIN_TOL (bf16's E2E_TOL) of
@@ -423,14 +440,19 @@ NEW_DTYPES["gemm"] = ("float32",)
 # 1024 tokens; ``train_archs``: the other served archs cut to one pattern
 # unit at 2 x 512; ``train_resume``: zamba2 cut to one pattern unit,
 # checkpoint and restart
-TRAIN = dict(arch="zamba2-1.2b", batch=8, seq=4096, accum=2, steps=8)
+# (20 of zamba2's 38 layers: three of its six pattern units and its last
+# two mamba layers, which keep every block kind, to keep the script within
+# its time limit)
+TRAIN = dict(arch="zamba2-1.2b", layers=20, batch=8, seq=4096, accum=2,
+             steps=8)
 TRAIN_TOL = 3e-2
 TRAIN_LEAF_TOL = 0.3
 TRAIN_GRAD = dict(batch=2, seq=1024)
 TRAIN_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b", "minicpm3-4b",
                "gemma2-2b", "gemma3-1b", "whisper-tiny")
 TRAIN_ARCH_TRAFFIC = dict(batch=2, seq=512)
-TRAIN_RESUME = dict(batch=4, seq=1024, steps=6, ckpt_every=2, fail_at=4)
+# (4 x 512 tokens a step, to keep the script within its time limit)
+TRAIN_RESUME = dict(batch=4, seq=512, steps=6, ckpt_every=2, fail_at=4)
 # a microbatch's rows in ``train``: 4 x 4096
 TRAIN_M = TRAIN["batch"] // TRAIN["accum"] * TRAIN["seq"]
 # The profiled train step's spans (name, module, function), a marker
@@ -517,13 +539,16 @@ def figure2_args(op, rng):
 
 def awkward_args(op, rng):
     """Shapes off the kernels' tiles: ragged M/N/K and no bias for gemm,
-    stride 2, non-square taps and CONV_CASES for conv, DW_CASES for
-    dwconv, odd extents for the pools, a pixel count off the block size
-    for ibilinear."""
+    and K = 0 (a 'model' rank's output projection with no heads: the
+    bias, clamped) at a decode's M and a prefill's, stride 2, non-square
+    taps and CONV_CASES for conv, DW_CASES for dwconv, odd extents for
+    the pools, a pixel count off the block size for ibilinear."""
     n = _normal
     if op == "gemm":
         return [(n(rng, (129, 33)), n(rng, (33, 67)), None),
-                (n(rng, (1, 70)), n(rng, (70, 1)), n(rng, (1,)), -0.5, 0.5)]
+                (n(rng, (1, 70)), n(rng, (70, 1)), n(rng, (1,)), -0.5, 0.5)] \
+            + [(n(rng, (m, 0)), n(rng, (0, 67)), n(rng, (67,)), -0.5, 0.5)
+               for m in (4, 129)]
     if op == "conv_hwc":
         return [(n(rng, (2, 17, 19, 24)), n(rng, (3, 2, 24, 40), 0.3),
                  n(rng, (40,)), (2, 1)),
@@ -1434,7 +1459,8 @@ def warm_run(cfg, params, prompts, max_seq, dev, steps=SERVE["gen"],
 
 
 def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
-    """Drive ``arch`` serving at full width and depth through the port's
+    """Drive ``arch`` serving at full width (and ``SERVE_DEPTH``'s depth,
+    or ``traffic["layers"]``) through the port's
     Engine under the default target (h100) and policy, ``traffic``'s
     requests (whisper's with stub frames, pixtral's with stub patches:
     ``extra_inputs``), count the kernel launches of that run, time
@@ -1458,6 +1484,8 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     cfg = get_config(arch)
     if arch in SERVE_DEPTH:
         cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
+    if "layers" in traffic:
+        cfg = cfg.replace(n_layers=traffic["layers"])
     b, plen, steps = traffic["batch"], traffic["prompt"], traffic["gen"]
     max_seq = plen + steps
     torch.cuda.reset_peak_memory_stats()
@@ -2583,7 +2611,7 @@ def port_serve_phase(dev, modules):
 
 
 # ---------------------------------------------------------------------------
-# training: zamba2-1.2b at full width and depth, the gradient gates, the
+# training: zamba2-1.2b at full width and 20 layers, the gradient gates, the
 # other archs' train steps, checkpoint and restart, the no-detach guard
 # ---------------------------------------------------------------------------
 
@@ -2846,7 +2874,7 @@ def train_batch(cfg, data, step, extra, dev):
 
 
 def train_phase(dev, modules):
-    """zamba2-1.2b at full width and depth, bf16: ``TRAIN``'s steps of
+    """zamba2-1.2b at full width and ``TRAIN``'s depth, bf16: its steps of
     SyntheticLM traffic through ``train.loop.make_train_step`` under the
     default target (h100) and policy.  Gates: every step's exact kernel
     launches (``train_want``), the kernel tier and the Function of each
@@ -2870,7 +2898,7 @@ def train_phase(dev, modules):
     from repro_torch.optim import adamw
     from repro_torch.train import loop
 
-    cfg = get_config(TRAIN["arch"])
+    cfg = get_config(TRAIN["arch"]).replace(n_layers=TRAIN["layers"])
     b, seq, accum, steps = (TRAIN[k] for k in ("batch", "seq", "accum",
                                                "steps"))
     tcfg = loop.TrainConfig(accum=accum, optim=adamw.AdamWConfig(
@@ -3127,7 +3155,8 @@ def port_kernel_ms(by_kernel):
 
 
 def train_grad_phase(dev):
-    """The gradient gate: zamba2-1.2b at full width and depth, float32,
+    """The gradient gate: zamba2-1.2b at full width and ``TRAIN``'s depth,
+    float32,
     ``TRAIN_GRAD``'s tokens, held by ``grad_gate``.  The same in bf16,
     each leaf's reading printed, the loss held within LM_TOL's 3e-2 and
     nothing gated per leaf (bf16 rounding alone crosses such limits:
@@ -3139,7 +3168,8 @@ def train_grad_phase(dev):
     from repro_torch.train import loop
     out = {}
     for dtype in ("float32", "bfloat16"):
-        cfg = get_config(TRAIN["arch"]).replace(dtype=dtype)
+        cfg = get_config(TRAIN["arch"]).replace(
+            n_layers=TRAIN["layers"], dtype=dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         params = loop.trainable(M.init(cfg, gen, dev))
@@ -3371,7 +3401,13 @@ SHARDED = (("mistral", "mistral-large-123b", 1, (2, 2)),
            ("zamba2", "zamba2-1.2b", 6, (1, 2)),
            ("deepseek", "deepseek-v2-lite-16b", 2, (1, 2)),
            ("whisper", "whisper-tiny", None, (1, 2)),
-           ("gemma3_tp", "gemma3-1b", 6, (1, 2)))
+           ("gemma3_tp", "gemma3-1b", 6, (1, 2)),
+           # heads that 'model' does not divide (ROADMAP A.9.10): whisper
+           # whole on (1, 4), 2 / 2 / 2 / 0 of its 6 heads a rank, and
+           # gemma3's 6 layers on (1, 8), one of its 4 heads on ranks 0-3
+           # and none on 4-7 (serving only, ``SERVE_ONLY``)
+           ("whisper_tp4", "whisper-tiny", None, (1, 4)),
+           ("gemma3_tp8", "gemma3-1b", 6, (1, 8)))
 SHARDED_ZERO1 = ("gemma3",)
 SHARDED_INT8 = ("gemma3",)
 # float32: zamba2 reduced on (1, 4) (two ranks share an SSM group),
@@ -3380,8 +3416,11 @@ SHARDED_F32 = (("granite_f32", "granite-moe-1b-a400m", 4, (1, 2)),
                ("mistral_f32", "mistral-large-123b", "reduced", (2, 2)),
                ("zamba2_f32", "zamba2-1.2b", "reduced", (1, 4)),
                ("granite_sp_f32", "granite-moe-1b-a400m", "reduced", (1, 2)))
-# a job's config fields beyond its cut
-SHARDED_OVER = {"granite_sp_f32": {"use_sp": True}}
+# a job's config fields beyond its cut (whisper_tp4: whisper-tiny's own 6
+# heads, kept where the job is cut to reduced widths, as the CPU tests cut
+# it)
+SHARDED_OVER = {"granite_sp_f32": {"use_sp": True},
+                "whisper_tp4": {"n_heads": 6, "n_kv_heads": 6}}
 # the controls, each the float32 job of its tag run again with a fault
 # planted in its ranks, which must fail the job's gate: the copy into the
 # model region reduced by nothing backward, and the gated norm's sum of
@@ -3405,12 +3444,21 @@ SHARDED_GEMM = {"mistral": (1024, ((12288, 6144), (12288, 512),
                 "zamba2": (2048, ((2048, 4256), (2048, 2048), (4096, 2048),
                                   (4096, 4096)))}
 # (B, S, H, Hkv, D, causal): gemma3's two q heads over its gathered kv
-# head, whisper's encoder (3 of 6 heads), zamba2's shared block (16 of 32)
+# head, whisper's encoder (3 of 6 heads), zamba2's shared block (16 of
+# 32); on the uneven splits (A.9.10) whisper's 2 of 6 heads on (1, 4),
+# its encoder and decoder, and gemma3's one head over its gathered kv
+# head on (1, 8)
 SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128, True),
                  "granite": (4, 512, 8, 4, 64, True),
                  "gemma3": (4, 512, 2, 1, 256, True),
                  "whisper": (4, 1500, 3, 3, 64, False),
-                 "zamba2": (4, 512, 16, 16, 128, True)}
+                 "zamba2": (4, 512, 16, 16, 128, True),
+                 "whisper_tp4_enc": (4, 1500, 2, 2, 64, False),
+                 "whisper_tp4_dec": (4, 512, 2, 2, 64, True),
+                 "gemma3_tp8": (4, 512, 1, 1, 256, True)}
+# decode on the same ranks: (B, slots, H, Hkv, D), 512 of the slots valid
+SHARDED_DECODE = {"whisper_tp4": (4, 520, 2, 2, 64),
+                  "gemma3_tp8": (4, 520, 1, 1, 256)}
 SHARDED_SILU = {"mistral": (2, 512, 14336), "granite_experts": (16, 640, 512)}
 # ssd on a zamba2 (1, 2) rank: (B, S, heads, p, groups, n)
 SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64)}
@@ -3420,7 +3468,8 @@ SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64)}
 # ``steps`` decode steps fed the single rank's greedy tokens, each rank
 # held to the single rank's steps on the same params; and the dry run
 # (``launch/dryrun.py``) of the same two cells on stand-ins in this process
-SHARDED_SERVE = ("zamba2", "mistral")
+SHARDED_SERVE = ("zamba2", "mistral", "whisper_tp4", "gemma3_tp8")
+SERVE_ONLY = ("gemma3_tp8",)
 SERVE_TRAFFIC = dict(batch=4, prompt=512, steps=8)
 
 
@@ -3441,7 +3490,7 @@ def job_config(job, dtype):
         **SHARDED_OVER.get(tag, {}))
 
 
-def sharded_want(cfg, seq):
+def sharded_want(cfg, seq, empty=False):
     """Exact launches of gemm, vsigmoid, vtanh, flash and ssd in one train
     step on one rank of any mesh, ``seq`` positions a row: each block
     runs under remat, so its kernels launch twice, and each gemm twice
@@ -3457,17 +3506,31 @@ def sharded_want(cfg, seq):
     its decoder's add the cross-attention's q, k, v, o and a flash.  An
     untied head is a gemm outside remat (3 launches), a tied one a plain
     matmul; a final softcap one vtanh outside remat.  Under a 'model'
-    split each rank makes the same calls on its shards."""
+    split each rank makes the same calls on its shards; on a rank that
+    holds no heads (``empty``: 'model' does not divide them) an
+    attention has no heads, so it launches no flash, and its products
+    onto the heads (GQA's q; MLA's q, ``w_uk`` and ``w_uv``) have N = 0:
+    their forward, its recompute and dB launch nothing (an empty
+    output), their dA (K = 0) does; the output product (K = 0) launches
+    forward and in the recompute (its bias, here none: zeros), and its
+    dA (N = 0) and dB (M = 0) launch nothing."""
     from repro_torch.kernels import ssd as ssd_mod
     mlp = 3 if cfg.gated_mlp else 2
     mla = cfg.attn_kind == "mla"
     attn = (2 if cfg.q_lora_rank else 1) + 4 if mla else 4
-    n = {"gemm": 0, "act": 0, "flash": 0, "ssd": 0}
+    n = {"gemm": 0, "idle": 0, "act": 0, "flash": 0, "ssd": 0}
+    # the gemm launches an empty rank does not make, an attention: 3 of
+    # each product onto the heads, 2 of the output product
+    idle = 3 * (3 if mla else 1) + 2 if empty else 0
 
-    def add(gemm, act=0, flash=0, ssd=0):
-        for k, v in (("gemm", gemm), ("act", act), ("flash", flash),
-                     ("ssd", ssd)):
-            n[k] += v
+    def add(gemm, act=0, attns=0, ssd=0):
+        """A block's gemms, activations, attentions (each a flash but
+        MLA's) and ssd calls."""
+        n["gemm"] += gemm
+        n["idle"] += idle * attns
+        n["act"] += act
+        n["flash"] += 0 if empty or mla else attns
+        n["ssd"] += ssd
     for k in cfg.layer_pattern() + ["enc"] * cfg.n_enc_layers:
         if k in MAMBA_KINDS:
             add(2, ssd=1)
@@ -3477,10 +3540,11 @@ def sharded_want(cfg, seq):
             add(8 + mlp, 1, 2)
         elif k == "moe":
             shared = bool(cfg.n_shared_experts)
-            add(attn + mlp * shared, 1 + shared, not mla)
+            add(attn + mlp * shared, 1 + shared, 1)
         elif k != "mamba":
-            add(attn + mlp, 1, not mla)
-    return {"gemm": 4 * n["gemm"] + (0 if cfg.tie_embeddings else 3),
+            add(attn + mlp, 1, 1)
+    return {"gemm": 4 * n["gemm"] - n["idle"] +
+            (0 if cfg.tie_embeddings else 3),
             "vsigmoid": 2 * n["act"] * (cfg.act == "silu"),
             "vtanh": 2 * n["act"] * (cfg.act == "gelu") +
             (cfg.final_softcap is not None),
@@ -3490,11 +3554,14 @@ def sharded_want(cfg, seq):
 
 def sharded_tiers(cfg, want):
     """The tier each op of ``want`` must run on: the kernel tier where it
-    launches, MLA's attention the vector tier (the reference's rule),
-    none elsewhere."""
+    launches, and attention's wherever the model has any (a rank without
+    heads dispatches it and launches nothing), MLA's attention the vector
+    tier (the reference's rule), none elsewhere."""
     tiers = {op: ["pallas"] if want.get(op) else [] for op in SHARDED_OPS}
     if cfg.attn_kind == "mla":
         tiers["flash_attention"] = ["vector"]
+    elif cfg.n_enc_layers or set(cfg.layer_pattern()) - {"mamba"}:
+        tiers["flash_attention"] = ["pallas"]
     return tiers
 
 
@@ -3503,6 +3570,15 @@ def _in_policy(policy):
     import contextlib
     from repro_torch.core import use_policy
     return contextlib.nullcontext() if policy is None else use_policy(policy)
+
+
+def rank_heads(cfg, mesh):
+    """The attention heads this rank of ``mesh`` holds: its chunk of them
+    along 'model' as ``sharding.model_range`` cuts them."""
+    from repro_torch.models import sharding as Sh
+    lo, hi = Sh.chunk_range(cfg.n_heads, mesh.coordinate()["model"],
+                            mesh.shape["model"])
+    return hi - lo
 
 
 def _sharded_batches(cfg, dev, traffic):
@@ -3569,11 +3645,18 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
     from repro_torch.train import loop
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
-    out = {f"serve/{job[0]}": _serve_single(job, serve_traffic, out_dir,
-                                            dev, policy)
-           for job in jobs if job[0] in SHARDED_SERVE}
+    out, seconds = {}, {}
+    for job in jobs:
+        if job[0] in SHARDED_SERVE:
+            t0 = time.perf_counter()
+            out[f"serve/{job[0]}"] = _serve_single(job, serve_traffic,
+                                                   out_dir, dev, policy)
+            seconds[f"serve/{job[0]}"] = time.perf_counter() - t0
     for job in jobs:
         tag = job[0]
+        if tag in SERVE_ONLY:
+            continue
+        t_job = time.perf_counter()
         cfg = job_config(job, "float32" if tag.endswith("f32")
                          else "bfloat16")
         gen = torch.Generator(device=dev)
@@ -3627,6 +3710,8 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
                                   tree.leaves(packed[0][0][0]["scale"])]
         del params, opt, err, packed
         _freed(dev)
+        seconds[tag] = time.perf_counter() - t_job
+    out["seconds"] = seconds
     return out
 
 
@@ -3653,6 +3738,13 @@ def _serve_prompts(cfg, traffic):
         .astype(np.int32)
 
 
+def _serve_extra(cfg, traffic, dev):
+    """The prefill's other inputs: whisper's seeded stub frames (float32,
+    as ``launch/dryrun.py``'s input specs give them), none elsewhere."""
+    from repro_torch.data.pipeline import extra_inputs
+    return extra_inputs(cfg, traffic["batch"], SEED, dev)
+
+
 def _serve_single(job, traffic, out_dir, dev, policy):
     """A ``SHARDED_SERVE`` job on the single rank: ``serve.engine``'s
     prefill and decode steps (the ``Engine``'s) from the seeded init the
@@ -3670,11 +3762,13 @@ def _serve_single(job, traffic, out_dir, dev, policy):
     b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
     cache = M.init_cache(cfg, b, s + n, dev)
     prompts = torch.as_tensor(_serve_prompts(cfg, traffic), device=dev)
+    extra = _serve_extra(cfg, traffic, dev)
     prefill, step = E.make_prefill_step(cfg), E.make_serve_step(cfg)
     t0 = time.perf_counter()
     with torch.no_grad(), _in_policy(policy):
         (logits, cache), launched = _counted_serve(
-            lambda: prefill(params, cache, {"tokens": prompts}), dev)
+            lambda: prefill(params, cache, {"tokens": prompts, **extra}),
+            dev)
         seen, tokens, launches = [logits.float().cpu()], [], [launched]
         for i in range(n):
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -3692,9 +3786,12 @@ def _serve_single(job, traffic, out_dir, dev, policy):
     return rec
 
 
-def _logit_gap(got, want):
-    """max |got - want| over max |want|, in float32 on the host."""
-    got, want = got.float().cpu(), want.float().cpu()
+def _logit_gap(got, want, vocab):
+    """max |got - want| over max |want| of the ``vocab`` columns of the
+    vocabulary (the padded ones hold -1e30 in every run, which would be
+    every step's max |logit|: ``teacher_logits``), in float32 on the
+    host."""
+    got, want = got[..., :vocab].float().cpu(), want[..., :vocab].float().cpu()
     return float((got - want).abs().max() / want.abs().max())
 
 
@@ -3728,6 +3825,8 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
     b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
     prompts = Sh.local_rows(torch.as_tensor(_serve_prompts(cfg, traffic),
                                             device=dev), mesh)
+    extra = {k: Sh.local_rows(v, mesh)
+             for k, v in _serve_extra(cfg, traffic, dev).items()}
     cache = M.init_cache(cfg, b, s + n, dev, mesh=mesh)
     held = tensor_bytes(local) + tensor_bytes(cache)
     prefill = E.make_prefill_step(cfg, mesh=mesh, params_sds=like)
@@ -3736,8 +3835,9 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
     t0 = time.perf_counter()
     with torch.no_grad(), _in_policy(policy):
         (logits, cache), launched = _counted_serve(
-            lambda: prefill(local, cache, {"tokens": prompts}), dev)
-        gaps = [_logit_gap(logits, rows(single["logits"][0]))]
+            lambda: prefill(local, cache, {"tokens": prompts, **extra}), dev)
+        gaps = [_logit_gap(logits, rows(single["logits"][0]),
+                           cfg.vocab_size)]
         launches = [launched]
         for i in range(n):
             tok = rows(single["tokens"][i].to(dev))
@@ -3745,11 +3845,13 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
                                  device=dev)
             (logits, cache), launched = _counted_serve(
                 lambda: step(local, cache, tok[:, None], lengths), dev)
-            gaps.append(_logit_gap(logits, rows(single["logits"][i + 1])))
+            gaps.append(_logit_gap(logits, rows(single["logits"][i + 1]),
+                                   cfg.vocab_size))
             launches.append(launched)
-    rec = {"rank": rank, "mesh": list(shape), "gaps": gaps,
-           "launches": launches, "s": time.perf_counter() - t0,
-           "arguments": {"prefill": held + tensor_bytes(prompts),
+    rec = {"rank": rank, "mesh": list(shape), "heads": rank_heads(cfg, mesh),
+           "gaps": gaps, "launches": launches, "s": time.perf_counter() - t0,
+           "arguments": {"prefill": held + tensor_bytes(prompts) +
+                         tensor_bytes(extra),
                          "decode": held + tensor_bytes(tok[:, None])},
            "peak_bytes": torch.cuda.max_memory_allocated()
            if dev.type == "cuda" else None}
@@ -3758,39 +3860,69 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
     return rec
 
 
-def serve_dryrun(job, traffic):
+def serve_dryrun(job, traffic, rank=0):
     """The dry run (``launch/dryrun.py``) of a ``SHARDED_SERVE`` job's two
-    cells, its prefill and a decode step, traced for rank 0 on
-    stand-ins in this process (torch's fake process group; no device):
-    {kind: (record, argument bytes by part)}."""
+    cells, its prefill (whisper's stub frames in its inputs) and a decode
+    step, traced for ``rank`` on stand-ins in this process (torch's fake
+    process group; no device): {kind: (record, argument bytes by
+    part)}."""
     import torch
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as LM
     shape = job[3]
     cfg = job_config(job, "bfloat16")
     b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
+    frames = {"frames": ((b, cfg.n_frames, cfg.d_model), torch.float32)} \
+        if cfg.family == "encdec" else {}
     out = {}
-    with dryrun.fake_ranks(math.prod(shape)):
+    with dryrun.fake_ranks(math.prod(shape), rank):
         mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
-        for kind, seq in (("prefill", s), ("decode", 1)):
-            out[kind] = dryrun.trace_cell(
-                cfg, kind, {"tokens": ((b, seq), torch.int32)}, mesh,
-                cache_len=s + n)
+        for kind, specs in (
+                ("prefill", {"tokens": ((b, s), torch.int32), **frames}),
+                ("decode", {"tokens": ((b, 1), torch.int32)})):
+            out[kind] = dryrun.trace_cell(cfg, kind, specs, mesh,
+                                          cache_len=s + n)
+    return out
+
+
+def serve_rank_want(launches, empty):
+    """A mesh rank's launches a serving step, from the single rank's
+    (``launches``, one dict a step): the same where the rank holds
+    heads; on a rank without heads none of the attention kernels, and one
+    gemm fewer an attention (its q product is empty; its output product,
+    K = 0, launches), of the one gemm variant the step runs."""
+    if not empty:
+        return launches
+    out = []
+    for step in launches:
+        calls = step.get("flash_attention", 0) + \
+            step.get("decode_attention", 0)
+        variants = [k for k in step if k.startswith("gemm_")]
+        if len(variants) != 1:
+            raise ValueError(f"a serving step of gemm variants {variants}")
+        want = {k: v for k, v in step.items()
+                if k not in ("flash_attention", "decode_attention")}
+        for k in ("gemm", variants[0]):
+            want[k] -= calls
+        out.append(want)
     return out
 
 
 def serve_gate(single, ranks, job, dev):
     """A ``SHARDED_SERVE`` job's gates: every rank's logits within
     ``LM_TOL["bfloat16"]`` of the single rank's at every step; on the
-    card its launches a step the single rank's, and rank 0's the dry
-    run's (prefill, and every decode step); rank 0's argument bytes the
-    dry run's; the dry run's peak bytes beside rank 0's
-    ``max_memory_allocated`` (not gated).  -> (record, failures)."""
+    card its launches a step the single rank's (``serve_rank_want``: a
+    rank without heads launches no attention kernel), and the dry run's
+    of rank 0 and of the first rank without heads (prefill, and every
+    decode step); those ranks' argument bytes the dry run's; the dry
+    run's peak bytes beside rank 0's ``max_memory_allocated`` (not
+    gated).  -> (record, failures)."""
     tag = job[0]
     one = single[f"serve/{tag}"]
     mine = [r[f"serve/{tag}"] for r in ranks]
     t0 = time.perf_counter()
-    dry = serve_dryrun(job, SERVE_TRAFFIC)
+    traced = [0] + [r["rank"] for r in mine if r["heads"] == 0][:1]
+    dry = {rank: serve_dryrun(job, SERVE_TRAFFIC, rank) for rank in traced}
     dry_s = time.perf_counter() - t0
     failures = []
     for r in mine:
@@ -3799,34 +3931,42 @@ def serve_gate(single, ranks, job, dev):
             failures.append(f"sharded_serve/{tag}: rank {r['rank']}'s logits "
                             f"{worst} of max|logit| from the single rank's, "
                             f"against {LM_TOL['bfloat16']}")
-        if dev.type == "cuda" and r["launches"] != one["launches"]:
-            failures.append(f"sharded_serve/{tag}: rank {r['rank']} launched "
-                            f"{r['launches']}, the single rank "
-                            f"{one['launches']}")
+        if dev.type != "cuda":
+            continue
+        want = serve_rank_want(one["launches"], r["heads"] == 0)
+        if r["launches"] != want:
+            failures.append(f"sharded_serve/{tag}: rank {r['rank']} "
+                            f"({r['heads']} heads) launched {r['launches']}, "
+                            f"expected {want}")
+    for rank, cells in dry.items():
+        r = mine[rank]
+        want = {"prefill": [r["launches"][0]], "decode": r["launches"][1:]}
+        for kind, (rec, parts) in cells.items():
+            if dev.type == "cuda" and any(got != rec["launches"]
+                                          for got in want[kind]):
+                failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
+                                f"launches {rec['launches']}, rank {rank}'s "
+                                f"{want[kind]}")
+            if sum(parts.values()) != r["arguments"][kind]:
+                failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
+                                f"arguments {parts}, rank {rank}'s "
+                                f"{r['arguments'][kind]} bytes")
     r0 = mine[0]
-    want = {"prefill": [r0["launches"][0]], "decode": r0["launches"][1:]}
-    for kind, (rec, parts) in dry.items():
-        if dev.type == "cuda" and any(got != rec["launches"]
-                                      for got in want[kind]):
-            failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
-                            f"launches {rec['launches']}, rank 0's "
-                            f"{want[kind]}")
-        if sum(parts.values()) != r0["arguments"][kind]:
-            failures.append(f"sharded_serve/{tag}: the dry run's {kind} "
-                            f"arguments {parts}, rank 0's "
-                            f"{r0['arguments'][kind]} bytes")
-    peak = max(rec["peak_bytes"] for rec, _ in dry.values())
+    peak = max(rec["peak_bytes"] for rec, _ in dry[0].values())
     record = {"mesh": r0["mesh"], "traffic": SERVE_TRAFFIC,
+              "heads": [r["heads"] for r in mine],
               "max_rel_logit_gap": max(max(r["gaps"]) for r in mine),
               "gaps": [r["gaps"] for r in mine],
-              "launches": r0["launches"][:2],
+              "launches": {r["rank"]: r["launches"][:2] for r in mine
+                           if r["rank"] in traced},
               "single_launches": one["launches"][:2],
-              "dryrun": {kind: {"launches": rec["launches"],
-                                "argument_parts": parts,
-                                "peak_bytes": rec["peak_bytes"],
-                                "flops": rec["flops"],
-                                "collectives": rec["collectives"]}
-                         for kind, (rec, parts) in dry.items()},
+              "dryrun": {rank: {kind: {"launches": rec["launches"],
+                                       "argument_parts": parts,
+                                       "peak_bytes": rec["peak_bytes"],
+                                       "flops": rec["flops"],
+                                       "collectives": rec["collectives"]}
+                                for kind, (rec, parts) in cells.items()}
+                         for rank, cells in dry.items()},
               "arguments": r0["arguments"],
               "rank_max_allocated": r0["peak_bytes"],
               "dry_peak_over_allocated": None if not r0["peak_bytes"]
@@ -3910,15 +4050,24 @@ def _sharded_ranks(rank, world, jobs, traffic, out_dir, controls, dev_type,
     ``out["control/<tag>"]``.  ``dev_type`` and ``policy`` as
     ``_sharded_single``'s."""
     mine = [job for job in jobs if math.prod(job[3]) == world]
-    out = {f"serve/{job[0]}": _serve_job(rank, job, side["serve"], out_dir,
-                                         dev_type, policy)
-           for job in mine if job[0] in SHARDED_SERVE}
-    out.update({job[0]: _sharded_job(rank, job, traffic, out_dir, dev_type,
-                                     policy) for job in mine})
+    out, seconds = {}, {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        seconds[key] = time.perf_counter() - t0
+    for job in mine:
+        if job[0] in SHARDED_SERVE:
+            timed(f"serve/{job[0]}", _serve_job, rank, job, side["serve"],
+                  out_dir, dev_type, policy)
+    for job in mine:
+        if job[0] not in SERVE_ONLY:
+            timed(job[0], _sharded_job, rank, job, traffic, out_dir,
+                  dev_type, policy)
     if world == 2:
-        out["psum"] = _psum_job(rank, world, dev_type, side["psum"])
-        out["pipeline"] = _pipeline_job(rank, world, dev_type, policy,
-                                        side["pipeline"])
+        timed("psum", _psum_job, rank, world, dev_type, side["psum"])
+        timed("pipeline", _pipeline_job, rank, world, dev_type, policy,
+              side["pipeline"])
     for job in mine:
         if job[0] not in controls:
             continue
@@ -3926,10 +4075,11 @@ def _sharded_ranks(rank, world, jobs, traffic, out_dir, controls, dev_type,
         saved = owner.__dict__[name]
         setattr(owner, name, stand_in)
         try:
-            out[f"control/{job[0]}"] = _sharded_job(
-                rank, job, traffic, out_dir, dev_type, policy)
+            timed(f"control/{job[0]}", _sharded_job, rank, job, traffic,
+                  out_dir, dev_type, policy)
         finally:
             setattr(owner, name, saved)
+    out["seconds"] = seconds
     return out
 
 
@@ -3971,12 +4121,14 @@ def _psum_job(rank, world, dev_type, n):
     return rec
 
 
-def pipeline_want(cfg, micro):
+def pipeline_want(cfg, micro, backward=False):
     """Exact launches of one ``train.pipeline.pipeline`` rank over stages
-    of one ``attn`` block each, forward only: a microbatch's q, k, v, o
-    and MLP gemms, its activation and its flash, once each."""
+    of one ``attn`` block each: a microbatch's q, k, v, o and MLP gemms,
+    its activation and its flash, once each; with ``backward`` each gemm
+    twice more (dA, dB; the activation's and flash's gradients launch
+    nothing)."""
     mlp = 3 if cfg.gated_mlp else 2
-    return {"gemm": micro * (4 + mlp),
+    return {"gemm": micro * (4 + mlp) * (3 if backward else 1),
             "vsigmoid": micro * (cfg.act == "silu"),
             "vtanh": micro * (cfg.act == "gelu"),
             "flash_attention": micro, "ssd": 0}
@@ -3987,9 +4139,13 @@ def _pipeline_job(rank, world, dev_type, policy, spec):
     stage one ``attn`` block of ``spec`` (``PIPELINE``: its own seeded
     params, stacked on a leading stage axis), ``spec["micro"]`` seeded
     microbatches,
-    forward, bf16: each rank's launches exact (``pipeline_want``) on the
-    kernel tier; on rank 0 the outputs against the blocks applied in turn
-    on this one rank (bitwise, else the gap); host seconds of both."""
+    bf16: forward, each rank's launches exact (``pipeline_want``) on the
+    kernel tier, and on rank 0 the outputs against the blocks applied in
+    turn on this one rank (bitwise, else the gap); then forward and
+    backward of ``y.sum()``, launches exact, and on rank 0 every stage's
+    gradient and the microbatches' against the blocks' in turn (the gap
+    over each one's max |g|, ``grad_gap``: ROADMAP C.36); host seconds of
+    each."""
     import torch
     from repro_torch import tree
     from repro_torch.launch import mesh as LM
@@ -4030,7 +4186,36 @@ def _pipeline_job(rank, world, dev_type, policy, spec):
                    bitwise=bool(torch.equal(y, want)),
                    max_abs_err=float((y.float() - want.float()).abs().max()),
                    finite=bool(y.isfinite().all()))
-    del stages, stacked, x, y
+        del want
+    # the backward: every rank's gradient of the stacked stages and of x
+    # is whole (summed over 'pipe')
+    params = tree.map(lambda a: a.detach().requires_grad_(), stacked)
+    xg = x.detach().requires_grad_()
+    wrt = tree.leaves(params) + [xg]
+
+    def backward():
+        out = pipeline(stage, params, xg, mesh)
+        return torch.autograd.grad(out.float().sum(), wrt)
+    t0 = time.perf_counter()
+    with _in_policy(policy):
+        grads, launched, chosen = _counted_step(backward, dev)
+    rec.update(backward_seconds=time.perf_counter() - t0,
+               backward_launches=launched)
+    _held(launched, chosen, pipeline_want(cfg, m, backward=True), cfg,
+          f"sharded/pipeline/rank {rank} backward", dev)
+    if rank == 0:
+        with _in_policy(policy):
+            loss = sum(functools.reduce(
+                lambda v, i: stage(tree.map(lambda a: a[i], params), v),
+                range(world), xg[j]).float().sum() for j in range(m))
+            want = torch.autograd.grad(loss, wrt)
+        gaps = [float((g.float() - w.float()).abs().max()
+                      / w.float().abs().max().clamp(min=1e-30))
+                for g, w in zip(grads, want)]
+        rec.update(grad_gap=max(gaps), grad_leaves=len(gaps),
+                   grad_finite=all(bool(g.isfinite().all()) for g in grads))
+        del loss, want
+    del stages, stacked, x, y, params, xg, grads
     _freed(dev)
     return rec
 
@@ -4138,7 +4323,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
         lay = grads_fn.layout
         opt = loop.sharded_opt_init(local, cfg, mesh, like)
         step = loop.make_sharded_train_step(cfg, tcfg, mesh, like, bsds)
-        want = sharded_want(cfg, traffic["seq"])
+        heads = rank_heads(cfg, mesh)
+        want = sharded_want(cfg, traffic["seq"], empty=heads == 0)
         # step 1 is the step's two parts, its gradient gathered and held
         # to the single rank's between them (not timed)
         t0 = time.perf_counter()
@@ -4177,7 +4363,7 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
         metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
     finally:
         moe_mod._route = saved
-    rec = {"rank": rank, "mesh": list(shape), "gaps": gaps,
+    rec = {"rank": rank, "mesh": list(shape), "heads": heads, "gaps": gaps,
            "metrics": metrics, "launches": launches, "step_s": step_s,
            "local_params": M.count_params(local),
            "zero1_leaves": sum(bool(lay.zero1_dims(i))
@@ -4333,7 +4519,7 @@ def sharded_gate(single, ranks, tag, rel_tol, leaf_tol=None):
               "leaves": len(leaf), "median_rel_leaf_err": median,
               "max_rel_leaf_err": leaf[order[0]], "worst_leaf": order[0],
               "worst_8": {k: float(f"{leaf[k]:.3g}") for k in order[:8]},
-              "ranks": [{k: r[tag][k] for k in ("rank", "launches",
+              "ranks": [{k: r[tag][k] for k in ("rank", "heads", "launches",
                                                 "step_s", "local_params",
                                                 "zero1_leaves", "opt_elems",
                                                 "peak_gb")}
@@ -4358,13 +4544,15 @@ def sharded_phase(dev, policy=None):
     width: zamba2-1.2b's one pattern unit (mamba, with the ssd kernel on
     each rank's SSM heads, and mamba_shared), deepseek-v2-lite's first
     two layers (MLA, moe_dense, moe), whisper-tiny whole (enc, dec) and
-    gemma3-1b's unit again (its one kv head split over the ranks), bf16,
-    ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
+    gemma3-1b's unit again (its one kv head split over the ranks), and
+    whisper-tiny on (1, 4), its 6 heads split unevenly (2 / 2 / 2 / 0),
+    bf16, ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
     from the same seeded weights and tokens, run first in a process of
     its own: the loss of both steps and their grad_norm within 3e-2, step
     0's gradient leaf by leaf (median within 3e-2, worst within 0.3),
     every rank's gemm, vsigmoid, vtanh, flash and ssd launches of each
-    step exact (``sharded_want``) and on the kernel tier (MLA's attention
+    step exact (``sharded_want`` of the rank's heads) and on the kernel
+    tier (MLA's attention
     on the vector tier), the optimizer state of each ``SHARDED_ZERO1``
     job sliced, and each ``SHARDED_INT8`` job's int8 payload the
     whole-leaf formula's (``int8_gate``: a per-slice scale must miss
@@ -4377,17 +4565,19 @@ def sharded_phase(dev, policy=None):
     sum over 'model' dropped, each of which must fail that gate.  The
     two ranks also run ``compressed_psum`` (``_psum_job``: bitwise
     the formula on one rank) and ``train/pipeline.py`` (``_pipeline_job``:
-    bitwise the blocks in turn, launches exact); the launcher with
+    bitwise the blocks in turn, launches exact, and its backward's
+    gradients within 3e-2 of the blocks' in turn); the launcher with
     ``--coordinator`` runs beside the single-rank steps (``launcher_start``,
     ``launcher_result``; its seconds, and theirs, are taken side by side).
     The routing of every MoE run (granite's, deepseek's) is pinned to the
     single-rank run's (``pinned_routes``).  The ``SHARDED_SERVE`` jobs
     also serve on their ranks (``_serve_job``: prefill and decode on the
     mesh, each rank held to the single rank's ``_serve_single``), and
-    the dry run of their cells is traced here and held to rank 0's
-    launches and argument bytes (``serve_gate``).  (``policy`` and ``dev`` let the
-    CPU tests run it on reduced configs; on the CPU no kernel launches, so
-    only the tiers are held.)"""
+    the dry run of their cells is traced here and held to the launches
+    and argument bytes of rank 0 and of the first rank without heads
+    (``serve_gate``); ``SERVE_ONLY`` jobs only serve.  (``policy`` and
+    ``dev`` let the CPU tests run it on reduced configs; on the CPU no
+    kernel launches, so only the tiers are held.)"""
     import shutil
     from repro_torch.launch import mesh as LM
     out_dir = ROOT / "build" / "sharded"
@@ -4420,7 +4610,8 @@ def sharded_phase(dev, policy=None):
     ranks_of = {job[0]: by_world[math.prod(job[3])] for job in jobs}
     two = by_world[2]
     records, failures = {}, []
-    for tag, *_ in SHARDED:
+    trained = [tag for tag, *_ in SHARDED if tag not in SERVE_ONLY]
+    for tag in trained:
         records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
                                          TRAIN_TOL, TRAIN_LEAF_TOL)
         failures += bad
@@ -4464,6 +4655,10 @@ def sharded_phase(dev, policy=None):
     if not (head["bitwise"] and head["finite"]):
         failures.append(f"sharded/pipeline: the pipeline's outputs are not "
                         f"the blocks' in turn bitwise ({head})")
+    if not (head["grad_finite"] and head["grad_gap"] <= LM_TOL["bfloat16"]):
+        failures.append(f"sharded/pipeline: the pipeline's gradient is "
+                        f"{head['grad_gap']} of its max from the blocks' in "
+                        f"turn, against {LM_TOL['bfloat16']}")
     records["serve"] = {}
     for job in SHARDED:
         if job[0] in SHARDED_SERVE:
@@ -4471,15 +4666,20 @@ def sharded_phase(dev, policy=None):
                 single, ranks_of[job[0]], job, dev)
             failures += bad
     records["launcher"] = launched
-    launches = {op: sum(n[op] for tag, *_ in SHARDED
+    launches = {op: sum(n[op] for tag in trained
                         for r in ranks_of[tag] for n in r[tag]["launches"])
                 + sum(r["pipeline"]["launches"][op] for r in two)
                 for op in SHARDED_OPS}
+    # each job's host seconds: the single rank's, and rank 0's of each
+    # group of ranks (a group's ranks_s is its jobs' and its processes'
+    # start)
+    job_s = {"single": single["seconds"],
+             **{world: by_world[world][0]["seconds"] for world in worlds}}
     emit("sharded", traffic=SHARDED_TRAFFIC, single_s=single_s,
-         ranks_s=ranks_s, launches=launches,
+         ranks_s=ranks_s, job_s=job_s, launches=launches,
          want={job[0]: sharded_want(job_config(job, "bfloat16"),
                                     SHARDED_TRAFFIC["seq"])
-               for job in SHARDED}, **records)
+               for job in SHARDED if job[0] in trained}, **records)
     if failures:
         raise AssertionError("; ".join(failures))
     return {"launches": launches, **records}
@@ -4621,9 +4821,10 @@ def time_train(gen, dev, flush):
 
 def time_sharded(gen, dev, flush):
     """The ``time`` rows of the sharded path's kernel calls at its local
-    shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_SILU``,
-    ``SHARDED_SSD``), bf16, each output held to its plain version's and
-    timed beside it, the library call and the card's bound."""
+    shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_DECODE``,
+    ``SHARDED_SILU``, ``SHARDED_SSD``), bf16, each output held to its
+    plain version's and timed beside it, the library call and the card's
+    bound."""
     import torch
     from repro_torch.kernels import cost
     from repro_torch.kernels import elementwise as ew
@@ -4640,6 +4841,10 @@ def time_sharded(gen, dev, flush):
     lm = [("flash_attention", arch, (r(b, s, h, d), r(b, s, hkv, d),
                                      r(b, s, hkv, d), causal, None, None))
           for arch, (b, s, h, hkv, d, causal) in SHARDED_FLASH.items()]
+    lm += [("decode_attention", arch, (
+        r(b, 1, h, d), r(b, s, hkv, d), r(b, s, hkv, d),
+        torch.full((b,), 512, dtype=torch.int32, device=dev), None, None))
+        for arch, (b, s, h, hkv, d) in SHARDED_DECODE.items()]
     for arch, (b, s, h, p, g, n) in SHARDED_SSD.items():
         dt = torch.nn.functional.softplus(
             torch.randn((b, s, h), generator=gen, device=dev) - 1.0)
@@ -4649,7 +4854,7 @@ def time_sharded(gen, dev, flush):
             r(b, s, g, n, scale=0.5), r(b, s, g, n, scale=0.5),
             torch.ones(h, device=dev))))
     for op, arch, targs in lm:
-        mod = fa if op == "flash_attention" else ssd
+        mod = ssd if op == "ssd" else fa
         out = mod.KERNELS[op](*targs)
         if not bool(out.isfinite().all()):
             raise AssertionError(f"{op}/sharded_{arch}: non-finite output")
@@ -5011,14 +5216,14 @@ def main(argv=None) -> int:
          ops_call_ms=ops_ms, wrapper_call_ms=wrapper_ms,
          registry=REGISTRY.cache_info())
 
-    # 5. the serving paths: each arch at full width and depth, then the
+    # 5. the serving paths: each arch at full width, then the
     # gemmas at prompts longer than their windows ----------------------
     serve = {arch: serve_arch(dev, modules, arch) for arch in SERVE_ARCHS}
     serve.update({f"{arch}/window": serve_arch(dev, modules, arch, traffic,
                                                "serve_window")
                   for arch, traffic in SERVE_WINDOW})
 
-    # 5b. training: zamba2 at full width and depth, the gradient gates,
+    # 5b. training: zamba2 at full width and 20 layers, the gradient gates,
     # the other archs, checkpoint and restart, the no-detach guard --------
     train = train_phase(dev, modules)
     train_grad_phase(dev)

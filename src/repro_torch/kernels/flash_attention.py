@@ -27,7 +27,9 @@ decode row's valid length by scalar prefetch.  The Hopper kernels
     goes in fp32 to a workspace made here with ``torch.empty``; a second
     kernel merges the splits in split order, so two runs agree bitwise.
 
-Both take the JAX package's op-boundary layout, q (B, Sq, H, D) and k, v
+A call with no heads (a 'model' rank that holds none) returns its empty
+output and launches nothing: a grid of size 0 is no valid launch.  Both
+take the JAX package's op-boundary layout, q (B, Sq, H, D) and k, v
 (B, Sk, Hkv, D), and read through strides (D must be contiguous), so the
 (B, H, S, D) transposes of the reference's ``ops.py`` are never copied.
 D from 1 to 256; GQA (H % Hkv == 0), causal with q_offset = Sk - Sq,
@@ -129,11 +131,18 @@ def _check(op, q, k, v):
                         f"one dtype, not {q.dtype}/{k.dtype}/{v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or \
             q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] or \
-            k.shape[2] == 0 or q.shape[2] % k.shape[2] or \
+            not _grouped(q.shape[2], k.shape[2]) or \
             not 0 < q.shape[3] <= MAX_D:
         raise ValueError(f"{op}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}; the kernel "
                          f"takes (B,S,H,D) with H % Hkv == 0, D <= {MAX_D}")
+
+
+def _grouped(h, hkv) -> bool:
+    """H q heads over Hkv kv heads: a whole number of q heads a kv head,
+    or no heads at all (a 'model' rank that holds none: nothing to
+    launch)."""
+    return h == hkv == 0 or (hkv > 0 and h % hkv == 0)
 
 
 def _strided(t):
@@ -243,10 +252,10 @@ def reset_launches() -> None:
 
 
 def supports(q, k, v, **kw) -> bool:
-    """The reference's rule on (B,H,S,D) operands (4-D, H % Hkv == 0),
-    with the kernels' own limits: q, k, v of one dtype, float32 or
-    bfloat16, one head dim of at most 256."""
-    return (q.ndim == 4 and k.ndim == 4 and q.shape[1] % k.shape[1] == 0
+    """The reference's rule on (B,H,S,D) operands (4-D, H % Hkv == 0,
+    or no heads), with the kernels' own limits: q, k, v of one dtype,
+    float32 or bfloat16, one head dim of at most 256."""
+    return (q.ndim == 4 and k.ndim == 4 and _grouped(q.shape[1], k.shape[1])
             and q.dtype in _build.DTYPES and k.dtype == q.dtype
             and v.dtype == q.dtype and q.shape[-1] == k.shape[-1]
             == v.shape[-1] and q.shape[-1] <= MAX_D)

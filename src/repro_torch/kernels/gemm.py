@@ -31,8 +31,12 @@ and M alone (:func:`variant`), deterministically:
     agree bitwise).
 
 Ragged M, N and K are masked (zero-filled past the end); no operand is
-padded or copied.  Layouts are the reference's: a (M, K), b (K, N), bias
-(N,), all of one dtype (float32 or bfloat16); the output has a's dtype.
+padded or copied.  An empty output launches nothing (a grid of size 0
+is no valid launch); K = 0 (the output projection of a 'model' rank
+with no heads) launches the chosen kernel, whose K loop then runs no
+step: it writes the bias, clamped.  Layouts are the reference's: a
+(M, K), b (K, N), bias (N,), all of one dtype (float32 or bfloat16);
+the output has a's dtype.
 
   * ``gemm_plain`` -- the plain version, in torch ops;
   * ``gemm`` -- the wrapper: a CUDA tensor launches the chosen kernel and

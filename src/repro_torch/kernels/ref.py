@@ -190,7 +190,7 @@ def attention(q, k, v, *, causal=True, window=None, softcap=None, scale=None,
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     dv = v.shape[-1]                 # value head dim may differ (MLA)
-    group = h // hkv
+    group = h // max(hkv, 1)        # (no heads: an empty output)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qf = q.to(torch.float32).reshape(b, sq, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf,
@@ -228,7 +228,7 @@ def attention_chunked(q, k, v, *, causal=True, window=None, softcap=None,
     b, sq, h, d = q.shape
     _, sk, hkv, _ = k.shape
     dv = v.shape[-1]
-    group = h // hkv
+    group = h // max(hkv, 1)        # (no heads: an empty output)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qc = min(q_chunk, sq)
     pad = (-sq) % qc
@@ -267,7 +267,7 @@ def decode_attention(q, k, v, lengths, window=None, softcap=None,
     positions.  q:(B,1,H,D) k,v:(B,S,Hkv,D) lengths:(B,) -> (B,1,H,D)."""
     b, one, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
-    group = h // hkv
+    group = h // max(hkv, 1)        # (no heads: an empty output)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     qf = q.to(torch.float32).reshape(b, one, hkv, group, d)
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qf,

@@ -18,7 +18,7 @@ would run and each hand kernel's launch is recorded rather than made:
 
 ``launch/graph_analysis.py`` counts what the rank dispatches.  A cell is
 ``ok``; ``skipped`` with the reference's reason; ``refused`` with
-``sharding.check_mesh``'s message (ROADMAP A.9.10); ``held`` where
+``sharding.check_mesh``'s message (ROADMAP A.9.11); ``held`` where
 ``get_config`` refuses the arch (C.22, C.23); or ``error`` with its
 trace.  ``argument_bytes`` are the rank's params, optimizer slices, rows
 of the batch and part of the cache (``model.init_cache`` with the mesh);
@@ -113,12 +113,12 @@ def cut_depth(cfg, units):
 
 
 @contextlib.contextmanager
-def fake_ranks(world):
+def fake_ranks(world, rank=0):
     """torch's ``fake`` process group of ``world`` ranks, this process
-    rank 0 (no collective moves data)."""
+    ``rank`` (no collective moves data)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", rank=0, world_size=world,
+    dist.init_process_group("fake", rank=rank, world_size=world,
                             store=FakeStore())
     try:
         yield
@@ -133,11 +133,12 @@ def tensor_bytes(tr) -> int:
 
 
 def build_cell(cfg, kind, specs, mesh, accum=1, cache_len=None):
-    """(arguments by part, the global batch, the step on them) of rank 0
-    of ``mesh``: a ``kind`` step (train, prefill or decode) of ``cfg`` on
-    the global batch of ``specs`` ({name: (shape, dtype)}), ``accum``
-    microbatches in train, a cache of ``cache_len`` positions in
-    serving; stand-ins on ``meta``, nothing allocated."""
+    """(arguments by part, the global batch, the step on them) of this
+    process's rank of ``mesh`` (rank 0 in the dry run's cells): a
+    ``kind`` step (train, prefill or decode) of ``cfg`` on the global
+    batch of ``specs`` ({name: (shape, dtype)}), ``accum`` microbatches
+    in train, a cache of ``cache_len`` positions in serving; stand-ins
+    on ``meta``, nothing allocated."""
     meta = torch.device("meta")
     batch = {k: torch.empty(s, dtype=dt, device=meta)
              for k, (s, dt) in specs.items()}
@@ -172,7 +173,7 @@ def cell_inputs(cfg, shape_name):
 
 
 def trace_cell(cfg, kind, specs, mesh, accum=1, cache_len=None):
-    """Rank 0's step (:func:`build_cell`) run on stand-ins under the
+    """This rank's step (:func:`build_cell`) run on stand-ins under the
     ``h100`` target and the kernel policy and counted
     (``graph_analysis.Counter``) -> (its record, argument bytes by
     part)."""

@@ -19,21 +19,28 @@ absorbed decode is plain products, as the reference's is.
 Cross-attention (``memory``: whisper's decoder) attends the encoder's k
 and v, non-causal and without rope, in every mode; its caller keeps them.
 
-Under a 'model' split (``models/sharding.py``) GQA's projections hold
-this rank's whole q heads: the replicated input enters the model region
-once (a sequence-parallel stream's chunks are gathered there), attention
-runs on the local heads (their count read from the weights' widths) over
-the whole sequence and ``linear_rp`` sums the output projection's
-partials.  Where 'model' gives each rank whole kv heads, ``wk`` and
-``wv`` hold them; with fewer kv heads than ranks (:func:`kv_proj`) each
-rank's k and v columns are gathered over 'model' and the kv heads its q
-heads read are kept.  The qk-norm
-weights pass through ``sharding.model_leaf``.  MLA's down-projections
-and their norms run replicated on every rank (on the stream's chunk
-under sequence parallelism); its latent ``c_kv``, its shared ``k_rope``
-and the q input of its column-parallel up-projection enter the model
-region, and its heads are the rank's ``w_uq``/``wq``, ``w_uk``, ``w_uv``
-columns.
+Under a 'model' split (``models/sharding.py``) each rank holds its
+chunk of the q heads (``sharding.model_range``: ceil-sized, the last
+ranks short or empty where 'model' does not divide them, GSPMD's cut):
+the replicated input enters the model region once (a sequence-parallel
+stream's chunks are gathered there), attention runs on the rank's heads
+over the whole sequence and ``linear_rp`` sums the output projection's
+partials.  ``wq``'s columns and ``wo``'s rows are the stored chunk where
+it lines up with every rank's heads, else the leaf gathered over 'model'
+and the heads' span taken (``sharding.heads_of``).  Where 'model' gives
+each rank whole kv heads, ``wk`` and ``wv`` hold them; otherwise
+(:func:`kv_proj`) each rank's k and v columns are gathered over 'model'
+and the kv heads its q heads read are kept, each q head given its own
+where a rank's heads straddle kv heads unevenly (the cache then holds
+one a q head, read in place).  A rank without heads
+runs every product and collective of the block on empty heads, and no
+attention kernel.  The qk-norm weights pass through
+``sharding.model_leaf``.  MLA's down-projections and their norms run
+replicated on every rank (on the stream's chunk under sequence
+parallelism); its latent ``c_kv``, its shared ``k_rope`` and the q input
+of its column-parallel up-projection enter the model region, and its
+heads are the rank's ``w_uq``/``wq``, ``w_uk``, ``w_uv`` columns and
+``wo`` rows, as ``heads_of`` gives them.
 """
 from __future__ import annotations
 
@@ -78,19 +85,31 @@ def _norm_leaf(p, x):
 
 def kv_proj(w, x, cfg):
     """``x`` @ ``w`` as (B, S, Hkv, hd): the kv heads that this rank's
-    q heads read.  Without a 'model' split, or where it gives each
-    rank whole kv heads, those are ``w``'s columns.  With fewer kv heads
-    than ranks, ``w``'s contiguous cut holds part of a head: its
+    q heads read, in the attention kernels' order.  Without a 'model'
+    split, or where it gives each rank whole kv heads, those are ``w``'s
+    columns.  Otherwise (fewer kv heads than ranks, or heads 'model' does
+    not divide) ``w``'s contiguous cut is not the rank's kv heads: its
     columns' products are gathered over 'model' (backward, summed and
-    this rank's chunk kept), and q head j reads kv head
-    j // (n_heads / n_kv_heads)."""
-    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+    this rank's chunk kept), and the rank's q heads
+    (``sharding.model_range``) keep the kv heads they read, head j
+    reading j // (n_heads / n_kv_heads), none on a rank without heads;
+    where some rank's heads straddle kv heads unevenly
+    (``sharding.straddles``), each q head its own, so that Hkv is the
+    rank's q heads (the kernels read them, and the cache holds them, as
+    multi-head attention)."""
+    hd, n, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     b, s = x.shape[:2]
-    if hkv % Sh.model_split()[1] == 0:
+    _, m = Sh.model_split()
+    if hkv % m == 0:
         return L.linear(w, x).reshape(b, s, w.shape[-1] // hd, hd)
     y = Sh.gather_model(L.linear(w, x), -1, hkv * hd, True)
-    lo, hi = Sh.groups_read(*Sh.model_range(cfg.n_heads), cfg.n_heads, hkv)
-    return y.reshape(b, s, hkv, hd)[:, :, lo:hi].contiguous()
+    y = y.reshape(b, s, hkv, hd)
+    lo, hi = Sh.model_range(n)
+    if Sh.straddles(n, hkv, m):
+        index = torch.arange(lo, hi, device=y.device) // (n // hkv)
+        return y.index_select(2, index)
+    glo, ghi = Sh.groups_read(lo, hi, n, hkv)
+    return y[:, :, glo:ghi].contiguous()
 
 
 def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
@@ -100,12 +119,17 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     as it came.  ``target`` pins the attention lowering selection to an
     explicit machine model."""
     hd = cfg.head_dim
-    # this rank's heads: all of them without a 'model' split
-    h = params["wq"].shape[-1] // hd
+    # this rank's heads: all of them without a 'model' split, else its
+    # chunk of them, which may be short or empty; wq's columns and wo's
+    # rows for them
+    lo, hi = Sh.model_range(cfg.n_heads)
+    h = hi - lo
+    wq = Sh.heads_of(params["wq"], -1, cfg.n_heads, hd)
+    wo = Sh.heads_of(params["wo"], 0, cfg.n_heads, hd)
     # (a sequence-parallel stream's chunks gathered whole)
     x = Sh.enter_model(x)
     b, s, _ = x.shape
-    q = L.linear(params["wq"], x).reshape(b, s, h, hd)
+    q = L.linear(wq, x).reshape(b, s, h, hd)
     if memory is None:
         k = kv_proj(params["wk"], x, cfg)
         v = kv_proj(params["wv"], x, cfg)
@@ -122,14 +146,12 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     if memory is not None:
         out = ops.attention(q, k, v, causal=False, softcap=cfg.softcap,
                             target=target)
-        return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), \
-            cache
+        return L.linear_rp(wo, out.reshape(b, s, h * hd), cfg), cache
 
     if mode == "train":
         out = ops.attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.softcap, target=target)
-        return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), \
-            cache
+        return L.linear_rp(wo, out.reshape(b, s, h * hd), cfg), cache
 
     if mode == "prefill":
         slots = cache["k"].shape[1]
@@ -142,8 +164,7 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
             cache["v"][:, :s] = v
         out = ops.attention(q, k, v, causal=True, window=window,
                             softcap=cfg.softcap, target=target)
-        return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), \
-            cache
+        return L.linear_rp(wo, out.reshape(b, s, h * hd), cfg), cache
 
     # decode: s == 1, write at pos = lengths (per row), attend valid prefix
     slots = cache["k"].shape[1]
@@ -154,7 +175,7 @@ def gqa_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     valid = torch.clamp(lengths + 1, max=slots)
     out = ops.decode_attention(q, cache["k"], cache["v"], valid,
                                softcap=cfg.softcap, target=target)
-    return L.linear_rp(params["wo"], out.reshape(b, s, h * hd), cfg), cache
+    return L.linear_rp(wo, out.reshape(b, s, h * hd), cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +218,10 @@ def _mla_q(params, x, cfg, positions):
     r, nd = cfg.qk_rope_dim, cfg.qk_nope_dim
     if cfg.q_lora_rank:
         cq = L.norm_apply(params["q_norm"], L.linear(params["w_dq"], x))
-        q = L.linear(params["w_uq"], Sh.enter_model(cq))
+        w, x = params["w_uq"], cq
     else:
-        q = L.linear(params["wq"], Sh.enter_model(x))
+        w = params["wq"]
+    q = L.linear(Sh.heads_of(w, -1, cfg.n_heads, nd + r), Sh.enter_model(x))
     b, s = q.shape[:2]
     q = q.reshape(b, s, q.shape[-1] // (nd + r), nd + r)
     q_nope, q_rope = q[..., :nd], q[..., nd:]
@@ -224,8 +246,14 @@ def mla_apply(params, x, cfg, *, positions, mode, cache=None, lengths=None,
     """x:(B,S,d).  mode in train|prefill|decode.  MLA takes no window (the
     reference ignores one; no MLA config has one)."""
     r, nd, vd = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
-    # this rank's heads: all of them without a 'model' split
-    h = params["w_uk"].shape[-1] // nd
+    # this rank's heads (all of them without a 'model' split) and its
+    # w_uk / w_uv columns and wo rows for them
+    lo, hi = Sh.model_range(cfg.n_heads)
+    h = hi - lo
+    params = {**params, "w_uk": Sh.heads_of(params["w_uk"], -1, cfg.n_heads,
+                                            nd),
+              "w_uv": Sh.heads_of(params["w_uv"], -1, cfg.n_heads, vd),
+              "wo": Sh.heads_of(params["wo"], 0, cfg.n_heads, vd)}
     scale = 1.0 / math.sqrt(nd + r)
     q_nope, q_rope = _mla_q(params, x, cfg, positions)
     b, s = q_nope.shape[:2]

@@ -49,7 +49,7 @@ def dense_init(gen, d_in, d_out, dtype, device, scale=None):
 def linear(w, x):
     """x:(..., d_in) @ w:(d_in, d_out) — dispatched through the gemm op."""
     lead = x.shape[:-1]
-    out = ops.gemm(x.reshape(-1, x.shape[-1]), w)
+    out = ops.gemm(x.reshape(math.prod(lead), x.shape[-1]), w)
     return out.reshape(*lead, w.shape[-1])
 
 

@@ -162,7 +162,7 @@ def _encode(params, cfg, frames, target=None):
 
 def forward(params, cfg, batch, *, mode: str, cache=None,
             lengths: Optional[torch.Tensor] = None, sp_spec=None,
-            target=None):
+            target=None, last_only=False):
     """Returns (logits, new_cache, aux): aux the MoE blocks' summed
     load-balance loss, a float32 scalar (0 where there is none).
 
@@ -170,7 +170,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
     (vlm) outside decode.  ``sp_spec`` (a ``sharding.P``) constrains the
     residual stream before each block under a mesh.  ``target`` pins
     every attention/ssd lowering selection in this forward to an
-    explicit machine model.
+    explicit machine model.  ``last_only`` runs the head on the last
+    position alone (a prefill step's output): logits (B, 1, V).
     """
     prefix, unit, reps, rem = cfg.pattern_unit()
     params = {**params,
@@ -218,6 +219,8 @@ def forward(params, cfg, batch, *, mode: str, cache=None,
         Sh.layer_params(params["final_norm"], cfg), x, cfg.norm))
     if cfg.family == "vlm" and mode != "decode":
         x = x[:, -batch["tokens"].shape[1]:]     # the token positions
+    if last_only:
+        x = x[:, -1:]
     logits = L.head_apply(params["embed"], x, cfg)
     return logits, (new_cache if cache is not None else None), aux
 

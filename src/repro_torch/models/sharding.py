@@ -52,14 +52,19 @@ Every block kind splits over 'model' (the rank's heads,
 through :func:`model_leaf` (above), a statistic over all the heads
 through :func:`sum_over_model`, and a leaf whose stored contiguous cut
 does not line up with the rank's heads (the mamba block's ``w_in`` and
-conv, a kv head split over ranks) is gathered over 'model' in the step
-(:func:`gather_model` with ``reduce_grad``) while its stored layout
-stays the reference's.  :func:`check_mesh` refuses the splits that are
-not whole (ROADMAP A.9.10).
+conv, a kv head split over ranks, an attention leaf of heads that
+'model' does not divide: :func:`heads_of`) is gathered over 'model' in
+the step (:func:`gather_model` with ``reduce_grad``) while its stored
+layout stays the reference's.  Attention heads split unevenly as GSPMD
+cuts them, ceil-sized chunks with the last ranks short or empty (ROADMAP
+A.9.10); a rank with no heads launches no attention kernel and takes
+part in every collective of the block.  :func:`check_mesh` refuses the
+other splits that are not whole (ROADMAP A.9.11).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from typing import Dict, Optional
@@ -363,10 +368,12 @@ def cache_shard_shape(path, shape, cfg, mesh) -> tuple:
     and, under a 'model' split, what its computation writes.
 
       * k, v (and the cross-attention's xk, xv) ``(B, S, Hkv, hd)``: the
-        kv heads this rank's q heads read (``attention.kv_proj``): its
-        ``Hkv / model`` where 'model' divides them, as ``cache_pspecs``
-        cuts them; below that the groups its heads read, whole, where
-        ``cache_pspecs`` cuts the head dim (ROADMAP C.33);
+        kv heads this rank's q heads (:func:`model_range`) read
+        (``attention.kv_proj``): its ``Hkv / model`` where 'model' divides
+        them, as ``cache_pspecs`` cuts them; else the groups its heads
+        read, whole, where ``cache_pspecs`` cuts the head dim (ROADMAP
+        C.33), one a q head where the heads straddle groups unevenly
+        (:func:`straddles`), and none on a rank that holds no heads;
       * the SSM state ``(B, H, p, n)``: its ``H / model`` heads, where
         ``cache_pspecs`` cuts ``p`` (the same bytes; C.35);
       * the conv history ``(B, K-1, C)``: the channels of its heads and
@@ -386,9 +393,10 @@ def cache_shard_shape(path, shape, cfg, mesh) -> tuple:
         return tuple(out)
     r = mesh.coordinate()["model"]
     if name in ("k", "v", "xk", "xv"):
-        h, hkv = cfg.n_heads, shape[2]
-        glo, ghi = groups_read(r * (h // m), (r + 1) * (h // m), h, hkv)
-        out[2] = hkv // m if hkv % m == 0 else ghi - glo
+        lo, hi = chunk_range(cfg.n_heads, r, m)
+        glo, ghi = groups_read(lo, hi, cfg.n_heads, shape[2])
+        out[2] = hi - lo if straddles(cfg.n_heads, shape[2], m) else \
+            ghi - glo
     elif name == "state":
         out[1] = shape[1] // m
     elif name == "conv":
@@ -638,18 +646,65 @@ def model_leaf(w):
 
 
 def model_range(n):
-    """[lo, hi) of this rank's share of ``n`` heads (or experts) along
-    'model', which :func:`check_mesh` has 'model' divide; all ``n``
+    """[lo, hi) of this rank's share of ``n`` heads along 'model', cut as
+    :func:`chunk_range` cuts an uneven dim (GSPMD's cut: ceil-sized
+    chunks, the last ranks short or empty, rank 0 the largest); all ``n``
     without a split."""
     r, m = model_split()
-    return r * (n // m), (r + 1) * (n // m)
+    return chunk_range(n, r, m)
 
 
 def groups_read(lo, hi, n, n_of):
     """[lo, hi) of the ``n_of`` groups (kv heads, SSM groups) that heads
-    [lo, hi) of ``n`` read: head j reads group j // (n / n_of)."""
+    [lo, hi) of ``n`` read: head j reads group j // (n / n_of); none for
+    no heads."""
     per = n // n_of
+    if hi <= lo:
+        return (min(lo // per, n_of),) * 2
     return lo // per, (hi - 1) // per + 1
+
+
+@functools.cache
+def heads_aligned(n, width, m):
+    """Whether every one of ``m`` 'model' ranks' stored chunk of a
+    head-major dim of ``n`` heads of ``width`` is its heads' span
+    (:func:`model_range`), as it is where 'model' divides the heads."""
+    return all(chunk_range(n * width, r, m) ==
+               tuple(x * width for x in chunk_range(n, r, m))
+               for r in range(m))
+
+
+@functools.cache
+def straddles(n, n_of, m):
+    """Whether some one of ``m`` 'model' ranks' share of ``n`` heads
+    reads its ``n_of`` groups (:func:`groups_read`) out of the attention
+    kernels' order, in which q head i of h reads group i // (h / g): its
+    heads straddle groups unevenly (12 heads over 6 kv heads on 4 ranks:
+    rank 0's heads 0, 1, 2 read kv heads 0, 0, 1)."""
+    per = n // n_of
+    for r in range(m):
+        lo, hi = chunk_range(n, r, m)
+        glo, ghi = groups_read(lo, hi, n, n_of)
+        h, g = hi - lo, ghi - glo
+        if g and (h % g or any((j - lo) // (h // g) != j // per - glo
+                               for j in range(lo, hi))):
+            return True
+    return False
+
+
+def heads_of(w, dim, n, width):
+    """This rank's heads' span of dim ``dim`` of ``w``, the rank's stored
+    chunk of a head-major dim of ``n`` heads of ``width`` (``wq``'s
+    columns, ``wo``'s rows): the chunk as it is where the cut lines up
+    with every rank's heads (:func:`heads_aligned`), else the leaf
+    gathered over 'model' (backward, the gradient summed and this rank's
+    chunk kept) and the heads' span of it."""
+    _, m = model_split()
+    if m == 1 or heads_aligned(n, width, m):
+        return w
+    lo, hi = model_range(n)
+    full = gather_model(w, dim, n * width, True)
+    return full.narrow(dim % w.ndim, lo * width, (hi - lo) * width)
 
 
 def sum_over_model(x):
@@ -760,22 +815,18 @@ def layer_params(ps, cfg):
 
 def check_mesh(cfg, mesh):
     """Refuse, naming its ROADMAP item, a mesh the explicit-SPMD step
-    cannot run: a 'model' split (> 1 rank) of widths it does not divide
-    into whole heads, FFN columns, experts and SSM heads a rank, or whose
-    q heads do not read whole groups of kv heads or SSM groups (or lie in
-    one), which GSPMD cuts unevenly and explicit SPMD does not (A.9.10).
-    Every block kind splits over 'model' (A.9.8), and every mesh with one
-    'model' rank is served."""
+    cannot run: a 'model' split (> 1 rank) of FFN columns, experts or SSM
+    heads it does not divide into whole ones a rank, or whose SSM heads
+    do not read whole SSM groups (or lie in one), which GSPMD cuts
+    unevenly and explicit SPMD does not (A.9.11).  Attention heads and kv
+    heads of every kind split unevenly, as GSPMD cuts them (A.9.10), and
+    every mesh with one 'model' rank is served."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
     kinds = set(cfg.layer_pattern()) | ({"enc"} if cfg.n_enc_layers
                                         else set())
-    widths, groups = {}, {}
-    if kinds - {"mamba"}:
-        widths["n_heads"] = cfg.n_heads
-        if cfg.attn_kind == "gqa" or cfg.shared_attn_every:
-            groups["n_kv_heads"] = (cfg.n_heads, cfg.n_kv_heads)
+    widths = {}
     if kinds & {"attn", "local", "enc", "dec", "mamba_shared"}:
         widths["d_ff"] = cfg.d_ff
     if "moe_dense" in kinds:
@@ -785,14 +836,13 @@ def check_mesh(cfg, mesh):
         widths["shared d_ff"] = cfg.n_shared_experts * cfg.d_expert
     if kinds & {"mamba", "mamba_shared"}:
         widths["ssm_heads"] = cfg.ssm_heads
-        groups["ssm_groups"] = (cfg.ssm_heads, cfg.ssm_groups)
     odd = {k: v for k, v in widths.items() if v % m}
-    for k, (n, n_of) in groups.items():
-        per, mine = n // n_of, n // m
-        if not odd and mine % per and per % mine:
-            odd[k] = n_of
+    if not odd and kinds & {"mamba", "mamba_shared"}:
+        per, mine = cfg.ssm_heads // cfg.ssm_groups, cfg.ssm_heads // m
+        if mine % per and per % mine:
+            odd["ssm_groups"] = cfg.ssm_groups
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: a 'model' axis of {m} does not divide {odd} into "
-            "whole heads, columns, experts or head groups a rank, ROADMAP "
-            "A.9.10")
+            "whole columns, experts, SSM heads or SSM groups a rank, "
+            "ROADMAP A.9.11")

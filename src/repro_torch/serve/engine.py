@@ -55,13 +55,17 @@ def make_prefill_step(cfg, target=None, mesh=None, params_sds=None):
     (``sharding.shard_params``), cache its part (``model.init_cache``
     with the mesh), batch its rows (``sharding.local_rows``); the logits
     are its rows', whole over the vocabulary.  ``params_sds`` gives the
-    params' full shapes (meta tensors will do)."""
+    params' full shapes (meta tensors will do).  The head runs on the
+    last position alone, all that the step returns (over a 32k prompt
+    the whole sequence's logits, gathered over the vocabulary, would
+    take most of a card: gemma2-2b's 256000 softcapped columns)."""
     on = _on_mesh(cfg, mesh, params_sds)
 
     def prefill(params, cache, batch):
         with on(params):
             logits, cache, _ = M.forward(params, cfg, batch, mode="prefill",
-                                         cache=cache, target=target)
+                                         cache=cache, target=target,
+                                         last_only=True)
         return logits[:, -1], cache
     return prefill
 

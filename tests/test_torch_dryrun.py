@@ -31,6 +31,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (arch, shape, multi-pod), cut to one pattern unit
 CELLS = [(a, s, m) for a in ("zamba2-1.2b", "mistral-large-123b")
          for s in ("train_4k", "decode_32k") for m in (False, True)]
+# the small cells compiled by the reference and traced here (gemma2-2b
+# reduced, 8 x 32 tokens, accum 2): the reference's own small cell, and
+# its 4 heads made 6 (over 2 kv heads) on (1, 4), heads 2 / 2 / 2 / 0
+SMALL = (("small", (4, 2), {}),
+         ("uneven", (1, 4), {"n_heads": 6, "n_kv_heads": 2}))
 # traced whole here; zamba2's train_4k (~40 s a mesh on the stand-ins,
 # its ssd gradients through the vector tier) is built and its arguments
 # held, and traced by the dry run's command
@@ -44,7 +49,7 @@ from repro.configs import SHAPES, get_config
 from repro.models import model as M, sharding as Sh
 from repro.optim import adamw
 from repro.train.loop import TrainConfig, make_train_step
-cells = json.loads(sys.argv[1])
+cells, SMALL = json.loads(sys.argv[1])
 
 def auto_mesh(shape, axes):
     return jax.make_mesh(tuple(shape), tuple(axes),
@@ -64,27 +69,33 @@ def shard_bytes(t, specs, mesh, by_name=None):
     return total
 
 out = {}
-mesh = auto_mesh((4, 2), ("data", "model"))
-cfg = get_config("gemma2-2b").reduced()
-params_sds = jax.eval_shape(lambda: M.init(cfg, jax.random.PRNGKey(0)))
-pspecs = Sh.param_pspecs(params_sds, cfg, mesh)
-opt_sds = jax.eval_shape(adamw.init, params_sds)
-ospecs = {"m": Sh.opt_pspecs(params_sds, cfg, mesh),
-          "v": Sh.opt_pspecs(params_sds, cfg, mesh),
-          "master": Sh.opt_pspecs(params_sds, cfg, mesh), "step": P()}
-batch = {"tokens": jax.ShapeDtypeStruct((8, 32), jnp.int32),
-         "targets": jax.ShapeDtypeStruct((8, 32), jnp.int32)}
-bspec = {k: P(("data",), None) for k in batch}
-step = make_train_step(cfg, TrainConfig(accum=2), mesh)
-fn = lambda p, o, b: step(p, o, None, b)[:2]
-jfn = jax.jit(fn, in_shardings=(Sh.ns(mesh, pspecs), Sh.ns(mesh, ospecs),
-                                Sh.ns(mesh, bspec)),
-              out_shardings=(Sh.ns(mesh, pspecs), Sh.ns(mesh, ospecs)))
-with mesh:
-    compiled = jfn.lower(params_sds, opt_sds, batch).compile()
 from repro.launch import hlo_analysis
-out["small"] = int(compiled.memory_analysis().argument_size_in_bytes)
-out["small_flops"] = hlo_analysis.analyze(compiled.as_text())["flops"]
+for key, shape, over in SMALL:
+    mesh = auto_mesh(shape, ("data", "model"))
+    cfg = get_config("gemma2-2b").reduced().replace(**over)
+    params_sds = jax.eval_shape(lambda: M.init(cfg, jax.random.PRNGKey(0)))
+    pspecs = Sh.param_pspecs(params_sds, cfg, mesh)
+    opt_sds = jax.eval_shape(adamw.init, params_sds)
+    ospecs = {"m": Sh.opt_pspecs(params_sds, cfg, mesh),
+              "v": Sh.opt_pspecs(params_sds, cfg, mesh),
+              "master": Sh.opt_pspecs(params_sds, cfg, mesh), "step": P()}
+    batch = {"tokens": jax.ShapeDtypeStruct((8, 32), jnp.int32),
+             "targets": jax.ShapeDtypeStruct((8, 32), jnp.int32)}
+    bspec = {k: Sh.fit_spec(P(("data",), None), (8, 32), mesh)
+             for k in batch}
+    step = make_train_step(cfg, TrainConfig(accum=2), mesh)
+    fn = lambda p, o, b: step(p, o, None, b)[:2]
+    jfn = jax.jit(fn, in_shardings=(Sh.ns(mesh, pspecs),
+                                    Sh.ns(mesh, ospecs), Sh.ns(mesh, bspec)),
+                  out_shardings=(Sh.ns(mesh, pspecs), Sh.ns(mesh, ospecs)))
+    with mesh:
+        compiled = jfn.lower(params_sds, opt_sds, batch).compile()
+    memory = compiled.memory_analysis()
+    analysis = hlo_analysis.analyze(compiled.as_text())
+    out[key] = int(memory.argument_size_in_bytes)
+    out[key + "_temp"] = int(memory.temp_size_in_bytes)
+    out[key + "_flops"] = analysis["flops"]
+    out[key + "_collectives"] = analysis["collectives"]
 for arch, shape_name, multi in cells:
     cfg = get_config(arch)
     prefix, unit, _, _ = cfg.pattern_unit()
@@ -126,7 +137,7 @@ def reference():
            "XLA_FLAGS": "--xla_force_host_platform_device_count=512 "
                         "--xla_backend_optimization_level=0"}
     proc = subprocess.Popen([sys.executable, "-c", REFERENCE,
-                             json.dumps(CELLS)], env=env,
+                             json.dumps([CELLS, SMALL])], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     got = []
@@ -194,6 +205,65 @@ def test_small_cell_argument_bytes_equal_the_compiled_reference(
     assert 0.9 <= rec["flops"] / reference()["small_flops"] <= 1.1
 
 
+# ROADMAP A.13c: each collective kind's bytes a rank a step, the port's
+# over the reference's (``hlo_analysis`` of the compiled step), and the
+# port's peak over the reference's temp + argument bytes
+# (``memory_analysis``), each (lo, hi); the reference's collective-permute
+# bytes as a share of its collective bytes (the port makes none).  Read
+# when written: small 1.278 / 0.596 / 1.070, permutes 4.3%; uneven 0.522 /
+# 0.667 / 1.006, permutes 11.4%.
+RATIOS = {"small": {"all-reduce": (1.2, 1.35), "all-gather": (0.55, 0.65),
+                    "peak": (1.0, 1.12), "permute share": (0.03, 0.06)},
+          "uneven": {"all-reduce": (0.45, 0.6), "all-gather": (0.6, 0.72),
+                     "peak": (0.95, 1.06), "permute share": (0.09, 0.14)}}
+
+
+@pytest.mark.parametrize("key,shape,over", SMALL, ids=[c[0] for c in SMALL])
+def test_small_cells_collectives_and_peak_held_to_the_compiled_reference(
+        reference, key, shape, over):
+    """A.13c: the port's trace of rank 0 of the small cells, its
+    collectives by kind and its peak held to the compiled reference's
+    within ``RATIOS``.  The causes of the gaps, as far as they are known:
+
+    * GSPMD picks and places its collectives itself: it moves operands
+      between devices with collective-permutes, which the port never
+      makes, and sums and gathers other tensors than the port's
+      Megatron-style pairs (the copy into the model region all-reduces
+      its gradient, ``linear_rp`` its partial products): the small
+      cell's all-reduce 1.28x and all-gather 0.60x of the reference's;
+    * W.16, sequence parallelism's reduce-scatter done as an all-reduce
+      and a cut, is not in these cells (gemma2 runs without it);
+    * heads that 'model' does not divide: the reference's all-reduce and
+      collective-permute bytes grow to 6.8x and 15.5x the small cell's
+      (on 4 'model' ranks and no data axis), where the port gathers
+      ``wq`` and ``wo`` over 'model' (``sharding.heads_of``: an
+      all-gather forward, an all-reduce of their gradient backward) and
+      moves about half the reference's bytes;
+    * the peak: the port's eager ops hold intermediates that XLA's
+      fusion never keeps, against temp + arguments, which leave out what
+      XLA aliases."""
+    cfg = get_config("gemma2-2b").reduced().replace(**over)
+    specs = {k: ((8, 32), torch.int32) for k in ("tokens", "targets")}
+    with dryrun.fake_ranks(math.prod(shape)):
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        rec, parts = dryrun.trace_cell(cfg, "train", specs, mesh, accum=2)
+    ref = reference()
+    assert sum(parts.values()) == ref[key]
+    want = ref[key + "_collectives"]
+    got = rec["collectives"]
+    assert set(got) <= {"all-reduce", "all-gather"}, got
+    bounds = RATIOS[key]
+    for kind in ("all-reduce", "all-gather"):
+        lo, hi = bounds[kind]
+        assert lo <= got[kind] / want[kind] <= hi, (kind, got, want)
+    lo, hi = bounds["permute share"]
+    share = want["collective-permute"] / sum(want.values())
+    assert lo <= share <= hi, want
+    lo, hi = bounds["peak"]
+    peak = rec["peak_bytes"] / (ref[key + "_temp"] + ref[key])
+    assert lo <= peak <= hi, (rec["peak_bytes"], ref[key + "_temp"])
+
+
 @pytest.mark.parametrize("cell", CELLS, ids=["-".join(map(str, c))
                                               for c in CELLS])
 def test_production_cells_argument_bytes(reference, cells, cell):
@@ -225,9 +295,10 @@ def test_production_cells_argument_bytes(reference, cells, cell):
 
 
 def test_status_grid():
-    """The 80 cells of the reference's matrix: 26 ok, minicpm3, gemma2,
-    gemma3 and whisper refused naming A.9.10 (skipped at long_500k),
-    mamba2 held (C.22), pixtral held (C.23; skipped at long_500k)."""
+    """The 80 cells of the reference's matrix: 50 ok (minicpm3, gemma2,
+    gemma3 and whisper among them since A.9.10, skipped at long_500k),
+    none refused, mamba2 held (C.22), pixtral held (C.23; skipped at
+    long_500k)."""
     from repro_torch.configs import SHAPES
     grid = {}
     for multi in (False, True):
@@ -237,8 +308,6 @@ def test_status_grid():
                 status, reason, _ = dryrun.cell_status(arch, shape, dims,
                                                        axes)
                 grid[(arch, shape, multi)] = status
-                if status == "refused":
-                    assert "A.9.10" in reason
                 if status == "held":
                     assert ("C.22" if arch == "mamba2-1.3b" else "C.23") \
                         in reason
@@ -246,14 +315,17 @@ def test_status_grid():
     ok = {(a, s) for (a, s, _), v in grid.items() if v == "ok"}
     assert ok == {(a, s) for a in ("zamba2-1.2b", "granite-moe-1b-a400m",
                                    "deepseek-v2-lite-16b",
-                                   "mistral-large-123b")
+                                   "mistral-large-123b", "minicpm3-4b",
+                                   "gemma2-2b", "gemma3-1b", "whisper-tiny")
                   for s in SHAPES
                   if not (s == "long_500k" and a != "zamba2-1.2b")}
-    assert sum(v == "ok" for v in grid.values()) == 26
+    counts = {v: sum(x == v for x in grid.values())
+              for v in set(grid.values())}
+    assert counts == {"ok": 50, "skipped": 16, "held": 14}
     for arch in ("minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny"):
         for (a, s, _), v in grid.items():
             if a == arch:
-                assert v == ("skipped" if s == "long_500k" else "refused")
+                assert v == ("skipped" if s == "long_500k" else "ok")
     assert {v for (a, _, _), v in grid.items() if a == "mamba2-1.3b"} == \
         {"held"}
     assert {(s, v) for (a, s, _), v in grid.items()

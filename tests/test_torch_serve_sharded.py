@@ -3,17 +3,26 @@
 GSPMD, as its dry run lowers them.
 
 Each case is float32 at ``cfg.reduced()`` widths: a prefill of 4 rows of
-24 tokens into a 32-position cache, then 2 decode steps fed the same
-tokens on both sides.  The reference jits its steps with the params
-sharded by ``param_pspecs``, the cache by ``cache_pspecs`` and the rows
-by ``batch_spec``, under ``active_mesh``, on as many forced host devices
+24 tokens (and whisper's stub frames) into a 32-position cache, then 4
+decode steps fed the same tokens on both sides.  The reference jits its
+steps with the params sharded by ``param_pspecs``, the cache by
+``cache_pspecs`` and the rows by ``batch_spec``, under ``active_mesh``,
+on as many forced host devices
 as the mesh has (an Auto mesh, ROADMAP C.2), in a subprocess; the port
 runs each rank's step on as many gloo CPU ranks
 (``launch.mesh.run_ranks``) from the reference's ``init`` (carried across
 by ``models/convert.py``).  Held: each rank's logits and its part of
 every cache leaf within 2e-4 of max|.| of the reference's at the same
 place.  The cache layouts that differ from ``cache_pspecs`` (ROADMAP
-C.33-C.35) are pinned by their bytes a rank.
+C.33-C.35) are pinned by their bytes a rank.  Two cases split the heads
+unevenly (A.9.10): gemma2 with 6 heads over 2 kv heads, and whisper with
+6 heads over 2 kv heads, on (1, 4): heads 2 / 2 / 2 / 0, the last rank
+holding no heads and no cache of k and v.  Where heads straddle kv heads
+unevenly (12 over 6 on (1, 4): rank 0's heads 0, 1, 2 read kv heads 0,
+0, 1), a rank's cache holds one kv head a q head, which
+``cache_pspecs``' cut of 6 kv heads over 4 ranks does not give; those
+cases are held to the port's single rank instead, the logits within
+2e-4 and each rank's cache equal to the single rank's heads read.
 """
 import json
 import os
@@ -35,11 +44,16 @@ from repro_torch.models import sharding as Sh
 from repro_torch.serve import engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (arch, mesh): SSM state and conv history; per-data-shard capacity with
-# experts over 'model'; one kv head below 'model'; FSDP
-CASES = (("zamba2-1.2b", (1, 2)), ("granite-moe-1b-a400m", (2, 2)),
-         ("gemma3-1b", (1, 2)), ("mistral-large-123b", (2, 2)))
-TRAFFIC = dict(batch=4, prompt=24, max_seq=32, steps=2)
+# (arch, mesh, config overrides): SSM state and conv history;
+# per-data-shard capacity with experts over 'model'; one kv head below
+# 'model'; FSDP; heads that 'model' does not divide (GQA, and whisper's
+# encoder, decoder and cross-attention; its kv heads below 'model', so
+# that the reference's cache divides the mesh)
+UNEVEN = {"n_heads": 6, "n_kv_heads": 2}
+CASES = (("zamba2-1.2b", (1, 2), {}), ("granite-moe-1b-a400m", (2, 2), {}),
+         ("gemma3-1b", (1, 2), {}), ("mistral-large-123b", (2, 2), {}),
+         ("gemma2-2b", (1, 4), UNEVEN), ("whisper-tiny", (1, 4), UNEVEN))
+TRAFFIC = dict(batch=4, prompt=24, max_seq=32, steps=4)
 TOL = 2e-4
 
 REFERENCE = r"""
@@ -47,16 +61,18 @@ import json, pickle, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, PartitionSpec as P
 from repro.configs import get_config
+from repro.data.pipeline import extra_inputs
 from repro.models import model as M, sharding as Sh
 from repro.serve.engine import make_prefill_step, make_serve_step
 cases, traffic, path = json.loads(sys.argv[1])
 out = []
-for arch, shape in cases:
-    cfg = get_config(arch).reduced().replace(dtype="float32")
+for arch, shape, over in cases:
+    cfg = get_config(arch).reduced().replace(dtype="float32", **over)
     params = M.init(cfg, jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
     b, s = traffic["batch"], traffic["prompt"]
     prompts = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    extra = {k: np.asarray(v) for k, v in extra_inputs(cfg, b).items()}
     feed = rng.integers(0, cfg.vocab_size,
                         (traffic["steps"], b, 1)).astype(np.int32)
     mesh = jax.make_mesh(tuple(shape), ("data", "model"),
@@ -75,27 +91,31 @@ for arch, shape in cases:
     def st(p, c, t, l):
         with Sh.active_mesh(mesh):
             return step(p, c, t, l)
-    pf = jax.jit(pf, in_shardings=(pspecs, cspecs, {"tokens": rows}),
+    batch = {"tokens": rows, **{k: rows for k in extra}}
+    pf = jax.jit(pf, in_shardings=(pspecs, cspecs, batch),
                  out_shardings=(None, cspecs))
     st = jax.jit(st, in_shardings=(pspecs, cspecs, rows, lens),
                  out_shardings=(None, cspecs))
     with mesh:
-        logits, cache = pf(params, cache, {"tokens": jnp.asarray(prompts)})
+        logits, cache = pf(params, cache, {"tokens": jnp.asarray(prompts),
+                                           **extra})
         runs = [np.asarray(logits)]
         for i in range(traffic["steps"]):
             lengths = jnp.full((b,), s + i, jnp.int32)
             logits, cache = st(params, cache, jnp.asarray(feed[i]), lengths)
             runs.append(np.asarray(logits))
     out.append({"params": jax.tree.map(np.asarray, params),
-                "prompts": prompts, "feed": feed, "logits": runs,
+                "prompts": prompts, "extra": extra, "feed": feed,
+                "logits": runs,
                 "cache": jax.tree.map(np.asarray, cache)})
 with open(path, "wb") as f:
     pickle.dump(out, f)
 """
 
 
-def _config(arch):
-    return get_config(arch).reduced().replace(dtype="float32")
+def _config(arch, over=None):
+    return get_config(arch).reduced().replace(dtype="float32",
+                                              **(over or {}))
 
 
 def _port(rank, world, cases, refs):
@@ -103,10 +123,10 @@ def _port(rank, world, cases, refs):
     its cache leaves, with its coordinate."""
     torch.set_num_threads(1)
     out = []
-    for (arch, shape), ref in zip(cases, refs):
+    for (arch, shape, over), ref in zip(cases, refs):
         if shape[0] * shape[1] != world:
             continue
-        cfg = _config(arch)
+        cfg = _config(arch, over)
         mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
         full = convert.from_jax(ref["params"], cfg, device="cpu")
         like = tree.map(lambda x: x.to("meta"), full)
@@ -117,8 +137,9 @@ def _port(rank, world, cases, refs):
         step = engine.make_serve_step(cfg, mesh=mesh, params_sds=like)
         rows = lambda a: Sh.local_rows(torch.as_tensor(a), mesh)  # noqa
         with torch.no_grad():
-            logits, cache = prefill(local, cache,
-                                    {"tokens": rows(ref["prompts"])})
+            logits, cache = prefill(local, cache, {
+                "tokens": rows(ref["prompts"]),
+                **{k: rows(v) for k, v in ref["extra"].items()}})
             runs = [logits]
             for i in range(TRAFFIC["steps"]):
                 lengths = torch.full((TRAFFIC["batch"],),
@@ -149,7 +170,7 @@ def runs():
         with open(path, "rb") as f:
             refs = pickle.load(f)
     port = {}
-    for world in sorted({s[0] * s[1] for _, s in CASES}):
+    for world in sorted({s[0] * s[1] for _, s, _ in CASES}):
         for rank_out in LM.run_ranks(_port, world, CASES, refs,
                                      timeout=600):
             for r in rank_out:
@@ -168,10 +189,8 @@ def _part(path, full, cfg, coord, mesh_shape):
     if m == 1:
         return x
     if name in ("k", "v", "xk", "xv"):
-        h, hkv = cfg.n_heads, x.shape[2]
-        if hkv % m == 0:
-            return x[:, :, r * hkv // m:(r + 1) * hkv // m]
-        lo, hi = Sh.groups_read(r * h // m, (r + 1) * h // m, h, hkv)
+        lo, hi = Sh.groups_read(*Sh.chunk_range(cfg.n_heads, r, m),
+                                cfg.n_heads, x.shape[2])
         return x[:, :, lo:hi]
     if name == "state":
         return x[:, r * x.shape[1] // m:(r + 1) * x.shape[1] // m]
@@ -203,12 +222,12 @@ def _ref_leaf(cache, path):
     return node
 
 
-@pytest.mark.parametrize("arch,shape", CASES,
-                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s in CASES])
-def test_mesh_serving_matches_the_reference(runs, arch, shape):
+@pytest.mark.parametrize("arch,shape,over", CASES,
+                         ids=[f"{a}-{s[0]}x{s[1]}" for a, s, _ in CASES])
+def test_mesh_serving_matches_the_reference(runs, arch, shape, over):
     refs, port = runs
-    ref = refs[[a for a, _ in CASES].index(arch)]
-    cfg = _config(arch)
+    ref = refs[[a for a, _, _ in CASES].index(arch)]
+    cfg = _config(arch, over)
     ranks = port[arch]
     assert len(ranks) == shape[0] * shape[1]
     b = TRAFFIC["batch"] // shape[0]
@@ -222,6 +241,8 @@ def test_mesh_serving_matches_the_reference(runs, arch, shape):
             want = _part(path, _ref_leaf(ref["cache"], path), cfg,
                          r["coord"], shape)
             assert got.shape == want.shape, (arch, path)
+            if want.size == 0:        # a rank without heads: no k and v
+                continue
             scale = max(np.max(np.abs(want)), 1e-30)
             assert np.max(np.abs(got - want)) / scale <= TOL, (arch, path)
 
@@ -273,3 +294,84 @@ def test_cache_layouts_pinned_by_their_bytes():
                         ("deepseek-v2-lite-16b", (1, 2))):
         assert _bytes_a_rank(_config(arch), shape)[0] == \
             _bytes_a_rank(_config(arch), shape)[1], arch
+
+
+# heads that straddle kv heads unevenly (A.9.10): gemma2 and whisper (its
+# cross-attention's xk and xv too) with 12 heads over 6 kv heads on (1, 4)
+STRADDLED = (("gemma2-2b", (1, 4), {"n_heads": 12, "n_kv_heads": 6}),
+             ("whisper-tiny", (1, 4), {"n_heads": 12, "n_kv_heads": 6}))
+
+
+def _serve(cfg, mesh):
+    """Prefill and ``TRAFFIC["steps"]`` decode steps of ``cfg`` on this
+    rank of ``mesh`` (None: one rank), params from seed 0 and tokens from
+    numpy's; -> (each step's logits, the cache's (path, leaf) pairs)."""
+    b = TRAFFIC["batch"]
+    full = M.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (b, TRAFFIC["prompt"])).astype(np.int32))
+    feed = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAFFIC["steps"], b, 1)).astype(np.int32))
+    extra = {}
+    if cfg.family == "encdec":
+        from repro_torch.data.pipeline import extra_inputs
+        extra = extra_inputs(cfg, b, device="cpu")
+    params, like, rows = full, None, (lambda a: a)
+    if mesh is not None:
+        like = tree.map(lambda x: x.to("meta"), full)
+        params = Sh.shard_params(full, mesh, cfg)
+        rows = lambda a: Sh.local_rows(a, mesh)  # noqa: E731
+    cache = M.init_cache(cfg, b, TRAFFIC["max_seq"], "cpu", mesh=mesh)
+    prefill = engine.make_prefill_step(cfg, mesh=mesh, params_sds=like)
+    step = engine.make_serve_step(cfg, mesh=mesh, params_sds=like)
+    with torch.no_grad():
+        logits, cache = prefill(params, cache, {
+            "tokens": rows(prompts),
+            **{k: rows(v) for k, v in extra.items()}})
+        runs = [logits.numpy()]
+        for i in range(TRAFFIC["steps"]):
+            lengths = torch.full((b,), TRAFFIC["prompt"] + i,
+                                 dtype=torch.int32)
+            logits, cache = step(params, cache, rows(feed[i]),
+                                 rows(lengths))
+            runs.append(logits.numpy())
+    return runs, [(p, x.numpy()) for p, x in tree.paths(cache)]
+
+
+def _straddled(rank, world, cases):
+    torch.set_num_threads(1)
+    out = []
+    for arch, shape, over in cases:
+        mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+        out.append((mesh.coordinate(), *_serve(_config(arch, over), mesh)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def straddled():
+    return LM.run_ranks(_straddled, 4, STRADDLED, timeout=600)
+
+
+@pytest.mark.parametrize("case", range(len(STRADDLED)),
+                         ids=[c[0] for c in STRADDLED])
+def test_straddled_heads_serve_as_the_single_rank(straddled, case):
+    arch, shape, over = STRADDLED[case]
+    cfg = _config(arch, over)
+    logits, cache = _serve(cfg, None)
+    n, hkv = cfg.n_heads, cfg.n_kv_heads
+    for r, rank in enumerate(straddled):
+        coord, got_logits, got_cache = rank[case]
+        for want, got in zip(logits, got_logits):
+            err = np.max(np.abs(got - want)) / np.max(np.abs(want))
+            assert err <= TOL, (arch, coord, err)
+        lo, hi = Sh.chunk_range(n, coord["model"], shape[1])
+        assert hi - lo == 3
+        for (path, want), (_, got) in zip(cache, got_cache):
+            name = [k for k in path if isinstance(k, str)][-1]
+            if name in ("k", "v", "xk", "xv"):
+                # one kv head a q head: head j reads j // (n / hkv)
+                want = want[:, :, np.arange(lo, hi) // (n // hkv)]
+            assert got.shape == want.shape, (arch, path)
+            scale = max(np.max(np.abs(want)), 1e-30)
+            assert np.max(np.abs(got - want)) / scale <= TOL, (arch, path)

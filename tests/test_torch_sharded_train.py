@@ -171,15 +171,17 @@ def _key(case):
 def run_cases(cases, controls=()):
     """(reference runs, port runs by case, inits) of ``cases``: the
     reference's subprocesses (one for every three cases, at most three;
-    case i in process i % their count) write their inits first, and the
+    case i in process i % their count; as many forced host devices as
+    the largest mesh has, at least 4) write their inits first, and the
     port's ranks run on them while they step; each (case index, fault)
     of ``controls`` runs that case again under the fault, in the same
     ranks, its run keyed ("control", index) (``_port``)."""
     # (LLVM's optimisation off: the reference compiles a step and a
     # gradient a case and runs each on 4 rows of 16 tokens)
+    devices = max([4] + [_world(c) for c in cases])
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src"),
            "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4 "
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices} "
                         "--xla_backend_optimization_level=0"}
     procs = min(3, -(-len(cases) // 3))
     parts = [list(range(i, len(cases), procs)) for i in range(procs)]

@@ -262,37 +262,40 @@ def test_shard_then_gather_is_the_identity(world):
 def test_refusals_name_their_roadmap_item():
     """What the explicit-SPMD step cannot run is refused before it runs,
     each with its ROADMAP ID (shape-only meshes suffice): a 'model' axis
-    that does not split the widths into whole heads, columns, experts or
-    head groups a rank (A.9.10).  Every block kind splits over 'model'
-    (A.9.8, no longer refused): mamba, mamba_shared, MLA, enc/dec, kv
-    heads below 'model'."""
+    that does not split the FFN columns, experts or SSM heads into whole
+    ones a rank, or a rank's SSM heads across SSM groups (A.9.11).
+    Attention heads split unevenly, as GSPMD cuts them (A.9.10, no longer
+    refused: whisper's 6 over 4, minicpm3's 40 over 16, heads across kv
+    heads), and every block kind splits over 'model' (A.9.8)."""
     tp = Sh.Mesh((1, 2), ("data", "model"))
     cases = [
-        # 16 heads and 8 kv heads do not split over 3
+        # granite's 32 experts do not split over 3 (its heads would now)
         ("granite-moe-1b-a400m", Sh.Mesh((1, 3), ("data", "model")),
-         "A.9.10"),
-        # whisper's 6 heads over 4
-        ("whisper-tiny", Sh.Mesh((1, 4), ("data", "model")), "A.9.10"),
-        # minicpm3's 40 heads over 16
-        ("minicpm3-4b", Sh.Mesh((1, 16), ("data", "model")), "A.9.10"),
+         "n_experts"),
         # zamba2's 64 SSM heads over 128 ranks
-        ("zamba2-1.2b", Sh.Mesh((1, 128), ("data", "model")), "A.9.10"),
+        ("zamba2-1.2b", Sh.Mesh((1, 128), ("data", "model")), "ssm_heads"),
+        # mistral's FFN width, 28672 columns, over 3
+        ("mistral-large-123b", Sh.Mesh((1, 3), ("data", "model")), "d_ff"),
     ]
-    for arch, mesh, item in cases:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for arch, mesh, width in cases:
+        with pytest.raises(NotImplementedError,
+                           match=f"{width}.*ROADMAP A.9.11"):
             Sh.check_mesh(get_config(arch), mesh)
-    # heads that straddle two kv heads: 12 heads, 6 kv heads on 4 ranks
-    with pytest.raises(NotImplementedError, match="n_kv_heads.*A.9.10"):
-        Sh.check_mesh(get_config("gemma2-2b").replace(n_heads=12,
-                                                      n_kv_heads=6),
-                      Sh.Mesh((1, 4), ("data", "model")))
+    # attention heads that 'model' does not divide (A.9.10): whisper's 6
+    # over 4, minicpm3's 40 over 16, gemma2's 8 and gemma3's 4 over 16,
+    # and 12 heads over 4 ranks, each rank's 3 across two of 6 kv heads
+    for arch, shape in (("whisper-tiny", (1, 4)), ("minicpm3-4b", (1, 16)),
+                        ("gemma2-2b", (16, 16)), ("gemma3-1b", (16, 16))):
+        Sh.check_mesh(get_config(arch), Sh.Mesh(shape, ("data", "model")))
+    Sh.check_mesh(get_config("gemma2-2b").replace(n_heads=12, n_kv_heads=6),
+                  Sh.Mesh((1, 4), ("data", "model")))
     # SSM heads and their groups: 8 heads in 4 groups on 4 ranks (a
     # group a rank) is served, 6 heads in 3 groups on 2 ranks (a rank's
     # heads across groups) is not
     ssm = get_config("zamba2-1.2b").reduced()
     Sh.check_mesh(ssm.replace(ssm_groups=4), Sh.Mesh((1, 4),
                                                      ("data", "model")))
-    with pytest.raises(NotImplementedError, match="ssm_groups.*A.9.10"):
+    with pytest.raises(NotImplementedError, match="ssm_groups.*A.9.11"):
         Sh.check_mesh(ssm.replace(d_model=48, ssm_groups=3), tp)
     # the kinds A.9.8 lifted, and the production meshes of every arch
     # whose widths 16 'model' ranks divide (mistral's 8 kv heads among
@@ -348,6 +351,57 @@ def test_refusals_name_their_roadmap_item():
         dist.destroy_process_group()
     with Sh.active_mesh(Sh.Mesh((2, 1), ("data", "model"))):
         assert Sh.constrain(x, "batch", "model", None) is x
+
+
+# (config overrides, 'model' ranks) -> each rank's q heads and the kv
+# heads its cache holds
+UNEVEN = (("whisper-tiny", {}, 4, [2, 2, 2, 0], [2, 2, 2, 0]),
+          ("minicpm3-4b", {}, 16, [3] * 13 + [1, 0, 0], None),
+          ("gemma2-2b", {}, 16, [1] * 8 + [0] * 8, [1] * 8 + [0] * 8),
+          ("gemma3-1b", {}, 8, [1] * 4 + [0] * 4, [1] * 4 + [0] * 4),
+          ("gemma2-2b", {"n_heads": 6, "n_kv_heads": 2}, 4, [2, 2, 2, 0],
+           [1, 2, 1, 0]),
+          # heads that straddle kv heads unevenly: one kv head a q head
+          ("gemma2-2b", {"n_heads": 12, "n_kv_heads": 6}, 4, [3] * 4,
+           [3] * 4))
+
+
+@pytest.mark.parametrize("arch,over,m,heads,kv", UNEVEN,
+                         ids=[f"{u[0]}-{u[2]}-{u[1].get('n_heads', '')}"
+                              for u in UNEVEN])
+def test_uneven_heads_model_range_and_cache_shard_shape(arch, over, m,
+                                                         heads, kv):
+    """A.9.10: each rank of a (1, m) mesh (rank r of a fake process
+    group) holds heads as ``chunk_range`` cuts an uneven dim, ceil-sized
+    chunks with the last ranks short or empty (rank 0 the largest), and
+    its k and v cache holds the kv heads those heads read, none on a rank
+    without heads (an MLA cache is whole on every rank)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    cfg = get_config(arch).replace(**over)
+    cache = M.init_cache(cfg, 4, 32, "meta")
+    got_heads, got_kv = [], []
+    for r in range(m):
+        dist.init_process_group("fake", rank=r, world_size=m,
+                                store=FakeStore())
+        try:
+            mesh = LM.make_mesh((1, m), ("data", "model"), "cpu")
+            with Sh.active_mesh(mesh):
+                lo, hi = Sh.model_range(cfg.n_heads)
+            got_heads.append(hi - lo)
+            for path, x in tree.paths(cache):
+                if path[-1] == "k":
+                    shape = Sh.cache_shard_shape(path, x.shape, cfg, mesh)
+                    got_kv.append(shape[2])
+                    break
+                if path[-1] == "c_kv":
+                    assert Sh.cache_shard_shape(path, x.shape, cfg,
+                                                mesh) == x.shape
+                    break
+        finally:
+            dist.destroy_process_group()
+    assert got_heads == heads and sum(heads) == cfg.n_heads
+    assert got_kv == (kv or [])
 
 
 def _dtensor_refused(rank, world):

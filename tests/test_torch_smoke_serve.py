@@ -324,17 +324,19 @@ def test_spans_swapped_ranges_the_mla_functions_and_restores_them():
 def test_window_traffic_outruns_the_windows_and_its_launch_counts():
     """``serve_window``: gemma3's 1024-token prompts are twice its 512
     window, gemma2's 4160 tokens pass its 4096 (and its vector tier's
-    chunked attention, Sq x Sk > 2048^2); every layer attends, so one
+    chunked attention, Sq x Sk > 2048^2); each model cut to one pattern
+    unit, its local layers and a global one; every layer attends, so one
     flash launch a layer and one decode launch a layer and later step."""
     got = {}
     for arch, traffic in cs.SERVE_WINDOW:
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(n_layers=traffic["layers"])
         assert traffic["prompt"] > cfg.window
+        assert set(cfg.layer_pattern()) == {"local", "attn"}
         got[arch] = cs.serve_want(cfg, traffic["prompt"], traffic["gen"])
-    assert got == {"gemma3-1b": {"ssd": 0, "flash_attention": 26,
-                                 "decode_attention": 26 * 31},
-                   "gemma2-2b": {"ssd": 0, "flash_attention": 26,
-                                 "decode_attention": 26 * 7}}
+    assert got == {"gemma3-1b": {"ssd": 0, "flash_attention": 6,
+                                 "decode_attention": 6 * 31},
+                   "gemma2-2b": {"ssd": 0, "flash_attention": 2,
+                                 "decode_attention": 2 * 7}}
     assert dict(cs.SERVE_WINDOW)["gemma2-2b"]["prompt"] ** 2 > 2048 ** 2
 
 

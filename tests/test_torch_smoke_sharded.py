@@ -122,6 +122,11 @@ def test_sharded_phase_runs_reduced(monkeypatch):
         assert r["opt_elems"] < r["local_params"]
     for tag in ("zamba2", "deepseek", "whisper", "gemma3_tp"):
         assert out[tag]["failures"] == [] and out[tag]["mesh"] == [1, 2], tag
+    # heads that 'model' does not divide: 2 / 2 / 2 / 0 of whisper's 6
+    rec = out["whisper_tp4"]
+    assert rec["failures"] == [] and rec["mesh"] == [1, 4]
+    assert [r["heads"] for r in rec["ranks"]] == [2, 2, 2, 0]
+    assert "gemma3_tp8" not in out        # serving only
     for tag in ("granite_f32", "mistral_f32", "zamba2_f32",
                 "granite_sp_f32"):
         assert out[tag]["max_rel_leaf_err"] <= cs.LM_TOL["float32"], tag
@@ -142,19 +147,35 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     assert all(r["bitwise"] for r in out["psum"])
     head = out["pipeline"][0]
     assert head["bitwise"] and head["shape"] == [1, 16, 64], head
+    assert head["grad_finite"] and head["grad_leaves"] > 1
+    assert head["grad_gap"] <= cs.LM_TOL["bfloat16"], head
     assert [r["ticks"] for r in out["pipeline"]] == [9, 9]
     assert out["launcher"]["backend"] == "gloo"
     # serving on the mesh: each rank's logits the single rank's, the dry
     # run's arguments rank 0's (no launches on the CPU)
-    for tag, mesh in (("zamba2", [1, 2]), ("mistral", [2, 2])):
+    for tag, mesh in (("zamba2", [1, 2]), ("mistral", [2, 2]),
+                      ("whisper_tp4", [1, 4]), ("gemma3_tp8", [1, 8])):
         serve = out["serve"][tag]
         assert serve["failures"] == [] and serve["mesh"] == mesh, tag
         assert serve["max_rel_logit_gap"] <= cs.LM_TOL["bfloat16"]
         assert len(serve["gaps"][0]) == 3
-        dry = serve["dryrun"]["decode"]
+        dry = serve["dryrun"][0]["decode"]
         assert dry["launches"]["decode_attention"] > 0
         assert sum(dry["argument_parts"].values()) == \
             serve["arguments"]["decode"]
+    # the ranks without heads, each traced by the dry run beside rank 0
+    assert out["serve"]["whisper_tp4"]["heads"] == [2, 2, 2, 0]
+    assert out["serve"]["gemma3_tp8"]["heads"] == [1] * 4 + [0] * 4
+    assert sorted(out["serve"]["gemma3_tp8"]["dryrun"]) == [0, 4]
+    empty = out["serve"]["gemma3_tp8"]["dryrun"][4]["decode"]["launches"]
+    assert "decode_attention" not in empty and empty["gemm"] > 0
+    # an empty rank's launches are rank 0's as ``serve_rank_want`` cuts
+    # them: no attention kernel, one gemm fewer an attention
+    for tag, rank in (("whisper_tp4", 3), ("gemma3_tp8", 4)):
+        dry = out["serve"][tag]["dryrun"]
+        for kind in ("prefill", "decode"):
+            assert cs.serve_rank_want([dry[0][kind]["launches"]], True) == \
+                [dry[rank][kind]["launches"]], (tag, kind)
 
 
 def _pipeline_calls(rank, world):
@@ -176,12 +197,60 @@ def _pipeline_calls(rank, world):
 
 def test_pipeline_want_counts_a_ranks_kernel_calls():
     """Stage 1 of the two (no sequential run beside it) calls each
-    kernel entry as often as ``pipeline_want`` says: a microbatch's seven
-    gemms, its gelu's vtanh and its flash."""
+    kernel entry as often as ``pipeline_want`` says, forward and then
+    forward and backward: a microbatch's seven gemms, its gelu's vtanh
+    and its flash, and each gemm's two backward products."""
     (_, head), (calls, _) = LM.run_ranks(_pipeline_calls, 2, timeout=100)
     cfg = cs.sharded_config("gemma3-1b", "reduced", "bfloat16")
     want = cs.pipeline_want(cfg, cs.PIPELINE["micro"])
-    assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == want
+    back = cs.pipeline_want(cfg, cs.PIPELINE["micro"], backward=True)
+    assert {k: calls.get(k, 0) for k in cs.SHARDED_OPS} == \
+        {k: want[k] + back[k] for k in want}
     assert want == {"gemm": 56, "vsigmoid": 0, "vtanh": 8,
                     "flash_attention": 8, "ssd": 0}
-    assert head["bitwise"]
+    assert back == {**want, "gemm": 168}
+    assert head["bitwise"] and head["grad_gap"] <= cs.LM_TOL["bfloat16"]
+
+
+# MLA under an uneven split (no card job runs one): minicpm3 with 6 heads
+# on (1, 4), heads 2 / 2 / 2 / 0
+MLA_TP4 = ("minicpm3_tp4", "minicpm3-4b", "reduced", (1, 4))
+
+
+@pytest.mark.parametrize("job", ["whisper_tp4", "gemma3_tp8",
+                                 "minicpm3_tp4"])
+def test_sharded_want_is_each_ranks_traced_launches(job):
+    """Ranks differ where 'model' does not divide the heads: the dry run's
+    trace of a train step (stand-ins on a fake process group, the kernel
+    launches recorded, not made) of rank 0 and of the first rank without
+    heads, reduced, launches what ``sharded_want`` gives each; the empty
+    rank no flash and five gemm launches fewer an attention a pass (its
+    q product is empty; its output product, K = 0, launches forward)."""
+    import math
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as Sh
+    if job == MLA_TP4[0]:
+        shape = MLA_TP4[3]
+        cfg = cs.sharded_config(*MLA_TP4[1:3], "bfloat16").replace(
+            n_heads=6)
+    else:
+        tag, arch, _, shape = next(j for j in cs.SHARDED if j[0] == job)
+        cfg = cs.job_config((tag, arch, "reduced", shape), "bfloat16")
+    seq = 32
+    specs = {"tokens": ((4, seq), torch.int32),
+             "targets": ((4, seq), torch.int32)}
+    if cfg.family == "encdec":
+        specs["frames"] = ((4, cfg.n_frames, cfg.d_model), torch.float32)
+    m = shape[1]
+    empty = next(r for r in range(m)
+                 if Sh.chunk_range(cfg.n_heads, r, m)[0] == cfg.n_heads)
+    got = {}
+    for rank in (0, empty):
+        with dryrun.fake_ranks(math.prod(shape), rank):
+            mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
+            rec, _ = dryrun.trace_cell(cfg, "train", specs, mesh)
+        got[rank] = {op: rec["launches"].get(op, 0) for op in cs.SHARDED_OPS}
+        assert got[rank] == cs.sharded_want(cfg, seq, empty=rank == empty)
+    assert got[empty]["flash_attention"] == 0
+    assert cfg.attn_kind == "mla" or got[0]["flash_attention"] > 0
+    assert got[empty]["gemm"] < got[0]["gemm"]

@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s training-phase helpers, on the CPU.
 
-The card runs ``train_phase`` (zamba2-1.2b at full width and depth),
+The card runs ``train_phase`` (zamba2-1.2b at full width, 20 layers),
 ``train_grad_phase``, ``train_archs_phase``, ``train_resume_phase`` and
 ``guard_phase``.  Here: the exact launch counts ``train_want`` gates a
 train step on, held to the Function calls (and ssd's launches a call) of
@@ -41,10 +41,12 @@ CPU = torch.device("cpu")
 @pytest.fixture
 def reduced(monkeypatch):
     """get_config returns each arch reduced, for the phases' own
-    get_config calls."""
+    get_config calls, and the train phases keep its whole depth."""
     full = configs.get_config
     monkeypatch.setattr(configs, "get_config",
                         lambda name: full(name).reduced())
+    monkeypatch.setitem(cs.TRAIN, "layers",
+                        full(cs.TRAIN["arch"]).reduced().n_layers)
 
 
 def _counting(monkeypatch):
