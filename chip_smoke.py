@@ -28,15 +28,15 @@ Then it drives the port's main paths:
     under the rvv-128 cost model, checking the paper's Figure-2 selection
     properties;
   * serving at full width (bf16, seeded random weights) under the
-    default target (h100) and policy, for zamba2-1.2b and whisper-tiny at
-    full depth, granite-moe-1b-a400m, gemma2-2b, gemma3-1b,
-    deepseek-v2-lite-16b, minicpm3-4b and mistral-large-123b cut to 6,
-    12, 14, 6, 8 and 8 layers (``SERVE_DEPTH``), each freed before the next
-    (and each bf16 model before its float32 one): ``Engine.generate`` for 4
-    requests of 512-token prompts and 32 greedy tokens (whisper's with
-    1500 stub frames each: ``data.pipeline.extra_inputs``; pixtral-12b
-    is held, ROADMAP C.23, and served by ``tools/serve_gap_probe.py``
-    with its stub patches), which must run the kernel
+    default target (h100) and policy, for zamba2-1.2b, mamba2-1.3b,
+    whisper-tiny and pixtral-12b at full depth, granite-moe-1b-a400m,
+    gemma2-2b, gemma3-1b, deepseek-v2-lite-16b, minicpm3-4b and
+    mistral-large-123b cut to 6, 2, 6, 6, 8 and 8 layers
+    (``SERVE_DEPTH``), each freed before the next (and each bf16 model
+    before its float32 one): ``Engine.generate`` for 4 requests of
+    512-token prompts and 32 greedy tokens (whisper's with 1500 stub
+    frames each, pixtral's with 256 stub patches before the prompt:
+    ``data.pipeline.extra_inputs``), which must run the kernel
     tier of every op the arch's layers reach (``serve_ops``: gemm; vtanh
     for the gelu of zamba2, the gemmas and whisper and for gemma2's final
     softcap, vsigmoid for the silu of the others' MLPs and experts; flash
@@ -52,7 +52,12 @@ Then it drives the port's main paths:
     both runs on the kernel tier of the same ops.  In bf16 a third run
     starts each vector block from the kernel block's input
     (``block_probe``) and holds every block's output to it
-    (``stream_gaps``).  An MoE's router (granite's, deepseek's) is
+    (``stream_gaps``).  For mamba2-1.3b and pixtral-12b (``BLOCK_GATED``)
+    the bf16 whole-model reading is printed, not gated, and planted
+    controls (``planted_controls``: the middle layer's update scaled by
+    1.05 or cut to 4 bits at every forward) must fail the bf16 per-block
+    gate and, scaled, the float32 whole-model gate in the same run.  An
+    MoE's router (granite's, deepseek's) is
     swapped for ``route_probe`` in both dtypes: the vector runs route by
     the kernel run's top-k indices (``route_flips`` counts where its own
     would differ and fails unless each such flip sits on a margin within
@@ -95,10 +100,11 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     Mamba2's A_log leaves, held to a float64 run of the vector tier: no
     further from it than the vector tier is, by more than 2e-4 of its
     max (``grad_gate``); bf16 printed, not gated per leaf;
-  * ``train_archs``: the other six served archs at full width, cut to
-    one pattern unit, float32, 2 x 512 tokens, the same per-leaf gate
-    (raw), MoE routing pinned (``route_probe``), each op's kernel tier
-    and Function;
+  * ``train_archs``: the other eight served archs (mistral's only
+    sharded) at full width, cut to one pattern unit, float32, 2 x 512
+    tokens (pixtral's with its stub patches), the same per-leaf gate
+    (raw; mamba2's A_log held to its float64 gradient), MoE routing
+    pinned (``route_probe``), each op's kernel tier and Function;
   * ``train_resume``: zamba2 cut to one pattern unit, 6 steps of 4 x
     512 tokens, a
     checkpoint every 2, a failure injected at step 4: one restart, the
@@ -370,25 +376,43 @@ SPANS = (("attention", "repro_torch.kernels.ops", "attention"),
 # float32: 4 requests of 512-token prompts, 32 greedy tokens (whisper's
 # requests each with 1500 stub frames)
 SERVE = dict(batch=4, prompt=512, gen=32)
-# (mamba2-1.3b's and pixtral-12b's configs and blocks are in the port,
-# but get_config refuses them: at full depth their bf16 logits cross
-# E2E_TOL by rounding alone; ROADMAP C.22, C.23.  Their kernels' calls
-# are checked and timed here all the same, and tools/serve_gap_probe.py
-# serves them)
-SERVE_ARCHS = ("zamba2-1.2b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
-               "minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny",
-               "mistral-large-123b")
+SERVE_ARCHS = ("zamba2-1.2b", "mamba2-1.3b", "granite-moe-1b-a400m",
+               "deepseek-v2-lite-16b", "minicpm3-4b", "gemma2-2b",
+               "gemma3-1b", "whisper-tiny", "mistral-large-123b",
+               "pixtral-12b")
+# The archs whose bf16 serving gate is the per-block check (``stream_gaps``
+# at E2E_TOL) beside the float32 whole-model check (E2E_F32_TOL), their
+# bf16 whole-model reading printed, not gated.  At their full depth (48
+# and 40 layers) that reading is as large on correct runs as on faulty
+# ones: mamba2-1.3b 0.03195 on the kernel run and 0.0314-0.0353 on other
+# correct runs against 0.0349-0.0401 with a planted fault, pixtral-12b
+# 0.02861-0.03356 against 0.03371-0.03783; the per-block reading
+# separates them (mamba2 0.0059, pixtral 0.0253 correct; 0.0440-0.0504
+# faulty), as the float32 one does (mamba2 1.2e-5): ROADMAP C.22, C.23,
+# tools/serve_gap_probe.py.  Every run plants the controls below in them
+BLOCK_GATED = ("mamba2-1.3b", "pixtral-12b")
+# the controls (tools/serve_gap_probe.py's): a fault in the middle layer
+# of the decoder stack at every forward, its update scaled by FAULT_SCALE
+# or cut to FAULT_MANTISSA bits of float32's 23; each must fail the bf16
+# per-block gate, and the scaled one the float32 whole-model gate, teacher
+# forced over the prefill and CONTROL_STEPS - 1 decode steps
+FAULT_SCALE = 1.05
+FAULT_MANTISSA = 4
+SERVE_CONTROLS = ("scale", "mantissa")
+CONTROL_STEPS = 4
 # archs served at full width and cut depth: mistral's 88 layers take ~246
 # GB in bf16; 8 of them (~24 GB, ~47 GB for the float32 check) fit the
 # card.  The MLA archs, whose attention runs the vector tier, are cut so
 # that the whole run stays within its time (their layers past the first
 # few repeat the same block; deepseek keeps its dense first layer): at
 # full depth deepseek's serving took 46 s more and the run 979 s.
-# granite and the gemmas are cut (whole pattern units, gemma3's last two
-# local layers kept) for the same reason
+# granite and the gemmas are cut (whole pattern units) for the same
+# reason, the gemmas to one unit (gemma2's local and global pair, gemma3's
+# five local layers and its global one) to pay for the full depth of
+# mamba2-1.3b and pixtral-12b
 SERVE_DEPTH = {"mistral-large-123b": 8, "deepseek-v2-lite-16b": 6,
                "minicpm3-4b": 8, "granite-moe-1b-a400m": 6,
-               "gemma2-2b": 12, "gemma3-1b": 14}
+               "gemma2-2b": 2, "gemma3-1b": 6}
 # The sliding-window traffic (``serve_window``): prompts longer than each
 # gemma's window, so that the local layers' ring is written in prefill,
 # the window masks flash and (gemma3) decode wraps the ring; gemma2's
@@ -448,8 +472,9 @@ TRAIN = dict(arch="zamba2-1.2b", layers=20, batch=8, seq=4096, accum=2,
 TRAIN_TOL = 3e-2
 TRAIN_LEAF_TOL = 0.3
 TRAIN_GRAD = dict(batch=2, seq=1024)
-TRAIN_ARCHS = ("granite-moe-1b-a400m", "deepseek-v2-lite-16b", "minicpm3-4b",
-               "gemma2-2b", "gemma3-1b", "whisper-tiny")
+TRAIN_ARCHS = ("mamba2-1.3b", "granite-moe-1b-a400m", "deepseek-v2-lite-16b",
+               "minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny",
+               "pixtral-12b")
 TRAIN_ARCH_TRAFFIC = dict(batch=2, seq=512)
 # (4 x 512 tokens a step, to keep the script within its time limit)
 TRAIN_RESUME = dict(batch=4, seq=512, steps=6, ckpt_every=2, fail_at=4)
@@ -1387,17 +1412,18 @@ def teacher_logits(cfg, params, prompts, tokens, max_seq, dev, policy,
     return torch.stack(out)
 
 
-def held_logits(kern, plain, rel_tol, what):
+def held_logits(kern, plain, rel_tol, what, gate=True):
     """Per-step max |kernel - plain| logit, max |logit|, and the greedy
     tokens' agreement; raises unless every step is within rel_tol of its
-    max |logit| and the tokens agree wherever the plain run's top-2 gap
-    exceeds that."""
+    max |logit| (with ``gate``; without it that reading is returned, not
+    held) and the tokens agree wherever the plain run's top-2 gap exceeds
+    that."""
     if not bool(kern.isfinite().all()) or not bool(plain.isfinite().all()):
         raise AssertionError(f"serve/{what}: non-finite logits")
     err = (kern - plain).abs().amax(dim=(1, 2))
     scale = kern.abs().amax(dim=(1, 2))
     tol = rel_tol * scale
-    if bool((err > tol).any()):
+    if gate and bool((err > tol).any()):
         raise AssertionError(f"serve/{what}: logits differ from the vector "
                              f"tier's by {err.tolist()} against "
                              f"{tol.tolist()}")
@@ -1411,6 +1437,71 @@ def held_logits(kern, plain, rel_tol, what):
             "max_rel_logit_err": float((err / scale).max()),
             "greedy_agree": float(agree.float().mean()),
             "clear_steps": int(clear.sum())}
+
+
+def faulty(apply, layer, how):
+    """block_apply with a fault in ``layer`` (a ``layer_labels`` label) of
+    every forward: its update scaled by FAULT_SCALE (``how`` "scale") or
+    cut to FAULT_MANTISSA bits of mantissa."""
+    import torch
+    label = layer_labels()
+
+    def run(kind, params, x, cache, ctx):
+        y, cache, aux = apply(kind, params, x, cache, ctx)
+        if label(kind, ctx) != layer:
+            return y, cache, aux
+        h = (y - x).float()
+        if how == "scale":
+            h = h * FAULT_SCALE
+        else:
+            keep = ~((1 << (23 - FAULT_MANTISSA)) - 1)
+            h = (h.view(torch.int32) & keep).view(torch.float32)
+        return (x.float() + h).to(y.dtype), cache, aux
+    return run
+
+
+def middle_layer(cfg):
+    """The ``layer_labels`` label of the middle layer of cfg's decoder
+    stack."""
+    kinds = cfg.layer_pattern()
+    return f"{kinds[len(kinds) // 2]}.{len(kinds) // 2}"
+
+
+def planted_controls(run, layer, plain=None):
+    """The controls of a ``BLOCK_GATED`` arch on ``run`` (``teacher_logits``
+    of its model, prompts and first tokens, but the policy, router and
+    blocks): for each fault of SERVE_CONTROLS planted in ``layer``
+    (``faulty``), the kernel run with it, each vector block fed that run's
+    block input, read by ``stream_gaps``; given ``plain`` (the vector run's
+    logits over every step), the scaled fault's kernel run against its
+    first steps, read by ``held_logits``.  Raises where a reading is
+    within its gate (E2E_TOL per block; E2E_F32_TOL whole): the gate
+    would miss the fault.  -> {fault: its reading and gate}."""
+    from repro_torch.models import blocks as blocks_mod
+    out = {}
+    for how in SERVE_CONTROLS if plain is None else ("scale",):
+        apply = blocks_mod.block_apply
+        if plain is None:
+            blocks_mod.block_apply = faulty(apply, layer, how)
+            try:
+                block, kblocks = block_probe(blocks_mod)
+            finally:
+                blocks_mod.block_apply = apply
+            run("pallas", None, block)
+            pin, vblocks = block_probe(blocks_mod, pinned=kblocks)
+            run("vector", None, pin)
+            gate, reading = E2E_TOL, stream_gaps(
+                kblocks, vblocks, math.inf, how)["max_rel_block_err"]
+            del kblocks, vblocks
+        else:
+            kern = run("pallas", None, faulty(apply, layer, how))
+            gate, reading = E2E_F32_TOL, held_logits(
+                kern, plain[:len(kern)], math.inf, how)["max_rel_logit_err"]
+        if not reading > gate:
+            raise AssertionError(f"serve/control: the {how} fault in {layer} "
+                                 f"reads {reading}, within the gate {gate}")
+        out[how] = {"layer": layer, "reading": reading, "gate": gate}
+    return out
 
 
 def warm_run(cfg, params, prompts, max_seq, dev, steps=SERVE["gen"],
@@ -1468,8 +1559,10 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     (teacher forced) over the whole model, in bf16 and in float32 (an
     MoE's vector run routed by the kernel run's indices, its flips
     counted); in bf16 also each block's output, the vector block started
-    from the kernel run's input.  Emits and returns the ``phase``
-    record."""
+    from the kernel run's input.  A ``BLOCK_GATED`` arch's bf16 gate is
+    that per-block check, its whole-model reading printed, and its
+    planted controls (``planted_controls``) must fail in both dtypes.
+    Emits and returns the ``phase`` record."""
     import torch
     from repro_torch.kernels import cost
     from repro_torch.configs import get_config
@@ -1481,11 +1574,13 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     from repro_torch.models import moe as moe_mod
     from repro_torch.serve.engine import Engine
 
+    started = time.perf_counter()
     cfg = get_config(arch)
     if arch in SERVE_DEPTH:
         cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     if "layers" in traffic:
         cfg = cfg.replace(n_layers=traffic["layers"])
+    block_gated = arch in BLOCK_GATED
     b, plen, steps = traffic["batch"], traffic["prompt"], traffic["gen"]
     max_seq = plen + steps
     torch.cuda.reset_peak_memory_stats()
@@ -1552,13 +1647,15 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
         raise AssertionError("serve: a second run gave other tokens")
 
     # teacher forced: the kernel run's tokens into both runs
-    def checked(cfg_, params_, rel_tol, what, blocks):
+    def checked(cfg_, params_, rel_tol, what, blocks, whole=True):
         """The kernel run (its launches and tiers counted), then the
-        vector run held to it over the whole model (``held_logits``); an
-        MoE's vector run routes by the kernel run's indices, and
-        ``route_flips`` counts where its own router would differ.  With
-        ``blocks`` a third run starts each vector block from the kernel
-        run's input and holds every block's output (``stream_gaps``)."""
+        vector run held to it over the whole model (``held_logits``, its
+        reading gated with ``whole``); an MoE's vector run routes by the
+        kernel run's indices, and ``route_flips`` counts where its own
+        router would differ.  With ``blocks`` a third run starts each
+        vector block from the kernel run's input and holds every block's
+        output (``stream_gaps``).  -> (the kernel and vector runs' logits,
+        launches, tiers, readings)."""
         for m in modules:
             m.reset_launches()
         route = calls = block = kblocks = None
@@ -1576,7 +1673,8 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
             return route_probe(moe_mod, pinned=calls) if cfg_.n_experts \
                 else (None, None)
         pin, pinned_calls = pinned_route()
-        out = held_logits(kern, run("vector", pin), rel_tol, what)
+        plain = run("vector", pin)
+        out = held_logits(kern, plain, rel_tol, what, gate=whole)
         if cfg_.n_experts:
             out["routing"] = {"pinned": True, **route_flips(
                 calls, pinned_calls, cfg_.top_k, what)}
@@ -1584,14 +1682,26 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
             pin_block, vblocks = block_probe(blocks_mod, pinned=kblocks)
             run("vector", pinned_route()[0], pin_block)
             out["blocks"] = stream_gaps(kblocks, vblocks, rel_tol, what)
-        return kern, launched, tiers(counted_), out
+        return kern, plain, launched, tiers(counted_), out
 
-    kern, _, _, bf16_check = checked(cfg, params, E2E_TOL, cfg.dtype,
-                                     blocks=True)
+    kern, plain, _, _, bf16_check = checked(
+        cfg, params, E2E_TOL, cfg.dtype, blocks=True, whole=not block_gated)
     if not torch.equal(kern.argmax(-1).cpu(),
                        torch.as_tensor(tokens).long().T):
         raise AssertionError("serve: the teacher-forced kernel run does "
                              "not reproduce its own greedy tokens")
+    del plain
+
+    def controls(cfg_, params_, plain=None):
+        """``planted_controls`` of this arch's model over the prompts and
+        the first CONTROL_STEPS tokens, with its seconds."""
+        t0 = time.perf_counter()
+        out = planted_controls(functools.partial(
+            teacher_logits, cfg_, params_, prompts,
+            tokens[:, :CONTROL_STEPS], max_seq, dev, extra=extra),
+            middle_layer(cfg_), plain)
+        return {**out, "steps": CONTROL_STEPS,
+                "seconds": time.perf_counter() - t0}
     record = {
         "arch": cfg.name, "traffic": phase, "params": M.count_params(params),
         "dtype": cfg.dtype, "layers": cfg.n_layers,
@@ -1600,8 +1710,11 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
         "target": "h100", "chosen": chosen, "ops": list(ops_),
         "launches": launches, "expected_launches": want,
         "init_s": init_s, "generate_s": generate_s, **warm,
-        **bf16_check, "first_tokens": tokens[0].tolist(),
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        "bf16_gate": "blocks" if block_gated else "whole_model",
+        **bf16_check, "first_tokens": tokens[0].tolist()}
+    if block_gated:
+        record["controls"] = controls(cfg, params)
+    record["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if cfg.n_experts:
         # a decode step reads every routed expert's weights (the dense
         # (E, C, d) buffer) in each MoE layer: their bytes at the HBM rate
@@ -1626,7 +1739,7 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     cfg32 = cfg.replace(dtype="float32")
     gen.manual_seed(SEED)
     params32 = M.init(cfg32, gen, dev)
-    kern, launches32, chosen32, f32_held = checked(
+    kern, plain, launches32, chosen32, f32_held = checked(
         cfg32, params32, E2E_F32_TOL, "float32", blocks=False)
     emit("serve_tiers", arch=arch, traffic=phase, target="h100",
          policy="pallas", dtype="float32", chosen=chosen32)
@@ -1634,9 +1747,12 @@ def serve_arch(dev, modules, arch, traffic=SERVE, phase="serve"):
     if launches32["gemm_simt"] == 0:
         raise AssertionError("serve/float32: gemm_simt never launched")
     record["float32"] = {"launches": launches32, "chosen": chosen32,
-                         **f32_held,
-                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    del params32, kern
+                         **f32_held}
+    if block_gated:
+        record["float32"]["controls"] = controls(cfg32, params32, plain)
+    record["float32"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params32, kern, plain
+    record["seconds"] = time.perf_counter() - started
     emit(phase, **record)
     torch.cuda.empty_cache()
     return record
@@ -3221,9 +3337,10 @@ def train_archs_phase(dev):
     kernel tier and one on the vector tier from the same params, an
     MoE's vector run routed by the kernel run's indices (``route_probe``;
     remat's recompute routes again, in the same order in both runs),
-    held to the same per-leaf gate as train_grad; the kernel tier and
-    the Function of each op the arch's blocks reach (vsigmoid's for the
-    silu archs), the aux loss non-zero for an MoE."""
+    held to the same per-leaf gate as train_grad (Mamba2's A_log leaves
+    to their float64 gradient, ``witnessed``: ROADMAP C.29); the kernel
+    tier and the Function of each op the arch's blocks reach (vsigmoid's
+    for the silu archs), the aux loss non-zero for an MoE."""
     import torch
     from repro_torch import tree
     from repro_torch.configs import get_config
@@ -3238,6 +3355,7 @@ def train_archs_phase(dev):
              "ssd": "SsdFnBackward"}
     rows = {}
     for arch in TRAIN_ARCHS:
+        started = time.perf_counter()
         full = get_config(arch)
         cfg = one_unit(full).replace(dtype="float32")
         gen = torch.Generator(device=dev)
@@ -3283,8 +3401,16 @@ def train_archs_phase(dev):
         if abs(kl - vl) > LM_TOL["float32"] * abs(vl):
             raise AssertionError(f"train_archs/{arch}: loss {kl} against "
                                  f"the vector tier's {vl}")
-        worst = held_grads(kern, plain, leaf_names(params),
-                           LM_TOL["float32"], f"train_archs/{arch}")
+        names = leaf_names(params)
+        a_log = a_log_leaves(names)
+        worst = held_grads(kern, plain, names, LM_TOL["float32"],
+                           f"train_archs/{arch}", exempt=a_log)
+        witness, bad = witnessed(
+            dict(zip(names, kern)), dict(zip(names, plain)),
+            float64_grads(cfg, params, batch, a_log) if a_log else {},
+            LM_TOL["float32"], f"train_archs/{arch}")
+        if bad:
+            raise AssertionError("; ".join(bad))
         top = max(worst, key=worst.get)
         rows[arch] = {"layers": cfg.n_layers, "full_layers": full.n_layers,
                       "enc_layers": cfg.n_enc_layers,
@@ -3292,7 +3418,9 @@ def train_archs_phase(dev):
                       "vector_loss": vl, "aux": aux, "functions": functions,
                       "chosen": chosen, "leaves": len(worst),
                       "max_rel_leaf_err": worst[top], "worst_leaf": top,
-                      "router_calls": len(calls) if calls else 0}
+                      "a_log_witness": witness,
+                      "router_calls": len(calls) if calls else 0,
+                      "seconds": time.perf_counter() - started}
         del params, kern, plain, calls
         torch.cuda.empty_cache()
     emit("train_archs", dtype="float32", **TRAIN_ARCH_TRAFFIC,

@@ -18,9 +18,8 @@ would run and each hand kernel's launch is recorded rather than made:
 
 ``launch/graph_analysis.py`` counts what the rank dispatches.  A cell is
 ``ok``; ``skipped`` with the reference's reason; ``refused`` with
-``sharding.check_mesh``'s message (ROADMAP A.9.11); ``held`` where
-``get_config`` refuses the arch (C.22, C.23); or ``error`` with its
-trace.  ``argument_bytes`` are the rank's params, optimizer slices, rows
+``sharding.check_mesh``'s message (ROADMAP A.9.11); or ``error`` with
+its trace.  ``argument_bytes`` are the rank's params, optimizer slices, rows
 of the batch and part of the cache (``model.init_cache`` with the mesh);
 ``make_sharded_train_step`` takes the global batch and reads its rows of
 it.  ``fits`` holds ``peak_bytes`` to one NVIDIA H100 80GB HBM3.
@@ -34,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib
 import json
 import math
 import os
@@ -44,7 +42,7 @@ import traceback
 import torch
 
 from .. import tree
-from ..configs import ARCH_NAMES, HELD_NAMES, SHAPES, get_config
+from ..configs import ARCH_NAMES, SHAPES, get_config
 from ..core import use_policy, use_target
 from ..kernels import _build
 from ..models import model as M
@@ -54,7 +52,6 @@ from ..train import loop
 from . import graph_analysis
 from . import mesh as LM
 
-ARCHS = ARCH_NAMES + HELD_NAMES
 CARD_BYTES = 80 * 10 ** 9          # one NVIDIA H100 80GB HBM3
 SKIP_REASON = "full-attention arch at 500k cache (DESIGN.md)"
 
@@ -74,17 +71,6 @@ def accum_for(cfg, shape) -> int:
     if cfg.vocab_size >= 100_000:
         a = max(a, 8)   # big-vocab logits dominate activation memory
     return a
-
-
-def config_of(arch):
-    """(config, None), or (the config module's, get_config's refusal) of
-    a held arch."""
-    try:
-        return get_config(arch), None
-    except NotImplementedError as e:
-        mod = arch.replace("-", "_").replace(".", "p")
-        return importlib.import_module(
-            f"repro_torch.configs.{mod}").CONFIG, str(e)
 
 
 def input_specs(cfg, shape_name):
@@ -199,12 +185,10 @@ def mesh_of(multi_pod, mesh_shape=None):
 
 def cell_status(arch, shape_name, dims, axes, units=None):
     """(status, reason, config) of a cell before any trace: skipped,
-    held, refused, or ok to trace (reason None)."""
-    cfg, held = config_of(arch)
+    refused, or ok to trace (reason None)."""
+    cfg = get_config(arch)
     if shape_name in cfg.skip_shapes:
         return "skipped", SKIP_REASON, cfg
-    if held is not None:
-        return "held", held, cfg
     cfg = cut_depth(cfg, units)
     try:
         Sh.check_mesh(cfg, Sh.Mesh(dims, axes))
@@ -242,7 +226,7 @@ def run_cell(arch, shape_name, *, multi_pod, mesh_shape=None, units=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--arch", choices=ARCH_NAMES)
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--mesh", choices=("single", "multi", "both"),
                     default="single")
@@ -256,7 +240,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     mesh_shape = tuple(int(x) for x in args.mesh_shape.split(",")) \
         if args.mesh_shape else None
-    archs = ARCHS if args.all or not args.arch else (args.arch,)
+    archs = ARCH_NAMES if args.all or not args.arch else (args.arch,)
     shapes = tuple(SHAPES) if args.all or not args.shape else (args.shape,)
     meshes = {"single": (False,), "multi": (True,),
               "both": (False, True)}[args.mesh]
@@ -286,7 +270,7 @@ def main(argv=None):
                     with open(args.out, "w") as f:
                         json.dump(results, f, indent=1)
     counts = {s: sum(r["status"] == s for r in results)
-              for s in ("ok", "skipped", "refused", "held", "error")}
+              for s in ("ok", "skipped", "refused", "error")}
     print("# dry-run: " + ", ".join(f"{v} {k}" for k, v in counts.items()))
     return 0 if counts["error"] == 0 else 1
 

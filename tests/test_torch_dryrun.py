@@ -21,25 +21,29 @@ import pytest
 import torch
 
 from repro_torch import tree
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as LM
 from repro_torch.models import model as M
 from repro_torch.models import sharding as Sh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (arch, shape, multi-pod), cut to one pattern unit
+# (arch, shape, multi-pod), cut to one pattern unit; mamba2's and
+# pixtral's on (16, 16)
 CELLS = [(a, s, m) for a in ("zamba2-1.2b", "mistral-large-123b")
-         for s in ("train_4k", "decode_32k") for m in (False, True)]
+         for s in ("train_4k", "decode_32k") for m in (False, True)] + \
+    [(a, s, False) for a in ("mamba2-1.3b", "pixtral-12b")
+     for s in ("train_4k", "decode_32k")]
 # the small cells compiled by the reference and traced here (gemma2-2b
 # reduced, 8 x 32 tokens, accum 2): the reference's own small cell, and
 # its 4 heads made 6 (over 2 kv heads) on (1, 4), heads 2 / 2 / 2 / 0
 SMALL = (("small", (4, 2), {}),
          ("uneven", (1, 4), {"n_heads": 6, "n_kv_heads": 2}))
-# traced whole here; zamba2's train_4k (~40 s a mesh on the stand-ins,
-# its ssd gradients through the vector tier) is built and its arguments
-# held, and traced by the dry run's command
-TRACED = [c for c in CELLS if c[:2] != ("zamba2-1.2b", "train_4k")]
+# traced whole here; zamba2's and mamba2's train_4k (~40 s a mesh on the
+# stand-ins, their ssd gradients through the vector tier) are built and
+# their arguments held, and traced by the dry run's command
+TRACED = [c for c in CELLS if c[:2] not in (("zamba2-1.2b", "train_4k"),
+                                            ("mamba2-1.3b", "train_4k"))]
 
 REFERENCE = r"""
 import json, sys
@@ -116,10 +120,14 @@ for arch, shape_name, multi in cells:
         rec["opt"] = shard_bytes(o, {"m": os_, "v": os_, "master": os_,
                                      "step": P()}, mesh)
     else:
-        c = jax.eval_shape(lambda: M.init_cache(cfg, b, s))
+        p_off = cfg.n_patches if cfg.family == "vlm" else 0
+        c = jax.eval_shape(lambda: M.init_cache(cfg, b, s + p_off))
         rec["cache_by_name"] = {}
         rec["cache"] = shard_bytes(c, Sh.cache_pspecs(c, mesh), mesh,
                                    rec["cache_by_name"])
+    if cfg.family == "vlm" and shape.kind != "decode":
+        bsds["patches"] = jax.ShapeDtypeStruct((b, cfg.n_patches,
+                                                cfg.d_model), jnp.float32)
     rec["batch"] = shard_bytes(bsds, {k: Sh.fit_spec(
         P(Sh.batch_axes(mesh), *([None] * (len(v.shape) - 1))), v.shape,
         mesh) for k, v in bsds.items()}, mesh)
@@ -268,10 +276,11 @@ def test_small_cells_collectives_and_peak_held_to_the_compiled_reference(
                                               for c in CELLS])
 def test_production_cells_argument_bytes(reference, cells, cell):
     """zamba2 and mistral at full width, one pattern unit, on (16, 16)
-    and (2, 16, 16): ok, with the reference's shard bytes of params,
-    optimizer and batch, and of the cache but the leaves whose layout
-    differs: mistral's 8 kv heads below a 16-way 'model' (C.33) and
-    zamba2's conv history (C.34), each held to the port's rule."""
+    and (2, 16, 16), mamba2 and pixtral on (16, 16): ok, with the
+    reference's shard bytes of params, optimizer and batch, and of the
+    cache but the leaves whose layout differs: mistral's and pixtral's 8
+    kv heads below a 16-way 'model' (C.33) and the Mamba2 conv history of
+    zamba2 and mamba2 (C.34), each held to the port's rule."""
     ref = reference()["/".join(map(str, cell))]
     rec, parts, by_name = cells["/".join(map(str, cell))]
     if rec is not None:
@@ -282,7 +291,7 @@ def test_production_cells_argument_bytes(reference, cells, cell):
         want = dict(ref["cache_by_name"])
         arch = cell[0]
         cfg = get_config(arch)
-        if arch == "mistral-large-123b":
+        if arch in ("mistral-large-123b", "pixtral-12b"):
             # one kv head of 128 a rank against 128 / 16 of all 8 heads
             for k in ("k", "v"):
                 want[k] = want[k] * 16 // cfg.n_kv_heads
@@ -295,41 +304,33 @@ def test_production_cells_argument_bytes(reference, cells, cell):
 
 
 def test_status_grid():
-    """The 80 cells of the reference's matrix: 50 ok (minicpm3, gemma2,
-    gemma3 and whisper among them since A.9.10, skipped at long_500k),
-    none refused, mamba2 held (C.22), pixtral held (C.23; skipped at
-    long_500k)."""
+    """The 80 cells of the reference's matrix: 64 ok (minicpm3, gemma2,
+    gemma3 and whisper among them since A.9.10, mamba2 and pixtral since
+    their serving gate, C.22 and C.23), the full-attention archs skipped
+    at long_500k, none refused or held."""
     from repro_torch.configs import SHAPES
     grid = {}
     for multi in (False, True):
         _, dims, axes = dryrun.mesh_of(multi)
-        for arch in dryrun.ARCHS:
+        for arch in ARCH_NAMES:
             for shape in SHAPES:
                 status, reason, _ = dryrun.cell_status(arch, shape, dims,
                                                        axes)
                 grid[(arch, shape, multi)] = status
-                if status == "held":
-                    assert ("C.22" if arch == "mamba2-1.3b" else "C.23") \
-                        in reason
+                if status == "skipped":
+                    assert reason == dryrun.SKIP_REASON
     assert len(grid) == 80
     ok = {(a, s) for (a, s, _), v in grid.items() if v == "ok"}
-    assert ok == {(a, s) for a in ("zamba2-1.2b", "granite-moe-1b-a400m",
-                                   "deepseek-v2-lite-16b",
-                                   "mistral-large-123b", "minicpm3-4b",
-                                   "gemma2-2b", "gemma3-1b", "whisper-tiny")
-                  for s in SHAPES
-                  if not (s == "long_500k" and a != "zamba2-1.2b")}
+    ssm = ("zamba2-1.2b", "mamba2-1.3b")
+    assert ok == {(a, s) for a in ARCH_NAMES for s in SHAPES
+                  if not (s == "long_500k" and a not in ssm)}
     counts = {v: sum(x == v for x in grid.values())
               for v in set(grid.values())}
-    assert counts == {"ok": 50, "skipped": 16, "held": 14}
-    for arch in ("minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny"):
+    assert counts == {"ok": 64, "skipped": 16}
+    for arch in ("minicpm3-4b", "gemma2-2b", "gemma3-1b", "whisper-tiny",
+                 "pixtral-12b"):
         for (a, s, _), v in grid.items():
             if a == arch:
                 assert v == ("skipped" if s == "long_500k" else "ok")
     assert {v for (a, _, _), v in grid.items() if a == "mamba2-1.3b"} == \
-        {"held"}
-    assert {(s, v) for (a, s, _), v in grid.items()
-            if a == "pixtral-12b"} == {("train_4k", "held"),
-                                       ("prefill_32k", "held"),
-                                       ("decode_32k", "held"),
-                                       ("long_500k", "skipped")}
+        {"ok"}

@@ -24,7 +24,7 @@ from repro.models import blocks as JB
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.serve import engine as JE
-from repro_torch.configs import get_config, pixtral_12b
+from repro_torch.configs import get_config
 from repro_torch.core import trace, use_policy
 from repro_torch.data import pipeline as P
 from repro_torch.models import attention as A
@@ -39,17 +39,9 @@ BATCH, PROMPT, STEPS, MAX_SEQ = 2, 12, 8, 24
 ARCH = "whisper-tiny"
 
 
-def _port_config(name):
-    """The port's config of ``name``; pixtral-12b's from its module, which
-    ``get_config`` refuses (ROADMAP C.23)."""
-    if name == pixtral_12b.CONFIG.name:
-        return pixtral_12b.CONFIG
-    return get_config(name)
-
-
 def _cfgs(arch=ARCH, dtype="float32"):
     return (jget_config(arch).reduced().replace(dtype=dtype),
-            _port_config(arch).reduced().replace(dtype=dtype))
+            get_config(arch).reduced().replace(dtype=dtype))
 
 
 def _params(jparams):

@@ -23,10 +23,8 @@ the fused kernel does not take (the reference's rule), and which keeps
 the vector tier under every target.
 
 The full-width parameter tree of each ported arch equals the
-reference's in every shape and dtype.  mamba2-1.3b's and pixtral-12b's
-configs and blocks are in the port and held here like the others, though
-``get_config`` refuses them until their bf16 serving check on the card
-has a limit their full depth passes (ROADMAP C.22, C.23).
+reference's in every shape and dtype, mamba2-1.3b's and pixtral-12b's
+among them.
 """
 import jax
 import jax.numpy as jnp
@@ -38,8 +36,7 @@ from repro.configs import get_config as jget_config
 from repro.data import pipeline as JP
 from repro.models import model as JM
 from repro.serve import engine as JE
-from repro_torch.configs import ARCH_NAMES, get_config, mamba2_1p3b, \
-    pixtral_12b
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import trace, use_policy
 from repro_torch.data import pipeline as P
 from repro_torch.launch import serve as launch_serve
@@ -51,20 +48,9 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 BATCH, PROMPT, STEPS, MAX_SEQ = 2, 12, 8, 24
 
 
-# the archs whose config and blocks are ported but which get_config
-# refuses until their bf16 serving check has a limit (ROADMAP C.22, C.23)
-HELD = {m.CONFIG.name: m.CONFIG for m in (mamba2_1p3b, pixtral_12b)}
-
-
-def _port_config(name):
-    """The port's config of ``name``; a held arch's from its module, which
-    ``get_config`` refuses."""
-    return HELD[name] if name in HELD else get_config(name)
-
-
 def _cfgs(name):
     return (jget_config(name).reduced().replace(dtype="float32"),
-            _port_config(name).reduced().replace(dtype="float32"))
+            get_config(name).reduced().replace(dtype="float32"))
 
 
 def _p_off(cfg):
@@ -300,7 +286,7 @@ FULL_WIDTH = {"zamba2-1.2b": 1_190_425_216, "mamba2-1.3b": 1_344_052_224,
 
 @pytest.mark.parametrize("name", sorted(FULL_WIDTH))
 def test_full_width_parameter_tree_equals_reference(name):
-    jcfg, cfg = jget_config(name), _port_config(name)
+    jcfg, cfg = jget_config(name), get_config(name)
     jtree = jax.eval_shape(lambda k: JM.init(jcfg, k), jax.random.PRNGKey(0))
     params = M.init(cfg, None, device="meta")
     _, unit, reps, _ = cfg.pattern_unit()
@@ -364,14 +350,13 @@ def test_convert_defaults_to_the_card():
 
 
 def test_unported_archs_and_kinds_name_their_roadmap_item():
-    assert set(ARCH_NAMES) == set(ARCH_OPS) - set(HELD)
+    assert set(ARCH_NAMES) == set(ARCH_OPS)
     for name in ARCH_NAMES:
         assert get_config(name).name == name
-    # their blocks are ported; their bf16 serving limits are not settled
-    with pytest.raises(NotImplementedError, match="ROADMAP C.22"):
-        get_config("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP C.23"):
-        get_config("pixtral-12b")
+    # served and trained since their per-block bf16 gate (ROADMAP C.22,
+    # C.23): their configs are the reference's, field for field
+    for name in ("mamba2-1.3b", "pixtral-12b"):
+        assert vars(get_config(name)) == vars(jget_config(name))
     # mistral is ported with models/sharding.py (ROADMAP A.9.6)
     assert get_config("mistral-large-123b").fsdp
     with pytest.raises(KeyError):

@@ -3,8 +3,9 @@
 GSPMD, as its dry run lowers them.
 
 Each case is float32 at ``cfg.reduced()`` widths: a prefill of 4 rows of
-24 tokens (and whisper's stub frames) into a 32-position cache, then 4
-decode steps fed the same tokens on both sides.  The reference jits its
+24 tokens (and whisper's stub frames, or pixtral's stub patches before
+them) into a 32-position cache (and the patches'), then 4 decode steps
+fed the same tokens on both sides.  The reference jits its
 steps with the params sharded by ``param_pspecs``, the cache by
 ``cache_pspecs`` and the rows by ``batch_spec``, under ``active_mesh``,
 on as many forced host devices
@@ -44,7 +45,9 @@ from repro_torch.models import sharding as Sh
 from repro_torch.serve import engine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (arch, mesh, config overrides): SSM state and conv history;
+# (arch, mesh, config overrides): SSM state and conv history (zamba2, and
+# mamba2's mamba blocks alone); a vlm's patch prefix on 'model' and on
+# 'data' (pixtral: its cache holds the patches' positions too);
 # per-data-shard capacity with experts over 'model'; one kv head below
 # 'model'; FSDP; heads that 'model' does not divide (GQA, and whisper's
 # encoder, decoder and cross-attention; its kv heads below 'model', so
@@ -52,7 +55,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNEVEN = {"n_heads": 6, "n_kv_heads": 2}
 CASES = (("zamba2-1.2b", (1, 2), {}), ("granite-moe-1b-a400m", (2, 2), {}),
          ("gemma3-1b", (1, 2), {}), ("mistral-large-123b", (2, 2), {}),
-         ("gemma2-2b", (1, 4), UNEVEN), ("whisper-tiny", (1, 4), UNEVEN))
+         ("gemma2-2b", (1, 4), UNEVEN), ("whisper-tiny", (1, 4), UNEVEN),
+         ("mamba2-1.3b", (1, 2), {}), ("pixtral-12b", (1, 2), {}),
+         ("pixtral-12b", (2, 2), {}))
 TRAFFIC = dict(batch=4, prompt=24, max_seq=32, steps=4)
 TOL = 2e-4
 
@@ -77,7 +82,8 @@ for arch, shape, over in cases:
                         (traffic["steps"], b, 1)).astype(np.int32)
     mesh = jax.make_mesh(tuple(shape), ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2)
-    cache = M.init_cache(cfg, b, traffic["max_seq"])
+    p_off = cfg.n_patches if cfg.family == "vlm" else 0
+    cache = M.init_cache(cfg, b, traffic["max_seq"] + p_off)
     pspecs = Sh.ns(mesh, Sh.param_pspecs(params, cfg, mesh))
     cspecs = Sh.ns(mesh, Sh.cache_pspecs(cache, mesh))
     rows = Sh.ns(mesh, Sh.token_spec(mesh))
@@ -101,7 +107,7 @@ for arch, shape, over in cases:
                                            **extra})
         runs = [np.asarray(logits)]
         for i in range(traffic["steps"]):
-            lengths = jnp.full((b,), s + i, jnp.int32)
+            lengths = jnp.full((b,), s + p_off + i, jnp.int32)
             logits, cache = st(params, cache, jnp.asarray(feed[i]), lengths)
             runs.append(np.asarray(logits))
     out.append({"params": jax.tree.map(np.asarray, params),
@@ -123,16 +129,17 @@ def _port(rank, world, cases, refs):
     its cache leaves, with its coordinate."""
     torch.set_num_threads(1)
     out = []
-    for (arch, shape, over), ref in zip(cases, refs):
+    for case, ((arch, shape, over), ref) in enumerate(zip(cases, refs)):
         if shape[0] * shape[1] != world:
             continue
         cfg = _config(arch, over)
+        p_off = cfg.n_patches if cfg.family == "vlm" else 0
         mesh = LM.make_mesh(shape, ("data", "model"), "cpu")
         full = convert.from_jax(ref["params"], cfg, device="cpu")
         like = tree.map(lambda x: x.to("meta"), full)
         local = Sh.shard_params(full, mesh, cfg)
-        cache = M.init_cache(cfg, TRAFFIC["batch"], TRAFFIC["max_seq"],
-                             "cpu", mesh=mesh)
+        cache = M.init_cache(cfg, TRAFFIC["batch"],
+                             TRAFFIC["max_seq"] + p_off, "cpu", mesh=mesh)
         prefill = engine.make_prefill_step(cfg, mesh=mesh, params_sds=like)
         step = engine.make_serve_step(cfg, mesh=mesh, params_sds=like)
         rows = lambda a: Sh.local_rows(torch.as_tensor(a), mesh)  # noqa
@@ -143,12 +150,12 @@ def _port(rank, world, cases, refs):
             runs = [logits]
             for i in range(TRAFFIC["steps"]):
                 lengths = torch.full((TRAFFIC["batch"],),
-                                     TRAFFIC["prompt"] + i,
+                                     TRAFFIC["prompt"] + p_off + i,
                                      dtype=torch.int32)
                 logits, cache = step(local, cache, rows(ref["feed"][i]),
                                      Sh.local_rows(lengths, mesh))
                 runs.append(logits)
-        out.append({"arch": arch, "coord": mesh.coordinate(),
+        out.append({"case": case, "coord": mesh.coordinate(),
                     "logits": [x.numpy() for x in runs],
                     "cache": [(p, x.numpy()) for p, x in tree.paths(cache)]})
     return out
@@ -174,7 +181,7 @@ def runs():
         for rank_out in LM.run_ranks(_port, world, CASES, refs,
                                      timeout=600):
             for r in rank_out:
-                port.setdefault(r["arch"], []).append(r)
+                port.setdefault(r["case"], []).append(r)
     return refs, port
 
 
@@ -226,9 +233,10 @@ def _ref_leaf(cache, path):
                          ids=[f"{a}-{s[0]}x{s[1]}" for a, s, _ in CASES])
 def test_mesh_serving_matches_the_reference(runs, arch, shape, over):
     refs, port = runs
-    ref = refs[[a for a, _, _ in CASES].index(arch)]
+    case = CASES.index((arch, shape, over))
+    ref = refs[case]
     cfg = _config(arch, over)
-    ranks = port[arch]
+    ranks = port[case]
     assert len(ranks) == shape[0] * shape[1]
     b = TRAFFIC["batch"] // shape[0]
     for r in ranks:

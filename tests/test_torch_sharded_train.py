@@ -33,10 +33,14 @@ from repro_torch.models import sharding as Sh
 from repro_torch.train import loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (arch, mesh): data-parallel, tensor- and expert-parallel, FSDP + ZeRO-1
+# (arch, mesh): data-parallel, tensor- and expert-parallel, FSDP + ZeRO-1;
+# a model of mamba blocks alone, and a vlm's patch prefix (with FSDP) on
+# 'model' and on 'data' too, which cuts a batch that carries patches
 CASES = (("gemma2-2b", (2, 1)), ("gemma2-2b", (1, 2)),
          ("mistral-large-123b", (2, 1)),
-         ("granite-moe-1b-a400m", (1, 2)), ("granite-moe-1b-a400m", (2, 2)))
+         ("granite-moe-1b-a400m", (1, 2)), ("granite-moe-1b-a400m", (2, 2)),
+         ("mamba2-1.3b", (1, 2)), ("pixtral-12b", (1, 2)),
+         ("pixtral-12b", (2, 2)))
 TRAFFIC = dict(seq=16, batch=4)
 TOL = 2e-4
 # the reference's data-parallel step on gemma2 (ROADMAP A.13's probe)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch import tree
-from repro_torch.configs import get_config, mamba2_1p3b, pixtral_12b
+from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.launch import mesh as LM
 from repro_torch.models import model as M
@@ -44,15 +44,6 @@ from repro.configs import base, get_config
 from repro.models import model as M, sharding as Sh
 archs, meshes, cache = json.loads(sys.argv[1])
 
-def cfg_of(name):
-    # mamba2 and pixtral from their modules, as the port's tests read them
-    import importlib
-    mods = {"mamba2-1.3b": "mamba2_1p3b", "pixtral-12b": "pixtral_12b",
-            "mistral-large-123b": "mistral_large_123b"}
-    if name in mods:
-        return importlib.import_module("repro.configs." + mods[name]).CONFIG
-    return get_config(name)
-
 def keyed(specs):
     flat, _ = jax.tree_util.tree_flatten_with_path(
         specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
@@ -65,7 +56,7 @@ def keyed(specs):
 
 out = {}
 for name in archs:
-    cfg = cfg_of(name)
+    cfg = get_config(name)
     p = jax.eval_shape(lambda: M.init(cfg, jax.random.PRNGKey(0)))
     c = jax.eval_shape(lambda: M.init_cache(cfg, cache["batch"],
                                             cache["s_max"]))
@@ -78,11 +69,6 @@ for name in archs:
             "cache": keyed(Sh.cache_pspecs(c, mesh))}
 print(json.dumps(out))
 """
-
-
-def _config(name):
-    held = {m.CONFIG.name: m.CONFIG for m in (mamba2_1p3b, pixtral_12b)}
-    return held[name] if name in held else get_config(name)
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +113,7 @@ def test_specs_equal_the_reference(reference, arch):
     """param_pspecs, opt_pspecs and cache_pspecs of the full-size tree on
     (1, 1), (2, 2), (16, 16) and (2, 16, 16) equal the reference's, leaf
     for leaf (every layer of a stacked unit the reference's spec)."""
-    cfg = _config(arch)
+    cfg = get_config(arch)
     meta = torch.device("meta")
     params = M.init(cfg, None, meta)
     cache = M.init_cache(cfg, CACHE["batch"], CACHE["s_max"], meta)
@@ -303,7 +289,7 @@ def test_refusals_name_their_roadmap_item():
     for arch in ("zamba2-1.2b", "deepseek-v2-lite-16b", "minicpm3-4b",
                  "whisper-tiny", "gemma3-1b"):
         Sh.check_mesh(get_config(arch), tp)
-    Sh.check_mesh(_config("mamba2-1.3b"), tp)
+    Sh.check_mesh(get_config("mamba2-1.3b"), tp)
     for shape, axes in (((16, 16), ("data", "model")),
                         ((2, 16, 16), ("pod", "data", "model"))):
         for arch in ("mistral-large-123b", "zamba2-1.2b"):
@@ -319,7 +305,7 @@ def test_refusals_name_their_roadmap_item():
         Sh.check_mesh(get_config(arch), Sh.Mesh((4, 1), ("data", "model")))
     for arch in ("granite-moe-1b-a400m", "gemma2-2b", "mistral-large-123b"):
         Sh.check_mesh(get_config(arch), tp)
-    Sh.check_mesh(_config("pixtral-12b"), tp)
+    Sh.check_mesh(get_config("pixtral-12b"), tp)
     # int8 compression on a mesh (A.13.1, no longer refused): the step
     # builds, its error state laid out as the optimizer state
     cfg = get_config("gemma2-2b").reduced()

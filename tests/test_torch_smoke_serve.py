@@ -1,11 +1,9 @@
 """``chip_smoke.py``'s serving-phase helpers, on the CPU.
 
-The card runs ``serve_arch`` for zamba2-1.2b, granite-moe-1b-a400m,
-deepseek-v2-lite-16b, minicpm3-4b, gemma2-2b, gemma3-1b and whisper-tiny,
-and again for the gemmas at prompts longer than their windows
-(``SERVE_WINDOW``; ``tools/serve_gap_probe.py`` also for the held
-mamba2-1.3b and pixtral-12b); what it gates on is made here from the configs alone: the
-ops each arch's layers reach (``serve_ops``: the ``local``, ``enc`` and
+The card runs ``serve_arch`` for every arch of ``SERVE_ARCHS``, and
+again for the gemmas at prompts longer than their windows
+(``SERVE_WINDOW``); what it gates on is made here from the configs
+alone: the ops each arch's layers reach (``serve_ops``: the ``local``, ``enc`` and
 ``dec`` kinds attend), the tier each must run (``serve_tier``: MLA's
 split-dim attention on the vector tier) and the exact launches of the LM
 kernels in one ``Engine.generate`` of 32 tokens after 512-token prompts
@@ -16,7 +14,10 @@ the kernel run's routing (``route_probe``), the flip count beside it
 vector run from the kernel run's input (``block_probe``, with the
 per-block measure ``stream_gaps``) run here on the reduced models, MLA's
 ``moe_dense``, ``moe`` and ``attn`` blocks among them, as does the
-profiler span swap (``spans_swapped``).
+profiler span swap (``spans_swapped``).  So do the gate of mamba2-1.3b
+and pixtral-12b (``BLOCK_GATED``: the per-block reading, the whole-model
+bf16 reading returned ungated) and its planted controls
+(``planted_controls``), which must fail it.
 """
 import functools
 import sys
@@ -28,8 +29,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.configs import get_config, mamba2_1p3b, \
-    pixtral_12b  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import moe as MoE  # noqa: E402
 
@@ -56,30 +56,20 @@ WANT = {"zamba2-1.2b": (("gemm", "vtanh", "attention", "decode_attention",
                          "decode_attention"), (0, 40, 1240))}
 
 
-# held: get_config refuses them (ROADMAP C.22, C.23); the gap probe
-# serves them on the card
-HELD = {m.CONFIG.name: m.CONFIG for m in (mamba2_1p3b, pixtral_12b)}
-
-
-def _config(arch):
-    """A held arch's config from its module, else ``get_config``'s."""
-    return HELD[arch] if arch in HELD else get_config(arch)
-
-
 @pytest.mark.parametrize("arch", sorted(WANT))
 def test_serve_ops_and_launch_counts(arch):
-    cfg = _config(arch)
+    cfg = get_config(arch)
     ops_, (ssd, flash, decode) = WANT[arch]
     assert cs.SERVE == dict(batch=4, prompt=512, gen=32)
     assert cs.serve_ops(cfg) == ops_
     assert cs.serve_want(cfg, cs.SERVE["prompt"], cs.SERVE["gen"]) == {
         "ssd": ssd, "flash_attention": flash, "decode_attention": decode}
-    assert (arch in cs.SERVE_ARCHS) == (arch not in HELD)
+    assert arch in cs.SERVE_ARCHS
 
 
 @pytest.mark.parametrize("arch", sorted(WANT))
 def test_serve_tier_leaves_split_dim_attention_to_the_vector_tier(arch):
-    cfg = _config(arch)
+    cfg = get_config(arch)
     tiers = {op: cs.serve_tier(cfg, op) for op in cs.serve_ops(cfg)}
     mla = cfg.attn_kind == "mla"
     assert tiers == {op: "vector" if mla and op == "attention" else "pallas"
@@ -172,7 +162,7 @@ def test_block_probe_pins_each_block_to_the_recorded_stream():
     ``stream_gaps`` names it, reads the fault's 1% of the block's update
     (and raises below it)."""
     from repro_torch.models import blocks as B
-    cfg = _config("mamba2-1.3b").reduced().replace(dtype="float32")
+    cfg = get_config("mamba2-1.3b").reduced().replace(dtype="float32")
     params = M.init(cfg, torch.Generator().manual_seed(3), "cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         2, cfg.vocab_size, (2, 12)))
@@ -429,3 +419,112 @@ def test_gap_probe_plants_its_fault_in_the_labelled_decoder_layer():
                              "dec.3"}
     assert by_layer["dec.2"] == pytest.approx(0.05 / 1.05, rel=1e-3)
     assert all(v == 0.0 for k, v in by_layer.items() if k != "dec.2")
+
+
+def test_only_mamba2_and_pixtral_take_the_per_block_gate():
+    """ROADMAP C.22, C.23: the two archs whose bf16 whole-model reading
+    cannot tell rounding from a fault at their depth are gated per block,
+    served at full depth; every other arch keeps the whole-model gate,
+    and no limit moves."""
+    assert cs.BLOCK_GATED == ("mamba2-1.3b", "pixtral-12b")
+    assert set(cs.BLOCK_GATED) <= set(cs.SERVE_ARCHS)
+    assert not set(cs.BLOCK_GATED) & set(cs.SERVE_DEPTH)
+    assert set(cs.SERVE_ARCHS) == set(WANT) | {"mistral-large-123b"}
+    assert (cs.E2E_TOL, cs.E2E_F32_TOL) == (3e-2, 2e-4)
+    assert cs.LM_TOL == {"float32": 2e-4, "bfloat16": 3e-2}
+    assert (cs.TRAIN_TOL, cs.TRAIN_LEAF_TOL) == (3e-2, 0.3)
+    assert set(cs.BLOCK_GATED) <= set(cs.TRAIN_ARCHS)
+    assert cs.middle_layer(get_config("mamba2-1.3b")) == "mamba.24"
+    assert cs.middle_layer(get_config("pixtral-12b")) == "attn.20"
+
+
+def test_held_logits_returns_the_ungated_reading_but_holds_the_tokens():
+    """With ``gate=False`` a whole-model gap over the limit is returned,
+    not raised; greedy tokens that differ where the plain run's top-2
+    gap is clear still raise."""
+    plain = torch.tensor([[[4.0, 1.0, 0.0]], [[0.0, 4.0, 1.0]]])
+    kern = plain + torch.tensor([[[0.2, 0.0, 0.0]], [[0.0, 0.0, 0.0]]])
+    with pytest.raises(AssertionError, match="differ from the vector"):
+        cs.held_logits(kern, plain, cs.E2E_TOL, "gated")
+    got = cs.held_logits(kern, plain, cs.E2E_TOL, "ungated", gate=False)
+    assert got["max_rel_logit_err"] == pytest.approx(0.2 / 4.2)
+    assert got["greedy_agree"] == 1.0 and got["clear_steps"] == 2
+    flipped = plain.clone()
+    flipped[1, 0] = torch.tensor([0.0, 1.0, 4.0])
+    with pytest.raises(AssertionError, match="greedy tokens differ"):
+        cs.held_logits(flipped, plain, cs.E2E_TOL, "flipped", gate=False)
+
+
+def _teacher_run(arch, dtype, seed):
+    """(run, cfg) of ``arch`` reduced in ``dtype``: ``teacher_logits``
+    over an Engine's own greedy tokens (pixtral's with its stub patches),
+    but the policy, router and blocks."""
+    from repro_torch.data.pipeline import extra_inputs
+    from repro_torch.serve.engine import Engine
+    cfg = get_config(arch).reduced().replace(dtype=dtype)
+    params = M.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+    prompts = np.random.default_rng(seed).integers(2, cfg.vocab_size,
+                                                   (2, 8))
+    extra = extra_inputs(cfg, 2, seed, "cpu")
+    tokens = Engine(cfg, params, 2, 13, device="cpu").generate(
+        prompts, cs.CONTROL_STEPS, extra)
+    return functools.partial(cs.teacher_logits, cfg, params, prompts,
+                             tokens, 13, torch.device("cpu"),
+                             extra=extra), cfg
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "pixtral-12b"])
+def test_planted_controls_fail_the_gates_a_sound_run_passes(arch):
+    """Reduced, bf16: the kernel tiers' plain versions against the vector
+    tier pass the per-block gate; the copied fault (``faulty``) in the
+    middle layer makes ``stream_gaps`` raise at both faults, and
+    ``planted_controls`` reads each beyond E2E_TOL; in float32 the
+    scaled fault's whole-model reading exceeds E2E_F32_TOL where the
+    sound run's is within it."""
+    from repro_torch.models import blocks as B
+    run, cfg = _teacher_run(arch, "bfloat16", 8)
+    layer = cs.middle_layer(cfg)
+    block, kblocks = cs.block_probe(B)
+    kern = run("pallas", None, block)
+    pin, vblocks = cs.block_probe(B, pinned=kblocks)
+    plain = run("vector", None, pin)
+    sound = cs.stream_gaps(kblocks, vblocks, cs.E2E_TOL, "sound")
+    assert sound["block_calls"] == cfg.n_layers * cs.CONTROL_STEPS
+    cs.held_logits(kern, plain, cs.E2E_TOL, "sound", gate=False)
+    apply = B.block_apply
+    for how in cs.SERVE_CONTROLS:
+        B.block_apply = cs.faulty(apply, layer, how)
+        try:
+            cblock, cblocks = cs.block_probe(B)
+        finally:
+            B.block_apply = apply
+        run("pallas", None, cblock)
+        pin, vblocks = cs.block_probe(B, pinned=cblocks)
+        run("vector", None, pin)
+        with pytest.raises(AssertionError, match="update's max"):
+            cs.stream_gaps(cblocks, vblocks, cs.E2E_TOL, how)
+    got = cs.planted_controls(run, layer)
+    assert set(got) == set(cs.SERVE_CONTROLS)
+    assert all(r["reading"] > r["gate"] == cs.E2E_TOL and r["layer"] == layer
+               for r in got.values())
+    assert B.block_apply is apply
+
+    run32, cfg32 = _teacher_run(arch, "float32", 8)
+    kern, plain = run32("pallas"), run32("vector")
+    cs.held_logits(kern, plain, cs.E2E_F32_TOL, "float32")
+    got = cs.planted_controls(run32, layer, plain)
+    assert set(got) == {"scale"}
+    assert got["scale"]["reading"] > cs.E2E_F32_TOL == got["scale"]["gate"]
+
+
+def test_a_control_that_passes_its_gate_fails_the_run(monkeypatch):
+    """A fault that changes nothing (its scale 1, all 23 bits kept) reads
+    within the gate: ``planted_controls`` raises."""
+    run, cfg = _teacher_run("mamba2-1.3b", "bfloat16", 9)
+    monkeypatch.setattr(cs, "FAULT_SCALE", 1.0)
+    with pytest.raises(AssertionError, match="scale fault .* within the gate"):
+        cs.planted_controls(run, cs.middle_layer(cfg))
+    monkeypatch.setattr(cs, "SERVE_CONTROLS", ("mantissa",))
+    monkeypatch.setattr(cs, "FAULT_MANTISSA", 23)
+    with pytest.raises(AssertionError, match="mantissa fault"):
+        cs.planted_controls(run, cs.middle_layer(cfg))

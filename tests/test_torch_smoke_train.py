@@ -105,7 +105,8 @@ def test_graph_functions_finds_the_kernels_functions():
 # arch -> layers of its prefix and one pattern unit
 UNIT = {"zamba2-1.2b": 6, "granite-moe-1b-a400m": 1,
         "deepseek-v2-lite-16b": 2, "minicpm3-4b": 1, "gemma2-2b": 2,
-        "gemma3-1b": 6, "whisper-tiny": 1, "mistral-large-123b": 1}
+        "gemma3-1b": 6, "whisper-tiny": 1, "mistral-large-123b": 1,
+        "mamba2-1.3b": 1, "pixtral-12b": 1}
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -161,7 +162,8 @@ def test_train_grad_phase_runs_reduced(reduced):
 
 def test_train_archs_phase_runs_reduced(reduced, monkeypatch):
     """Every other served arch's train step, each leaf within LM_TOL's
-    float32 2e-4 of the vector tier's, the MoE archs' routing pinned."""
+    float32 2e-4 of the vector tier's, the MoE archs' routing pinned,
+    mamba2's A_log leaves held to their float64 gradient."""
     monkeypatch.setattr(cs, "TRAIN_ARCH_TRAFFIC", dict(batch=2, seq=64))
     with use_policy("pallas"):
         rows = cs.train_archs_phase(CPU)
@@ -172,6 +174,10 @@ def test_train_archs_phase_runs_reduced(reduced, monkeypatch):
         assert (row["aux"] > 0) == (row["router_calls"] > 0), arch
     assert rows["granite-moe-1b-a400m"]["router_calls"] > 0
     assert "VsigmoidFnBackward" in rows["minicpm3-4b"]["functions"]
+    mamba2 = rows["mamba2-1.3b"]
+    assert "SsdFnBackward" in mamba2["functions"]
+    assert list(mamba2["a_log_witness"]) == ["unit::0::0::mamba::A_log"]
+    assert "FlashAttentionFnBackward" in rows["pixtral-12b"]["functions"]
 
 
 def test_train_resume_phase_runs_reduced(reduced, monkeypatch):

@@ -8,9 +8,11 @@ is gathered to its TP-only shard first.  Held here:
 
 * the sharded step of mistral ``reduced()`` float32 (2 layers) on
   (2, 2) (FSDP, data, tensor and sequence parallelism at once) and on
-  (1, 2), against the reference's ``make_sharded_train_step`` on as many
-  forced host devices (the harness of ``test_torch_sharded_train.py``):
-  two steps' metrics and step 0's gradient leaf by leaf within 2e-4;
+  (1, 2), and of pixtral with ``use_sp`` on (1, 2) (the stream cut
+  across its patch prefix and its tokens), against the reference's
+  ``make_sharded_train_step`` on as many forced host devices (the
+  harness of ``test_torch_sharded_train.py``): two steps' metrics and
+  step 0's gradient leaf by leaf within 2e-4;
 * the stream's cut and gather, and the reduce-scatter, as identities on
   2 and 4 gloo ranks, forward and backward;
 * ``check_mesh`` refusing, by name (A.9.10), the uneven splits that
@@ -23,9 +25,12 @@ from repro_torch.configs import get_config
 from repro_torch.launch import mesh as LM
 from repro_torch.models import sharding as Sh
 
-from test_torch_sharded_train import check_case, run_cases
+from test_torch_sharded_train import _key, check_case, run_cases
 
-CASES = (("mistral-large-123b", (2, 2)), ("mistral-large-123b", (1, 2)))
+# mistral's own SP; pixtral with SP on: its 4 patches before 16 tokens cut
+# over 'model' with them, and dropped after the stream is gathered
+CASES = (("mistral-large-123b", (2, 2)), ("mistral-large-123b", (1, 2)),
+         ("pixtral-12b", (1, 2), {"use_sp": True}))
 
 
 @pytest.fixture(scope="module")
@@ -36,8 +41,8 @@ def runs():
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_sp_fsdp_tp_step_matches_the_reference(runs, case):
     ref, port, _ = runs
-    arch, shape = CASES[case]
-    check_case(ref[case], port[(arch, shape)], arch, shape)
+    arch, shape, *_ = CASES[case]
+    check_case(ref[case], port[_key(CASES[case])], arch, shape)
 
 
 def _stream(rank, world, shape, seq):

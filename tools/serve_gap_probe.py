@@ -5,14 +5,15 @@ Run from the root of a checkout::
 
     python3 tools/serve_gap_probe.py [ARCH ...]
 
-For each arch (default: ``ARCHS``, the served ones and mamba2-1.3b,
-whose config ``get_config`` refuses until its bf16 check has a limit its
-full depth passes) in bf16 at the
-smoke's full width, depth and traffic (4 prompts of 512 tokens, 32
-tokens; whisper's with its stub frames, pixtral's with its stub
-patches), it generates the kernel run's greedy tokens and then, teacher
-forced on them as ``chip_smoke.serve_arch`` is, prints one JSON line
-with:
+For each arch (default: ``ARCHS``) in bf16 at full width and depth and
+the smoke's traffic (4 prompts of 512 tokens, 32 tokens; whisper's with
+its stub frames, pixtral's with its stub patches), it generates the
+kernel run's greedy tokens and then, teacher forced on them as
+``chip_smoke.serve_arch`` is, prints one JSON line with the readings
+that chose the smoke's gates: its readings of mamba2-1.3b and
+pixtral-12b made those two archs' bf16 gate the per-block measure
+(``chip_smoke.BLOCK_GATED``, which plants this tool's controls on every
+run).  The line holds:
 
   * ``serving``: ``chip_smoke.warm_run``'s record: a warm prefill's and
     a decode step's host-clock ms, gemm's launches by variant, and the
