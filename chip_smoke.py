@@ -31,7 +31,7 @@ Then it drives the port's main paths:
     default target (h100) and policy, for zamba2-1.2b, mamba2-1.3b,
     whisper-tiny and pixtral-12b at full depth, granite-moe-1b-a400m,
     gemma2-2b, gemma3-1b, deepseek-v2-lite-16b, minicpm3-4b and
-    mistral-large-123b cut to 6, 2, 6, 6, 8 and 8 layers
+    mistral-large-123b cut to 6, 2, 6, 3, 4 and 4 layers
     (``SERVE_DEPTH``), each freed before the next (and each bf16 model
     before its float32 one): ``Engine.generate`` for 4 requests of
     512-token prompts and 32 greedy tokens (whisper's with 1500 stub
@@ -76,8 +76,8 @@ Each path's kernel launches are counted from 0 and checked; gemm's are
 also counted by variant (split-K in decode, wgmma in prefill).  Then the
 training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
 
-  * ``train``: zamba2-1.2b at full width, 20 of its 38 layers
-    (``TRAIN``: two of its six pattern units and its last two mamba
+  * ``train``: zamba2-1.2b at full width, 8 of its 38 layers
+    (``TRAIN``: one of its six pattern units and its last two mamba
     layers), bf16, seeded, under
     the default target and policy: 8 steps of ``SyntheticLM``'s 8 rows x
     4096 tokens at accum 2 (``TRAIN``), warmup 1; every step's exact
@@ -114,28 +114,36 @@ training path (``train.loop``, ``optim``, ``checkpoint``, ``runtime``):
     that share the card (``launch.mesh.run_ranks``): mistral-large-123b
     at full width and 1 of 88 layers on a (2, 2) mesh of four ranks
     (FSDP, data, tensor and sequence parallelism), granite-moe-1b-a400m
-    at full width and depth on (1, 2) (TP, expert parallelism),
+    at full width, 12 of its 24 layers, on (1, 2) (TP, expert
+    parallelism),
     gemma3-1b at full width, 6 of 26 layers, on (2, 1) (data
     parallelism, ZeRO-1, ``compress_grads``), and tensor parallelism of
     every other block kind on (1, 2) at full width: zamba2-1.2b's 6-layer
     unit (ssd on each rank's SSM heads), deepseek-v2-lite's 2 layers
     (MLA), whisper-tiny (enc, dec) and gemma3-1b's unit (its kv head
-    split), and whisper-tiny again on (1, 4), its 6 heads split 2 / 2 /
-    2 / 0 (ROADMAP A.9.10), bf16, 4 x 512 tokens, 2 steps, each held to
-    its single-rank step, each rank's launches its own (``sharded_want``:
-    a rank without heads launches no flash) (``sharded_phase``,
-    ``SHARDED``); float32 runs (zamba2 reduced on (1, 4), granite reduced
-    with sequence parallelism through moe among them) and two controls
-    that must fail; ``compressed_psum`` of 64 M floats on two ranks,
+    split), whisper-tiny again on (1, 4), its 6 heads split 2 / 2 / 2 /
+    0 (ROADMAP A.9.10), and granite at full width, 12 of 24 layers, on
+    (2, 2) (data > 1 with experts over 'model', ROADMAP A.9.9; its single
+    rank dispatching as the two data shards do, ``shard_capacity``), bf16, 4
+    x 512 tokens, 2 steps, each held to its single-rank step, each
+    rank's launches its own (``sharded_want``: a rank without heads
+    launches no flash) (``sharded_phase``, ``SHARDED``); float32 runs
+    (zamba2 reduced on (1, 4), granite reduced with sequence parallelism
+    through moe, and zamba2 reduced with 12 SSM heads in 3 groups on
+    (1, 4), ranks 1 and 2 straddling two groups, every rank's ssd one
+    group a head, ROADMAP A.9.11, among them) and three controls that
+    must fail; ``compressed_psum`` of 64 M floats on two ranks,
     bitwise the formula on one; ``train/pipeline.py`` over two stages of
     gemma3's ``attn`` block, bitwise the blocks in turn, and its backward
     (ROADMAP C.36) within 3e-2 of the blocks' in turn, every stage's
     gradient; the launcher's ``--coordinator`` over ``nccl`` (one host);
     and serving on the mesh (``SHARDED_SERVE``): zamba2's unit on (1, 2),
-    mistral's layer on (2, 2), whisper-tiny on (1, 4) and gemma3-1b's 6
+    mistral's layer on (2, 2), whisper-tiny on (1, 4), gemma3-1b's 6
     layers on (1, 8) (one of its 4 heads on ranks 0-3, none on 4-7;
-    serving only) prefill 4 x 512 tokens and decode 8 steps fed the
-    single rank's tokens, each rank's logits within 3e-2 of the single
+    serving only), granite on (2, 2) (routed by the single rank's
+    indices) and the straddled zamba2 on (1, 4) in float32 prefill 4 x
+    512 tokens and decode 8 steps fed the single rank's tokens, each
+    rank's logits within 3e-2 (bf16) or 2e-4 (float32) of the single
     rank's, its launches exact (``serve_rank_want``), and the dry run of
     the same cells (``launch/dryrun.py``, traced here on stand-ins for
     rank 0 and the first rank without heads) equal to those ranks'
@@ -236,6 +244,7 @@ the serving check (sound runs, planted faults).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -409,9 +418,11 @@ CONTROL_STEPS = 4
 # granite and the gemmas are cut (whole pattern units) for the same
 # reason, the gemmas to one unit (gemma2's local and global pair, gemma3's
 # five local layers and its global one) to pay for the full depth of
-# mamba2-1.3b and pixtral-12b
-SERVE_DEPTH = {"mistral-large-123b": 8, "deepseek-v2-lite-16b": 6,
-               "minicpm3-4b": 8, "granite-moe-1b-a400m": 6,
+# mamba2-1.3b and pixtral-12b; mistral, deepseek (its dense first layer
+# and two moe layers) and minicpm3 cut again to pay for the sharded
+# phase's granite on (2, 2) and straddled SSM groups
+SERVE_DEPTH = {"mistral-large-123b": 4, "deepseek-v2-lite-16b": 3,
+               "minicpm3-4b": 4, "granite-moe-1b-a400m": 6,
                "gemma2-2b": 2, "gemma3-1b": 6}
 # The sliding-window traffic (``serve_window``): prompts longer than each
 # gemma's window, so that the local layers' ring is written in prefill,
@@ -452,7 +463,7 @@ EXACT = ("vrelu", "dwconv", "maxpool", "argmaxpool", "ibilinear")
 # (gemm's bf16 rows are at the serving path's shapes)
 NEW_DTYPES = {op: ("float32", "bfloat16") for op in NEW_OPS}
 NEW_DTYPES["gemm"] = ("float32",)
-# The train path (``train``): zamba2-1.2b at full width, 20 layers, bf16,
+# The train path (``train``): zamba2-1.2b at full width, 8 layers, bf16,
 # 8 rows of 4096 tokens a step (train_4k's sequence, src/repro/configs/
 # base.py:255; the pod's 256 rows cut to 8 for one card), accum 2, 8
 # steps; step 0's loss and grad_norm within TRAIN_TOL (bf16's E2E_TOL) of
@@ -464,10 +475,11 @@ NEW_DTYPES["gemm"] = ("float32",)
 # 1024 tokens; ``train_archs``: the other served archs cut to one pattern
 # unit at 2 x 512; ``train_resume``: zamba2 cut to one pattern unit,
 # checkpoint and restart
-# (20 of zamba2's 38 layers: three of its six pattern units and its last
+# (8 of zamba2's 38 layers: one of its six pattern units and its last
 # two mamba layers, which keep every block kind, to keep the script within
-# its time limit)
-TRAIN = dict(arch="zamba2-1.2b", layers=20, batch=8, seq=4096, accum=2,
+# its time limit with the sharded phase's granite on (2, 2) and straddled
+# SSM groups)
+TRAIN = dict(arch="zamba2-1.2b", layers=8, batch=8, seq=4096, accum=2,
              steps=8)
 TRAIN_TOL = 3e-2
 TRAIN_LEAF_TOL = 0.3
@@ -2727,7 +2739,7 @@ def port_serve_phase(dev, modules):
 
 
 # ---------------------------------------------------------------------------
-# training: zamba2-1.2b at full width and 20 layers, the gradient gates, the
+# training: zamba2-1.2b at full width and 8 layers, the gradient gates, the
 # other archs' train steps, checkpoint and restart, the no-detach guard
 # ---------------------------------------------------------------------------
 
@@ -3518,7 +3530,7 @@ def train_resume_phase(dev):
 # its 26 layers) runs ZeRO-1's slice and all-gather (SHARDED_ZERO1) and
 # compresses its gradient to int8 (SHARDED_INT8).
 SHARDED = (("mistral", "mistral-large-123b", 1, (2, 2)),
-           ("granite", "granite-moe-1b-a400m", None, (1, 2)),
+           ("granite", "granite-moe-1b-a400m", 12, (1, 2)),
            ("gemma3", "gemma3-1b", 6, (2, 1)),
            # tensor parallelism of every other block kind: zamba2's one
            # pattern unit (five mamba, one mamba_shared) with the ssd kernel
@@ -3535,25 +3547,43 @@ SHARDED = (("mistral", "mistral-large-123b", 1, (2, 2)),
            # gemma3's 6 layers on (1, 8), one of its 4 heads on ranks 0-3
            # and none on 4-7 (serving only, ``SERVE_ONLY``)
            ("whisper_tp4", "whisper-tiny", None, (1, 4)),
-           ("gemma3_tp8", "gemma3-1b", 6, (1, 8)))
+           ("gemma3_tp8", "gemma3-1b", 6, (1, 8)),
+           # data > 1 with experts over 'model' (ROADMAP A.9.9): granite
+           # on (2, 2), its capacity per data shard (``shard_capacity``),
+           # 12 of its 24 layers as the (1, 2) job (both cut from 24 for
+           # the script's time)
+           ("granite_dp", "granite-moe-1b-a400m", 12, (2, 2)))
 SHARDED_ZERO1 = ("gemma3",)
 SHARDED_INT8 = ("gemma3",)
 # float32: zamba2 reduced on (1, 4) (two ranks share an SSM group),
-# granite reduced with sequence parallelism through its moe blocks
+# granite reduced with sequence parallelism through its moe blocks, and
+# SSM heads that straddle SSM groups (ROADMAP A.9.11): zamba2 reduced
+# with d_model 96 and 3 groups on (1, 4), 12 SSM heads, 3 a rank, 4 a
+# group, ranks 1 and 2 reading two groups each, every rank's ssd run one
+# group a head.  No public config straddles (the padded vocabulary keeps
+# 'model' a power of two, which gives each rank whole groups of zamba2's
+# 64 heads in 2 groups and mamba2's 64 in 1), so it runs at reduced widths.
 SHARDED_F32 = (("granite_f32", "granite-moe-1b-a400m", 4, (1, 2)),
                ("mistral_f32", "mistral-large-123b", "reduced", (2, 2)),
                ("zamba2_f32", "zamba2-1.2b", "reduced", (1, 4)),
-               ("granite_sp_f32", "granite-moe-1b-a400m", "reduced", (1, 2)))
+               ("granite_sp_f32", "granite-moe-1b-a400m", "reduced", (1, 2)),
+               ("zamba2_straddle_f32", "zamba2-1.2b", "reduced", (1, 4)))
 # a job's config fields beyond its cut (whisper_tp4: whisper-tiny's own 6
 # heads, kept where the job is cut to reduced widths, as the CPU tests cut
 # it)
 SHARDED_OVER = {"granite_sp_f32": {"use_sp": True},
-                "whisper_tp4": {"n_heads": 6, "n_kv_heads": 6}}
+                "whisper_tp4": {"n_heads": 6, "n_kv_heads": 6},
+                "zamba2_straddle_f32": {"d_model": 96, "ssm_groups": 3}}
+# the jobs whose SSM heads straddle SSM groups: every rank's ssd calls
+# must have one group a head
+SHARDED_STRADDLED = ("zamba2_straddle_f32",)
 # the controls, each the float32 job of its tag run again with a fault
 # planted in its ranks, which must fail the job's gate: the copy into the
-# model region reduced by nothing backward, and the gated norm's sum of
-# squares over 'model' dropped
-SHARDED_CONTROLS = {"granite_f32": "copy", "zamba2_f32": "norm_sum"}
+# model region reduced by nothing backward, the gated norm's sum of
+# squares over 'model' dropped, and a straddling rank's groups read with
+# the h // g repeat of a rank that holds whole groups
+SHARDED_CONTROLS = {"granite_f32": "copy", "zamba2_f32": "norm_sum",
+                    "zamba2_straddle_f32": "groups_repeated"}
 # compressed_psum's input a rank (float32 elements), and the pipeline:
 # two stages of one full-width ``attn`` block, M microbatches
 SHARDED_PSUM = 64 << 20
@@ -3588,15 +3618,19 @@ SHARDED_FLASH = {"mistral": (2, 512, 48, 4, 128, True),
 SHARDED_DECODE = {"whisper_tp4": (4, 520, 2, 2, 64),
                   "gemma3_tp8": (4, 520, 1, 1, 256)}
 SHARDED_SILU = {"mistral": (2, 512, 14336), "granite_experts": (16, 640, 512)}
-# ssd on a zamba2 (1, 2) rank: (B, S, heads, p, groups, n)
-SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64)}
+# ssd on a zamba2 (1, 2) rank, and on a rank of the straddled job (one
+# group a head): (B, S, heads, p, groups, n, dtype)
+SHARDED_SSD = {"zamba2": (4, 512, 32, 64, 1, 64, "bfloat16"),
+               "zamba2_straddle": (4, 512, 3, 16, 3, 16, "float32")}
 # serving on the mesh (``serve.engine``'s prefill and decode steps on a
-# rank's shards, its part of the cache and its rows): the SHARDED jobs of
-# these tags in bf16, a prefill of ``prompt`` seeded tokens a row and
+# rank's shards, its part of the cache and its rows): the jobs of these
+# tags in their dtype, a prefill of ``prompt`` seeded tokens a row and
 # ``steps`` decode steps fed the single rank's greedy tokens, each rank
-# held to the single rank's steps on the same params; and the dry run
-# (``launch/dryrun.py``) of the same two cells on stand-ins in this process
-SHARDED_SERVE = ("zamba2", "mistral", "whisper_tp4", "gemma3_tp8")
+# held to the single rank's steps on the same params (an MoE routed by
+# the single rank's indices); and the dry run (``launch/dryrun.py``) of
+# the same two cells on stand-ins in this process
+SHARDED_SERVE = ("zamba2", "mistral", "whisper_tp4", "gemma3_tp8",
+                 "granite_dp", "zamba2_straddle_f32")
 SERVE_ONLY = ("gemma3_tp8",)
 SERVE_TRAFFIC = dict(batch=4, prompt=512, steps=8)
 
@@ -3611,11 +3645,63 @@ def sharded_config(arch, cut, dtype):
     return cfg.replace(dtype=dtype)
 
 
-def job_config(job, dtype):
-    """A ``SHARDED`` or ``SHARDED_F32`` job's config in ``dtype``."""
+def job_config(job, dtype=None):
+    """A ``SHARDED`` or ``SHARDED_F32`` job's config in ``dtype`` (None:
+    the job's own, float32 for a ``SHARDED_F32`` job, else bf16)."""
     tag, arch, cut, _ = job
+    dtype = dtype or ("float32" if tag.endswith("f32") else "bfloat16")
     return sharded_config(arch, cut, dtype).replace(
         **SHARDED_OVER.get(tag, {}))
+
+
+@contextlib.contextmanager
+def shard_capacity(moe_mod, n_b):
+    """``repro_torch.models.moe``'s dispatch on a single rank as ``n_b``
+    data shards of whole rows take it on a mesh (stand-ins swapped in
+    from here for the scope; nothing in the package changes): each
+    shard's choices against ``capacity(cfg, t // n_b)``, the reference's
+    capacity per data shard, in rows of their own of one expert buffer,
+    so that a data-parallel run and the single rank drop the same
+    choices and launch the same kernels.  Nothing changes for ``n_b``
+    1."""
+    import torch
+    dispatch, slots = moe_mod._dispatch_compute, moe_mod._slots
+
+    def shard_slots(idx, cap, e_lo, e_local):
+        t, c = idx.shape[0] // n_b, cap // n_b
+        parts = [slots(idx[i * t:(i + 1) * t], c, e_lo, e_local)
+                 for i in range(n_b)]
+        return (torch.cat([e for e, _, _ in parts]),
+                torch.cat([torch.where(keep, pos + i * c, cap)
+                           for i, (_, pos, keep) in enumerate(parts)]),
+                torch.cat([keep for _, _, keep in parts]))
+
+    def per_shard(params, xt, gates, idx, cfg, cap, e_lo, e_local):
+        cap = n_b * moe_mod.capacity(cfg, xt.shape[0] // n_b)
+        return dispatch(params, xt, gates, idx, cfg, cap, e_lo, e_local)
+    if n_b > 1:
+        moe_mod._dispatch_compute, moe_mod._slots = per_shard, shard_slots
+    try:
+        yield
+    finally:
+        moe_mod._dispatch_compute, moe_mod._slots = dispatch, slots
+
+
+@contextlib.contextmanager
+def ssd_shapes():
+    """``kernels.ops.ssd`` wrapped to add each call's (b, s, heads, p,
+    groups, n) to the set it yields."""
+    from repro_torch.kernels import ops
+    fn, seen = ops.ssd, set()
+
+    def recorded(x, dt, A, B, *a, **k):
+        seen.add(tuple(x.shape) + tuple(B.shape[2:]))
+        return fn(x, dt, A, B, *a, **k)
+    ops.ssd = recorded
+    try:
+        yield seen
+    finally:
+        ops.ssd = fn
 
 
 def sharded_want(cfg, seq, empty=False):
@@ -3695,7 +3781,6 @@ def sharded_tiers(cfg, want):
 
 def _in_policy(policy):
     """``use_policy(policy)``, or the registry's default where None."""
-    import contextlib
     from repro_torch.core import use_policy
     return contextlib.nullcontext() if policy is None else use_policy(policy)
 
@@ -3764,7 +3849,9 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
     model's dtype) and the two steps' metrics and launches; an MoE's
     router calls recorded (``route_probe``) for the sharded ranks to
     route by; a ``SHARDED_INT8`` job's steps with ``compress_grads``, step
-    0's int8 payload saved (q) and returned (the scales)."""
+    0's int8 payload saved (q) and returned (the scales).  An MoE job on
+    a mesh of more than one data rank dispatches as its data shards do
+    (``shard_capacity``)."""
     import torch
     from repro_torch import tree
     from repro_torch.models import model as M
@@ -3785,17 +3872,18 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
         if tag in SERVE_ONLY:
             continue
         t_job = time.perf_counter()
-        cfg = job_config(job, "float32" if tag.endswith("f32")
-                         else "bfloat16")
+        cfg = job_config(job)
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         params = loop.trainable(M.init(cfg, gen, dev))
         batches = _sharded_batches(cfg, dev, traffic)
         saved, calls = moe_mod._route, None
+        n_b = job[3][0]
         try:
             if cfg.n_experts:
                 moe_mod._route, calls = route_probe(moe_mod)
-            with _in_policy(policy), torch.enable_grad():
+            with _in_policy(policy), torch.enable_grad(), \
+                    shard_capacity(moe_mod, n_b):
                 loss, _ = loop.loss_fn(params, cfg, batches[0])
                 grads = torch.autograd.grad(loss, tree.leaves(params))
             torch.save([g.detach().to(model_dtype(cfg)).cpu() for g in grads],
@@ -3813,7 +3901,7 @@ def _sharded_single(rank, world, jobs, traffic, out_dir, dev_type,
             metrics, launches, step_s = [], [], []
             for s, b in enumerate(batches):
                 t0 = time.perf_counter()
-                with _in_policy(policy):
+                with _in_policy(policy), shard_capacity(moe_mod, n_b):
                     (params, opt, err, m), launched, chosen = _counted_step(
                         lambda: step(params, opt, err, b), dev)
                 step_s.append(time.perf_counter() - t0)
@@ -3878,12 +3966,16 @@ def _serve_single(job, traffic, out_dir, dev, policy):
     prefill and decode steps (the ``Engine``'s) from the seeded init the
     sharded ranks cut, a prefill of ``_serve_prompts`` and
     ``traffic["steps"]`` greedy steps; its logits and tokens saved
-    to ``out_dir`` for the ranks, its launches a step returned."""
+    to ``out_dir`` for the ranks, its launches a step returned.  An MoE's
+    router indices are saved too, for the ranks to route by, and on a
+    mesh of more than one data rank it dispatches as its data shards do
+    (``shard_capacity``)."""
     import torch
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serve import engine as E
     tag = job[0]
-    cfg = job_config(job, "bfloat16")
+    cfg = job_config(job)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     params = M.init(cfg, gen, dev)
@@ -3892,21 +3984,31 @@ def _serve_single(job, traffic, out_dir, dev, policy):
     prompts = torch.as_tensor(_serve_prompts(cfg, traffic), device=dev)
     extra = _serve_extra(cfg, traffic, dev)
     prefill, step = E.make_prefill_step(cfg), E.make_serve_step(cfg)
+    saved, calls = moe_mod._route, []
+    if cfg.n_experts:
+        moe_mod._route, calls = route_probe(moe_mod)
     t0 = time.perf_counter()
-    with torch.no_grad(), _in_policy(policy):
-        (logits, cache), launched = _counted_serve(
-            lambda: prefill(params, cache, {"tokens": prompts, **extra}),
-            dev)
-        seen, tokens, launches = [logits.float().cpu()], [], [launched]
-        for i in range(n):
-            tok = torch.argmax(logits, dim=-1).to(torch.int32)
-            lengths = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+    try:
+        with torch.no_grad(), _in_policy(policy), \
+                shard_capacity(moe_mod, job[3][0]):
             (logits, cache), launched = _counted_serve(
-                lambda: step(params, cache, tok[:, None], lengths), dev)
-            seen.append(logits.float().cpu())
-            tokens.append(tok.cpu())
-            launches.append(launched)
-    torch.save({"logits": seen, "tokens": tokens}, out_dir / f"{tag}.serve.pt")
+                lambda: prefill(params, cache, {"tokens": prompts, **extra}),
+                dev)
+            seen, tokens, launches = [logits.float().cpu()], [], [launched]
+            for i in range(n):
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)
+                lengths = torch.full((b,), s + i, dtype=torch.int32,
+                                     device=dev)
+                (logits, cache), launched = _counted_serve(
+                    lambda: step(params, cache, tok[:, None], lengths), dev)
+                seen.append(logits.float().cpu())
+                tokens.append(tok.cpu())
+                launches.append(launched)
+    finally:
+        moe_mod._route = saved
+    torch.save({"logits": seen, "tokens": tokens,
+                "routes": [c["idx"].cpu() for c in calls]},
+               out_dir / f"{tag}.serve.pt")
     rec = {"launches": launches, "s": time.perf_counter() - t0,
            "peak_gb": _peak_gb(dev)}
     del params, cache
@@ -3928,19 +4030,21 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
     params cut to the rank's shards, its part of the cache
     (``model.init_cache`` with the mesh), the prefill of its rows of the
     prompts and the decode steps fed its rows of the single rank's
-    tokens; each step's logits against the single rank's rows, its
-    launches a step, the bytes of its arguments (params, cache and rows,
-    as the dry run counts them) and its peak bytes."""
+    tokens (an MoE routed by the single rank's indices of its rows);
+    each step's logits against the single rank's rows, its launches a
+    step, the bytes of its arguments (params, cache and rows, as the dry
+    run counts them) and its peak bytes."""
     import torch
     from repro_torch.launch import mesh as LM
     from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import sharding as Sh
     from repro_torch import tree
     from repro_torch.launch.dryrun import tensor_bytes
     from repro_torch.serve import engine as E
     dev = torch.device(dev_type)
     tag, _, _, shape = job
-    cfg = job_config(job, "bfloat16")
+    cfg = job_config(job)
     mesh = LM.make_mesh(shape, ("data", "model"), dev_type)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3960,22 +4064,31 @@ def _serve_job(rank, job, traffic, out_dir, dev_type, policy):
     prefill = E.make_prefill_step(cfg, mesh=mesh, params_sds=like)
     step = E.make_serve_step(cfg, mesh=mesh, params_sds=like)
     rows = lambda t: Sh.local_rows(t, mesh)  # noqa: E731
+    saved = moe_mod._route
+    if cfg.n_experts:
+        moe_mod._route, _ = route_probe(moe_mod, pinned=rank_routes(
+            single["routes"], cfg, mesh, b, dev))
     t0 = time.perf_counter()
-    with torch.no_grad(), _in_policy(policy):
-        (logits, cache), launched = _counted_serve(
-            lambda: prefill(local, cache, {"tokens": prompts, **extra}), dev)
-        gaps = [_logit_gap(logits, rows(single["logits"][0]),
-                           cfg.vocab_size)]
-        launches = [launched]
-        for i in range(n):
-            tok = rows(single["tokens"][i].to(dev))
-            lengths = torch.full(tok.shape, s + i, dtype=torch.int32,
-                                 device=dev)
+    try:
+        with torch.no_grad(), _in_policy(policy):
             (logits, cache), launched = _counted_serve(
-                lambda: step(local, cache, tok[:, None], lengths), dev)
-            gaps.append(_logit_gap(logits, rows(single["logits"][i + 1]),
-                                   cfg.vocab_size))
-            launches.append(launched)
+                lambda: prefill(local, cache, {"tokens": prompts, **extra}),
+                dev)
+            gaps = [_logit_gap(logits, rows(single["logits"][0]),
+                               cfg.vocab_size)]
+            launches = [launched]
+            for i in range(n):
+                tok = rows(single["tokens"][i].to(dev))
+                lengths = torch.full(tok.shape, s + i, dtype=torch.int32,
+                                     device=dev)
+                (logits, cache), launched = _counted_serve(
+                    lambda: step(local, cache, tok[:, None], lengths), dev)
+                gaps.append(_logit_gap(logits,
+                                       rows(single["logits"][i + 1]),
+                                       cfg.vocab_size))
+                launches.append(launched)
+    finally:
+        moe_mod._route = saved
     rec = {"rank": rank, "mesh": list(shape), "heads": rank_heads(cfg, mesh),
            "gaps": gaps, "launches": launches, "s": time.perf_counter() - t0,
            "arguments": {"prefill": held + tensor_bytes(prompts) +
@@ -3998,7 +4111,7 @@ def serve_dryrun(job, traffic, rank=0):
     from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as LM
     shape = job[3]
-    cfg = job_config(job, "bfloat16")
+    cfg = job_config(job)
     b, s, n = (traffic[k] for k in ("batch", "prompt", "steps"))
     frames = {"frames": ((b, cfg.n_frames, cfg.d_model), torch.float32)} \
         if cfg.family == "encdec" else {}
@@ -4038,7 +4151,7 @@ def serve_rank_want(launches, empty):
 
 def serve_gate(single, ranks, job, dev):
     """A ``SHARDED_SERVE`` job's gates: every rank's logits within
-    ``LM_TOL["bfloat16"]`` of the single rank's at every step; on the
+    ``LM_TOL`` of the job's dtype of the single rank's at every step; on the
     card its launches a step the single rank's (``serve_rank_want``: a
     rank without heads launches no attention kernel), and the dry run's
     of rank 0 and of the first rank without heads (prefill, and every
@@ -4053,12 +4166,13 @@ def serve_gate(single, ranks, job, dev):
     dry = {rank: serve_dryrun(job, SERVE_TRAFFIC, rank) for rank in traced}
     dry_s = time.perf_counter() - t0
     failures = []
+    tol = LM_TOL[job_config(job).dtype]
     for r in mine:
         worst = max(r["gaps"])
-        if worst > LM_TOL["bfloat16"]:
+        if worst > tol:
             failures.append(f"sharded_serve/{tag}: rank {r['rank']}'s logits "
                             f"{worst} of max|logit| from the single rank's, "
-                            f"against {LM_TOL['bfloat16']}")
+                            f"against {tol}")
         if dev.type != "cuda":
             continue
         want = serve_rank_want(one["launches"], r["heads"] == 0)
@@ -4158,11 +4272,24 @@ def _no_norm_sum(x):
     return x
 
 
+def _repeated_groups(lo, hi, glo, ghi, per, device):
+    """The control's ``ssm.head_groups``: the rank's groups each repeated
+    h // g times (rounded up) in order, cut to its h heads, as a rank
+    that holds whole groups reads them; a straddling rank's heads then
+    read some other head's group."""
+    import torch
+    h, g = hi - lo, ghi - glo
+    return torch.arange(h, device=device) // -(-h // g)
+
+
 def _planted(fault):
     """(module, attribute, stand-in) of a control's fault."""
     from repro_torch.models import sharding as Sh
+    from repro_torch.models import ssm
     if fault == "copy":
         return Sh._Copy, "backward", staticmethod(_no_copy_reduce)
+    if fault == "groups_repeated":
+        return ssm, "head_groups", _repeated_groups
     return Sh, "sum_over_model", _no_norm_sum
 
 
@@ -4385,24 +4512,22 @@ def launcher_result(started, dev):
             "loss": loss, "seconds": seconds}
 
 
-def pinned_routes(path, cfg, mesh, traffic, dev):
-    """The single-rank run's router indices at ``path``, call by call, cut
-    to the tokens this rank routes: under sequence parallelism its chunk
-    of each row's sequence (a mesh with one data rank, whose rows are the
-    single run's)."""
-    import torch
+def rank_routes(idx, cfg, mesh, batch, dev):
+    """The single-rank run's router indices ``idx``, call by call, cut to
+    the tokens this rank routes (``route_probe``'s ``pinned``): its rows
+    of the ``batch`` (its data shard), and under sequence parallelism its
+    chunk of each row's sequence."""
     from repro_torch.models import sharding as Sh
-    idx = [i.to(dev) for i in torch.load(path)]
-    m = mesh.shape["model"]
-    if cfg.use_sp and m > 1:
-        if Sh.batch_split(mesh) != 1:
-            raise ValueError("pinned routes under sequence parallelism take "
-                             "one data rank")
-        b, s = traffic["batch"], traffic["seq"]
-        lo, hi = Sh.chunk_range(s, mesh.coordinate()["model"], m)
-        idx = [i.reshape(b, s, -1)[:, lo:hi].reshape(-1, i.shape[-1])
-               for i in idx]
-    return [{"idx": i} for i in idx]
+    out = []
+    for i in idx:
+        i = Sh.local_rows(i.to(dev).reshape(batch, -1, i.shape[-1]), mesh)
+        m = mesh.shape["model"]
+        if cfg.use_sp and m > 1:
+            lo, hi = Sh.chunk_range(i.shape[1], mesh.coordinate()["model"],
+                                    m)
+            i = i[:, lo:hi]
+        out.append({"idx": i.reshape(-1, i.shape[-1])})
+    return out
 
 
 def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
@@ -4415,7 +4540,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     (``sharded_grad_gaps``); the second through
     ``make_sharded_train_step``.  A ``SHARDED_INT8`` job compresses its
     gradient (``compress_grads``), and its first update's int8 payload is
-    held on rank 0 (``sharded_int8_gaps``)."""
+    held on rank 0 (``sharded_int8_gaps``).  The shapes of step 0's ssd
+    calls, (b, s, heads, p, groups, n), are recorded (``ssd_shapes``)."""
     import torch
     from repro_torch import tree
     from repro_torch.launch import mesh as LM
@@ -4427,7 +4553,7 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(dev_type)
     tag, _, _, shape = job
-    cfg = job_config(job, "float32" if tag.endswith("f32") else "bfloat16")
+    cfg = job_config(job)
     mesh = LM.make_mesh(shape, ("data", "model"), dev_type)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4444,8 +4570,8 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
     saved = moe_mod._route
     try:
         if cfg.n_experts:
-            pinned = pinned_routes(out_dir / f"{tag}.routes.pt", cfg, mesh,
-                                   traffic, dev)
+            pinned = rank_routes(torch.load(out_dir / f"{tag}.routes.pt"),
+                                 cfg, mesh, traffic["batch"], dev)
             moe_mod._route, _ = route_probe(moe_mod, pinned=pinned)
         grads_fn = loop.make_sharded_grads(cfg, tcfg, mesh, like, bsds)
         lay = grads_fn.layout
@@ -4456,7 +4582,7 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
         # step 1 is the step's two parts, its gradient gathered and held
         # to the single rank's between them (not timed)
         t0 = time.perf_counter()
-        with _in_policy(policy):
+        with _in_policy(policy), ssd_shapes() as ssd_seen:
             (loss, aux, grads), launched, chosen = _counted_step(
                 lambda: grads_fn(local, batches[0]), dev)
         step_s = [time.perf_counter() - t0]
@@ -4493,6 +4619,7 @@ def _sharded_job(rank, job, traffic, out_dir, dev_type, policy):
         moe_mod._route = saved
     rec = {"rank": rank, "mesh": list(shape), "heads": heads, "gaps": gaps,
            "metrics": metrics, "launches": launches, "step_s": step_s,
+           "ssd_shapes": sorted(ssd_seen),
            "local_params": M.count_params(local),
            "zero1_leaves": sum(bool(lay.zero1_dims(i))
                                for i in range(len(lay.shapes))),
@@ -4650,7 +4777,7 @@ def sharded_gate(single, ranks, tag, rel_tol, leaf_tol=None):
               "ranks": [{k: r[tag][k] for k in ("rank", "heads", "launches",
                                                 "step_s", "local_params",
                                                 "zero1_leaves", "opt_elems",
-                                                "peak_gb")}
+                                                "peak_gb", "ssd_shapes")}
                         for r in ranks],
               "metrics": r0["metrics"], "failures": failures}
     return record, failures
@@ -4662,9 +4789,9 @@ def sharded_phase(dev, policy=None):
     under a timeout): mistral-large-123b at full width cut to one of its
     88 layers on a (2, 2) mesh of four ranks (FSDP, data, tensor and
     sequence parallelism: each layer gathered to its TP-only shard, the
-    stream cut over the sequence), granite-moe-1b-a400m at full width and
-    depth on (1, 2) (``linear_rp``'s bf16 TP branch, 16 of 32 experts a
-    rank, the vocab-parallel embedding and head) and gemma3-1b at full
+    stream cut over the sequence), granite-moe-1b-a400m at full width, 12
+    of its 24 layers, on (1, 2) (``linear_rp``'s bf16 TP branch, 16 of 32
+    experts a rank, the vocab-parallel embedding and head) and gemma3-1b at full
     width, one pattern unit, on (2, 1) (data parallelism with ZeRO-1:
     each rank's optimizer and error state a slice of its leaves, the
     updated slices all-gathered back; the gradient int8-compressed),
@@ -4674,6 +4801,9 @@ def sharded_phase(dev, policy=None):
     two layers (MLA, moe_dense, moe), whisper-tiny whole (enc, dec) and
     gemma3-1b's unit again (its one kv head split over the ranks), and
     whisper-tiny on (1, 4), its 6 heads split unevenly (2 / 2 / 2 / 0),
+    and granite at full width, 12 of its 24 layers, on (2, 2) (its
+    single rank dispatching as the two data shards do,
+    ``shard_capacity``),
     bf16, ``SHARDED_TRAFFIC``, each held to the same model's single-rank step
     from the same seeded weights and tokens, run first in a process of
     its own: the loss of both steps and their grad_norm within 3e-2, step
@@ -4686,11 +4816,14 @@ def sharded_phase(dev, policy=None):
     whole-leaf formula's (``int8_gate``: a per-slice scale must miss
     it).  Then in float32 (granite 4 layers on (1, 2), mistral reduced on
     (2, 2), zamba2 reduced on (1, 4), granite reduced with sequence
-    parallelism through its moe blocks on (1, 2)) every leaf within
+    parallelism through its moe blocks on (1, 2), and zamba2 reduced with
+    SSM heads that straddle SSM groups on (1, 4), every rank's ssd calls
+    one group a head, ``SHARDED_STRADDLED``) every leaf within
     2e-4; then, in the same ranks, the controls (``SHARDED_CONTROLS``):
     the float32 granite run with the copy into the model region reduced
-    by nothing backward and the float32 zamba2 run with the gated norm's
-    sum over 'model' dropped, each of which must fail that gate.  The
+    by nothing backward, the float32 zamba2 run with the gated norm's
+    sum over 'model' dropped and the straddled run with each rank's
+    groups read by the h // g repeat, each of which must fail that gate.  The
     two ranks also run ``compressed_psum`` (``_psum_job``: bitwise
     the formula on one rank) and ``train/pipeline.py`` (``_pipeline_job``:
     bitwise the blocks in turn, launches exact, and its backward's
@@ -4698,7 +4831,7 @@ def sharded_phase(dev, policy=None):
     ``--coordinator`` runs beside the single-rank steps (``launcher_start``,
     ``launcher_result``; its seconds, and theirs, are taken side by side).
     The routing of every MoE run (granite's, deepseek's) is pinned to the
-    single-rank run's (``pinned_routes``).  The ``SHARDED_SERVE`` jobs
+    single-rank run's (``rank_routes``).  The ``SHARDED_SERVE`` jobs
     also serve on their ranks (``_serve_job``: prefill and decode on the
     mesh, each rank held to the single rank's ``_serve_single``), and
     the dry run of their cells is traced here and held to the launches
@@ -4757,11 +4890,24 @@ def sharded_phase(dev, policy=None):
         records[tag], bad = sharded_gate(single, ranks_of[tag], tag,
                                          LM_TOL["float32"])
         failures += bad
+    # a straddling job's ssd runs one group a head on every rank: (b, s,
+    # h, p, h, n), h its share of the SSM heads
+    for job in jobs:
+        if job[0] in SHARDED_STRADDLED:
+            cfg = job_config(job)
+            h = cfg.ssm_heads // job[3][1]
+            want = [(SHARDED_TRAFFIC["batch"], SHARDED_TRAFFIC["seq"], h,
+                     cfg.ssm_headdim, h, cfg.ssm_state)]
+            got = [r[job[0]]["ssd_shapes"] for r in ranks_of[job[0]]]
+            if any(list(map(tuple, g)) != want for g in got):
+                failures.append(f"sharded/{job[0]}: ssd ran at {got} on its "
+                                f"ranks, not one group a head, {want}")
     # each control must fail its job's gate, on the leaves its fault
     # reaches: the router's and the norms' (the copy), the mamba blocks'
-    # (the gated norm's sum)
+    # (the gated norm's sum, the groups repeated)
     reached = {"copy": lambda k: k.endswith("router") or "::ln" in k,
-               "norm_sum": lambda k: "::mamba::" in k}
+               "norm_sum": lambda k: "::mamba::" in k,
+               "groups_repeated": lambda k: "::mamba::" in k}
     for ctag, fault in SHARDED_CONTROLS.items():
         control = [{ctag: r.pop(f"control/{ctag}")} for r in ranks_of[ctag]]
         key = "control" if fault == "copy" else f"control_{fault}"
@@ -4788,7 +4934,7 @@ def sharded_phase(dev, policy=None):
                         f"{head['grad_gap']} of its max from the blocks' in "
                         f"turn, against {LM_TOL['bfloat16']}")
     records["serve"] = {}
-    for job in SHARDED:
+    for job in jobs:
         if job[0] in SHARDED_SERVE:
             records["serve"][job[0]], bad = serve_gate(
                 single, ranks_of[job[0]], job, dev)
@@ -4950,7 +5096,8 @@ def time_train(gen, dev, flush):
 def time_sharded(gen, dev, flush):
     """The ``time`` rows of the sharded path's kernel calls at its local
     shapes (``SHARDED_GEMM``, ``SHARDED_FLASH``, ``SHARDED_DECODE``,
-    ``SHARDED_SILU``, ``SHARDED_SSD``), bf16, each output held to its
+    ``SHARDED_SILU``, ``SHARDED_SSD``), bf16 (ssd in its job's dtype: the
+    straddled job's float32), each output held to its
     plain version's and timed beside it, the library call and the card's
     bound."""
     import torch
@@ -4973,13 +5120,14 @@ def time_sharded(gen, dev, flush):
         r(b, 1, h, d), r(b, s, hkv, d), r(b, s, hkv, d),
         torch.full((b,), 512, dtype=torch.int32, device=dev), None, None))
         for arch, (b, s, h, hkv, d) in SHARDED_DECODE.items()]
-    for arch, (b, s, h, p, g, n) in SHARDED_SSD.items():
+    for arch, (b, s, h, p, g, n, dtype) in SHARDED_SSD.items():
         dt = torch.nn.functional.softplus(
             torch.randn((b, s, h), generator=gen, device=dev) - 1.0)
+        to = getattr(torch, dtype)
         lm.append(("ssd", arch, (
-            r(b, s, h, p), dt,
+            r(b, s, h, p).to(to), dt,
             -torch.arange(1, h + 1, dtype=torch.float32, device=dev),
-            r(b, s, g, n, scale=0.5), r(b, s, g, n, scale=0.5),
+            r(b, s, g, n, scale=0.5).to(to), r(b, s, g, n, scale=0.5).to(to),
             torch.ones(h, device=dev))))
     for op, arch, targs in lm:
         mod = ssd if op == "ssd" else fa
@@ -4992,7 +5140,8 @@ def time_sharded(gen, dev, flush):
         lib = lm_library_call(op, targs)
         l_ms = None if lib is None else time_ms(lib, flush)
         b_ms, b_by, nbytes, n_ops = cost.bound(op, targs, out)
-        row = {"op": op, "size": f"sharded_{arch}", "dtype": "bfloat16",
+        row = {"op": op, "size": f"sharded_{arch}",
+               "dtype": str(targs[0].dtype).replace("torch.", ""),
                "shapes": [list(a.shape) for a in targs
                           if isinstance(a, torch.Tensor)],
                "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
@@ -5351,7 +5500,7 @@ def main(argv=None) -> int:
                                                "serve_window")
                   for arch, traffic in SERVE_WINDOW})
 
-    # 5b. training: zamba2 at full width and 20 layers, the gradient gates,
+    # 5b. training: zamba2 at full width and 8 layers, the gradient gates,
     # the other archs, checkpoint and restart, the no-detach guard --------
     train = train_phase(dev, modules)
     train_grad_phase(dev)

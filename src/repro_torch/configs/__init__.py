@@ -39,5 +39,10 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f".{_PORTED[name]}", __package__).CONFIG
 
 
+def all_configs():
+    """Every arch's config, by name."""
+    return {name: get_config(name) for name in ARCH_NAMES}
+
+
 __all__ = ["ARCH_NAMES", "SHAPES", "ModelConfig", "ShapeConfig",
-           "get_config"]
+           "get_config", "all_configs"]

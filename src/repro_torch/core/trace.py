@@ -40,7 +40,7 @@ from typing import Dict, Optional
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 
-from .targets import current_target, itemsize
+from .targets import current_target, itemsize, use_target
 
 log = logging.getLogger(__name__)
 
@@ -147,6 +147,11 @@ def count():
         yield _tls.counts
     finally:
         _tls.counts = prev
+
+
+# the reference's historical name for scoping the active target during
+# cost evaluation (``targets.use_target``)
+cost_target = use_target
 
 
 def vreg_for(dtype) -> int:

@@ -18,7 +18,8 @@ would run and each hand kernel's launch is recorded rather than made:
 
 ``launch/graph_analysis.py`` counts what the rank dispatches.  A cell is
 ``ok``; ``skipped`` with the reference's reason; ``refused`` with
-``sharding.check_mesh``'s message (ROADMAP A.9.11); or ``error`` with
+``sharding.check_mesh``'s message (the reference refuses the same
+mesh: ROADMAP A.9.11, closed); or ``error`` with
 its trace.  ``argument_bytes`` are the rank's params, optimizer slices, rows
 of the batch and part of the cache (``model.init_cache`` with the mesh);
 ``make_sharded_train_step`` takes the global batch and reads its rows of

@@ -58,8 +58,10 @@ the step (:func:`gather_model` with ``reduce_grad``) while its stored
 layout stays the reference's.  Attention heads split unevenly as GSPMD
 cuts them, ceil-sized chunks with the last ranks short or empty (ROADMAP
 A.9.10); a rank with no heads launches no attention kernel and takes
-part in every collective of the block.  :func:`check_mesh` refuses the
-other splits that are not whole (ROADMAP A.9.11).
+part in every collective of the block.  Heads that straddle their
+groups unevenly (:func:`straddles`) get one group a head.
+:func:`check_mesh` refuses the splits the reference refuses (ROADMAP
+A.9.11, closed).
 """
 from __future__ import annotations
 
@@ -677,10 +679,13 @@ def heads_aligned(n, width, m):
 @functools.cache
 def straddles(n, n_of, m):
     """Whether some one of ``m`` 'model' ranks' share of ``n`` heads
-    reads its ``n_of`` groups (:func:`groups_read`) out of the attention
-    kernels' order, in which q head i of h reads group i // (h / g): its
-    heads straddle groups unevenly (12 heads over 6 kv heads on 4 ranks:
-    rank 0's heads 0, 1, 2 read kv heads 0, 0, 1)."""
+    reads its ``n_of`` groups (:func:`groups_read`) out of the kernels'
+    order, in which head i of h reads group i // (h / g) (the attention
+    kernels' kv heads, ssd's SSM groups): its heads straddle groups
+    unevenly (12 heads over 6 kv heads on 4 ranks: rank 0's heads 0, 1,
+    2 read kv heads 0, 0, 1; 6 SSM heads in 3 groups on 2 ranks: rank
+    0's read groups 0, 0, 1).  Every rank then gives each head its own
+    copy of its group."""
     per = n // n_of
     for r in range(m):
         lo, hi = chunk_range(n, r, m)
@@ -814,35 +819,40 @@ def layer_params(ps, cfg):
 
 
 def check_mesh(cfg, mesh):
-    """Refuse, naming its ROADMAP item, a mesh the explicit-SPMD step
-    cannot run: a 'model' split (> 1 rank) of FFN columns, experts or SSM
-    heads it does not divide into whole ones a rank, or whose SSM heads
-    do not read whole SSM groups (or lie in one), which GSPMD cuts
-    unevenly and explicit SPMD does not (A.9.11).  Attention heads and kv
-    heads of every kind split unevenly, as GSPMD cuts them (A.9.10), and
-    every mesh with one 'model' rank is served."""
+    """Refuse a mesh the JAX package refuses too: a 'model' split (> 1
+    rank) that does not divide an FFN's columns (``d_ff``, ``d_ff_dense``,
+    the shared experts' width), ``n_experts`` or ``ssm_heads``.  The
+    reference's ``jit`` needs each dim its ``in_shardings`` cut over
+    'model' to divide by it: the FFN's ``wg``, ``wu`` and ``wd``, and
+    the mamba block's ``w_in``, conv and ``w_out`` (which 'model'
+    divides only where it divides the heads); its ``moe_apply`` passes
+    the expert stacks to a ``shard_map`` that splits them over 'model'.
+    Attention heads and kv heads of every kind split unevenly, as GSPMD
+    cuts them (A.9.10), SSM heads that straddle SSM groups are served
+    (each head its own copy of its group), and every mesh with one
+    'model' rank is served.  ROADMAP A.9.11, closed: the port refuses
+    what the reference refuses, and nothing else."""
     m = mesh.shape.get("model", 1)
     if m == 1:
         return
     kinds = set(cfg.layer_pattern()) | ({"enc"} if cfg.n_enc_layers
                                         else set())
+    ffn = "its jit needs the FFN's wg / wu / wd cut to divide by 'model'"
     widths = {}
     if kinds & {"attn", "local", "enc", "dec", "mamba_shared"}:
-        widths["d_ff"] = cfg.d_ff
+        widths["d_ff"] = (cfg.d_ff, ffn)
     if "moe_dense" in kinds:
-        widths["d_ff_dense"] = cfg.d_ff_dense or cfg.d_ff
+        widths["d_ff_dense"] = (cfg.d_ff_dense or cfg.d_ff, ffn)
     if "moe" in kinds:
-        widths["n_experts"] = cfg.n_experts
-        widths["shared d_ff"] = cfg.n_shared_experts * cfg.d_expert
+        widths["n_experts"] = (cfg.n_experts, "its moe shard_map splits "
+                               "the expert stacks over 'model'")
+        widths["shared d_ff"] = (cfg.n_shared_experts * cfg.d_expert, ffn)
     if kinds & {"mamba", "mamba_shared"}:
-        widths["ssm_heads"] = cfg.ssm_heads
-    odd = {k: v for k, v in widths.items() if v % m}
-    if not odd and kinds & {"mamba", "mamba_shared"}:
-        per, mine = cfg.ssm_heads // cfg.ssm_groups, cfg.ssm_heads // m
-        if mine % per and per % mine:
-            odd["ssm_groups"] = cfg.ssm_groups
+        widths["ssm_heads"] = (cfg.ssm_heads, "its jit needs the mamba "
+                               "block's w_in cut to divide by 'model'")
+    odd = [f"{k} {v} ({why})" for k, (v, why) in widths.items() if v % m]
     if odd:
         raise NotImplementedError(
-            f"{cfg.name}: a 'model' axis of {m} does not divide {odd} into "
-            "whole columns, experts, SSM heads or SSM groups a rank, "
-            "ROADMAP A.9.11")
+            f"{cfg.name}: a 'model' axis of {m} does not divide "
+            f"{'; '.join(odd)}; the JAX package refuses the same mesh "
+            "(ROADMAP A.9.11, closed)")

@@ -7,18 +7,23 @@ form, in plain tensor code, as the prefill's final state is.
 
 Under a 'model' split (``models/sharding.py``) each rank runs its share
 of the SSM heads, ``ssm_heads / model`` of them, and the groups they
-read.  ``w_in``'s and the conv's stored shards are contiguous cuts
-across the ``[z | x | B | C | dt]`` sections, so the block gathers
-``w_in``, ``conv_w`` and ``conv_b`` whole over 'model' once a call
-(backward, the gradient summed over 'model' and this rank's chunk kept)
-and takes this rank's columns of them: one gemm of the rank's width and
-no activation gather.  ``A_log``, ``D``, ``dt_bias`` and the gated
-norm's weight are replicated and sliced to the rank's heads after
-``sharding.model_leaf`` (backward, the sliced gradients summed over
-'model').  The gated norm's sum of squares over all of ``d_inner`` is
-summed over 'model' (``sharding.sum_over_model``, float32), ssd runs on
-the local heads and groups, and ``w_out``'s head-aligned row cut sums
-through ``linear_rp``.
+read (head j reads group j // (ssm_heads / ssm_groups)).  Where some
+rank's heads straddle groups unevenly (``sharding.straddles``: 6 heads
+in 3 groups on 2 ranks, rank 0's heads 0, 1, 2 reading groups 0, 0, 1),
+every rank's B and C are gathered to one group a head (backward, each
+head's gradient summed onto its group), and ssd and the state run with
+as many groups as heads.  ``w_in``'s and the conv's stored shards are
+contiguous cuts across the ``[z | x | B | C | dt]`` sections, so the
+block gathers ``w_in``, ``conv_w`` and ``conv_b`` whole over 'model'
+once a call (backward, the gradient summed over 'model' and this rank's
+chunk kept) and takes this rank's columns of them: one gemm of the
+rank's width and no activation gather.  ``A_log``, ``D``, ``dt_bias``
+and the gated norm's weight are replicated and sliced to the rank's
+heads after ``sharding.model_leaf`` (backward, the sliced gradients
+summed over 'model').  The gated norm's sum of squares over all of
+``d_inner`` is summed over 'model' (``sharding.sum_over_model``,
+float32), ssd runs on the local heads and groups, and ``w_out``'s
+head-aligned row cut sums through ``linear_rp``.
 """
 from __future__ import annotations
 
@@ -71,16 +76,26 @@ def _span(lo, hi, device):
     return torch.arange(lo, hi, device=device)
 
 
+def head_groups(lo, hi, glo, ghi, per, device):
+    """The group of each of heads [lo, hi), as an index into the groups
+    [glo, ghi) they read: head j reads group j // ``per``."""
+    return torch.arange(lo, hi, device=device) // per - glo
+
+
 def _local(params, cfg):
-    """(this rank's weights, d_inner, groups, heads): the params and the
-    config's widths without a 'model' split; under one, the rank's heads
-    [lo, hi) and the groups [glo, ghi) they read, with ``w_in``'s and the
-    conv's columns for them out of the gathered leaves and the
-    replicated leaves sliced to them."""
+    """(this rank's weights, d_inner, groups, heads, group of each head):
+    the params and the config's widths without a 'model' split; under
+    one, the rank's heads [lo, hi) and the groups [glo, ghi) they read,
+    with ``w_in``'s and the conv's columns for them out of the gathered
+    leaves and the replicated leaves sliced to them.  The last is None
+    but where the rank's heads straddle groups (``sharding.straddles``):
+    then each local head's index into the rank's groups
+    (:func:`head_groups`)."""
     di, g, n, h, p = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
                       cfg.ssm_heads, cfg.ssm_headdim)
-    if Sh.model_split()[1] == 1:
-        return params, di, g, h
+    _, m = Sh.model_split()
+    if m == 1:
+        return params, di, g, h, None
     lo, hi = Sh.model_range(h)
     glo, ghi = Sh.groups_read(lo, hi, h, g)
     dev = params["w_in"].device
@@ -104,7 +119,9 @@ def _local(params, cfg):
     }
     for k in ("A_log", "D", "dt_bias"):
         local[k] = Sh.model_leaf(params[k])[lo:hi]
-    return local, (hi - lo) * p, ghi - glo, hi - lo
+    index = head_groups(lo, hi, glo, ghi, h // g, dev) \
+        if Sh.straddles(h, g, m) else None
+    return local, (hi - lo) * p, ghi - glo, hi - lo, index
 
 
 def _gated_norm(w, gated, di, eps=1e-6):
@@ -133,6 +150,13 @@ def _causal_conv(xbc, w, b, history=None):
     return out.to(xbc.dtype), new_hist
 
 
+def _per_head(t, index):
+    """``t`` (B, S, groups, n) as one group a head, (B, S, heads, n), where
+    ``index`` gives each head's group (backward, the heads' gradients
+    summed onto their group); ``t`` where it is None."""
+    return t if index is None else t.index_select(2, index)
+
+
 def _silu(t):
     tf = t.to(torch.float32)
     return (tf * torch.sigmoid(tf)).to(t.dtype)
@@ -145,8 +169,10 @@ def mamba_apply(params, x, cfg, *, mode, cache=None, target=None):
     x = Sh.enter_model(x)
     bsz, s, d = x.shape
     n, p = cfg.ssm_state, cfg.ssm_headdim
-    params, di, g, h = _local(params, cfg)
-    rep = h // g
+    params, di, g, h, index = _local(params, cfg)
+    # heads a group as ssd and the state read B and C: one where they
+    # come one group a head
+    rep = h // g if index is None else 1
     zxbcdt = L.linear(params["w_in"], x)
     z, xbc, dt_raw = _split(zxbcdt, di, g, n)
     A = -torch.exp(params["A_log"])
@@ -158,8 +184,10 @@ def mamba_apply(params, x, cfg, *, mode, cache=None, target=None):
                                       params["conv_b"], history=cache["conv"])
         xbc_conv = _silu(xbc_conv)
         xs = xbc_conv[..., :di].reshape(bsz, 1, h, p)
-        B = xbc_conv[..., di:di + g * n].reshape(bsz, 1, g, n)
-        C = xbc_conv[..., di + g * n:].reshape(bsz, 1, g, n)
+        B = _per_head(xbc_conv[..., di:di + g * n].reshape(bsz, 1, g, n),
+                      index)
+        C = _per_head(xbc_conv[..., di + g * n:].reshape(bsz, 1, g, n),
+                      index)
         Bh = torch.repeat_interleave(B, rep, dim=2)[:, 0].to(torch.float32)
         Ch = torch.repeat_interleave(C, rep, dim=2)[:, 0].to(torch.float32)
         dt0 = dt[:, 0]                                            # (B,h)
@@ -176,8 +204,10 @@ def mamba_apply(params, x, cfg, *, mode, cache=None, target=None):
                                       params["conv_b"])
         xbc_conv = _silu(xbc_conv)
         xs = xbc_conv[..., :di].reshape(bsz, s, h, p)
-        B = xbc_conv[..., di:di + g * n].reshape(bsz, s, g, n)
-        C = xbc_conv[..., di + g * n:].reshape(bsz, s, g, n)
+        B = _per_head(xbc_conv[..., di:di + g * n].reshape(bsz, s, g, n),
+                      index)
+        C = _per_head(xbc_conv[..., di + g * n:].reshape(bsz, s, g, n),
+                      index)
         y = ops.ssd(xs, dt, A, B, C, params["D"], chunk=cfg.ssm_chunk,
                     target=target)
         y = y.reshape(bsz, s, di)

@@ -36,7 +36,7 @@ from repro.configs import get_config as jget_config
 from repro.data import pipeline as JP
 from repro.models import model as JM
 from repro.serve import engine as JE
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, all_configs, get_config
 from repro_torch.core import trace, use_policy
 from repro_torch.data import pipeline as P
 from repro_torch.launch import serve as launch_serve
@@ -347,6 +347,17 @@ def test_convert_defaults_to_the_card():
             build()
         assert str(got.value) == str(want.value)
     assert convert.tensor(a, device="cpu").device.type == "cpu"
+
+
+def test_all_configs_are_the_references():
+    """``configs.all_configs``: every arch's config by name, field for
+    field the reference's."""
+    from repro.configs import all_configs as jall_configs
+    got, want = all_configs(), jall_configs()
+    assert set(got) == set(want) == set(ARCH_NAMES)
+    for name, cfg in got.items():
+        assert vars(cfg) == vars(want[name]), name
+        assert cfg is get_config(name)
 
 
 def test_unported_archs_and_kinds_name_their_roadmap_item():

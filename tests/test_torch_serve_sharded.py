@@ -23,7 +23,12 @@ unevenly (12 over 6 on (1, 4): rank 0's heads 0, 1, 2 read kv heads 0,
 0, 1), a rank's cache holds one kv head a q head, which
 ``cache_pspecs``' cut of 6 kv heads over 4 ranks does not give; those
 cases are held to the port's single rank instead, the logits within
-2e-4 and each rank's cache equal to the single rank's heads read.
+2e-4 and each rank's cache equal to the single rank's heads read.  SSM
+heads that straddle SSM groups (zamba2 with ``d_model`` 48 and 3
+groups on (1, 2): each rank's 3 heads read two of the groups, ROADMAP
+A.9.11) are held to the reference: each rank's conv history keeps its
+heads' and groups' channels (C.34) and its state its heads (C.35), the
+shapes ``sharding.cache_shard_shape`` gives.
 """
 import json
 import os
@@ -51,13 +56,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # per-data-shard capacity with experts over 'model'; one kv head below
 # 'model'; FSDP; heads that 'model' does not divide (GQA, and whisper's
 # encoder, decoder and cross-attention; its kv heads below 'model', so
-# that the reference's cache divides the mesh)
+# that the reference's cache divides the mesh); SSM heads across SSM
+# groups
 UNEVEN = {"n_heads": 6, "n_kv_heads": 2}
+STRADDLE = {"d_model": 48, "ssm_groups": 3}
 CASES = (("zamba2-1.2b", (1, 2), {}), ("granite-moe-1b-a400m", (2, 2), {}),
          ("gemma3-1b", (1, 2), {}), ("mistral-large-123b", (2, 2), {}),
          ("gemma2-2b", (1, 4), UNEVEN), ("whisper-tiny", (1, 4), UNEVEN),
          ("mamba2-1.3b", (1, 2), {}), ("pixtral-12b", (1, 2), {}),
-         ("pixtral-12b", (2, 2), {}))
+         ("pixtral-12b", (2, 2), {}), ("zamba2-1.2b", (1, 2), STRADDLE))
 TRAFFIC = dict(batch=4, prompt=24, max_seq=32, steps=4)
 TOL = 2e-4
 
@@ -157,7 +164,12 @@ def _port(rank, world, cases, refs):
                 runs.append(logits)
         out.append({"case": case, "coord": mesh.coordinate(),
                     "logits": [x.numpy() for x in runs],
-                    "cache": [(p, x.numpy()) for p, x in tree.paths(cache)]})
+                    "cache": [(p, x.numpy()) for p, x in tree.paths(cache)],
+                    "shard_shapes": [Sh.cache_shard_shape(
+                        p, x.shape, cfg, mesh) for p, x in tree.paths(
+                            M.init_cache(cfg, TRAFFIC["batch"],
+                                         TRAFFIC["max_seq"] + p_off,
+                                         "meta"))]})
     return out
 
 
@@ -240,6 +252,8 @@ def test_mesh_serving_matches_the_reference(runs, arch, shape, over):
     assert len(ranks) == shape[0] * shape[1]
     b = TRAFFIC["batch"] // shape[0]
     for r in ranks:
+        # the cache the rank holds has cache_shard_shape's shapes
+        assert [x.shape for _, x in r["cache"]] == r["shard_shapes"], arch
         lo = r["coord"]["data"] * b
         for want, got in zip(ref["logits"], r["logits"]):
             want = want[lo:lo + b]

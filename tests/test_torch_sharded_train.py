@@ -11,13 +11,23 @@ leaf's gradient at step 0, gathered to its full shape, within 2e-4 of
 its max |g| from ``jax.grad(loss_fn)`` under the same mesh.  A control
 drops the backward all-reduce of the copy into the model region: the
 replicated leaves' gradients come out partial and fail that gate.
+
+SSM heads that straddle SSM groups (ROADMAP A.9.11): zamba2 and mamba2
+with ``d_model`` 48 and 3 groups, 6 heads of 2 a group, on (1, 2) and
+(2, 2), each rank's 3 heads reading groups 0, 0, 1 and 1, 2, 2; no
+public config straddles, so these run at reduced widths.  Their
+control reads each rank's groups with the ``h // g`` repeat of a rank
+that holds whole groups (rounded up, cut to its heads), and must fail.
 """
+import contextlib
 import json
 import os
 import pickle
 import subprocess
 import sys
 import tempfile
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -30,17 +40,21 @@ from repro_torch.launch import mesh as LM
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models import sharding as Sh
+from repro_torch.models import ssm
 from repro_torch.train import loop
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (arch, mesh): data-parallel, tensor- and expert-parallel, FSDP + ZeRO-1;
 # a model of mamba blocks alone, and a vlm's patch prefix (with FSDP) on
-# 'model' and on 'data' too, which cuts a batch that carries patches
+# 'model' and on 'data' too, which cuts a batch that carries patches;
+# SSM heads across SSM groups (arch, mesh, overrides)
+STRADDLE = {"d_model": 48, "ssm_groups": 3}
 CASES = (("gemma2-2b", (2, 1)), ("gemma2-2b", (1, 2)),
          ("mistral-large-123b", (2, 1)),
          ("granite-moe-1b-a400m", (1, 2)), ("granite-moe-1b-a400m", (2, 2)),
          ("mamba2-1.3b", (1, 2)), ("pixtral-12b", (1, 2)),
-         ("pixtral-12b", (2, 2)))
+         ("pixtral-12b", (2, 2)), ("zamba2-1.2b", (1, 2), STRADDLE),
+         ("mamba2-1.3b", (2, 2), STRADDLE))
 TRAFFIC = dict(seq=16, batch=4)
 TOL = 2e-4
 # the reference's data-parallel step on gemma2 (ROADMAP A.13's probe)
@@ -227,9 +241,27 @@ def run_cases(cases, controls=()):
     return ref, port, inits
 
 
+def _repeated_groups(lo, hi, glo, ghi, per, device):
+    """The control's ``ssm.head_groups``: the rank's groups each
+    repeated h // g times (rounded up) in order, cut to its h heads, as
+    a rank that holds whole groups reads them."""
+    h, g = hi - lo, ghi - glo
+    return torch.arange(h, device=device) // -(-h // g)
+
+
+@contextlib.contextmanager
+def groups_repeated():
+    with mock.patch.object(ssm, "head_groups", _repeated_groups):
+        yield
+
+
+CONTROLS = ((CASES.index(("zamba2-1.2b", (1, 2), STRADDLE)),
+             groups_repeated),)
+
+
 @pytest.fixture(scope="module")
 def runs():
-    return run_cases(CASES)
+    return run_cases(CASES, controls=CONTROLS)
 
 
 def _rel(a, b):
@@ -259,8 +291,8 @@ def check_case(want, got, arch, shape):
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_sharded_step_matches_the_reference(runs, case):
     ref, port, _ = runs
-    arch, shape = CASES[case]
-    check_case(ref[case], port[(arch, shape)], arch, shape)
+    arch, shape = CASES[case][:2]
+    check_case(ref[case], port[_key(CASES[case])], arch, shape)
 
 
 def test_gemma2_data_parallel_reads_the_probes_loss(runs):
@@ -289,3 +321,15 @@ def test_dropping_the_copys_reduce_fails_the_gate(runs):
         if float(np.abs(g - w).max()) > TOL * max(scale, 1e-30):
             failed.add(name[-1] if name[-1] != "w" else name[-2])
     assert "router" in failed and {"ln1", "ln2"} & failed, failed
+
+
+def test_repeating_groups_h_over_g_fails_the_gate(runs):
+    """The control: zamba2 with 6 SSM heads in 3 groups on (1, 2), each
+    rank's 3 heads reading its 2 groups as 0, 0, 1 (the ``h // g``
+    repeat, rounded up).  Rank 1's heads 3, 4, 5 read groups 1, 2, 2, so
+    its head 4 reads the wrong group, and the mamba blocks' gradients
+    miss the gate."""
+    ref, port, _ = runs
+    case = CONTROLS[0][0]
+    with pytest.raises(AssertionError):
+        check_case(ref[case], port[("control", case)], *CASES[case][:2])

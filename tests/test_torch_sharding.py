@@ -246,13 +246,16 @@ def test_shard_then_gather_is_the_identity(world):
 
 
 def test_refusals_name_their_roadmap_item():
-    """What the explicit-SPMD step cannot run is refused before it runs,
-    each with its ROADMAP ID (shape-only meshes suffice): a 'model' axis
-    that does not split the FFN columns, experts or SSM heads into whole
-    ones a rank, or a rank's SSM heads across SSM groups (A.9.11).
-    Attention heads split unevenly, as GSPMD cuts them (A.9.10, no longer
-    refused: whisper's 6 over 4, minicpm3's 40 over 16, heads across kv
-    heads), and every block kind splits over 'model' (A.9.8)."""
+    """What the JAX package refuses is refused before it runs, each
+    message saying why the reference refuses it and naming its ROADMAP
+    ID (shape-only meshes suffice): a 'model' axis that does not split
+    the FFN columns, experts or SSM heads into whole ones a rank (A.9.11,
+    closed; ``test_torch_refusal_parity.py`` holds each to the
+    reference's own refusal).  Attention heads split unevenly, as GSPMD
+    cuts them (A.9.10, no longer refused: whisper's 6 over 4, minicpm3's
+    40 over 16, heads across kv heads), a rank's SSM heads across SSM
+    groups are served (A.9.11), and every block kind splits over 'model'
+    (A.9.8)."""
     tp = Sh.Mesh((1, 2), ("data", "model"))
     cases = [
         # granite's 32 experts do not split over 3 (its heads would now)
@@ -263,9 +266,13 @@ def test_refusals_name_their_roadmap_item():
         # mistral's FFN width, 28672 columns, over 3
         ("mistral-large-123b", Sh.Mesh((1, 3), ("data", "model")), "d_ff"),
     ]
+    why = {"n_experts": "shard_map splits the expert stacks",
+           "ssm_heads": "w_in cut to divide", "d_ff": "wg / wu / wd cut"}
     for arch, mesh, width in cases:
         with pytest.raises(NotImplementedError,
-                           match=f"{width}.*ROADMAP A.9.11"):
+                           match=f"{width} .*{why[width]}.*the JAX package "
+                                 r"refuses the same mesh \(ROADMAP A.9.11, "
+                                 r"closed\)"):
             Sh.check_mesh(get_config(arch), mesh)
     # attention heads that 'model' does not divide (A.9.10): whisper's 6
     # over 4, minicpm3's 40 over 16, gemma2's 8 and gemma3's 4 over 16,
@@ -276,13 +283,17 @@ def test_refusals_name_their_roadmap_item():
     Sh.check_mesh(get_config("gemma2-2b").replace(n_heads=12, n_kv_heads=6),
                   Sh.Mesh((1, 4), ("data", "model")))
     # SSM heads and their groups: 8 heads in 4 groups on 4 ranks (a
-    # group a rank) is served, 6 heads in 3 groups on 2 ranks (a rank's
-    # heads across groups) is not
+    # group a rank) is served, and so are 6 heads in 3 groups on 2 ranks
+    # and 12 in 3 on 4 (a rank's heads across groups, A.9.11), as the
+    # reference runs them
     ssm = get_config("zamba2-1.2b").reduced()
     Sh.check_mesh(ssm.replace(ssm_groups=4), Sh.Mesh((1, 4),
                                                      ("data", "model")))
-    with pytest.raises(NotImplementedError, match="ssm_groups.*A.9.11"):
-        Sh.check_mesh(ssm.replace(d_model=48, ssm_groups=3), tp)
+    Sh.check_mesh(ssm.replace(d_model=48, ssm_groups=3), tp)
+    assert Sh.straddles(6, 3, 2)
+    Sh.check_mesh(ssm.replace(d_model=96, ssm_groups=3),
+                  Sh.Mesh((1, 4), ("data", "model")))
+    assert Sh.straddles(12, 3, 4)
     # the kinds A.9.8 lifted, and the production meshes of every arch
     # whose widths 16 'model' ranks divide (mistral's 8 kv heads among
     # them)

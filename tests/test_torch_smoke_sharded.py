@@ -19,6 +19,7 @@ gloo.
 """
 import sys
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -114,6 +115,11 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     assert out["mistral"]["mesh"] == out["mistral_f32"]["mesh"] == [2, 2]
     assert out["gemma3"]["mesh"] == [2, 1]
     assert out["granite"]["mesh"] == [1, 2]
+    # data > 1 with experts over 'model' (A.9.9): its single rank
+    # dispatches as the two data shards do
+    rec = out["granite_dp"]
+    assert rec["failures"] == [] and rec["mesh"] == [2, 2]
+    assert rec["median_rel_leaf_err"] <= cs.TRAIN_TOL
     # FSDP leaves ZeRO-1 nothing to slice; gemma3's optimizer state is
     # sliced over 'data'
     assert all(r["zero1_leaves"] == 0 for r in out["mistral"]["ranks"])
@@ -128,9 +134,19 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     assert [r["heads"] for r in rec["ranks"]] == [2, 2, 2, 0]
     assert "gemma3_tp8" not in out        # serving only
     for tag in ("granite_f32", "mistral_f32", "zamba2_f32",
-                "granite_sp_f32"):
+                "granite_sp_f32", "zamba2_straddle_f32"):
         assert out[tag]["max_rel_leaf_err"] <= cs.LM_TOL["float32"], tag
     assert out["zamba2_f32"]["mesh"] == [1, 4]
+    # SSM heads across SSM groups (A.9.11): 12 heads in 3 groups, 3 a
+    # rank, ssd one group a head on every rank (4 rows of 32 positions,
+    # p 16, n 16)
+    rec = out["zamba2_straddle_f32"]
+    assert rec["failures"] == [] and rec["mesh"] == [1, 4]
+    assert [r["ssd_shapes"] for r in rec["ranks"]] == \
+        [[(4, 32, 3, 16, 3, 16)]] * 4
+    control = out["control_groups_repeated"]
+    assert control["failures"]
+    assert any("::mamba::" in k for k in control["failed_leaves"])
     control = out["control"]
     assert control["failures"]
     assert any(k.endswith("router") for k in control["failed_leaves"])
@@ -153,11 +169,15 @@ def test_sharded_phase_runs_reduced(monkeypatch):
     assert out["launcher"]["backend"] == "gloo"
     # serving on the mesh: each rank's logits the single rank's, the dry
     # run's arguments rank 0's (no launches on the CPU)
-    for tag, mesh in (("zamba2", [1, 2]), ("mistral", [2, 2]),
-                      ("whisper_tp4", [1, 4]), ("gemma3_tp8", [1, 8])):
+    for tag, mesh, dtype in (("zamba2", [1, 2], "bfloat16"),
+                             ("mistral", [2, 2], "bfloat16"),
+                             ("whisper_tp4", [1, 4], "bfloat16"),
+                             ("gemma3_tp8", [1, 8], "bfloat16"),
+                             ("granite_dp", [2, 2], "bfloat16"),
+                             ("zamba2_straddle_f32", [1, 4], "float32")):
         serve = out["serve"][tag]
         assert serve["failures"] == [] and serve["mesh"] == mesh, tag
-        assert serve["max_rel_logit_gap"] <= cs.LM_TOL["bfloat16"]
+        assert serve["max_rel_logit_gap"] <= cs.LM_TOL[dtype]
         assert len(serve["gaps"][0]) == 3
         dry = serve["dryrun"][0]["decode"]
         assert dry["launches"]["decode_attention"] > 0
@@ -254,3 +274,36 @@ def test_sharded_want_is_each_ranks_traced_launches(job):
     assert got[empty]["flash_attention"] == 0
     assert cfg.attn_kind == "mla" or got[0]["flash_attention"] > 0
     assert got[empty]["gemm"] < got[0]["gemm"]
+
+
+def test_shard_capacity_dispatches_as_the_data_shards_do():
+    """``shard_capacity``: a single rank's MoE dispatch over two data
+    shards' rows equals each shard dispatched alone against its own
+    capacity (bitwise), where the whole batch against the whole capacity
+    drops other choices; the experts' activation is one call."""
+    from repro_torch.models import moe
+    cfg = cs.sharded_config("granite-moe-1b-a400m", "reduced",
+                            "float32").replace(capacity_factor=0.5)
+    gen = torch.Generator().manual_seed(0)
+    params = moe.moe_init(gen, cfg, CPU)
+    xt = torch.randn(64, cfg.d_model, generator=gen)
+    gates, idx, _ = moe._route(params, xt, cfg)
+    rows = (slice(0, 32), slice(32, 64))
+    want = torch.cat([moe._dispatch_compute(
+        params, xt[r], gates[r], idx[r], cfg, moe.capacity(cfg, 32), 0,
+        cfg.n_experts) for r in rows])
+    whole = moe._dispatch_compute(params, xt, gates, idx, cfg,
+                                  moe.capacity(cfg, 64), 0, cfg.n_experts)
+    assert not torch.equal(whole, want)
+    calls = []
+    act = moe.L.act_apply
+    with cs.shard_capacity(moe, 2), \
+            mock.patch.object(moe.L, "act_apply",
+                              lambda *a: calls.append(1) or act(*a)):
+        got = moe._dispatch_compute(params, xt, gates, idx, cfg,
+                                    moe.capacity(cfg, 64), 0, cfg.n_experts)
+    assert torch.equal(got, want) and len(calls) == 1
+    with cs.shard_capacity(moe, 1):
+        assert torch.equal(moe._dispatch_compute(
+            params, xt, gates, idx, cfg, moe.capacity(cfg, 64), 0,
+            cfg.n_experts), whole)

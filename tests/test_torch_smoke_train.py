@@ -1,6 +1,6 @@
 """``chip_smoke.py``'s training-phase helpers, on the CPU.
 
-The card runs ``train_phase`` (zamba2-1.2b at full width, 20 layers),
+The card runs ``train_phase`` (zamba2-1.2b at full width, 8 layers),
 ``train_grad_phase``, ``train_archs_phase``, ``train_resume_phase`` and
 ``guard_phase``.  Here: the exact launch counts ``train_want`` gates a
 train step on, held to the Function calls (and ssd's launches a call) of

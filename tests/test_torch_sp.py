@@ -92,8 +92,9 @@ def test_stream_cut_and_gather_are_identities(shape):
 
 def test_a98_refusals_still_name_their_item():
     """Of A.9.8's refusals, lifted with its port, what stays refused names
-    its item, A.9.11: a 'model' axis that does not divide the FFN
-    columns or the experts (attention heads split unevenly since A.9.10).
+    its item, A.9.11, closed, and why the JAX package refuses it too: a
+    'model' axis that does not divide the FFN columns or the experts
+    (attention heads split unevenly since A.9.10).
     The kinds A.9.8 refused (other block kinds, MLA, kv heads below
     'model', sequence parallelism through moe blocks) now pass."""
     tp = Sh.Mesh((2, 2), ("data", "model"))
@@ -102,11 +103,16 @@ def test_a98_refusals_still_name_their_item():
         Sh.check_mesh(get_config(arch), tp)
     Sh.check_mesh(get_config("granite-moe-1b-a400m").replace(use_sp=True),
                   tp)
-    with pytest.raises(NotImplementedError, match="d_ff.*ROADMAP A.9.11"):
+    with pytest.raises(NotImplementedError,
+                       match=r"d_ff 28672 \(its jit needs the FFN's wg / "
+                             r"wu / wd cut.*refuses the same mesh "
+                             r"\(ROADMAP A.9.11, closed\)"):
         Sh.check_mesh(get_config("mistral-large-123b"),
                       Sh.Mesh((1, 3), ("data", "model")))
     with pytest.raises(NotImplementedError,
-                       match="n_experts.*ROADMAP A.9.11"):
+                       match=r"n_experts 32 \(its moe shard_map splits "
+                             r"the expert stacks.*refuses the same mesh "
+                             r"\(ROADMAP A.9.11, closed\)"):
         Sh.check_mesh(get_config("granite-moe-1b-a400m").replace(
             use_sp=True), Sh.Mesh((2, 3), ("data", "model")))
     # what A.9.7 lifts: SP and FSDP on a 'model' axis of 2 and 8, and 16

@@ -20,7 +20,10 @@ widths a 'model' split used to refuse:
 * gemma3-1b on (1, 2): one kv head split over two ranks, qk-norm;
 * mistral-large-123b on (1, 4): 2 kv heads on 4 ranks, with SP and FSDP;
 * granite with ``use_sp`` on (1, 2) and (2, 2): sequence parallelism
-  through ``moe`` blocks.
+  through ``moe`` blocks;
+* zamba2 with ``d_model`` 96 and 3 SSM groups on (1, 4): 12 SSM heads,
+  4 a group, 3 a rank, ranks 1 and 2 straddling two groups (ROADMAP
+  A.9.11; reduced widths, as no public config straddles).
 
 Two controls must fail the gate: zamba2 (1, 2) with the gated norm's sum
 over 'model' dropped, and minicpm3 with MLA's entry into the model region
@@ -48,7 +51,8 @@ CASES = (("zamba2-1.2b", (1, 2), SP), ("zamba2-1.2b", (1, 4)),
          ("whisper-tiny", (1, 2), SP), ("gemma3-1b", (1, 2)),
          ("mistral-large-123b", (1, 4)),
          ("granite-moe-1b-a400m", (1, 2), SP),
-         ("granite-moe-1b-a400m", (2, 2), SP))
+         ("granite-moe-1b-a400m", (2, 2), SP),
+         ("zamba2-1.2b", (1, 4), {"d_model": 96, "ssm_groups": 3}))
 
 
 @contextlib.contextmanager

@@ -239,3 +239,23 @@ def test_declared_cost_is_per_register_formula():
                 want = ew.DECLARED_OPS_PER_VREG[op] * math.ceil(
                     2048 / trace.vreg_for(torch.float32))
                 assert low.cost(x) == want
+
+
+def test_cost_target_scopes_the_costs_as_the_references():
+    """``trace.cost_target``, the reference's historical name of
+    ``use_target``: the same matmul costs the same under it on both
+    sides, the MXU macro ops on tpu-v5e and the fma ladder on rvv-128."""
+    assert trace.cost_target is use_target
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((256, 512)).astype(np.float32)
+    b = rng.standard_normal((512, 256)).astype(np.float32)
+    got = {}
+    for name in ("tpu-v5e", "rvv-128"):
+        with trace.cost_target(name):
+            got[name] = trace.fx_vector_instrs(
+                lambda x, y: x @ y, torch.from_numpy(a), torch.from_numpy(b))
+        with jtrace.cost_target(name):
+            want = jtrace.jaxpr_vector_instrs(
+                lambda x, y: x @ y, jnp.asarray(a), jnp.asarray(b))
+        assert got[name] == want, name
+    assert got["rvv-128"] == 256 * 512 * 256 // 4
